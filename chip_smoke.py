@@ -9,16 +9,24 @@ fails (non-zero exit) on the first check that does not hold. One line
 per phase, each with the seconds since start:
 
   1. device   torch version, card name and power limit (nvidia-smi);
-  2. build    the kernels, built by one plain nvcc call, and its time;
+  2. build    the kernels, one nvcc per source started together and one
+              link, its time, and ptxas's register and spill lines;
   3. kernels  each CUDA kernel against its plain PyTorch version on the
               card at the main path's shapes (bf16), with the tolerance
-              stated, then timed beside the plain version and one
-              PyTorch library call used as a yardstick only;
-  4. main     40-token prompt -> LMEngine.generate (128 frames, temp
-              0.7 / top_p 0.8 / top_k 256 / rep-pen 1.4) ->
-              FireflyCodec.decode -> WAV bytes, with the launch counts
-              of both kernels; then one full-width decode step through
-              the kernels and through the plain versions.
+              stated, then timed beside the plain version and, where one
+              exists, one PyTorch library call used as a yardstick only:
+              decode attention, prefill attention, the fused slow step
+              (pos 0, 1, 104, 4095; batch 1 and 2) and the fused fast
+              frame (32 frames sampled, argmax, no rep-pen, EOS);
+  4. main     40-token prompt -> LMEngine.generate at the default
+              `auto` decode path (fused slow step + fused fast frame,
+              128 frames, temp 0.7 / top_p 0.8 / top_k 256 / rep-pen
+              1.4) -> FireflyCodec.decode -> WAV bytes, with the launch
+              counts of its kernels; then the unfused path
+              (slow_impl = fast_frame_impl = "xla", decode attention,
+              32 frames) with its counts, and one full-width unfused
+              decode step through the kernels and the plain versions;
+  5. profile  torch.profiler over 8 decode frames of each path.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}. Without CUDA, or
@@ -27,6 +35,7 @@ without the package beside the script, it prints no result and exits 2.
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import re
@@ -54,9 +63,29 @@ PREFILL_ATOL = PREFILL_RTOL = 2e-2
 # One full decode step, kernels vs plain versions: attention outputs one
 # bf16 ulp apart feed 24 bf16 layers; logits are ~N(0, 0.6).
 STEP_LOGITS_ATOL = 5e-2
+# Fused slow step and fast frame against their plain versions. Both sum
+# every product in another order than cuBLAS, and a bf16 result one ulp
+# away moves every later RMSNorm, so after a few layers most values of
+# the two differ, as two bf16 runs of the same model do; measured at
+# full width, the plain version's own distance to a float32 evaluation
+# of the same function (the plain version on the float32 copy of the
+# weights) is as large as its distance to the kernel. So each output
+# (logits, hidden, new cache rows, each fast step's logits) is held to
+# be as close to the float32 evaluation as the plain version is, within
+# ACCURACY_FACTOR on the largest error; cache rows other than pos must be
+# bit-equal.
+ACCURACY_FACTOR = 2.0
+# The fast frame's tokens follow the sampler's rank order, which any
+# such difference reshuffles, so they are held exactly equal on inputs
+# that make every sum exact: zero fast-layer weights, one-hot hidden and
+# one-hot embedding rows (each step's logits are then 32 x one head row,
+# exact in both versions, and bf16-valued, so ties are common).
+FAST_FRAMES = 32
 
 N_FRAMES = 128
+N_FRAMES_UNFUSED = 32
 PROMPT_LEN = 40
+SAMPLING = dict(temp=0.7, top_p=0.8, top_k=256, repetition_penalty=1.4)
 
 
 def log(phase: str, msg: str) -> None:
@@ -262,21 +291,295 @@ def bound(nbytes: int, flops: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def within_ulp(torch, got, ref):
+    """(largest distance in bf16 ulps, all within one ulp). The ulp is
+    that of the larger magnitude of the two values."""
+    mag = torch.maximum(got.float().abs(), ref.float().abs())
+    _, exp = torch.frexp(mag)
+    ulp = torch.where(mag > 0, torch.ldexp(torch.ones_like(mag), exp - 8),
+                      torch.full_like(mag, 2.0 ** -133))
+    n_ulp = (got.float() - ref.float()).abs() / ulp
+    return float(n_ulp.max()), bool((n_ulp <= 1).all())
+
+
+def layer_elems(cfg) -> int:
+    """Weight elements of one DualAR layer (the norms included)."""
+    d, f = cfg.dim, cfg.intermediate_size
+    qkv = (cfg.n_head + 2 * cfg.n_local_heads) * cfg.head_dim
+    return d * qkv + d * d + 3 * d * f + 2 * d
+
+
+def float32_copy(tree):
+    """The parameter tree with every tensor in float32 (the reference)."""
+    if isinstance(tree, dict):
+        return {k: float32_copy(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def as_accurate(name: str, got, plain, ref):
+    """(kernel's, plain's) largest distance to the float32 evaluation;
+    fails unless the kernel's is within ACCURACY_FACTOR of the plain's."""
+    err_k = float((got.float() - ref.float()).abs().max())
+    err_p = float((plain.float() - ref.float()).abs().max())
+    check(err_k <= ACCURACY_FACTOR * err_p + 1e-6,
+          f"{name}: {err_k:.4e} from the float32 evaluation, plain version {err_p:.4e}")
+    return err_k, err_p
+
+
+def check_slow_step(torch, engine, params32, main_pos: int):
+    from fish_speech_tpu_torch.ops import slow_step as ss
+
+    cfg, params, rope = engine.cfg, engine.params, engine.rope
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(99)
+    n_layer, kv, hd, s = cfg.n_layer, cfg.n_local_heads, cfg.head_dim, engine.cache_len
+
+    def inputs(positions):
+        b = len(positions)
+        ids = torch.randint(0, cfg.vocab_size, (b,), generator=gen, device=dev)
+        shape = (n_layer, b, kv, s, hd)
+        rnd = lambda: (torch.randn(shape, generator=gen, device=dev) * 0.5).to(torch.bfloat16)  # noqa: E731
+        return (params["embeddings"][ids].contiguous(),
+                torch.tensor(positions, dtype=torch.int32, device=dev), rnd(), rnd())
+
+    worst = {}
+    for positions in ((0,), (1,), (104,), (s - 1,), (0, 1), (104, s - 1)):
+        x0, pos, ck, cv = inputs(positions)
+        ckp, cvp, ck32, cv32 = ck.clone(), cv.clone(), ck.float(), cv.float()
+        got_l, got_h = ss.fused_slow_step(params, cfg, x0, pos, ck, cv, rope)
+        pl_l, pl_h = ss.fused_slow_step_plain(params, cfg, x0, pos, ckp, cvp, rope)
+        ref_l, ref_h = ss.fused_slow_step_plain(params32, cfg, x0.float(), pos, ck32, cv32, rope)
+        torch.cuda.synchronize()
+        what = f"fused_slow_step pos={positions}"
+        check(bool(torch.isfinite(got_l).all()), f"{what}: non-finite logits")
+        rows, p = torch.arange(len(positions), device=dev), pos.long()
+        errs = {
+            "logits": as_accurate(f"{what} logits", got_l, pl_l, ref_l),
+            "hidden": as_accurate(f"{what} hidden", got_h, pl_h, ref_h),
+            "new k rows": as_accurate(f"{what} new k rows", ck[:, rows, :, p], ckp[:, rows, :, p],
+                                      ck32[:, rows, :, p]),
+            "new v rows": as_accurate(f"{what} new v rows", cv[:, rows, :, p], cvp[:, rows, :, p],
+                                      cv32[:, rows, :, p]),
+        }
+        for name, got_c, pl_c in (("k", ck, ckp), ("v", cv, cvp)):
+            rest = got_c.clone()
+            rest[:, rows, :, p] = pl_c[:, rows, :, p]
+            check(torch.equal(rest, pl_c), f"{what}: {name} cache rows other than pos changed")
+        vs_plain = float((got_l - pl_l).abs().max())
+        h_ulp, _ = within_ulp(torch, got_h, pl_h)
+        argmax = [got_l.argmax(-1).tolist(), pl_l.argmax(-1).tolist(), ref_l.argmax(-1).tolist()]
+        for k, v in errs.items():
+            worst[k] = max(worst.get(k, (0.0, 0.0)), v)
+        worst["vs_plain"] = max(worst.get("vs_plain", 0.0), vs_plain)
+        log("kernels", f"{what}: max abs distance to the float32 evaluation, kernel | plain: "
+            + ", ".join(f"{k} {a:.4f} | {b:.4f}" for k, (a, b) in errs.items())
+            + f"; other cache rows bit-equal; kernel vs plain: logits {vs_plain:.4f}, hidden "
+            f"{h_ulp:.0f} bf16 ulp at worst; argmax kernel/plain/float32 {argmax}")
+
+    # how far one rounding flip spreads: one layer, kernel vs plain
+    one = dataclasses.replace(cfg, n_layer=1)
+    one_params = dict(params, slow={k: v[:1] for k, v in params["slow"].items()})
+    spread = []
+    for _ in range(4):
+        x0, pos, ck, cv = inputs((main_pos,))
+        ck, cv = ck[:1].contiguous(), cv[:1].contiguous()
+        got_h = ss.fused_slow_step(one_params, one, x0, pos, ck, cv, rope)[1]
+        pl_h = ss.fused_slow_step_plain(one_params, one, x0, pos, ck.clone(), cv.clone(), rope)[1]
+        spread.append(int((got_h != pl_h).sum()))
+    log("kernels", f"fused_slow_step, one layer at pos {main_pos}, 4 inputs: hidden elements "
+        f"differing from the plain version {spread} of {cfg.dim}")
+
+    x0, pos, ck, cv = inputs((main_pos,))
+    kernel = lambda: ss.fused_slow_step(params, cfg, x0, pos, ck, cv, rope)  # noqa: E731
+    ms = device_ms(torch, kernel, calls=20, replays=5)
+    call_ms = eager_ms(torch, kernel, 20)
+    plain_ms = device_ms(
+        torch, lambda: ss.fused_slow_step_plain(params, cfg, x0, pos, ck, cv, rope),
+        calls=3, replays=3)
+    d, w = cfg.dim, params["output"].shape[1]
+    weights = n_layer * layer_elems(cfg) + d + d * w
+    # bytes: weights, x0, pos, the rope rows and K/V rows 0..pos-1 read
+    # once; the new K/V rows, logits and hidden written once
+    nbytes = (2 * weights + 2 * d + 4 + 4 * hd + 2 * n_layer * 2 * kv * main_pos * hd
+              + 2 * n_layer * 2 * kv * hd + 4 * w + 2 * d)
+    flops = 2 * (weights - (2 * n_layer + 1) * d) + n_layer * 4 * cfg.n_head * (main_pos + 1) * hd
+    bound_ms, bound_by = bound(nbytes, flops)
+    log("kernels", f"fused_slow_step B=1 pos={main_pos}: kernel {ms:.4f} ms (eager call "
+        f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, "
+        f"{nbytes / 1e6:.1f} MB)")
+    return {
+        "name": "fused_slow_step", "route": "cuda",
+        "source": "fish_speech_tpu_torch/csrc/slow_step.cu",
+        "replaces": "fish_speech_tpu/ops/slow_step_pallas.py:447",
+        "max_abs_err": worst["vs_plain"],
+        "err_vs_float32": {k: list(v) for k, v in worst.items() if k != "vs_plain"},
+        "ms": ms, "kernel_ms": ms, "eager_call_ms": call_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "shape": f"x0 (1,{d}), {n_layer} layers, head ({d},{w}), cache "
+                 f"({n_layer},1,{kv},{s},{hd}) bf16, pos {main_pos}",
+    }
+
+
+def exact_fast_params(torch, params, cfg):
+    """Fast-frame parameters whose every sum is exact: zero layer
+    weights (each layer is then the identity on x) and one-hot embedding
+    rows; the head stays."""
+    out = dict(params)
+    out["fast"] = {k: (v if k.endswith("norm") else torch.zeros_like(v))
+                   for k, v in params["fast"].items()}
+    emb = torch.zeros_like(params["fast_embeddings"])
+    rows = torch.arange(emb.shape[0], device=emb.device)
+    emb[rows, rows % cfg.dim] = 1
+    out["fast_embeddings"] = emb
+    return out
+
+
+def check_fast_frame(torch, engine, params32):
+    from fish_speech_tpu_torch.ops import fast_frame as ff
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs, gumbel_noise, top_k_width
+
+    cfg, params, rope = engine.cfg, engine.params, engine.rope
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(77)
+    n_cb, vocab, d = cfg.num_codebooks, cfg.codebook_size, cfg.dim
+
+    def inputs(sampling, eos=False, one_hot=False):
+        if one_hot:
+            j = int(torch.randint(0, d, (1,), generator=gen, device=dev))
+            hidden = torch.zeros((1, d), dtype=torch.bfloat16, device=dev)
+            hidden[0, j] = 1
+        else:
+            hidden = torch.randn((1, d), generator=gen, device=dev).to(torch.bfloat16)
+        return (hidden,
+                torch.randint(-1, vocab, (n_cb, 16), generator=gen, device=dev,
+                              dtype=torch.int32),
+                None if sampling.is_argmax else gumbel_noise(
+                    (n_cb, top_k_width(sampling.top_k, vocab)), gen, dev),
+                torch.tensor([eos], device=dev))
+
+    # 1. tokens exactly equal where every sum is exact
+    exact = exact_fast_params(torch, params, cfg)
+    sampled = SamplingArgs(**SAMPLING)
+    cases = (("sampled", sampled, True, False, FAST_FRAMES),
+             ("argmax", SamplingArgs(temp=0.0, top_p=1.0, top_k=vocab,
+                                     repetition_penalty=1.4), True, False, 8),
+             ("no rep-pen", SamplingArgs(temp=0.7, top_p=0.8, top_k=256,
+                                         repetition_penalty=1.0), False, False, 8),
+             ("is_eos", sampled, True, True, 4))
+    for name, sampling, rep, eos, frames in cases:
+        n_diff = n_tied = 0
+        for _ in range(frames):
+            hidden, window, gumbel, is_eos = inputs(sampling, eos, one_hot=True)
+            got, got_l = ff.fused_fast_frame(exact, cfg, sampling, hidden, window, gumbel, is_eos,
+                                             rope, rep_enabled=rep, return_logits=True)
+            ref, ref_l = ff.fused_fast_frame_plain(exact, cfg, sampling, hidden, window, gumbel,
+                                                   is_eos, rope, rep_enabled=rep,
+                                                   return_logits=True)
+            check(torch.equal(got_l, ref_l), f"fused_fast_frame {name}: exact logits differ")
+            n_diff += int((got != ref).sum())
+            n_tied += sum(vocab - len(torch.unique(row)) for row in ref_l)
+            if eos:
+                check(not bool(got.any()), "fused_fast_frame is_eos: tokens are not all 0")
+        check(n_diff == 0, f"fused_fast_frame {name}: {n_diff} of {frames * n_cb} tokens "
+              f"differ from the plain version")
+        log("kernels", f"fused_fast_frame exact inputs, {name} ({sampling}, rep_enabled={rep}): "
+            f"{frames * n_cb} tokens over {frames} frames equal to the plain version "
+            f"(logits bit-equal, {n_tied} tied logit values)")
+
+    # 2. accuracy of each step's logits at full weights, steps up to the
+    #    first one whose input token differs among kernel, plain, float32
+    argmax = SamplingArgs(temp=0.0, top_p=1.0, top_k=vocab, repetition_penalty=1.4)
+    err_k = err_p = vs_plain = 0.0
+    steps = same_tokens = 0
+    for _ in range(FAST_FRAMES):
+        hidden, window, _, is_eos = inputs(argmax)
+        args = (cfg, argmax, hidden, window, None, is_eos, rope)
+        tk, lk = ff.fused_fast_frame(params, *args, rep_enabled=True, return_logits=True)
+        tp, lp = ff.fused_fast_frame_plain(params, *args, rep_enabled=True, return_logits=True)
+        tr, lr = ff.fused_fast_frame_plain(params32, cfg, argmax, hidden.float(), window, None,
+                                           is_eos, rope, rep_enabled=True, return_logits=True)
+        differ = ((tk != tp) | (tk != tr)).nonzero()
+        n = n_cb if len(differ) == 0 else int(differ[0]) + 1
+        steps += n
+        same_tokens += int((tk == tp).sum())
+        err_k = max(err_k, float((lk[:n] - lr[:n]).abs().max()))
+        err_p = max(err_p, float((lp[:n] - lr[:n]).abs().max()))
+        vs_plain = max(vs_plain, float((lk[:n] - lp[:n]).abs().max()))
+    check(err_k <= ACCURACY_FACTOR * err_p + 1e-6,
+          f"fused_fast_frame step logits: {err_k:.4e} from the float32 evaluation, plain "
+          f"version {err_p:.4e}")
+    log("kernels", f"fused_fast_frame full weights, argmax, {FAST_FRAMES} frames: step logits "
+        f"over {steps} steps, max abs distance to the float32 evaluation kernel {err_k:.4f} | "
+        f"plain {err_p:.4f}, kernel vs plain {vs_plain:.4f}; tokens equal to the plain "
+        f"version {same_tokens} of {FAST_FRAMES * n_cb}")
+
+    # sampled tokens at full weights follow the rank order, which any
+    # difference in summation reshuffles: reported, not checked
+    same_kp = same_pr = 0
+    for _ in range(8):
+        args = (cfg, sampled, *inputs(sampled), rope)
+        tk = ff.fused_fast_frame(params, *args, rep_enabled=True)
+        tp = ff.fused_fast_frame_plain(params, *args, rep_enabled=True)
+        h, w, g, e, _ = args[2:]
+        tr = ff.fused_fast_frame_plain(params32, cfg, sampled, h.float(), w, g, e, rope,
+                                       rep_enabled=True)
+        same_kp += int((tk == tp).sum())
+        same_pr += int((tp == tr).sum())
+    log("kernels", f"fused_fast_frame full weights, sampled, 8 frames: tokens equal kernel vs "
+        f"plain {same_kp} of {8 * n_cb}, plain vs float32 evaluation {same_pr} of {8 * n_cb}")
+
+    hidden, window, gumbel, is_eos = inputs(sampled)
+    kernel = lambda: ff.fused_fast_frame(params, cfg, sampled, hidden, window, gumbel,  # noqa: E731
+                                         is_eos, rope, rep_enabled=True)
+    ms = device_ms(torch, kernel, calls=10, replays=5)
+    call_ms = eager_ms(torch, kernel, 20)
+    plain_ms = device_ms(
+        torch, lambda: ff.fused_fast_frame_plain(params, cfg, sampled, hidden, window, gumbel,
+                                                 is_eos, rope, rep_enabled=True),
+        calls=2, replays=3)
+    n_layer, k_eff = cfg.n_fast_layer, gumbel.shape[1]
+    weights = n_layer * layer_elems(cfg) + d + d * vocab
+    # read once: the weights and head (bf16), hidden, the C-1 embedding
+    # rows gathered, windows, noise, is_eos; written: the C tokens.
+    # The re-read floor streams the weights and head at every step.
+    once = 2 * weights + 2 * d + 2 * d * (n_cb - 1) + 4 * n_cb * 16 + 4 * n_cb * k_eff + 1 + 4 * n_cb
+    reread = once + 2 * (n_cb - 1) * weights
+    flops = n_cb * 2 * (weights - (2 * n_layer + 1) * d)
+    bound_ms, bound_by = bound(once, flops)
+    reread_ms, _ = bound(reread, flops)
+    log("kernels", f"fused_fast_frame ({n_cb} steps x {n_layer} layers): kernel {ms:.4f} ms "
+        f"(eager call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+        f"({bound_by}, read once, {once / 1e6:.1f} MB), re-read floor {reread_ms:.6f} ms "
+        f"({reread / 1e6:.1f} MB)")
+    return {
+        "name": "fused_fast_frame", "route": "cuda",
+        "source": "fish_speech_tpu_torch/csrc/fast_frame.cu",
+        "replaces": "fish_speech_tpu/ops/fast_frame_pallas.py:495",
+        "max_abs_err": vs_plain, "err_vs_float32": [err_k, err_p],
+        "ms": ms, "kernel_ms": ms, "eager_call_ms": call_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_reread_ms": reread_ms, "library_ms": None,
+        "shape": f"hidden (1,{d}), {n_cb} codebooks x {n_layer} layers, vocab {vocab}, "
+                 f"k_eff {k_eff}, window 16, bf16",
+    }
+
+
 # --------------------------------------------------------------------------
 # Phase 4: the main path
 # --------------------------------------------------------------------------
 
 
-def run_main_path(torch, np):
-    from fish_speech_tpu_torch.audio.wav import pcm_to_wav_bytes
+def build_models(torch):
+    """Fish-1.5 engines on random bf16 weights (seed 0): the default
+    `auto` engine (fused decode path) and the unfused one, sharing the
+    weights; the Firefly-1.5 codec (seed 1)."""
     from fish_speech_tpu_torch.config import (
         DualARConfig, FireflyConfig, FishVersion, TokenConfig, WhichLM)
     from fish_speech_tpu_torch.generate.engine import LMEngine
     from fish_speech_tpu_torch.models.codec.firefly import FireflyCodec, init_firefly_params
     from fish_speech_tpu_torch.models.dual_ar import init_dual_ar_params
-    from fish_speech_tpu_torch.ops import decode_attention as da
-    from fish_speech_tpu_torch.ops import prefill_attention as pa
-    from fish_speech_tpu_torch.ops.sampling import SamplingArgs
 
     cfg = DualARConfig.fish_speech_1_5()
     tok = TokenConfig(im_end_id=100011, pad_id=5, semantic_start_id=100012,
@@ -287,31 +590,56 @@ def run_main_path(torch, np):
     # random weights must not stop early: zero the im_end head column
     params["output"][:, tok.im_end_id] = 0
     codec_params = init_firefly_params(codec_cfg, seed=1, dtype=torch.bfloat16, device="cuda")
-    engine = LMEngine(params, cfg, tok, WhichLM.FISH_1_5, max_frames=N_FRAMES,
-                      prompt_buckets=(64,))
+    fused = LMEngine(params, cfg, tok, WhichLM.FISH_1_5, max_frames=N_FRAMES,
+                     prompt_buckets=(64,))
+    unfused = LMEngine(params, cfg, tok, WhichLM.FISH_1_5, max_frames=N_FRAMES_UNFUSED,
+                       prompt_buckets=(64,), slow_impl="xla", fast_frame_impl="xla")
     del params
+    check(fused.use_fused_slow and fused.use_fused_fast,
+          "the default engine on CUDA at batch 1 is not on the fused path")
+    check(not (unfused.use_fused_slow or unfused.use_fused_fast), "the xla engine is fused")
     codec = FireflyCodec(codec_params, codec_cfg)
     torch.cuda.synchronize()
     log("main", f"Fish-1.5 bf16 params (seed 0) + Firefly-1.5 bf16 codec (seed 1) on the card "
-        f"in {time.perf_counter() - t0:.1f}s; cache_len {engine.cache_len}")
+        f"in {time.perf_counter() - t0:.1f}s; cache_len {fused.cache_len}; engines: auto "
+        f"(fused slow step + fused fast frame) and xla (unfused)")
+    return fused, unfused, codec, tok, codec_cfg
 
+
+def run_path(torch, np, engine, codec, tok, codec_cfg, n_frames: int, label: str):
+    """Generate n_frames from the 40-token prompt, vocode, check codes,
+    PCM and WAV; returns the launch counts of the run, its state and
+    frames/s."""
+    from fish_speech_tpu_torch.audio.wav import pcm_to_wav_bytes
+    from fish_speech_tpu_torch.ops import decode_attention as da
+    from fish_speech_tpu_torch.ops import fast_frame as ff
+    from fish_speech_tpu_torch.ops import prefill_attention as pa
+    from fish_speech_tpu_torch.ops import slow_step as ss
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs
+
+    cfg = engine.cfg
     rng = np.random.default_rng(0)
     prompt = np.concatenate([
         rng.integers(1000, 90000, size=(1, PROMPT_LEN)),
         np.zeros((cfg.num_codebooks, PROMPT_LEN), np.int64),
     ]).astype(np.int32)
-    sampling = SamplingArgs(temp=0.7, top_p=0.8, top_k=256, repetition_penalty=1.4)
+    sampling = SamplingArgs(**SAMPLING)
 
     t0 = time.perf_counter()
     engine.generate(prompt, max_new_tokens=8, sampling=sampling, seed=0)  # warm-up
-    log("main", f"warm-up generation (8 frames) {time.perf_counter() - t0:.2f}s")
+    codec.decode(np.zeros((cfg.num_codebooks, n_frames), np.int32))  # the same shape
+    torch.cuda.synchronize()
+    log("main", f"{label}: warm-up generation (8 frames) and vocode ({n_frames} frames) "
+        f"{time.perf_counter() - t0:.2f}s")
 
-    da.launches = 0
-    pa.launches = 0
+    mods = {"decode_attention": da, "prefill_attention": pa, "fused_slow_step": ss,
+            "fused_fast_frame": ff}
+    for m in mods.values():
+        m.launches = 0
     t0 = time.perf_counter()
-    res, state = engine.generate(prompt, max_new_tokens=N_FRAMES, sampling=sampling, seed=1)
+    res, state = engine.generate(prompt, max_new_tokens=n_frames, sampling=sampling, seed=1)
     lm_s = time.perf_counter() - t0
-    launches = {"decode_attention": da.launches, "prefill_attention": pa.launches}
+    launches = {name: m.launches for name, m in mods.items()}
     t1 = time.perf_counter()
     pcm = codec.decode(res.tokens)
     torch.cuda.synchronize()
@@ -319,37 +647,54 @@ def run_main_path(torch, np):
     wav = pcm_to_wav_bytes(pcm[0], codec.sample_rate)
 
     codes = np.concatenate([res.semantic[None], res.tokens])
-    check(codes.shape == (cfg.num_codebooks + 1, N_FRAMES), f"codes shape {codes.shape}")
+    check(codes.shape == (cfg.num_codebooks + 1, n_frames), f"{label}: codes shape {codes.shape}")
     sem_ok = (codes[0] >= tok.semantic_start_id) & (codes[0] <= tok.semantic_end_id)
-    check(bool(sem_ok.all()), "semantic ids outside the semantic range")
+    check(bool(sem_ok.all()), f"{label}: semantic ids outside the semantic range")
     check(bool(((codes[1:] >= 0) & (codes[1:] < cfg.codebook_size)).all()),
-          "codebook ids outside [0, codebook_size)")
-    n_samples = N_FRAMES * codec.samples_per_frame
-    check(pcm.shape == (1, n_samples), f"pcm shape {pcm.shape}, expected (1, {n_samples})")
-    check(bool(np.isfinite(pcm).all()), "non-finite PCM")
+          f"{label}: codebook ids outside [0, codebook_size)")
+    n_samples = n_frames * codec.samples_per_frame
+    check(pcm.shape == (1, n_samples), f"{label}: pcm shape {pcm.shape}, expected (1, {n_samples})")
+    check(bool(np.isfinite(pcm).all()), f"{label}: non-finite PCM")
     with wave.open(io.BytesIO(wav)) as w:
         check((w.getnchannels(), w.getsampwidth(), w.getframerate(), w.getnframes())
-              == (1, 2, codec.sample_rate, n_samples), "WAV header")
-    decode_steps = N_FRAMES - 1
-    check(launches["decode_attention"] == cfg.n_layer * decode_steps,
-          f"decode_attention launches {launches['decode_attention']} != "
-          f"{cfg.n_layer} x {decode_steps}")
-    check(launches["prefill_attention"] == cfg.n_layer * 1,
-          f"prefill_attention launches {launches['prefill_attention']} != {cfg.n_layer} x 1")
-    audio_s = N_FRAMES / codec_cfg.frame_rate
-    log("main", f"codes {codes.shape} in range; pcm {pcm.shape} finite, "
+              == (1, 2, codec.sample_rate, n_samples), f"{label}: WAV header")
+    audio_s = n_frames / codec_cfg.frame_rate
+    log("main", f"{label}: codes {codes.shape} in range; pcm {pcm.shape} finite, "
         f"|pcm|max={float(np.abs(pcm).max()):.3e}; WAV {len(wav)} bytes parses; "
         f"launches {json.dumps(launches)}")
-    log("main", f"lm {lm_s:.3f}s (prefill {res.prefill_s:.3f}s, decode {res.decode_s:.3f}s) "
-        f"= {N_FRAMES / lm_s:.1f} frames/s; vocode {voc_s:.3f}s; audio {audio_s:.3f}s; "
-        f"RTF {(lm_s + voc_s) / audio_s:.4f}")
-
-    compare_decode_step(torch, engine, state)
-    profile_decode(torch, engine, state, sampling)
-    return launches
+    log("main", f"{label}: lm {lm_s:.3f}s (prefill {res.prefill_s:.3f}s, decode "
+        f"{res.decode_s:.3f}s) = {n_frames / lm_s:.1f} frames/s "
+        f"({(n_frames - 1) / res.decode_s:.1f} decode frames/s); vocode {voc_s:.3f}s; "
+        f"audio {audio_s:.3f}s; RTF {(lm_s + voc_s) / audio_s:.4f}")
+    return launches, state, sampling
 
 
-def profile_decode(torch, engine, state, sampling, frames: int = 8) -> None:
+def run_main_path(torch, np, fused, unfused, codec, tok, codec_cfg):
+    """Both decode paths, each with its launch counts read around its own
+    run; returns {kernel: launches on the path that runs it}."""
+    n_layer = fused.cfg.n_layer
+    steps = N_FRAMES - 1
+    lf, state, sampling = run_path(torch, np, fused, codec, tok, codec_cfg, N_FRAMES,
+                                   "auto (fused)")
+    want = {"fused_slow_step": steps, "fused_fast_frame": steps,
+            "prefill_attention": n_layer, "decode_attention": 0}
+    check(lf == want, f"auto path launches {lf}, expected {want}")
+    profile_decode(torch, fused, state, sampling, "auto (fused)")
+
+    steps_u = N_FRAMES_UNFUSED - 1
+    lu, state_u, _ = run_path(torch, np, unfused, codec, tok, codec_cfg, N_FRAMES_UNFUSED,
+                              "xla (unfused)")
+    want = {"fused_slow_step": 0, "fused_fast_frame": 0,
+            "prefill_attention": n_layer, "decode_attention": n_layer * steps_u}
+    check(lu == want, f"xla path launches {lu}, expected {want}")
+    compare_decode_step(torch, unfused, state_u)
+    profile_decode(torch, unfused, state_u, sampling, "xla (unfused)")
+    return {"fused_slow_step": lf["fused_slow_step"], "fused_fast_frame": lf["fused_fast_frame"],
+            "prefill_attention": lf["prefill_attention"],
+            "decode_attention": lu["decode_attention"]}
+
+
+def profile_decode(torch, engine, state, sampling, label: str, frames: int = 8) -> None:
     """Where a decode frame's time goes: torch.profiler over a few
     frames; device time summed over CUDA kernels, against the wall."""
     from torch.profiler import ProfilerActivity, profile
@@ -367,7 +712,7 @@ def profile_decode(torch, engine, state, sampling, frames: int = 8) -> None:
                and getattr(e, "self_device_time_total", 0) > 0]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / frames
     launches = sum(e.count for e in kernels) / frames
-    log("profile", f"decode frame under torch.profiler: wall {wall_ms:.2f} ms, device "
+    log("profile", f"{label}: decode frame under torch.profiler: wall {wall_ms:.2f} ms, device "
         f"kernels {dev_ms:.3f} ms ({launches:.0f} launches), device busy "
         f"{100 * dev_ms / wall_ms:.1f}%")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
@@ -376,8 +721,8 @@ def profile_decode(torch, engine, state, sampling, frames: int = 8) -> None:
 
 
 def compare_decode_step(torch, engine, state) -> None:
-    """One full-width decode step through the kernels and through the
-    plain versions, from the same state."""
+    """One full-width unfused decode step through the kernels and through
+    the plain versions, from the same state."""
     from unittest import mock
 
     from fish_speech_tpu_torch.models import dual_ar
@@ -398,8 +743,28 @@ def compare_decode_step(torch, engine, state) -> None:
     err = float((got - ref).abs().max())
     check(err <= STEP_LOGITS_ATOL, f"decode step logits max abs err {err}")
     check(int(got.argmax()) == int(ref.argmax()), "decode step argmax differs")
-    log("main", f"full-width decode step at pos {int(state.pos[0])}, kernels vs plain: "
+    log("main", f"full-width unfused decode step at pos {int(state.pos[0])}, kernels vs plain: "
         f"logits max_abs_err={err:.3e} (atol={STEP_LOGITS_ATOL}), argmax equal")
+
+
+def log_ptxas(nvcc_log: str) -> None:
+    """ptxas's register, stack and shared-memory line of each kernel,
+    once, with the sources that compile it."""
+    units, lines = {}, {}
+    unit, kernel = "?", "?"
+    for line in nvcc_log.splitlines():
+        if line.startswith("== "):
+            unit = line[3:].strip()
+            continue
+        entry = re.search(r"Compiling entry function '.*?([a-z_]+_kernel)(I(?:Li-?\d+E)+)?", line)
+        if entry:
+            args = re.findall(r"Li(-?\d+)E", entry.group(2) or "")
+            kernel = entry.group(1) + (f"<{','.join(args)}>" if args else "")
+            units.setdefault(kernel, []).append(unit)
+        elif "registers" in line:
+            lines.setdefault(kernel, line.split(":", 1)[1].strip())
+    for kernel, line in lines.items():
+        log("build", f"ptxas {kernel} ({', '.join(units[kernel])}): {line}")
 
 
 def main() -> int:
@@ -419,9 +784,11 @@ def main() -> int:
         print(f"chip_smoke: the port is not beside this script ({exc})", file=sys.stderr)
         return 2
 
-    # parity is checked in full float32: no TF32 in matmuls or convolutions
+    # parity is checked in full float32: no TF32 in matmuls or
+    # convolutions, no bf16 split-K reductions in cuBLAS
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = nvidia_smi_line()
     log("device", f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; nvidia-smi: {smi}")
@@ -429,24 +796,27 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda_build.load_library()
     built = _cuda_build.build_seconds
-    log("build", f"nvcc {' '.join(_cuda_build.NVCC_FLAGS[:2])} -> libfstorch.so: "
+    n_src = len(list(_cuda_build.CSRC.glob("*.cu")))
+    log("build", f"{n_src} x nvcc {' '.join(_cuda_build.NVCC_FLAGS[:2])} -c, in parallel, "
+        f"+ link -> libfstorch.so: "
         + (f"built in {built:.1f}s" if built is not None else "found built")
         + f" (load {time.perf_counter() - t0:.1f}s)")
-    kernel = "?"
-    for line in _cuda_build.nvcc_log.splitlines():
-        entry = re.search(r"Compiling entry function '.*?([a-z_]+_kernel)(?:ILi(\d+)E)?", line)
-        if entry:
-            kernel = entry.group(1) + (f"<{entry.group(2)}>" if entry.group(2) else "")
-        elif "registers" in line:
-            log("build", f"ptxas {kernel}: " + line.split(":", 1)[1].strip())
+    log_ptxas(_cuda_build.nvcc_log)
 
     cfg = DualARConfig.fish_speech_1_5()
     cache_len = cfg.max_seq_len
+    main_pos = PROMPT_LEN + N_FRAMES // 2
     kernels = [
-        check_decode_kernel(torch, cfg, cache_len, main_pos=PROMPT_LEN + N_FRAMES // 2),
+        check_decode_kernel(torch, cfg, cache_len, main_pos=main_pos),
         check_prefill_kernel(torch, cfg, cache_len, main_s_pad=64, main_len=PROMPT_LEN),
     ]
-    launches = run_main_path(torch, np)
+    fused, unfused, codec, tok, codec_cfg = build_models(torch)
+    with torch.inference_mode():
+        params32 = float32_copy(fused.params)
+        kernels += [check_slow_step(torch, fused, params32, main_pos),
+                    check_fast_frame(torch, fused, params32)]
+        del params32
+    launches = run_main_path(torch, np, fused, unfused, codec, tok, codec_cfg)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path")

@@ -1,0 +1,316 @@
+// One whole fast (codebook) frame at batch 1, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel fish_speech_tpu/ops/fast_frame_pallas.py::
+// fused_fast_frame. For codebook steps cb = 0..C-1: the fast layers run
+// on x (the slow hidden at cb = 0, then the embedding of the previous
+// step's token) with RoPE at position cb and attention over the frame's
+// own K/V history 0..cb; the fast norm and head (the step's column block
+// when depthwise_output) give f32 logits; the repetition penalty, the
+// top-k/top-p Gumbel draw and the EOS rule give the token, and the
+// token's embedding row (the step's row block when depthwise_wte) is the
+// next step's x. The whole frame stays on the card: each token is
+// written to device memory and the next step reads it there, with no
+// host read per codebook.
+//
+// What bounds it on this card: bytes. The fast stack is ~120 MB at
+// Fish-1.5 width (4 layers x ~29.9 MB), more than the 50 MB L2 and the
+// SMs' shared memory together, so the TPU kernel's "weights fetched once
+// per frame" (it keeps them in 128 MiB of VMEM) cannot be had: each
+// codebook step streams the weights again, ~0.96 GB a frame.
+//
+// Design: a fixed sequence of launches from this C entry on the caller's
+// stream; per step the layer kernels of dual_ar_layer.cuh (five a
+// layer), the head GEMV and one sampler block (22 launches per step at
+// Fish-1.5 depth, 176 a frame). The K/V history is a (L, 1, KV, C, 64)
+// scratch cache that the attention kernel writes at row cb. The sampler
+// is one block of 1024 threads over the codebook vocabulary: a bitonic
+// sort of (p, index) pairs gives the order of lax.top_k (probability
+// descending, ties by lower index) and a block scan the exclusive mass.
+// The TPU kernel's j-tiled rank matrices, one-hot embedding matmul and
+// flat-lane 0/1 matrices are Mosaic workarounds and are not ported.
+
+#include "dual_ar_layer.cuh"
+
+namespace {
+
+constexpr int SAMPLER_THREADS = 1024;
+constexpr int SAMPLER_WARPS = SAMPLER_THREADS / 32;
+constexpr int MAX_WINDOW = 64;
+
+// (value, index) as one integer that orders like "larger value, then
+// smaller index": the float's bits mapped to an order-preserving uint32,
+// then the inverted index.
+__device__ __forceinline__ unsigned long long rank_key(float v, int i) {
+  unsigned u = __float_as_uint(v);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)u << 32) | (0xffffffffu - (unsigned)i);
+}
+
+// The index of the block's largest key.
+__device__ __forceinline__ int block_best(unsigned long long key,
+                                          unsigned long long* red) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long o = __shfl_xor_sync(FULL, key, off);
+    key = o > key ? o : key;
+  }
+  __syncthreads();
+  if (lane == 0) red[warp] = key;
+  __syncthreads();
+  unsigned long long best = red[0];
+  for (int w = 1; w < SAMPLER_WARPS; ++w) best = red[w] > best ? red[w] : best;
+  return (int)(0xffffffffu - (unsigned)(best & 0xffffffffu));
+}
+
+__device__ __forceinline__ float sampler_reduce(float v, float* red, bool is_max) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float o = __shfl_xor_sync(FULL, v, off);
+    v = is_max ? fmaxf(v, o) : v + o;
+  }
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float r = red[0];
+  for (int w = 1; w < SAMPLER_WARPS; ++w) r = is_max ? fmaxf(r, red[w]) : r + red[w];
+  return r;
+}
+
+// One codebook draw, the semantics of fast_frame_pallas.py:303-370 and of
+// ops/sampling.py::sample_top_k_top_p in the port:
+//   logits of the window's members are divided by the penalty (entries
+//   of -1 match no token); temp <= 1e-7 takes the argmax (lowest index on
+//   ties); else p = softmax(logits / temp), tokens ranked by p
+//   descending, ties by index; rank < k_eff and, when 0 < top_p < 1,
+//   exclusive mass < top_p are kept; the token maximises log p +
+//   gumbel[rank] (lowest index on ties). is_eos forces token 0.
+// Writes the token to *tok_out and, when emb is not null, the token's
+// embedding row (D bf16) to x_next. ITEMS * 1024 >= V.
+template <int ITEMS>
+__global__ void __launch_bounds__(SAMPLER_THREADS)
+    codebook_sample_kernel(const float* __restrict__ logits, int V,
+                           const int* __restrict__ window, int window_len,
+                           float penalty, float temp, float top_p, int k_eff,
+                           const float* __restrict__ gumbel,
+                           const unsigned char* __restrict__ is_eos,
+                           const bf16* __restrict__ emb, int D,
+                           int* __restrict__ tok_out, bf16* __restrict__ x_next) {
+  constexpr int NP = SAMPLER_THREADS * ITEMS;
+  __shared__ unsigned long long keys[NP];
+  __shared__ float red[SAMPLER_WARPS];
+  __shared__ unsigned long long best_red[SAMPLER_WARPS];
+  __shared__ int win_s[MAX_WINDOW];
+  __shared__ int tok_s;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  if (window != nullptr && tid < window_len) win_s[tid] = window[tid];
+  __syncthreads();
+
+  // 1. penalised logits
+  float lg[ITEMS];
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    const int i = tid + it * SAMPLER_THREADS;
+    lg[it] = -INFINITY;
+    if (i < V) {
+      float l = logits[i];
+      if (window != nullptr) {
+        bool member = false;
+        for (int w = 0; w < window_len; ++w) member |= win_s[w] == i;
+        if (member) l = __fdiv_rn(l, penalty);
+      }
+      lg[it] = l;
+    }
+  }
+
+  int tok;
+  if (temp <= 1e-7f) {
+    unsigned long long best = 0;
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) {
+      const int i = tid + it * SAMPLER_THREADS;
+      if (i < V) best = max(best, rank_key(lg[it], i));
+    }
+    tok = block_best(best, best_red);
+  } else {
+    // 2. softmax(logits / temp)
+    float lmax = -INFINITY;
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) {
+      lg[it] = __fdiv_rn(lg[it], temp);
+      lmax = fmaxf(lmax, lg[it]);
+    }
+    const float m = sampler_reduce(lmax, red, true);
+    float lsum = 0.f;
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) {
+      const int i = tid + it * SAMPLER_THREADS;
+      lg[it] = i < V ? expf(__fsub_rn(lg[it], m)) : 0.f;
+      lsum += lg[it];
+    }
+    const float sum = sampler_reduce(lsum, red, false);
+
+    // 3. ascending sort of (~bits(p), index): p descending, ties by index
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) {
+      const int i = tid + it * SAMPLER_THREADS;
+      unsigned long long key = ~0ull;
+      if (i < V) {
+        const float p = __fdiv_rn(lg[it], sum);
+        key = ((unsigned long long)(~__float_as_uint(p)) << 32) | (unsigned)i;
+      }
+      keys[i] = key;
+    }
+    __syncthreads();
+    for (int k = 2; k <= NP; k <<= 1) {
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        for (int i = tid; i < NP; i += SAMPLER_THREADS) {
+          const int ixj = i ^ j;
+          if (ixj > i) {
+            const unsigned long long a = keys[i], b = keys[ixj];
+            if ((a > b) == ((i & k) == 0)) {
+              keys[i] = b;
+              keys[ixj] = a;
+            }
+          }
+        }
+        __syncthreads();
+      }
+    }
+
+    // 4. inclusive scan of the sorted p; this thread owns ranks
+    //    tid*ITEMS .. tid*ITEMS+ITEMS-1
+    float ps[ITEMS], incl[ITEMS];
+    int idx[ITEMS];
+    float run = 0.f;
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) {
+      const int r = tid * ITEMS + it;
+      const unsigned long long key = keys[r];
+      idx[it] = (int)(key & 0xffffffffu);
+      ps[it] = r < V ? __uint_as_float(~(unsigned)(key >> 32)) : 0.f;
+      run = __fadd_rn(run, ps[it]);
+      incl[it] = run;
+    }
+    float scan = run;  // inclusive scan of the thread totals
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float o = __shfl_up_sync(FULL, scan, off);
+      if (lane >= off) scan += o;
+    }
+    __syncthreads();
+    if (lane == 31) red[warp] = scan;
+    __syncthreads();
+    float base = 0.f;
+    for (int w = 0; w < warp; ++w) base += red[w];
+    base += scan - run;  // everything before this thread's first rank
+
+    // 5. keep masks and the Gumbel draw
+    const bool nucleus = top_p > 0.f && top_p < 1.f;
+    unsigned long long best = 0;
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) {
+      const int r = tid * ITEMS + it;
+      const float excl = __fsub_rn(__fadd_rn(base, incl[it]), ps[it]);
+      const bool keep = r < V && r < k_eff && ps[it] > 0.f && (!nucleus || excl < top_p);
+      if (keep) best = max(best, rank_key(__fadd_rn(logf(ps[it]), gumbel[r]), idx[it]));
+    }
+    tok = block_best(best, best_red);
+  }
+
+  if (tid == 0) {
+    tok_s = is_eos[0] ? 0 : tok;
+    *tok_out = tok_s;
+  }
+  __syncthreads();
+  if (emb != nullptr) {
+    const bf16* row = emb + (size_t)tok_s * D;
+    for (int d = tid; d < D; d += SAMPLER_THREADS) x_next[d] = row[d];
+  }
+}
+
+}  // namespace
+
+// hidden (1, D) bf16, the slow hidden. Stacked fast-layer weights as in
+// fs_slow_step; fast_norm (D,); head: the fast output (D, head_ld), whose
+// columns [cb*V, cb*V + V) serve step cb when depthwise_output, else
+// columns [0, V); emb: the fast embeddings, rows [cb*V, cb*V + V) for
+// step cb's token when depthwise_wte, else rows [0, V). window (C,
+// window_len) int32 rep-pen windows; gumbel (C, k_eff) f32, null in argmax
+// mode; is_eos (1,) bool. Out: tokens (C,) int32; logits, (C, V) f32,
+// holds each step's penalty-free head logits. Scratch: x (1, D), qkv
+// (1, QKV), attn (1, D), ffn (1, F) bf16, k_hist and v_hist
+// (L, 1, KV, C, 64) bf16. Returns the first CUDA error of the launches
+// (0 on success).
+extern "C" int fs_fast_frame(
+    const void* hidden, const void* attn_norm, const void* wqkv,
+    const void* wo, const void* ffn_norm, const void* w1, const void* w3,
+    const void* w2, const void* fast_norm, const void* head, const void* emb,
+    const void* cos_t, const void* sin_t, const void* window,
+    const void* gumbel, const void* is_eos, void* tokens, void* x_buf,
+    void* qkv_buf, void* attn_buf, void* ffn_buf, void* logits_buf,
+    void* k_hist, void* v_hist, int L, int D, int H, int KV, int F, int C,
+    int V, int head_ld, int depthwise_output, int depthwise_wte,
+    int window_len, int k_eff, int rep_enabled, float temp, float top_p,
+    float penalty, float eps, void* stream) {
+  if (KV <= 0 || H % KV != 0 || H * HDIM != D || D % 8 != 0 || F % 8 != 0 ||
+      L < 1 || C < 1 || V < 1 || V > 4 * SAMPLER_THREADS ||
+      window_len > MAX_WINDOW || (rep_enabled && window_len < 1) ||
+      (temp > 1e-7f && (gumbel == nullptr || k_eff < 1)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int QKV = (H + 2 * KV) * HDIM;
+  bf16* x = static_cast<bf16*>(x_buf);
+  cudaError_t err = cudaMemcpyAsync(x, hidden, (size_t)D * sizeof(bf16),
+                                    cudaMemcpyDeviceToDevice, st);
+  if (err != cudaSuccess) return (int)err;
+  const bf16* an = static_cast<const bf16*>(attn_norm);
+  const bf16* fn = static_cast<const bf16*>(ffn_norm);
+  const bf16* wq = static_cast<const bf16*>(wqkv);
+  const bf16* wo_ = static_cast<const bf16*>(wo);
+  const bf16* w1_ = static_cast<const bf16*>(w1);
+  const bf16* w3_ = static_cast<const bf16*>(w3);
+  const bf16* w2_ = static_cast<const bf16*>(w2);
+  for (int cb = 0; cb < C; ++cb) {
+    float* logits = static_cast<float*>(logits_buf) + (size_t)cb * V;
+    for (int l = 0; l < L; ++l) {
+      err = run_layer(x, an + (size_t)l * D, wq + (size_t)l * D * QKV,
+                      wo_ + (size_t)l * D * D, fn + (size_t)l * D,
+                      w1_ + (size_t)l * D * F, w3_ + (size_t)l * D * F,
+                      w2_ + (size_t)l * F * D, static_cast<const float*>(cos_t),
+                      static_cast<const float*>(sin_t), nullptr, cb,
+                      static_cast<bf16*>(k_hist), static_cast<bf16*>(v_hist), l,
+                      static_cast<bf16*>(qkv_buf), static_cast<bf16*>(attn_buf),
+                      static_cast<bf16*>(ffn_buf), 1, D, H, KV, F, C, eps, st);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const bf16* head_cb = static_cast<const bf16*>(head) + (depthwise_output ? (size_t)cb * V : 0);
+    err = launch_gemv<kHead>(1, x, static_cast<const bf16*>(fast_norm), head_cb,
+                             nullptr, D, V, head_ld, eps, nullptr, logits, st);
+    if (err != cudaSuccess) return (int)err;
+    // the last step's token needs no embedding
+    const bf16* emb_cb = cb + 1 < C
+        ? static_cast<const bf16*>(emb) + (depthwise_wte ? (size_t)cb * V * D : 0)
+        : nullptr;
+    const int* win = rep_enabled ? static_cast<const int*>(window) + (size_t)cb * window_len : nullptr;
+    const float* gum = gumbel ? static_cast<const float*>(gumbel) + (size_t)cb * k_eff : nullptr;
+    int* tok = static_cast<int*>(tokens) + cb;
+    const unsigned char* eos = static_cast<const unsigned char*>(is_eos);
+    const int items = (V + SAMPLER_THREADS - 1) / SAMPLER_THREADS;
+    if (items <= 1)
+      codebook_sample_kernel<1><<<1, SAMPLER_THREADS, 0, st>>>(logits, V, win, window_len, penalty, temp, top_p, k_eff, gum, eos, emb_cb, D, tok, x);
+    else if (items <= 2)
+      codebook_sample_kernel<2><<<1, SAMPLER_THREADS, 0, st>>>(logits, V, win, window_len, penalty, temp, top_p, k_eff, gum, eos, emb_cb, D, tok, x);
+    else
+      codebook_sample_kernel<4><<<1, SAMPLER_THREADS, 0, st>>>(logits, V, win, window_len, penalty, temp, top_p, k_eff, gum, eos, emb_cb, D, tok, x);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}

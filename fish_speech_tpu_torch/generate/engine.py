@@ -1,11 +1,23 @@
 """Batch-1 LMEngine: prompt -> first frame -> decode loop -> codes.
 
 Counterpart of `fish_speech_tpu/generate/engine.py` for batch-1 engines
-on the unfused path (`attention_impl="pallas"`, `prefill_impl="flash"`,
-`slow_impl="xla"`, `fast_frame_impl="xla"` in the JAX engine). It runs
-eagerly, one frame per Python iteration; on CUDA, attention goes
-through the port's two kernels (ops/decode_attention.py,
-ops/prefill_attention.py). There is no CUDA graph yet.
+with flash prefill (`prefill_impl="flash"`) and the JAX engine's choice
+of decode path:
+
+* `slow_impl` / `fast_frame_impl` "fused": each decode frame is
+  `embed_tokens` -> `ops/slow_step.py::fused_slow_step` -> semantic draw
+  -> `ops/fast_frame.py::fused_fast_frame` (the JAX engine's default
+  batch-1 path on a TPU);
+* "xla", the JAX engine's name for the unfused path: the slow step is
+  `models/dual_ar.py::slow_decode_step` with `ops/decode_attention.py`
+  (`attention_impl="pallas"`), the codebook loop that of
+  `generate/frame.py`;
+* "auto" (default): fused on CUDA at batch 1, unfused on the CPU, as the
+  JAX engine's "auto" is fused on a TPU at batch 1 only.
+
+On CUDA tensors every fused step and attention call launches the
+port's kernels; on CPU tensors they run their plain versions. It runs
+eagerly, one frame per Python iteration. There is no CUDA graph yet.
 
 * Prompts are right-padded to a bucket and prefilled in one call; the
   attention read extent is the smallest bucket covering offset + bucket.
@@ -32,15 +44,18 @@ from fish_speech_tpu_torch.generate.frame import (
 )
 from fish_speech_tpu_torch.models.dual_ar import (
     KVCache,
+    embed_tokens,
     rope_tables,
     slow_decode_step,
     slow_prefill,
 )
+from fish_speech_tpu_torch.ops.fast_frame import fused_fast_frame_supported
 from fish_speech_tpu_torch.ops.sampling import (
     SINGLE_STREAM_REP_PEN_WINDOW,
     RepPenWindow,
     SamplingArgs,
 )
+from fish_speech_tpu_torch.ops.slow_step import fused_slow_step, fused_slow_step_supported
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
 
@@ -90,6 +105,8 @@ class LMEngine:
         prompt_buckets=DEFAULT_BUCKETS,
         dtype=torch.bfloat16,
         device="cuda",
+        slow_impl: str = "auto",
+        fast_frame_impl: str = "auto",
     ) -> None:
         self.device = resolve_device(device)
         # Gather the LM head down to the audio-legal columns once; the
@@ -108,6 +125,23 @@ class LMEngine:
             b for b in prompt_buckets if b <= self.cache_len) or (self.cache_len,)
         self.dtype = dtype
         self.rope = rope_tables(cfg, self.device)
+        self.use_fused_slow = self._pick(
+            "slow_impl", slow_impl,
+            fused_slow_step_supported(cfg, self.params, self.batch_size, self.cache_len))
+        self.use_fused_fast = self._pick(
+            "fast_frame_impl", fast_frame_impl,
+            fused_fast_frame_supported(cfg, self.params, self.batch_size))
+
+    def _pick(self, name: str, impl: str, supported: bool) -> bool:
+        """"fused" | "xla" | "auto" -> whether the fused path runs."""
+        if impl not in ("auto", "fused", "xla"):
+            raise ValueError(f"{name} must be 'auto', 'fused' or 'xla', got {impl!r}")
+        if impl == "auto":
+            return supported and self.device.type == "cuda" and self.batch_size == 1
+        if impl == "fused" and not supported:
+            raise ValueError(f"{name}='fused': the fused path does not take this "
+                             "configuration (batch, head dim, int8 or shared memory)")
+        return impl == "fused"
 
     # -- state ------------------------------------------------------------
 
@@ -188,12 +222,20 @@ class LMEngine:
                     ) -> Tuple[GenState, torch.Tensor]:
         """One frame: slow step, semantic draw, fast codebook loop. A row
         that is done keeps emitting EOS frames and stops advancing."""
-        logits, hidden = slow_decode_step(
-            self.params, self.cfg, self.token_cfg, state.prev, state.cache,
-            state.pos, self.rope)
+        if self.use_fused_slow:
+            x0 = embed_tokens(self.params, self.cfg, self.token_cfg,
+                              state.prev[:, :, None])[:, 0, :]
+            logits, hidden = fused_slow_step(
+                self.params, self.cfg, x0, state.pos, state.cache.k, state.cache.v,
+                self.rope)
+        else:
+            logits, hidden = slow_decode_step(
+                self.params, self.cfg, self.token_cfg, state.prev, state.cache,
+                state.pos, self.rope)
         res = generate_frame(
             self.params, self.cfg, self.token_cfg, self.lm, sampling, logits, hidden,
-            state.rep_pen, state.prev, self._noise(state, sampling), self.rope)
+            state.rep_pen, state.prev, self._noise(state, sampling), self.rope,
+            use_fused_fast=self.use_fused_fast)
         eos_frame = torch.zeros_like(state.prev)
         eos_frame[:, 0] = self.token_cfg.im_end_id
         frame = torch.where(state.done[:, None], eos_frame, res.tokens)

@@ -17,6 +17,7 @@ import torch
 
 from fish_speech_tpu_torch.config import DualARConfig, TokenConfig, WhichLM
 from fish_speech_tpu_torch.models.dual_ar import fast_embed, fast_hist_init, fast_step
+from fish_speech_tpu_torch.ops.fast_frame import fused_fast_frame
 from fish_speech_tpu_torch.ops.sampling import (
     RepPenWindow,
     SamplingArgs,
@@ -98,10 +99,13 @@ class FrameResult(NamedTuple):
 def generate_frame(params, cfg: DualARConfig, token_cfg: TokenConfig, lm: WhichLM,
                    sampling: SamplingArgs, logits: torch.Tensor, hidden: torch.Tensor,
                    rep_pen: RepPenWindow, prev_tokens: Optional[torch.Tensor],
-                   noise: Optional[FrameNoise], rope) -> FrameResult:
+                   noise: Optional[FrameNoise], rope,
+                   use_fused_fast: bool = False) -> FrameResult:
     """Sample the semantic token, then run the fast transformer over the
     codebook axis. prev_tokens: the previous frame (B, C+1), or None on
-    the prefill frame; noise: None only in argmax mode."""
+    the prefill frame; noise: None only in argmax mode. use_fused_fast
+    (batch 1): the whole codebook loop is one `ops.fast_frame` call fed
+    the same per-codebook draws."""
     if noise is None and not sampling.is_argmax:
         raise ValueError("generate_frame: sampling needs noise")
     semantic = sample_semantic(
@@ -112,6 +116,13 @@ def generate_frame(params, cfg: DualARConfig, token_cfg: TokenConfig, lm: WhichL
     rep_pen_enabled = not cfg.depthwise_wte and sampling.repetition_penalty != 1.0
     if prev_tokens is not None and rep_pen_enabled:
         rep_pen = rep_pen.push(prev_tokens[:, 1:])
+
+    if use_fused_fast:
+        gumbel = None if noise is None else torch.cat(noise.codebooks)  # (C, k_eff)
+        toks = fused_fast_frame(params, cfg, sampling, hidden, rep_pen.tokens[0], gumbel,
+                                is_eos, rope, rep_enabled=rep_pen_enabled)
+        frame = torch.cat([semantic[:, None], toks[None, :]], dim=1)
+        return FrameResult(tokens=frame, is_eos=is_eos, rep_pen=rep_pen)
 
     b = logits.shape[0]
     hist = fast_hist_init(cfg, b, hidden.dtype, hidden.device)
@@ -127,7 +138,8 @@ def generate_frame(params, cfg: DualARConfig, token_cfg: TokenConfig, lm: WhichL
             gumbel=None if noise is None else noise.codebooks[cb],
         )
         tok = torch.where(is_eos, torch.zeros_like(tok), tok)  # EOS frames emit 0s
-        x = fast_embed(params, cfg, tok, cb)
+        if cb + 1 < cfg.num_codebooks:  # the last token feeds no further step
+            x = fast_embed(params, cfg, tok, cb)
         toks.append(tok)
     frame = torch.cat([semantic[:, None], torch.stack(toks, dim=1)], dim=1)
     return FrameResult(tokens=frame, is_eos=is_eos, rep_pen=rep_pen)

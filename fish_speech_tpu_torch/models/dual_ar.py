@@ -156,12 +156,15 @@ def _project_qkv(x, lp, cfg: DualARConfig):
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
-def _attn_out_ffn(x, attn, lp, cfg: DualARConfig):
-    """Residual attention projection, then the SwiGLU feed-forward."""
+def _attn_out_ffn(x, attn, lp, cfg: DualARConfig, unrounded: bool = False):
+    """Residual attention projection, then the SwiGLU feed-forward.
+    unrounded: silu sees the w1 product in float32, as in the fused TPU
+    kernels, instead of the product rounded to x's dtype."""
     b, s, d = x.shape
     x = x + attn.transpose(1, 2).reshape(b, s, d) @ lp["wo"]
     h2 = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-    gate = F.silu((h2 @ lp["w1"]).float()).to(x.dtype)
+    up = h2.float() @ lp["w1"].float() if unrounded else (h2 @ lp["w1"]).float()
+    gate = F.silu(up).to(x.dtype)
     return x + (gate * (h2 @ lp["w3"])) @ lp["w2"]
 
 
@@ -270,11 +273,13 @@ def fast_hist_init(cfg: DualARConfig, batch: int, dtype=torch.bfloat16,
 
 
 def fast_step(params, cfg: DualARConfig, x: torch.Tensor, hist, codebook_idx: int,
-              rope):
+              rope, unrounded: bool = False):
     """One fast-transformer step at codebook position `codebook_idx`.
 
     x: (B, 1, D); hist: per-layer (k, v) histories (B, KV, codebook_idx,
     hd). The single query attends to the whole history, so no mask.
+    unrounded: the w1 product before silu and the head product stay in
+    float32, as in the fused TPU kernel (ops/fast_frame.py).
     Returns (logits (B, codebook_size) float32, grown hist)."""
     cos_t, sin_t = rope
     cos = cos_t[codebook_idx:codebook_idx + 1]
@@ -291,12 +296,14 @@ def fast_step(params, cfg: DualARConfig, x: torch.Tensor, hist, codebook_idx: in
         ks = torch.cat([kh, k.to(kh.dtype)], dim=2)
         vs = torch.cat([vh, v.to(vh.dtype)], dim=2)
         attn = gqa_attention(q, ks, vs, None, scale)
-        x = _attn_out_ffn(x, attn, lp, cfg)
+        x = _attn_out_ffn(x, attn, lp, cfg, unrounded)
         new_hist.append((ks, vs))
     fast_out = rms_norm(x[:, 0, :], params["fast_norm"], cfg.norm_eps)
     w = params["fast_output"]
     if cfg.depthwise_output:
         w = w[:, codebook_idx * cfg.codebook_size:(codebook_idx + 1) * cfg.codebook_size]
+    if unrounded:
+        return fast_out.float() @ w.float(), new_hist
     return (fast_out @ w).float(), new_hist
 
 

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by ONE plain `nvcc` call into a
+Every `csrc/*.cu` file is compiled by its own plain `nvcc -c` call, all
+started together, and one more `nvcc` call links the objects into a
 shared library with a C interface, `libfstorch.so`, which is loaded with
 `ctypes`. Sources include no PyTorch header, so the build takes seconds
 and needs neither `ninja` nor `torch.utils.cpp_extension`. The library
@@ -30,7 +31,7 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "torch_ke
 LIB_NAME = "libfstorch.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -47,6 +48,16 @@ SIGNATURES = {
     # window, scale,
     # stream
     "fs_prefill_attention": [_P] * 5 + [_I] * 9 + [_F, _P],
+    # x0, pos, attn_norm, wqkv, wo, ffn_norm, w1, w3, w2, norm, head,
+    # cos, sin, ck, cv, logits, hidden, qkv, attn, ffn,
+    # B, L, D, H, KV, F, W, S, eps, stream
+    "fs_slow_step": [_P] * 20 + [_I] * 8 + [_F, _P],
+    # hidden, attn_norm, wqkv, wo, ffn_norm, w1, w3, w2, fast_norm, head,
+    # emb, cos, sin, window, gumbel, is_eos, tokens, x, qkv, attn, ffn,
+    # logits, k_hist, v_hist,
+    # L, D, H, KV, F, C, V, head_ld, depthwise_output, depthwise_wte,
+    # window_len, k_eff, rep_enabled, temp, top_p, penalty, eps, stream
+    "fs_fast_frame": [_P] * 24 + [_I] * 13 + [_F] * 4 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -83,7 +94,8 @@ def _digest() -> str:
 
 def build() -> Path:
     """Compile csrc/*.cu into build/torch_kernels/<hash>/libfstorch.so
-    unless that file exists. Returns its path."""
+    unless that file exists: one `nvcc -c` per source, all running at
+    once, then one link. Returns the library's path."""
     global build_seconds, nvcc_log
     out_dir = BUILD_ROOT / _digest()
     lib_path = out_dir / LIB_NAME
@@ -91,19 +103,36 @@ def build() -> Path:
         return lib_path
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp)] + [
-        str(s) for s in sorted(CSRC.glob("*.cu"))
-    ]
+    tag = os.getpid()
     t0 = time.perf_counter()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{tag}.o"  # nvcc goes by the suffix
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((src, obj, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs = []
+    failed = None
+    for src, _, cmd, proc in jobs:
+        _, err = proc.communicate()
+        logs.append(f"== {src.name}\n{err}")
+        if proc.returncode != 0 and failed is None:
+            failed = (proc.returncode, cmd, err)
+    if failed is not None:
+        rc, cmd, err = failed
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{err}")
+    tmp = out_dir / f"{tag}.{LIB_NAME}"
+    cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp)] + [str(j[1]) for j in jobs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    for _, obj, _, _ in jobs:
+        obj.unlink(missing_ok=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+            f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
         )
     os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
     build_seconds = time.perf_counter() - t0
-    nvcc_log = proc.stderr
+    nvcc_log = "\n".join(logs)
     return lib_path
 
 

@@ -40,6 +40,14 @@ def top_k_width(top_k: int, vocab: int) -> int:
     return min(top_k, vocab)
 
 
+def top_k_sorted(probs: torch.Tensor, k: int):
+    """The k largest entries of the last axis and their indices, in the
+    order of `jax.lax.top_k`: value descending, ties by lower index
+    (`torch.topk` leaves the order of ties open)."""
+    values, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
 def sample_top_k_top_p(
     logits: torch.Tensor,
     *,
@@ -57,7 +65,7 @@ def sample_top_k_top_p(
     logits = logits.float() / temp
     k = top_k_width(top_k, logits.shape[-1])
     probs = torch.softmax(logits, dim=-1)
-    top_probs, top_idx = torch.topk(probs, k, dim=-1, sorted=True)
+    top_probs, top_idx = top_k_sorted(probs, k)
     if 0.0 < top_p < 1.0:
         cum_excl = torch.cumsum(top_probs, dim=-1) - top_probs
         top_probs = torch.where(cum_excl < top_p, top_probs, torch.zeros_like(top_probs))

@@ -110,6 +110,59 @@ def test_slice_codes_and_pcm_match_jax(slice_setup, prefill_impl):
             1, 2, 44100, pcm.shape[1])
 
 
+@pytest.mark.parametrize("slow_impl,fast_frame_impl", [
+    ("fused", "fused"), ("fused", "xla"), ("xla", "fused")])
+def test_fused_decode_paths_match_jax(slice_setup, slow_impl, fast_frame_impl):
+    """The fused decode steps (plain versions on the CPU) give codes
+    exactly equal to the JAX engine's unfused configuration; the JAX
+    package's own tests hold its fused kernels equal to that
+    configuration (tests/test_slow_step.py, tests/test_fast_frame.py)."""
+    jc, tc, params, prompt = slice_setup
+    ref = _jax_codes(jc, params, prompt, "flash")
+    engine = LMEngine(dual_ar_params_from_numpy(jax.tree.map(np.asarray, params)), tc,
+                      tcfg.TokenConfig(**TOK), tcfg.WhichLM.FISH_1_5, cache_len=64,
+                      max_frames=N_FRAMES, prompt_buckets=(16, 32), dtype=torch.float32,
+                      device="cpu", slow_impl=slow_impl, fast_frame_impl=fast_frame_impl)
+    assert (engine.use_fused_slow, engine.use_fused_fast) == (
+        slow_impl == "fused", fast_frame_impl == "fused")
+    res, state = engine.generate(prompt, max_new_tokens=N_FRAMES,
+                                 sampling=SamplingArgs(temp=0.0, repetition_penalty=1.4), seed=0)
+    assert res.frames == ref.frames == N_FRAMES
+    np.testing.assert_array_equal(res.semantic, ref.semantic)
+    np.testing.assert_array_equal(res.tokens, ref.tokens)
+    assert int(state.pos[0]) == prompt.shape[1] + N_FRAMES - 1
+
+
+def test_fused_and_unfused_engines_sample_alike(slice_setup):
+    """Sampling (temp 0.7, top-k, top-p, rep-pen) from the same seed:
+    the fused engine consumes the same draws as the unfused one, so the
+    float32 codes are equal."""
+    _, tc, params, prompt = slice_setup
+    tparams = dual_ar_params_from_numpy(jax.tree.map(np.asarray, params))
+    sampling = SamplingArgs(temp=0.7, top_p=0.8, top_k=16, repetition_penalty=1.4)
+    codes = []
+    for impl in ("fused", "xla"):
+        engine = LMEngine(tparams, tc, tcfg.TokenConfig(**TOK), tcfg.WhichLM.FISH_1_5,
+                          cache_len=64, max_frames=N_FRAMES, prompt_buckets=(16, 32),
+                          dtype=torch.float32, device="cpu", slow_impl=impl,
+                          fast_frame_impl=impl)
+        res, _ = engine.generate(prompt, max_new_tokens=N_FRAMES, sampling=sampling, seed=4)
+        codes.append(np.concatenate([res.semantic[None], res.tokens]))
+    np.testing.assert_array_equal(codes[0], codes[1])
+
+
+def test_decode_impl_choice(slice_setup):
+    """'auto' is unfused on the CPU; unknown names are refused."""
+    _, tc, params, _ = slice_setup
+    tparams = dual_ar_params_from_numpy(jax.tree.map(np.asarray, params))
+    kw = dict(cache_len=64, prompt_buckets=(16, 32), dtype=torch.float32, device="cpu")
+    engine = LMEngine(tparams, tc, tcfg.TokenConfig(**TOK), tcfg.WhichLM.FISH_1_5, **kw)
+    assert not engine.use_fused_slow and not engine.use_fused_fast
+    with pytest.raises(ValueError, match="slow_impl"):
+        LMEngine(tparams, tc, tcfg.TokenConfig(**TOK), tcfg.WhichLM.FISH_1_5,
+                 slow_impl="pallas", **kw)
+
+
 def test_rewind_and_continue(slice_setup):
     """A conditioning prefix kept by rewind: the continuation starts at
     the prefix length, as the JAX engine's rewind does."""

@@ -1,0 +1,269 @@
+"""The port's fused fast frame (ops/fast_frame.py) against the JAX
+package's TPU kernel `fish_speech_tpu/ops/fast_frame_pallas.py::
+fused_fast_frame`, run in interpret mode as tests/test_fast_frame.py
+runs it, at that file's tiny config in float32 and fed the JAX
+package's own Gumbel draws; the fused branch of `generate_frame`
+against the JAX frame; its dispatch rules; and, on a card only, the
+CUDA kernel sequence against its plain version.
+
+Every comparison on the CPU asserts sampled tokens exactly equal. On
+the card the kernel sums in another order than cuBLAS, which reorders
+near-equal probabilities and so pairs tokens with other Gumbel draws;
+tokens are held equal on inputs that make every sum exact, and the step
+logits at real weights to the plain version's accuracy."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fish_speech_tpu import config as jcfg
+from fish_speech_tpu.generate.frame import generate_frame as j_generate_frame
+from fish_speech_tpu.generate.frame import semantic_head_columns
+from fish_speech_tpu.models.dual_ar import init_dual_ar_params
+from fish_speech_tpu.ops import sampling as js
+from fish_speech_tpu.ops.fast_frame_pallas import fused_fast_frame as jax_fused_fast_frame
+from fish_speech_tpu_torch import config as tcfg
+from fish_speech_tpu_torch.generate.frame import FrameNoise
+from fish_speech_tpu_torch.generate.frame import generate_frame as t_generate_frame
+from fish_speech_tpu_torch.io.convert import dual_ar_params_from_numpy
+from fish_speech_tpu_torch.models.dual_ar import init_dual_ar_params as torch_init
+from fish_speech_tpu_torch.models.dual_ar import rope_tables
+from fish_speech_tpu_torch.ops import _cuda_build
+from fish_speech_tpu_torch.ops import fast_frame as ff
+from fish_speech_tpu_torch.ops import sampling as ts
+
+torch.set_num_threads(1)
+
+KW = dict(vocab_size=256, n_layer=2, n_fast_layer=2, n_head=4, dim=64, intermediate_size=128,
+          n_local_heads=2, head_dim=16, rope_base=10000.0, norm_eps=1e-6, max_seq_len=64,
+          codebook_size=32, num_codebooks=4)
+TOK = dict(im_end_id=9, pad_id=5, semantic_start_id=10, semantic_end_id=41)
+SAMPLED = dict(temp=0.7, top_p=0.8, top_k=16, repetition_penalty=1.3)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _models(depthwise: bool):
+    jc = jcfg.DualARConfig(**KW, depthwise_wte=depthwise, depthwise_output=depthwise)
+    params = dict(jax.jit(init_dual_ar_params, static_argnums=(1, 2))(
+        jax.random.PRNGKey(0), jc, jnp.float32))
+    cols = semantic_head_columns(jcfg.WhichLM.FISH_1_5, jcfg.TokenConfig(**TOK), jc)
+    params["output"] = jnp.take(params["output"], jnp.asarray(cols), axis=1)
+    tc = tcfg.DualARConfig(**KW, depthwise_wte=depthwise, depthwise_output=depthwise)
+    return jc, tc, params, dual_ar_params_from_numpy(jax.tree.map(np.asarray, params))
+
+
+@pytest.fixture(scope="module")
+def models():
+    return {dw: _models(dw) for dw in (False, True)}
+
+
+CASES = {
+    "seed0": (0, SAMPLED, False, False),
+    "seed1": (1, SAMPLED, False, False),
+    "seed2": (2, SAMPLED, False, False),
+    "argmax": (3, dict(temp=0.0, top_p=1.0, top_k=32, repetition_penalty=1.3), False, False),
+    "no_rep_pen": (4, dict(temp=0.9, top_p=1.0, top_k=8, repetition_penalty=1.0), False, False),
+    "is_eos": (5, SAMPLED, True, False),
+    "depthwise": (7, SAMPLED, False, True),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_matches_pallas_interpret(models, case):
+    seed, samp, eos, depthwise = CASES[case]
+    jc, tc, jp, tp = models[depthwise]
+    j_sampling, t_sampling = js.SamplingArgs(**samp), ts.SamplingArgs(**samp)
+    rep_enabled = not depthwise and samp["repetition_penalty"] != 1.0
+    rng = np.random.default_rng(seed)
+    hidden = rng.normal(size=(1, jc.dim)).astype(np.float32)
+    window = rng.integers(-1, jc.codebook_size, size=(jc.num_codebooks, 16)).astype(np.int32)
+    k_eff = min(samp["top_k"], jc.codebook_size)
+    gumbel = np.asarray(jax.random.gumbel(jax.random.PRNGKey(seed), (jc.num_codebooks, k_eff),
+                                          dtype=jnp.float32))
+    is_eos = np.array([eos])
+
+    ref = jax_fused_fast_frame(jp, jc, j_sampling, jnp.asarray(hidden), jnp.asarray(window),
+                               jnp.asarray(gumbel), jnp.asarray(is_eos),
+                               rep_enabled=rep_enabled, interpret=True)
+    got = ff.fused_fast_frame(tp, tc, t_sampling, _t(hidden), _t(window),
+                              None if t_sampling.is_argmax else _t(gumbel), _t(is_eos),
+                              rope_tables(tc, "cpu"), rep_enabled=rep_enabled)
+    assert got.dtype == torch.int32 and got.shape == (jc.num_codebooks,)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    if eos:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("depthwise", [False, True])
+def test_fused_generate_frame_matches_jax_frame(models, depthwise):
+    """generate_frame with use_fused_fast=True (the port) against the
+    JAX package's unfused frame, on the JAX frame's own draws (same rng
+    splits and shapes as fish_speech_tpu/generate/frame.py)."""
+    jc, tc, jp, tp = models[depthwise]
+    rng = np.random.default_rng(8)
+    w = 1 + jc.codebook_size
+    logits = (rng.normal(size=(1, w)) * 2).astype(np.float32)
+    hidden = rng.normal(size=(1, jc.dim)).astype(np.float32)
+    prev = np.concatenate([rng.integers(10, 42, (1, 1)), rng.integers(0, 32, (1, 4))],
+                          axis=1).astype(np.int32)
+    window = rng.integers(0, 32, size=(1, 4, 16)).astype(np.int32)
+    j_sampling, t_sampling = js.SamplingArgs(**SAMPLED), ts.SamplingArgs(**SAMPLED)
+    key = jax.random.PRNGKey(11)
+    ref = jax.jit(j_generate_frame, static_argnums=(1, 2, 3, 4))(
+        jp, jc, jcfg.TokenConfig(**TOK), jcfg.WhichLM.FISH_1_5, j_sampling,
+        jnp.asarray(logits), jnp.asarray(hidden),
+        js.RepPenWindow(jnp.asarray(window), jnp.int32(5)), jnp.asarray(prev), key)
+
+    rest, sem_key = jax.random.split(key)
+    cb_keys = jax.random.split(rest, jc.num_codebooks)
+    k = SAMPLED["top_k"]
+    noise = FrameNoise(
+        semantic=_t(jax.random.gumbel(sem_key, (1, k), dtype=jnp.float32)),
+        codebooks=[_t(jax.random.gumbel(cb_keys[i], (1, k), dtype=jnp.float32))
+                   for i in range(jc.num_codebooks)])
+    args = (tp, tc, tcfg.TokenConfig(**TOK), tcfg.WhichLM.FISH_1_5, t_sampling, _t(logits),
+            _t(hidden), ts.RepPenWindow(_t(window), 5), _t(prev), noise,
+            rope_tables(tc, "cpu"))
+    for fused in (True, False):
+        got = t_generate_frame(*args, use_fused_fast=fused)
+        np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(ref.tokens))
+        np.testing.assert_array_equal(got.rep_pen.tokens.numpy(), np.asarray(ref.rep_pen.tokens))
+
+
+def _tiny(dtype=torch.float32):
+    tc = tcfg.DualARConfig(**KW)
+    return tc, torch_init(tc, seed=0, dtype=dtype, device="cpu")
+
+
+def test_int8_stack_raises_type_error():
+    tc, params = _tiny()
+    params["fast"] = dict(params["fast"], w2={"q": params["fast"]["w2"], "s": None})
+    assert not ff.fused_fast_frame_supported(tc, params, 1)
+    with pytest.raises(TypeError, match="int8"):
+        ff.fused_fast_frame(params, tc, ts.SamplingArgs(temp=0.0), torch.zeros(1, tc.dim),
+                            torch.full((4, 16), -1, dtype=torch.int32), None,
+                            torch.tensor([False]), rope_tables(tc, "cpu"), rep_enabled=False)
+
+
+def test_supported_is_batch_one():
+    tc, params = _tiny()
+    assert ff.fused_fast_frame_supported(tc, params, 1)
+    assert not ff.fused_fast_frame_supported(tc, params, 2)
+    assert not ff.fused_fast_frame_supported(dataclasses.replace(tc, head_dim=15), params, 1)
+
+
+class _CudaLooking(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, to reach the CUDA branch
+    of the wrapper without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def test_cuda_tensor_never_runs_plain(monkeypatch):
+    """A CUDA input launches the kernel or raises: here the parameters
+    lie on the CPU, so the wrapper raises before any launch."""
+    def fail(*args, **kwargs):
+        raise AssertionError("a CUDA tensor must not fall back to the plain version")
+
+    monkeypatch.setattr(ff, "fused_fast_frame_plain", fail)
+    monkeypatch.setattr(_cuda_build, "load_library", fail)
+    tc, params = _tiny(torch.bfloat16)
+    hidden = torch.zeros(1, tc.dim, dtype=torch.bfloat16).as_subclass(_CudaLooking)
+    before = ff.launches
+    with pytest.raises((ValueError, TypeError)):
+        ff.fused_fast_frame(params, tc, ts.SamplingArgs(**SAMPLED), hidden,
+                            torch.full((4, 16), -1, dtype=torch.int32), torch.zeros(4, 16),
+                            torch.tensor([False]), rope_tables(tc, "cpu"), rep_enabled=True)
+    assert ff.launches == before
+
+
+# -- on the card ----------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _card_model(device, depthwise=False):
+    tc = tcfg.DualARConfig(**{**KW, "n_head": 8, "dim": 512, "intermediate_size": 1024,
+                              "head_dim": 64, "codebook_size": 512, "num_codebooks": 8},
+                           depthwise_wte=depthwise, depthwise_output=depthwise)
+    return tc, torch_init(tc, seed=0, dtype=torch.bfloat16, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["sampled", "argmax", "no_rep_pen", "is_eos", "depthwise"])
+def test_kernel_tokens_equal_plain_on_exact_inputs(cuda_device, case):
+    """Zero fast-layer weights, one-hot hidden and one-hot embedding rows
+    make every sum exact (each step's logits are one head row times the
+    normalised one-hot value), so logits and tokens must be equal; the
+    bf16-valued logits have many ties, which both rank by index."""
+    depthwise = case == "depthwise"
+    tc, params = _card_model(cuda_device, depthwise)
+    params["fast"] = {k: (v if k.endswith("norm") else torch.zeros_like(v))
+                      for k, v in params["fast"].items()}
+    emb = torch.zeros_like(params["fast_embeddings"])
+    rows = torch.arange(emb.shape[0], device=cuda_device)
+    emb[rows, rows % tc.dim] = 1
+    params["fast_embeddings"] = emb
+    samp = {"argmax": dict(temp=0.0, top_p=1.0, top_k=512, repetition_penalty=1.4),
+            "no_rep_pen": dict(temp=0.7, top_p=0.8, top_k=256, repetition_penalty=1.0)}.get(
+        case, dict(temp=0.7, top_p=0.8, top_k=256, repetition_penalty=1.4))
+    sampling = ts.SamplingArgs(**samp)
+    rep = not depthwise and sampling.repetition_penalty != 1.0
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    rope = rope_tables(tc, cuda_device)
+    for j in range(4):
+        hidden = torch.zeros((1, tc.dim), dtype=torch.bfloat16, device=cuda_device)
+        hidden[0, 17 * j] = 1
+        window = torch.randint(-1, 512, (8, 16), generator=g, device=cuda_device,
+                               dtype=torch.int32)
+        gumbel = None if sampling.is_argmax else ts.gumbel_noise((8, 256), g, cuda_device)
+        is_eos = torch.tensor([case == "is_eos"], device=cuda_device)
+        args = (tc, sampling, hidden, window, gumbel, is_eos, rope)
+        got, got_l = ff.fused_fast_frame(params, *args, rep_enabled=rep, return_logits=True)
+        ref, ref_l = ff.fused_fast_frame_plain(params, *args, rep_enabled=rep, return_logits=True)
+        assert torch.equal(got_l, ref_l)
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_kernel_step_logits_as_accurate_as_plain_on_card(cuda_device):
+    """Real weights, argmax: each step's logits (up to the first step
+    whose input token differs) are as close to the float32 evaluation as
+    the plain version's, within a factor of 2."""
+    tc, params = _card_model(cuda_device)
+    params32 = {k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict) else v.float())
+                for k, v in params.items()}
+    sampling = ts.SamplingArgs(temp=0.0, top_p=1.0, top_k=512, repetition_penalty=1.4)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    rope = rope_tables(tc, cuda_device)
+    err_k = err_p = 0.0
+    for _ in range(8):
+        hidden = torch.randn((1, tc.dim), generator=g, device=cuda_device).to(torch.bfloat16)
+        window = torch.randint(-1, 512, (8, 16), generator=g, device=cuda_device,
+                               dtype=torch.int32)
+        is_eos = torch.tensor([False], device=cuda_device)
+        tk, lk = ff.fused_fast_frame(params, tc, sampling, hidden, window, None, is_eos, rope,
+                                     rep_enabled=True, return_logits=True)
+        tp, lp = ff.fused_fast_frame_plain(params, tc, sampling, hidden, window, None, is_eos,
+                                           rope, rep_enabled=True, return_logits=True)
+        tr, lr = ff.fused_fast_frame_plain(params32, tc, sampling, hidden.float(), window, None,
+                                           is_eos, rope, rep_enabled=True, return_logits=True)
+        differ = ((tk != tp) | (tk != tr)).nonzero()
+        n = 8 if len(differ) == 0 else int(differ[0]) + 1
+        err_k = max(err_k, float((lk[:n] - lr[:n]).abs().max()))
+        err_p = max(err_p, float((lp[:n] - lr[:n]).abs().max()))
+    assert err_k <= 2 * err_p + 1e-6, (err_k, err_p)

@@ -41,6 +41,10 @@ engine = LMEngine(init_dual_ar_params(cfg, 0, torch.float32, "cpu"), cfg, tok,
                   c.WhichLM.FISH_1_5, prompt_buckets=(8,), device="cpu")
 res, _ = engine.generate(np.zeros((3, 4), np.int32), max_new_tokens=2,
                          sampling=SamplingArgs(), seed=0)
+fused = LMEngine(init_dual_ar_params(cfg, 0, torch.float32, "cpu"), cfg, tok,
+                 c.WhichLM.FISH_1_5, prompt_buckets=(8,), device="cpu",
+                 slow_impl="fused", fast_frame_impl="fused")
+fused.generate(np.zeros((3, 4), np.int32), max_new_tokens=3, sampling=SamplingArgs(), seed=0)
 fc = c.FireflyConfig(head=c.HiFiGANConfig(upsample_rates=(2,), upsample_kernel_sizes=(4,),
                                           resblock_kernel_sizes=(3,),
                                           resblock_dilation_sizes=((1,),), num_mels=8,
@@ -56,8 +60,9 @@ print("FORBIDDEN", bad)
 
 
 def test_port_imports_no_jax_and_no_jax_package():
-    """A fresh interpreter imports the port, runs one CPU generation and
-    one decode, and holds no jax* and no fish_speech_tpu module."""
+    """A fresh interpreter imports the port, runs one CPU generation on
+    the unfused and on the fused decode path and one decode, and holds no
+    jax* and no fish_speech_tpu module."""
     out = subprocess.run([sys.executable, "-c", _ONE_CPU_STEP], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr

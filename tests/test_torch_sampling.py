@@ -124,3 +124,40 @@ def test_generate_frame_same_draws_same_tokens():
     np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(ref.tokens))
     np.testing.assert_array_equal(got.is_eos.numpy(), np.asarray(ref.is_eos))
     np.testing.assert_array_equal(got.rep_pen.tokens.numpy(), np.asarray(ref.rep_pen.tokens))
+
+
+def _bf16_valued_logits(rows, vocab, seed):
+    """N(0, 3^2) logits rounded to bf16, as the unfused heads give them:
+    many tokens share a value, so the top-k order of ties matters."""
+    rng = np.random.default_rng(seed)
+    return np.asarray(jnp.asarray(rng.normal(size=(rows, vocab)) * 3.0, jnp.bfloat16)
+                      .astype(jnp.float32))
+
+
+@pytest.mark.parametrize("vocab", [1024, 1025])  # a codebook head, the gathered semantic head
+def test_top_k_order_of_ties_is_lax_top_k(vocab):
+    logits = _bf16_valued_logits(20, vocab, vocab)
+    probs = np.asarray(jax.nn.softmax(jnp.asarray(logits) / 0.7, axis=-1))
+    assert all(len(np.unique(row[np.argsort(-row)[:256]])) < 256 for row in probs)  # ties
+    ref_p, ref_i = jax.lax.top_k(jnp.asarray(probs), 256)
+    got_p, got_i = ts.top_k_sorted(_t(probs), 256)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
+    np.testing.assert_array_equal(got_p.numpy(), np.asarray(ref_p))
+
+
+@pytest.mark.parametrize("vocab", [1024, 1025])
+def test_bf16_valued_logits_same_draws_same_tokens(vocab):
+    """200 draws at temp 0.7 / top_p 0.8 / top_k 256, each fed the
+    Gumbel draws jax.random.gumbel(key, (1, 256)) that the JAX sampler
+    makes from its key: the port's tokens equal the JAX package's."""
+    logits = _bf16_valued_logits(200, vocab, 7 + vocab)
+    kw = dict(temp=0.7, top_p=0.8, top_k=256)
+    jax_sample = jax.jit(lambda row, key: js.sample_top_k_top_p(row, key, **kw))
+    got, ref = [], []
+    for i in range(200):
+        key = jax.random.PRNGKey(1000 + i)
+        row = logits[i:i + 1]
+        ref.append(int(jax_sample(jnp.asarray(row), key)[0]))
+        gumbel = jax.random.gumbel(key, (1, 256), dtype=jnp.float32)
+        got.append(int(ts.sample_top_k_top_p(_t(row), gumbel=_t(gumbel), **kw)[0]))
+    assert got == ref

@@ -1,0 +1,199 @@
+"""The port's fused slow step (ops/slow_step.py) against the JAX
+package's TPU kernel `fish_speech_tpu/ops/slow_step_pallas.py::
+fused_slow_step`, run in interpret mode as tests/test_slow_step.py runs
+it, at that file's tiny config in float32; its dispatch rules; and, on a
+card only, the CUDA kernel sequence against its plain version.
+
+Tolerances (float32 on the CPU): logits and hidden 1e-4 absolute (the
+same arithmetic over three layers, summed in another order), the caches
+1e-5; cache rows other than pos must be exactly equal."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fish_speech_tpu import config as jcfg
+from fish_speech_tpu.generate.frame import semantic_head_columns
+from fish_speech_tpu.models.dual_ar import init_dual_ar_params
+from fish_speech_tpu.ops.slow_step_pallas import fused_slow_step as jax_fused_slow_step
+from fish_speech_tpu_torch import config as tcfg
+from fish_speech_tpu_torch.io.convert import dual_ar_params_from_numpy
+from fish_speech_tpu_torch.models.dual_ar import init_dual_ar_params as torch_init
+from fish_speech_tpu_torch.models.dual_ar import rope_tables
+from fish_speech_tpu_torch.ops import _cuda_build
+from fish_speech_tpu_torch.ops import slow_step as ss
+
+torch.set_num_threads(1)
+
+KW = dict(vocab_size=256, n_layer=3, n_fast_layer=2, n_head=4, dim=64, intermediate_size=128,
+          n_local_heads=2, head_dim=16, rope_base=10000.0, norm_eps=1e-6, max_seq_len=64,
+          codebook_size=32, num_codebooks=4)
+TOK = dict(im_end_id=9, pad_id=5, semantic_start_id=10, semantic_end_id=41)
+CACHE = 32
+LOGITS_TOL = 1e-4
+CACHE_TOL = 1e-5
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.fixture(scope="module")
+def models():
+    """JAX parameters with the head gathered per LM, and the port's copy."""
+    jc = jcfg.DualARConfig(**KW)
+    params = jax.jit(init_dual_ar_params, static_argnums=(1, 2))(
+        jax.random.PRNGKey(0), jc, jnp.float32)
+    out = {}
+    for lm in (jcfg.WhichLM.FISH_1_5, jcfg.WhichLM.FISH_1_2):
+        jp = dict(params)
+        cols = semantic_head_columns(lm, jcfg.TokenConfig(**TOK), jc)
+        jp["output"] = jnp.take(params["output"], jnp.asarray(cols), axis=1)
+        out[lm.name] = (jp, dual_ar_params_from_numpy(jax.tree.map(np.asarray, jp)))
+    return jc, tcfg.DualARConfig(**KW), out
+
+
+@pytest.mark.parametrize("positions,lm", [
+    ((0,), "FISH_1_5"),
+    ((5,), "FISH_1_5"),
+    ((31,), "FISH_1_5"),
+    ((3, 29), "FISH_1_5"),   # two rows, each at its own position
+    ((0,), "FISH_1_2"),      # Fish <= 1.4: the two-way [pad, im_end] head
+])
+def test_plain_matches_pallas_interpret(models, positions, lm):
+    jc, tc, by_lm = models
+    jp, tp = by_lm[lm]
+    b = len(positions)
+    rng = np.random.default_rng(sum(positions) + b)
+    x0 = rng.normal(size=(b, jc.dim)).astype(np.float32)
+    shape = (jc.n_layer, b, jc.n_local_heads, CACHE, jc.head_dim)
+    ck, cv = ((rng.normal(size=shape) * 0.1).astype(np.float32) for _ in range(2))
+    pos = np.asarray(positions, np.int32)
+
+    j_logits, j_hidden, j_ck, j_cv = jax_fused_slow_step(
+        jp, jc, jnp.asarray(x0), jnp.asarray(pos), jnp.asarray(ck), jnp.asarray(cv),
+        interpret=True)
+    tck, tcv = _t(ck), _t(cv)
+    logits, hidden = ss.fused_slow_step(tp, tc, _t(x0), _t(pos), tck, tcv,
+                                        rope_tables(tc, "cpu"))
+
+    assert logits.dtype == torch.float32 and logits.shape == (b, tp["output"].shape[1])
+    np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits), atol=LOGITS_TOL, rtol=0)
+    np.testing.assert_allclose(hidden.numpy(), np.asarray(j_hidden), atol=LOGITS_TOL, rtol=0)
+    np.testing.assert_allclose(tck.numpy(), np.asarray(j_ck), atol=CACHE_TOL, rtol=0)
+    np.testing.assert_allclose(tcv.numpy(), np.asarray(j_cv), atol=CACHE_TOL, rtol=0)
+    for row, p in enumerate(positions):  # only row pos of each batch row is written
+        keep = np.arange(CACHE) != p
+        np.testing.assert_array_equal(tck.numpy()[:, row, :, keep], ck[:, row, :, keep])
+        np.testing.assert_array_equal(tcv.numpy()[:, row, :, keep], cv[:, row, :, keep])
+
+
+def _tiny_params(dtype=torch.float32):
+    tc = tcfg.DualARConfig(**KW)
+    return tc, torch_init(tc, seed=0, dtype=dtype, device="cpu")
+
+
+def test_int8_stack_raises_type_error():
+    tc, params = _tiny_params()
+    params["slow"] = dict(params["slow"], wqkv={"q": params["slow"]["wqkv"], "s": None})
+    assert not ss.fused_slow_step_supported(tc, params, 1)
+    x0 = torch.zeros(1, tc.dim)
+    ck = torch.zeros(tc.n_layer, 1, tc.n_local_heads, CACHE, tc.head_dim)
+    with pytest.raises(TypeError, match="int8"):
+        ss.fused_slow_step(params, tc, x0, torch.zeros(1, dtype=torch.int32), ck, ck.clone(),
+                           rope_tables(tc, "cpu"))
+
+
+def test_supported_on_cpu_takes_any_batch():
+    tc, params = _tiny_params()
+    assert ss.fused_slow_step_supported(tc, params, 1)
+    assert ss.fused_slow_step_supported(tc, params, 16, cache_len=64)
+
+
+class _CudaLooking(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, to reach the CUDA branch
+    of the wrapper without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def test_cuda_tensor_never_runs_plain(monkeypatch):
+    """A CUDA input launches the kernel or raises: here the parameters
+    lie on the CPU, so the wrapper raises before any launch."""
+    def fail(*args, **kwargs):
+        raise AssertionError("a CUDA tensor must not fall back to the plain version")
+
+    monkeypatch.setattr(ss, "fused_slow_step_plain", fail)
+    monkeypatch.setattr(_cuda_build, "load_library", fail)
+    tc, params = _tiny_params(torch.bfloat16)
+    x0 = torch.zeros(1, tc.dim, dtype=torch.bfloat16).as_subclass(_CudaLooking)
+    ck = torch.zeros(tc.n_layer, 1, tc.n_local_heads, CACHE, tc.head_dim, dtype=torch.bfloat16)
+    before = ss.launches
+    with pytest.raises((ValueError, TypeError)):
+        ss.fused_slow_step(params, tc, x0, torch.zeros(1, dtype=torch.int32), ck, ck.clone(),
+                           rope_tables(tc, "cpu"))
+    assert ss.launches == before
+
+
+def test_cpu_tensors_count_no_launch(models):
+    _, tc, by_lm = models
+    _, tp = by_lm["FISH_1_5"]
+    ck = torch.zeros(tc.n_layer, 1, tc.n_local_heads, CACHE, tc.head_dim)
+    before = ss.launches
+    ss.fused_slow_step(tp, tc, torch.zeros(1, tc.dim), torch.zeros(1, dtype=torch.int32), ck,
+                       ck.clone(), rope_tables(tc, "cpu"))
+    assert ss.launches == before
+
+
+# -- on the card ----------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("positions", [(0,), (1,), (104,), (255,), (7, 200)])
+def test_kernel_matches_plain_on_card(cuda_device, positions):
+    """bf16 at head dim 64. The kernel sums in another order than cuBLAS
+    and bf16 rounding flips cascade through the layers, so logits,
+    hidden and the new cache rows must be as close to the float32
+    evaluation of the same function (the plain version on float32
+    weights) as the plain version is, within a factor of 2; every other
+    cache row is bit-equal."""
+    tc = tcfg.DualARConfig(**{**KW, "n_head": 8, "dim": 512, "intermediate_size": 1024,
+                              "head_dim": 64, "max_seq_len": 256})
+    params = torch_init(tc, seed=0, dtype=torch.bfloat16, device=cuda_device)
+    params["output"] = params["output"][:, :33].contiguous()
+    params32 = {k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict) else v.float())
+                for k, v in params.items()}
+    g = torch.Generator(device=cuda_device).manual_seed(len(positions))
+    b = len(positions)
+    x0 = torch.randn((b, tc.dim), generator=g, device=cuda_device).to(torch.bfloat16)
+    shape = (tc.n_layer, b, tc.n_local_heads, 256, 64)
+    ck, cv = (torch.randn(shape, generator=g, device=cuda_device).to(torch.bfloat16)
+              for _ in range(2))
+    ckp, cvp, ck32, cv32 = ck.clone(), cv.clone(), ck.float(), cv.float()
+    pos = torch.tensor(positions, dtype=torch.int32, device=cuda_device)
+    rope = rope_tables(tc, cuda_device)
+    got = ss.fused_slow_step(params, tc, x0, pos, ck, cv, rope)
+    plain = ss.fused_slow_step_plain(params, tc, x0, pos, ckp, cvp, rope)
+    ref = ss.fused_slow_step_plain(params32, tc, x0.float(), pos, ck32, cv32, rope)
+    rows, p = torch.arange(b, device=cuda_device), pos.long()
+    pairs = list(zip(got, plain, ref)) + [
+        (c[:, rows, :, p], cp[:, rows, :, p], c32[:, rows, :, p])
+        for c, cp, c32 in ((ck, ckp, ck32), (cv, cvp, cv32))]
+    for k, pl, r in pairs:
+        err_k = float((k.float() - r.float()).abs().max())
+        err_p = float((pl.float() - r.float()).abs().max())
+        assert err_k <= 2 * err_p + 1e-6, (err_k, err_p)
+    for c, cp in ((ck, ckp), (cv, cvp)):
+        c[:, rows, :, p] = cp[:, rows, :, p]
+        assert torch.equal(c, cp)
