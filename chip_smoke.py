@@ -16,8 +16,10 @@ per phase, each with the seconds since start:
               stated, then timed beside the plain version and, where one
               exists, one PyTorch library call used as a yardstick only:
               decode attention, prefill attention, the fused slow step
-              (pos 0, 1, 104, 4095; batch 1 and 2) and the fused fast
-              frame (32 frames sampled, argmax, no rep-pen, EOS);
+              (pos 0, 1, 104, 4095; batch 1 and 2), the fused fast
+              frame (32 frames sampled, argmax, no rep-pen, EOS) and the
+              batched fast frame (B = 4 and 16: argmax, sampled and
+              mixed rows);
   4. main     40-token prompt -> LMEngine.generate at the default
               `auto` decode path (fused slow step + fused fast frame,
               128 frames, temp 0.7 / top_p 0.8 / top_k 256 / rep-pen
@@ -26,7 +28,17 @@ per phase, each with the seconds since start:
               (slow_impl = fast_frame_impl = "xla", decode attention,
               32 frames) with its counts, and one full-width unfused
               decode step through the kernels and the plain versions;
-  5. profile  torch.profiler over 8 decode frames of each path.
+  5. profile  torch.profiler over 8 decode frames of each path;
+  6. serving  continuous batching at the serving configuration (16 rows,
+              cache 512, horizon 16, rep-pen window 12, dynamic
+              sampling): 20 requests of 40 tokens, 128 frames each, all
+              submitted at once (four wait for a free row), two argmax
+              and two seeded, each client vocoding its own codes; run on
+              the batched fast-frame kernel (`auto`) and on the unfused
+              codebook loop (`fast_frame_impl="xla"`) in turns, with
+              frames/s, per-request RTF p50/p95 and a profile of 4 decode
+              frames of each; each seeded request is run again alone on a
+              fresh batcher and must give the same codes.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}. Without CUDA, or
@@ -86,6 +98,16 @@ N_FRAMES = 128
 N_FRAMES_UNFUSED = 32
 PROMPT_LEN = 40
 SAMPLING = dict(temp=0.7, top_p=0.8, top_k=256, repetition_penalty=1.4)
+
+# The serving configuration (bench.py::_serving_setup, pipeline.py::
+# create_batcher): 16 decode rows, cache 512, horizon 16, prompt bucket 64.
+SERVE_ROWS = 16
+SERVE_CACHE = 512
+SERVE_HORIZON = 16
+SERVE_REQUESTS = 20
+SERVE_ARGMAX = (5, 12)  # requests at temp 0
+SERVE_SEEDED = (3, 17)  # requests with a seed
+WAIT_S = 300.0  # longest wait for one batcher event
 
 
 def log(phase: str, msg: str) -> None:
@@ -566,20 +588,157 @@ def check_fast_frame(torch, engine, params32):
     }
 
 
+def batched_inputs(torch, cfg, gen, b: int, k_dyn: int, mode: str, one_hot: bool):
+    """Inputs of one batched fast frame: hidden rows, rep-pen windows,
+    Gumbel draws by rank, per-row knobs and EOS flags. mode: "argmax"
+    (every row at temp 0), "sampled" (the serving knobs) or "mixed"
+    (rows differ in every knob; row 1 argmax, row 2 EOS)."""
+    from fish_speech_tpu_torch.ops.sampling import RowSampling, gumbel_noise
+
+    dev = torch.device("cuda")
+    d, n_cb, vocab = cfg.dim, cfg.num_codebooks, cfg.codebook_size
+    if one_hot:
+        hidden = torch.zeros((b, d), dtype=torch.bfloat16, device=dev)
+        hidden[torch.arange(b, device=dev),
+               torch.randint(0, d, (b,), generator=gen, device=dev)] = 1
+    else:
+        hidden = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
+    window = torch.randint(-1, vocab, (b, n_cb, 12), generator=gen, device=dev,
+                           dtype=torch.int32)
+    gumbel = gumbel_noise((b, n_cb, k_dyn), gen, dev)
+    if mode == "mixed":
+        knobs = [[0.7, 0.0, 1.2, 0.5], [0.8, 1.0, 0.6, 0.95], [256, 0, 16, 64],
+                 [1.4, 1.0, 1.5, 1.1]]
+        vecs = torch.tensor([[k[i % 4] for k in knobs] for i in range(b)], dtype=torch.float32)
+    else:
+        temp = 0.0 if mode == "argmax" else SAMPLING["temp"]
+        vecs = torch.tensor([[temp, SAMPLING["top_p"], SAMPLING["top_k"],
+                              SAMPLING["repetition_penalty"]]] * b, dtype=torch.float32)
+    is_eos = torch.zeros((b,), dtype=torch.bool, device=dev)
+    if mode == "mixed":
+        is_eos[2] = True
+    return (RowSampling.from_vectors(vecs.to(dev)), hidden, window, gumbel, is_eos)
+
+
+def check_fast_frame_batched(torch, engine, params32):
+    from fish_speech_tpu_torch.ops import fast_frame_batched as fb
+
+    cfg, params, rope = engine.cfg, engine.params, engine.rope
+    gen = torch.Generator(device=torch.device("cuda"))
+    gen.manual_seed(55)
+    n_cb, vocab, d, b = cfg.num_codebooks, cfg.codebook_size, cfg.dim, engine.batch_size
+    k_dyn = min(engine.dyn_top_k_cap, vocab)
+
+    # 1. tokens and step logits bit-equal where every sum is exact
+    exact = exact_fast_params(torch, params, cfg)
+    for rows in (4, b):
+        for mode in ("argmax", "sampled", "mixed"):
+            n_tied = 0
+            for _ in range(4):
+                args = (cfg, *batched_inputs(torch, cfg, gen, rows, k_dyn, mode, True), rope)
+                got, got_l = fb.fused_fast_frame_batched(exact, *args, rep_enabled=True,
+                                                         return_logits=True)
+                ref, ref_l = fb.fused_fast_frame_batched_plain(exact, *args, rep_enabled=True,
+                                                               return_logits=True)
+                check(torch.equal(got_l, ref_l),
+                      f"fused_fast_frame_batched B={rows} {mode}: exact logits differ")
+                n_diff = int((got != ref).sum())
+                check(n_diff == 0, f"fused_fast_frame_batched B={rows} {mode}: {n_diff} of "
+                      f"{rows * n_cb} tokens differ from the plain version")
+                if mode == "mixed":
+                    check(not bool(got[2].any()), "fused_fast_frame_batched: EOS row not all 0")
+                n_tied += sum(vocab - len(torch.unique(r)) for r in ref_l.reshape(-1, vocab))
+            log("kernels", f"fused_fast_frame_batched exact inputs, B={rows}, {mode} rows: "
+                f"{4 * rows * n_cb} tokens over 4 frames equal to the plain version (step "
+                f"logits bit-equal, {n_tied} tied logit values)")
+
+    # 2. step logits at full weights, argmax rows, up to each row's first
+    #    step whose input token differs among kernel, plain, float32
+    err_k = err_p = vs_plain = 0.0
+    steps = same = 0
+    for _ in range(4):
+        samp, hidden, window, gumbel, is_eos = batched_inputs(torch, cfg, gen, b, k_dyn,
+                                                              "argmax", False)
+        args = (samp, hidden, window, gumbel, is_eos, rope)
+        tk, lk = fb.fused_fast_frame_batched(params, cfg, *args, rep_enabled=True,
+                                             return_logits=True)
+        tp, lp = fb.fused_fast_frame_batched_plain(params, cfg, *args, rep_enabled=True,
+                                                   return_logits=True)
+        tr, lr = fb.fused_fast_frame_batched_plain(params32, cfg, samp, hidden.float(), window,
+                                                   gumbel, is_eos, rope, rep_enabled=True,
+                                                   return_logits=True)
+        same += int((tk == tp).sum())
+        for r in range(b):
+            differ = ((tk[r] != tp[r]) | (tk[r] != tr[r])).nonzero()
+            n = n_cb if len(differ) == 0 else int(differ[0]) + 1
+            steps += n
+            err_k = max(err_k, float((lk[:n, r] - lr[:n, r]).abs().max()))
+            err_p = max(err_p, float((lp[:n, r] - lr[:n, r]).abs().max()))
+            vs_plain = max(vs_plain, float((lk[:n, r] - lp[:n, r]).abs().max()))
+    check(err_k <= ACCURACY_FACTOR * err_p + 1e-6,
+          f"fused_fast_frame_batched step logits: {err_k:.4e} from the float32 evaluation, "
+          f"plain version {err_p:.4e}")
+    log("kernels", f"fused_fast_frame_batched full weights, B={b} argmax, 4 frames: step "
+        f"logits over {steps} row-steps, max abs distance to the float32 evaluation kernel "
+        f"{err_k:.4f} | plain {err_p:.4f}, kernel vs plain {vs_plain:.4f}; tokens equal to the "
+        f"plain version {same} of {4 * b * n_cb}")
+
+    samp, hidden, window, gumbel, is_eos = batched_inputs(torch, cfg, gen, b, k_dyn, "sampled",
+                                                          False)
+    args = (cfg, samp, hidden, window, gumbel, is_eos, rope)
+    kernel = lambda: fb.fused_fast_frame_batched(params, *args, rep_enabled=True)  # noqa: E731
+    ms = device_ms(torch, kernel, calls=10, replays=5)
+    call_ms = eager_ms(torch, kernel, 20)
+    plain_ms = device_ms(
+        torch, lambda: fb.fused_fast_frame_batched_plain(params, *args, rep_enabled=True),
+        calls=2, replays=3)
+    n_layer, h, hd = cfg.n_fast_layer, cfg.n_head, cfg.head_dim
+    weights = n_layer * layer_elems(cfg) + d + d * vocab
+    # read once: the weights and head (bf16); per row the hidden, the C-1
+    # embedding rows gathered, its windows, draws, knobs and EOS flag;
+    # written: the C tokens of each row. The re-read floor streams the
+    # weights and head at every step.
+    per_row = 2 * d + 2 * d * (n_cb - 1) + 4 * n_cb * 12 + 4 * n_cb * k_dyn + 4 * 4 + 1 + 4 * n_cb
+    once = 2 * weights + b * per_row
+    reread = once + 2 * (n_cb - 1) * weights
+    attn = 4 * h * hd * n_cb * (n_cb + 1) // 2 * n_layer
+    flops = b * (n_cb * 2 * (weights - (2 * n_layer + 1) * d) + attn)
+    bound_ms, bound_by = bound(once, flops)
+    reread_ms, _ = bound(reread, flops)
+    log("kernels", f"fused_fast_frame_batched B={b} ({n_cb} steps x {n_layer} layers): kernel "
+        f"{ms:.4f} ms (eager call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by}, read once, {once / 1e6:.1f} MB), re-read floor "
+        f"{reread_ms:.6f} ms ({reread / 1e6:.1f} MB)")
+    return {
+        "name": "fused_fast_frame_batched", "route": "cuda",
+        "source": "fish_speech_tpu_torch/csrc/fast_frame_batched.cu",
+        "replaces": "fish_speech_tpu/ops/fast_frame_pallas.py:1007",
+        "max_abs_err": vs_plain, "err_vs_float32": [err_k, err_p],
+        "ms": ms, "kernel_ms": ms, "eager_call_ms": call_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_reread_ms": reread_ms, "library_ms": None,
+        "shape": f"hidden ({b},{d}), {n_cb} codebooks x {n_layer} layers, vocab {vocab}, "
+                 f"k_dyn {k_dyn}, window 12, bf16",
+    }
+
+
 # --------------------------------------------------------------------------
 # Phase 4: the main path
 # --------------------------------------------------------------------------
 
 
 def build_models(torch):
-    """Fish-1.5 engines on random bf16 weights (seed 0): the default
-    `auto` engine (fused decode path) and the unfused one, sharing the
-    weights; the Firefly-1.5 codec (seed 1)."""
+    """Fish-1.5 engines on random bf16 weights (seed 0), sharing the
+    weights: the default `auto` batch-1 engine (fused decode path), the
+    unfused one, and the two 16-row serving engines (`auto`: the batched
+    fast-frame kernel; `xla`: the unfused codebook loop); the Firefly-1.5
+    codec (seed 1)."""
     from fish_speech_tpu_torch.config import (
         DualARConfig, FireflyConfig, FishVersion, TokenConfig, WhichLM)
     from fish_speech_tpu_torch.generate.engine import LMEngine
     from fish_speech_tpu_torch.models.codec.firefly import FireflyCodec, init_firefly_params
     from fish_speech_tpu_torch.models.dual_ar import init_dual_ar_params
+    from fish_speech_tpu_torch.ops.sampling import BATCHED_REP_PEN_WINDOW
 
     cfg = DualARConfig.fish_speech_1_5()
     tok = TokenConfig(im_end_id=100011, pad_id=5, semantic_start_id=100012,
@@ -594,16 +753,25 @@ def build_models(torch):
                      prompt_buckets=(64,))
     unfused = LMEngine(params, cfg, tok, WhichLM.FISH_1_5, max_frames=N_FRAMES_UNFUSED,
                        prompt_buckets=(64,), slow_impl="xla", fast_frame_impl="xla")
+    serving = {impl: LMEngine(params, cfg, tok, WhichLM.FISH_1_5, batch_size=SERVE_ROWS,
+                              cache_len=SERVE_CACHE, max_frames=N_FRAMES, prompt_buckets=(64,),
+                              rep_pen_window=BATCHED_REP_PEN_WINDOW, dynamic_sampling=True,
+                              fast_frame_impl=impl)
+               for impl in ("auto", "xla")}
     del params
     check(fused.use_fused_slow and fused.use_fused_fast,
           "the default engine on CUDA at batch 1 is not on the fused path")
     check(not (unfused.use_fused_slow or unfused.use_fused_fast), "the xla engine is fused")
+    check(serving["auto"].use_fused_fast and not serving["auto"].use_fused_slow,
+          "the serving engine's auto path is not the batched fast frame + unfused slow step")
+    check(not serving["xla"].use_fused_fast, "the xla serving engine is fused")
     codec = FireflyCodec(codec_params, codec_cfg)
     torch.cuda.synchronize()
     log("main", f"Fish-1.5 bf16 params (seed 0) + Firefly-1.5 bf16 codec (seed 1) on the card "
         f"in {time.perf_counter() - t0:.1f}s; cache_len {fused.cache_len}; engines: auto "
-        f"(fused slow step + fused fast frame) and xla (unfused)")
-    return fused, unfused, codec, tok, codec_cfg
+        f"(fused slow step + fused fast frame), xla (unfused), and {SERVE_ROWS}-row serving "
+        f"engines (cache {SERVE_CACHE}) auto (batched fast frame) and xla")
+    return fused, unfused, serving, codec, tok, codec_cfg
 
 
 def run_path(torch, np, engine, codec, tok, codec_cfg, n_frames: int, label: str):
@@ -747,6 +915,183 @@ def compare_decode_step(torch, engine, state) -> None:
         f"logits max_abs_err={err:.3e} (atol={STEP_LOGITS_ATOL}), argmax equal")
 
 
+# --------------------------------------------------------------------------
+# Phase 6: continuous-batching serving
+# --------------------------------------------------------------------------
+
+
+def serving_requests(np, cfg):
+    """The 20 requests: 40-token prompts, 128 frames each; most sample
+    with the serving knobs, SERVE_ARGMAX are at temp 0, SERVE_SEEDED carry
+    a seed."""
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs
+
+    rng = np.random.default_rng(7)
+    reqs = []
+    for i in range(SERVE_REQUESTS):
+        prompt = np.concatenate([rng.integers(1000, 90000, size=(1, PROMPT_LEN)),
+                                 rng.integers(0, cfg.codebook_size,
+                                              size=(cfg.num_codebooks, PROMPT_LEN))])
+        knobs = dict(SAMPLING, temp=0.0) if i in SERVE_ARGMAX else SAMPLING
+        reqs.append(dict(prompts=[prompt.astype(np.int32)], cond_len=0, max_new=N_FRAMES,
+                         sampling=SamplingArgs(**knobs),
+                         seed=1000 + i if i in SERVE_SEEDED else None))
+    return reqs
+
+
+def serve(torch, np, batcher, codec, reqs):
+    """Submit every request at once, one client thread each; each client
+    waits for its codes and vocodes them. Returns, per request, (codes
+    (C+1, T), PCM, seconds to the last code, seconds to the PCM, hit_max)."""
+    import threading
+
+    out = [None] * len(reqs)
+    t0 = time.perf_counter()
+
+    def client(i):
+        chunks = list(batcher.submit(**reqs[i]).iter_chunks(timeout=WAIT_S))
+        codes = np.concatenate([chunks[0].semantic[None], chunks[0].tokens])
+        t_lm = time.perf_counter() - t0
+        pcm = codec.decode(codes[1:])
+        out[i] = (codes, pcm, t_lm, time.perf_counter() - t0, chunks[0].hit_max)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=WAIT_S)
+    check(all(o is not None for o in out) and not any(t.is_alive() for t in threads),
+          "serving: a client did not get its codes")
+    return out
+
+
+def serving_run(torch, np, engine, codec, tok, codec_cfg, reqs, label: str):
+    """One timed serving run on a warm batcher: checks codes and PCM,
+    logs frames/s and RTF p50/p95, returns (results, frames/s, p50)."""
+    from fish_speech_tpu_torch.generate.continuous import ContinuousBatcher
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs
+
+    batcher = ContinuousBatcher(engine, SamplingArgs(**SAMPLING), horizon=SERVE_HORIZON)
+    try:
+        batcher.warmup()
+        torch.cuda.synchronize()
+        res = serve(torch, np, batcher, codec, reqs)
+    finally:
+        batcher.shutdown()
+    cfg = engine.cfg
+    for i, (codes, pcm, _, _, hit_max) in enumerate(res):
+        # a sampled row may draw <|im_end|> (its column is zero, not -inf)
+        t = codes.shape[1]
+        check(codes.shape[0] == cfg.num_codebooks + 1 and 1 <= t <= N_FRAMES
+              and (t == N_FRAMES or not hit_max), f"serving {label} request {i}: codes "
+              f"{codes.shape}, hit_max {hit_max}")
+        check(bool(((codes[0] >= tok.semantic_start_id) & (codes[0] <= tok.semantic_end_id)).all())
+              and bool(((codes[1:] >= 0) & (codes[1:] < cfg.codebook_size)).all()),
+              f"serving {label} request {i}: codes out of range")
+        check(pcm.shape == (1, t * codec.samples_per_frame) and bool(np.isfinite(pcm).all()),
+              f"serving {label} request {i}: pcm {pcm.shape} not finite or misshaped")
+    frames = sum(r[0].shape[1] for r in res)
+    lm_s = max(r[2] for r in res)
+    rtf = np.array([r[3] / (r[0].shape[1] / codec_cfg.frame_rate) for r in res])
+    p50, p95 = float(np.percentile(rtf, 50)), float(np.percentile(rtf, 95))
+    n_eos = sum(r[0].shape[1] < N_FRAMES for r in res)
+    log("serving", f"{label}: {len(res)} requests of up to {N_FRAMES} frames ({n_eos} ended at "
+        f"<|im_end|>), codes in range, PCM finite; LM {frames} frames in {lm_s:.3f}s = "
+        f"{frames / lm_s:.1f} frames/s aggregate; "
+        f"per-request RTF (submit to PCM) p50 {p50:.4f} p95 {p95:.4f}, max {rtf.max():.4f}")
+    return res, frames / lm_s, p50
+
+
+def profile_serving(torch, np, engine, label: str, frames: int = 4) -> None:
+    """Where a 16-row decode frame's time goes: torch.profiler over one
+    decode chunk of `frames` frames with every row live."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs
+
+    cfg = engine.cfg
+    rng = np.random.default_rng(3)
+    prompts = [np.concatenate([rng.integers(1000, 90000, size=(1, PROMPT_LEN)),
+                               np.zeros((cfg.num_codebooks, PROMPT_LEN), np.int64)]
+                              ).astype(np.int32) for _ in range(engine.batch_size)]
+    sampling = SamplingArgs(**SAMPLING)
+    state, _, _ = engine.prefill_rows(engine.init_state(0), prompts, sampling, 0)
+    state = engine.decode_chunk(state, sampling, frames)[0]  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        engine.decode_chunk(state, sampling, frames)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / frames
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) is not None
+               and str(e.device_type).endswith("CUDA")
+               and getattr(e, "self_device_time_total", 0) > 0]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / frames
+    launches = sum(e.count for e in kernels) / frames
+    log("profile", f"serving {label}: {engine.batch_size}-row decode frame under "
+        f"torch.profiler: wall {wall_ms:.2f} ms, device kernels {dev_ms:.3f} ms "
+        f"({launches:.0f} launches), device busy {100 * dev_ms / wall_ms:.1f}%")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log("profile", f"  {e.self_device_time_total / 1e3 / frames:8.4f} ms/frame "
+            f"{e.count / frames:6.1f}x  {e.key[:90]}")
+
+
+def run_serving(torch, np, serving, codec, tok, codec_cfg):
+    """The serving phase: the launch counts of the `auto` run, the A/B in
+    turns (auto, xla, xla, auto), the seeded requests alone, profiles.
+    Returns {kernel: launches on the first auto run}."""
+    from fish_speech_tpu_torch.generate.continuous import ContinuousBatcher
+    from fish_speech_tpu_torch.ops import decode_attention as da
+    from fish_speech_tpu_torch.ops import fast_frame as ff
+    from fish_speech_tpu_torch.ops import fast_frame_batched as fb
+    from fish_speech_tpu_torch.ops import prefill_attention as pa
+    from fish_speech_tpu_torch.ops import slow_step as ss
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs
+
+    reqs = serving_requests(np, serving["auto"].cfg)
+    mods = {"decode_attention": da, "prefill_attention": pa, "fused_slow_step": ss,
+            "fused_fast_frame": ff, "fused_fast_frame_batched": fb}
+    runs = {"auto": [], "xla": []}
+    launches = None
+    for impl in ("auto", "xla", "xla", "auto"):
+        counting = launches is None
+        if counting:
+            for m in mods.values():
+                m.launches = 0
+        res, fps, p50 = serving_run(torch, np, serving[impl], codec, tok, codec_cfg, reqs,
+                                    f"{impl} run {len(runs[impl]) + 1}")
+        if counting:
+            launches = {name: m.launches for name, m in mods.items()}
+            log("serving", f"auto run 1 launches (warm-up request included) "
+                f"{json.dumps(launches)}")
+            check(launches["fused_fast_frame_batched"] > 0 and launches["decode_attention"] > 0
+                  and launches["fused_fast_frame"] == 0 and launches["fused_slow_step"] == 0,
+                  f"the serving auto path launched {launches}")
+            first = res
+        runs[impl].append((fps, p50))
+    mean = {k: (sum(f for f, _ in v) / len(v), sum(p for _, p in v) / len(v))
+            for k, v in runs.items()}
+    log("serving", f"A/B (two runs each, in turns): auto (batched kernel) {mean['auto'][0]:.1f} "
+        f"frames/s, RTF p50 {mean['auto'][1]:.4f}; xla (unfused codebook loop) "
+        f"{mean['xla'][0]:.1f} frames/s, RTF p50 {mean['xla'][1]:.4f}")
+
+    batcher = ContinuousBatcher(serving["auto"], SamplingArgs(**SAMPLING), horizon=SERVE_HORIZON)
+    try:
+        for i in SERVE_SEEDED:
+            alone = serve(torch, np, batcher, codec, [reqs[i]])[0][0]
+            check(np.array_equal(alone, first[i][0]),
+                  f"serving: seeded request {i} gives other codes alone than among 19 others")
+    finally:
+        batcher.shutdown()
+    log("serving", f"seeded requests {list(SERVE_SEEDED)}: the same codes alone on a fresh "
+        f"batcher as among {SERVE_REQUESTS - 1} co-tenants")
+    for impl in ("auto", "xla"):
+        profile_serving(torch, np, serving[impl], impl)
+    return launches
+
+
 def log_ptxas(nvcc_log: str) -> None:
     """ptxas's register, stack and shared-memory line of each kernel,
     once, with the sources that compile it."""
@@ -810,13 +1155,16 @@ def main() -> int:
         check_decode_kernel(torch, cfg, cache_len, main_pos=main_pos),
         check_prefill_kernel(torch, cfg, cache_len, main_s_pad=64, main_len=PROMPT_LEN),
     ]
-    fused, unfused, codec, tok, codec_cfg = build_models(torch)
+    fused, unfused, serving, codec, tok, codec_cfg = build_models(torch)
     with torch.inference_mode():
         params32 = float32_copy(fused.params)
         kernels += [check_slow_step(torch, fused, params32, main_pos),
-                    check_fast_frame(torch, fused, params32)]
+                    check_fast_frame(torch, fused, params32),
+                    check_fast_frame_batched(torch, serving["auto"], params32)]
         del params32
     launches = run_main_path(torch, np, fused, unfused, codec, tok, codec_cfg)
+    served = run_serving(torch, np, serving, codec, tok, codec_cfg)
+    launches["fused_fast_frame_batched"] = served["fused_fast_frame_batched"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path")

@@ -26,59 +26,15 @@
 // is one block of 1024 threads over the codebook vocabulary: a bitonic
 // sort of (p, index) pairs gives the order of lax.top_k (probability
 // descending, ties by lower index) and a block scan the exclusive mass.
-// The TPU kernel's j-tiled rank matrices, one-hot embedding matmul and
-// flat-lane 0/1 matrices are Mosaic workarounds and are not ported.
+// The sort, scan and draw are codebook_sampler.cuh's, shared with the
+// batched frame. The TPU kernel's j-tiled rank matrices, one-hot embedding
+// matmul and flat-lane 0/1 matrices are Mosaic workarounds and are not
+// ported.
 
+#include "codebook_sampler.cuh"
 #include "dual_ar_layer.cuh"
 
 namespace {
-
-constexpr int SAMPLER_THREADS = 1024;
-constexpr int SAMPLER_WARPS = SAMPLER_THREADS / 32;
-constexpr int MAX_WINDOW = 64;
-
-// (value, index) as one integer that orders like "larger value, then
-// smaller index": the float's bits mapped to an order-preserving uint32,
-// then the inverted index.
-__device__ __forceinline__ unsigned long long rank_key(float v, int i) {
-  unsigned u = __float_as_uint(v);
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return ((unsigned long long)u << 32) | (0xffffffffu - (unsigned)i);
-}
-
-// The index of the block's largest key.
-__device__ __forceinline__ int block_best(unsigned long long key,
-                                          unsigned long long* red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long o = __shfl_xor_sync(FULL, key, off);
-    key = o > key ? o : key;
-  }
-  __syncthreads();
-  if (lane == 0) red[warp] = key;
-  __syncthreads();
-  unsigned long long best = red[0];
-  for (int w = 1; w < SAMPLER_WARPS; ++w) best = red[w] > best ? red[w] : best;
-  return (int)(0xffffffffu - (unsigned)(best & 0xffffffffu));
-}
-
-__device__ __forceinline__ float sampler_reduce(float v, float* red, bool is_max) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float o = __shfl_xor_sync(FULL, v, off);
-    v = is_max ? fmaxf(v, o) : v + o;
-  }
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < SAMPLER_WARPS; ++w) r = is_max ? fmaxf(r, red[w]) : r + red[w];
-  return r;
-}
 
 // One codebook draw, the semantics of fast_frame_pallas.py:303-370 and of
 // ops/sampling.py::sample_top_k_top_p in the port:
@@ -99,35 +55,24 @@ __global__ void __launch_bounds__(SAMPLER_THREADS)
                            const unsigned char* __restrict__ is_eos,
                            const bf16* __restrict__ emb, int D,
                            int* __restrict__ tok_out, bf16* __restrict__ x_next) {
-  constexpr int NP = SAMPLER_THREADS * ITEMS;
-  __shared__ unsigned long long keys[NP];
+  __shared__ unsigned long long keys[SAMPLER_THREADS * ITEMS];
   __shared__ float red[SAMPLER_WARPS];
   __shared__ unsigned long long best_red[SAMPLER_WARPS];
   __shared__ int win_s[MAX_WINDOW];
+  __shared__ int top_s;
   __shared__ int tok_s;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   if (window != nullptr && tid < window_len) win_s[tid] = window[tid];
   __syncthreads();
 
-  // 1. penalised logits
   float lg[ITEMS];
 #pragma unroll
   for (int it = 0; it < ITEMS; ++it) {
     const int i = tid + it * SAMPLER_THREADS;
-    lg[it] = -INFINITY;
-    if (i < V) {
-      float l = logits[i];
-      if (window != nullptr) {
-        bool member = false;
-        for (int w = 0; w < window_len; ++w) member |= win_s[w] == i;
-        if (member) l = __fdiv_rn(l, penalty);
-      }
-      lg[it] = l;
-    }
+    lg[it] = i < V ? logits[i] : -INFINITY;
   }
+  if (window != nullptr) apply_penalty(lg, V, win_s, window_len, penalty);
 
   int tok;
   if (temp <= 1e-7f) {
@@ -139,89 +84,9 @@ __global__ void __launch_bounds__(SAMPLER_THREADS)
     }
     tok = block_best(best, best_red);
   } else {
-    // 2. softmax(logits / temp)
-    float lmax = -INFINITY;
-#pragma unroll
-    for (int it = 0; it < ITEMS; ++it) {
-      lg[it] = __fdiv_rn(lg[it], temp);
-      lmax = fmaxf(lmax, lg[it]);
-    }
-    const float m = sampler_reduce(lmax, red, true);
-    float lsum = 0.f;
-#pragma unroll
-    for (int it = 0; it < ITEMS; ++it) {
-      const int i = tid + it * SAMPLER_THREADS;
-      lg[it] = i < V ? expf(__fsub_rn(lg[it], m)) : 0.f;
-      lsum += lg[it];
-    }
-    const float sum = sampler_reduce(lsum, red, false);
-
-    // 3. ascending sort of (~bits(p), index): p descending, ties by index
-#pragma unroll
-    for (int it = 0; it < ITEMS; ++it) {
-      const int i = tid + it * SAMPLER_THREADS;
-      unsigned long long key = ~0ull;
-      if (i < V) {
-        const float p = __fdiv_rn(lg[it], sum);
-        key = ((unsigned long long)(~__float_as_uint(p)) << 32) | (unsigned)i;
-      }
-      keys[i] = key;
-    }
-    __syncthreads();
-    for (int k = 2; k <= NP; k <<= 1) {
-      for (int j = k >> 1; j > 0; j >>= 1) {
-        for (int i = tid; i < NP; i += SAMPLER_THREADS) {
-          const int ixj = i ^ j;
-          if (ixj > i) {
-            const unsigned long long a = keys[i], b = keys[ixj];
-            if ((a > b) == ((i & k) == 0)) {
-              keys[i] = b;
-              keys[ixj] = a;
-            }
-          }
-        }
-        __syncthreads();
-      }
-    }
-
-    // 4. inclusive scan of the sorted p; this thread owns ranks
-    //    tid*ITEMS .. tid*ITEMS+ITEMS-1
-    float ps[ITEMS], incl[ITEMS];
-    int idx[ITEMS];
-    float run = 0.f;
-#pragma unroll
-    for (int it = 0; it < ITEMS; ++it) {
-      const int r = tid * ITEMS + it;
-      const unsigned long long key = keys[r];
-      idx[it] = (int)(key & 0xffffffffu);
-      ps[it] = r < V ? __uint_as_float(~(unsigned)(key >> 32)) : 0.f;
-      run = __fadd_rn(run, ps[it]);
-      incl[it] = run;
-    }
-    float scan = run;  // inclusive scan of the thread totals
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float o = __shfl_up_sync(FULL, scan, off);
-      if (lane >= off) scan += o;
-    }
-    __syncthreads();
-    if (lane == 31) red[warp] = scan;
-    __syncthreads();
-    float base = 0.f;
-    for (int w = 0; w < warp; ++w) base += red[w];
-    base += scan - run;  // everything before this thread's first rank
-
-    // 5. keep masks and the Gumbel draw
-    const bool nucleus = top_p > 0.f && top_p < 1.f;
-    unsigned long long best = 0;
-#pragma unroll
-    for (int it = 0; it < ITEMS; ++it) {
-      const int r = tid * ITEMS + it;
-      const float excl = __fsub_rn(__fadd_rn(base, incl[it]), ps[it]);
-      const bool keep = r < V && r < k_eff && ps[it] > 0.f && (!nucleus || excl < top_p);
-      if (keep) best = max(best, rank_key(__fadd_rn(logf(ps[it]), gumbel[r]), idx[it]));
-    }
-    tok = block_best(best, best_red);
+    const float sum = softmax_exp(lg, V, temp, red);
+    tok = sorted_draw(lg, sum, V, k_eff, top_p > 0.f && top_p < 1.f, top_p, gumbel, keys,
+                      red, best_red, &top_s);
   }
 
   if (tid == 0) {

@@ -186,14 +186,16 @@ def rope_tables(cfg: DualARConfig, device) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def slow_prefill(params, cfg: DualARConfig, token_cfg: TokenConfig,
                  tokens: torch.Tensor, seq_lens: torch.Tensor, cache: KVCache,
-                 offset: int, rope, kv_extent: Optional[int] = None):
-    """Prefill cache rows with a right-padded prompt chunk.
+                 offset: int, rope, kv_extent: Optional[int] = None, slot: int = 0):
+    """Prefill cache rows [slot, slot + B) with a right-padded prompt chunk.
 
     tokens: (B, C+1, S_pad) int; seq_lens: (B,) int32 real lengths. The
-    prompt fills cache positions [offset, offset + S_pad) of every row
-    (positions past the cache end are dropped); attention reads the
-    first `kv_extent` positions (default: the whole cache), which must
-    cover offset + max(seq_lens). The cache is updated in place.
+    prompt fills cache positions [offset, offset + S_pad) of those rows
+    (positions past the cache end are dropped); other rows are left as
+    they are. Attention reads the first `kv_extent` positions (default:
+    the whole cache) of the same rows, as row-slice views of the cache;
+    the extent must cover offset + max(seq_lens). The cache is updated in
+    place.
 
     Returns (logits (B, V) float32 at each row's last real token,
              hidden (B, D) pre-norm at the same position)."""
@@ -211,11 +213,11 @@ def slow_prefill(params, cfg: DualARConfig, token_cfg: TokenConfig,
         q, k, v = _project_qkv(h, lp, cfg)
         q = apply_rope_interleaved(q, cos, sin)
         k = apply_rope_interleaved(k, cos, sin)
-        cache.k[l, :, :, offset:offset + n_write] = k[:, :, :n_write].to(cache.k.dtype)
-        cache.v[l, :, :, offset:offset + n_write] = v[:, :, :n_write].to(cache.v.dtype)
+        ck, cv = cache.k[l, slot:slot + b], cache.v[l, slot:slot + b]
+        ck[:, :, offset:offset + n_write] = k[:, :, :n_write].to(cache.k.dtype)
+        cv[:, :, offset:offset + n_write] = v[:, :, :n_write].to(cache.v.dtype)
         attn = prefill_attention(
-            q.contiguous(), cache.k[l, :, :, :e], cache.v[l, :, :, :e],
-            offset, seq_lens, cfg.max_seq_len,
+            q.contiguous(), ck[:, :, :e], cv[:, :, :e], offset, seq_lens, cfg.max_seq_len,
         )
         x = _attn_out_ffn(x, attn, lp, cfg)
 

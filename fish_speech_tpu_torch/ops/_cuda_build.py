@@ -58,6 +58,12 @@ SIGNATURES = {
     # L, D, H, KV, F, C, V, head_ld, depthwise_output, depthwise_wte,
     # window_len, k_eff, rep_enabled, temp, top_p, penalty, eps, stream
     "fs_fast_frame": [_P] * 24 + [_I] * 13 + [_F] * 4 + [_P],
+    # hidden, attn_norm, wqkv, wo, ffn_norm, w1, w3, w2, fast_norm, head,
+    # emb, cos, sin, window, gumbel, temp, top_p, top_k, penalty, is_eos,
+    # tokens, x, qkv, attn, ffn, logits, k_hist, v_hist,
+    # B, L, D, H, KV, F, C, V, head_ld, depthwise_output, depthwise_wte,
+    # window_len, k_dyn, rep_enabled, eps, stream
+    "fs_fast_frame_batched": [_P] * 28 + [_I] * 14 + [_F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -114,14 +114,16 @@ def fused_fast_frame(params, cfg: DualARConfig, sampling: SamplingArgs, hidden,
 def fused_fast_frame_supported(cfg: DualARConfig, params, batch: int) -> bool:
     """Whether `fused_fast_frame` takes these parameters: one row, dense
     (not int8) stacks and an even head dim; on CUDA also the kernels'
-    limits (head dim 64, H * hd == D, widths that are multiples of 8, a
-    codebook of at most 4096 entries)."""
+    limits (bf16, head dim 64, H * hd == D, widths that are multiples of
+    8, a codebook of at most 4096 entries)."""
     if batch != 1 or cfg.head_dim % 2 or not is_dense(params, "fast"):
         return False
-    if params["fast"]["wqkv"].device.type != "cuda":
+    stack = params["fast"]
+    if stack["wqkv"].device.type != "cuda":
         return True
     return (
-        cfg.head_dim == HEAD_DIM
+        all(stack[k].dtype == torch.bfloat16 for k in STACK_KEYS)
+        and cfg.head_dim == HEAD_DIM
         and cfg.n_head * cfg.head_dim == cfg.dim
         and cfg.dim % 8 == 0 and cfg.intermediate_size % 8 == 0
         and max(cfg.dim, cfg.intermediate_size) * 2 <= GEMV_SMEM

@@ -1,0 +1,193 @@
+"""One whole fast (codebook) frame for B <= 32 rows with per-row sampling:
+the CUDA kernel sequence (`csrc/fast_frame_batched.cu`) and its plain
+PyTorch version.
+
+Counterpart of the TPU kernel `fish_speech_tpu/ops/fast_frame_pallas.py::
+fused_fast_frame_batched`: C codebook steps of the fast layers for all
+rows, each followed by the row's repetition penalty, the top-k/top-p
+draw with the row's temp/top_p/top_k/penalty and Gumbel draws indexed by
+rank, the EOS rule and the next step's embedding. As in the batch-1
+frame (`ops/fast_frame.py`), the head product is float32 and unrounded
+and silu sees the unrounded float32 w1 product; the unfused codebook
+loop of `generate/frame.py` rounds both to bf16.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fish_speech_tpu_torch.config import DualARConfig
+from fish_speech_tpu_torch.models.dual_ar import fast_embed, fast_hist_init, fast_step
+from fish_speech_tpu_torch.ops import _cuda_build
+from fish_speech_tpu_torch.ops.fast_frame import MAX_VOCAB, MAX_WINDOW
+from fish_speech_tpu_torch.ops.sampling import (
+    RepPenWindow, RowSampling, sample_top_k_top_p_dynamic)
+from fish_speech_tpu_torch.ops.slow_step import HEAD_DIM, STACK_KEYS, check_dense, is_dense
+
+launches = 0  # kernel-sequence launches since the last reset (set to 0 to reset)
+
+MAX_ROWS = 32  # rows the JAX kernel and this one take
+
+
+def fused_fast_frame_batched_plain(params, cfg: DualARConfig, samp: RowSampling, hidden,
+                                   rp_tokens, gumbel, is_eos, rope, *, rep_enabled: bool,
+                                   return_logits: bool = False):
+    """hidden (B, D) slow hiddens; samp: the rows' knobs; rp_tokens
+    (B, C, W) int32 rep-pen windows (after this frame's push); gumbel
+    (B, C, k_dyn) float32, used by rank; is_eos (B,) bool. Returns the
+    frame's codebook tokens (B, C) int32, all 0 on EOS rows; with
+    return_logits, also each step's head logits (C, B, codebook_size)
+    float32 before the penalty."""
+    check_dense(params, "fast", "fused_fast_frame_batched")
+    b, n_cb = hidden.shape[0], cfg.num_codebooks
+    k_dyn = gumbel.shape[-1]
+    hist = fast_hist_init(cfg, b, hidden.dtype, hidden.device)
+    x = hidden[:, None, :]
+    toks, step_logits = [], []
+    for cb in range(n_cb):
+        logits, hist = fast_step(params, cfg, x, hist, cb, rope, unrounded=True)
+        step_logits.append(logits)
+        if rep_enabled:
+            window = RepPenWindow(tokens=rp_tokens[:, cb], ptr=0)
+            logits = window.penalize_rows(logits, samp.rep_pen)
+        tok = sample_top_k_top_p_dynamic(logits, gumbel[:, cb], temp=samp.temp,
+                                         top_p=samp.top_p, top_k=samp.top_k, k_max=k_dyn)
+        tok = torch.where(is_eos, torch.zeros_like(tok), tok)
+        if cb + 1 < n_cb:
+            x = fast_embed(params, cfg, tok, cb)
+        toks.append(tok)
+    tokens = torch.stack(toks, dim=1).to(torch.int32)
+    return (tokens, torch.stack(step_logits)) if return_logits else tokens
+
+
+def fused_fast_frame_batched(params, cfg: DualARConfig, samp: RowSampling, hidden,
+                             rp_tokens, gumbel, is_eos, rope, *, rep_enabled: bool,
+                             return_logits: bool = False):
+    """Same contract as `fused_fast_frame_batched_plain`. CPU tensors run
+    the plain version; CUDA tensors launch the kernel sequence or raise."""
+    if hidden.device.type == "cpu":
+        return fused_fast_frame_batched_plain(params, cfg, samp, hidden, rp_tokens, gumbel,
+                                              is_eos, rope, rep_enabled=rep_enabled,
+                                              return_logits=return_logits)
+    if hidden.device.type != "cuda":
+        raise ValueError(f"fused_fast_frame_batched: unsupported device {hidden.device}")
+    check_dense(params, "fast", "fused_fast_frame_batched")
+    cos_t, sin_t = rope
+    _check(params, cfg, samp, hidden, rp_tokens, gumbel, is_eos, cos_t, sin_t)
+    lib = _cuda_build.load_library()
+    stack = params["fast"]
+    n_layer, d, qkv = stack["wqkv"].shape
+    f = stack["w1"].shape[2]
+    b, n_cb, vocab, kv = hidden.shape[0], cfg.num_codebooks, cfg.codebook_size, cfg.n_local_heads
+    dev, dt = hidden.device, hidden.dtype
+    tokens = torch.empty((b, n_cb), dtype=torch.int32, device=dev)
+    x_buf = torch.empty((b, d), dtype=dt, device=dev)
+    qkv_buf = torch.empty((b, qkv), dtype=dt, device=dev)
+    attn_buf = torch.empty((b, d), dtype=dt, device=dev)
+    ffn_buf = torch.empty((b, f), dtype=dt, device=dev)
+    logits_buf = torch.empty((n_cb, b, vocab), dtype=torch.float32, device=dev)
+    k_hist = torch.empty((n_layer, b, kv, n_cb, HEAD_DIM), dtype=dt, device=dev)
+    v_hist = torch.empty_like(k_hist)
+    head = params["fast_output"]
+    rc = lib.fs_fast_frame_batched(
+        hidden.data_ptr(), stack["attention_norm"].data_ptr(), stack["wqkv"].data_ptr(),
+        stack["wo"].data_ptr(), stack["ffn_norm"].data_ptr(), stack["w1"].data_ptr(),
+        stack["w3"].data_ptr(), stack["w2"].data_ptr(), params["fast_norm"].data_ptr(),
+        head.data_ptr(), params["fast_embeddings"].data_ptr(),
+        cos_t.data_ptr(), sin_t.data_ptr(), rp_tokens.data_ptr(), gumbel.data_ptr(),
+        samp.temp.data_ptr(), samp.top_p.data_ptr(), samp.top_k.data_ptr(),
+        samp.rep_pen.data_ptr(), is_eos.data_ptr(),
+        tokens.data_ptr(), x_buf.data_ptr(), qkv_buf.data_ptr(), attn_buf.data_ptr(),
+        ffn_buf.data_ptr(), logits_buf.data_ptr(), k_hist.data_ptr(), v_hist.data_ptr(),
+        b, n_layer, d, cfg.n_head, kv, f, n_cb, vocab, head.shape[1],
+        int(cfg.depthwise_output), int(cfg.depthwise_wte), rp_tokens.shape[2],
+        gumbel.shape[2], int(rep_enabled), float(cfg.norm_eps),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _cuda_build.check(rc, "fs_fast_frame_batched")
+    global launches
+    launches += 1
+    return (tokens, logits_buf) if return_logits else tokens
+
+
+def fused_fast_frame_batched_supported(cfg: DualARConfig, params, batch: int,
+                                       dyn_top_k_cap: int = 256) -> bool:
+    """Whether `fused_fast_frame_batched` takes these parameters: the JAX
+    kernel's bounds (1 <= batch <= 32, an even head dim, codebook tiles
+    and depthwise blocks that divide, a top-k cap that is a multiple of
+    128 or covers the codebook) and dense (not int8) stacks; on CUDA also
+    the kernels' limits (bf16, head dim 64, H * hd == D, widths that are
+    multiples of 8, a codebook of at most 4096 entries)."""
+    vocab = cfg.codebook_size
+    if (not 1 <= batch <= MAX_ROWS or cfg.head_dim % 2 or vocab % min(128, vocab)
+            or (dyn_top_k_cap % 128 and dyn_top_k_cap < vocab)
+            or not is_dense(params, "fast")):
+        return False
+    if cfg.num_codebooks > 1 and ((cfg.depthwise_output and vocab % 128)
+                                  or (cfg.depthwise_wte and vocab % 8)):
+        return False
+    stack = params["fast"]
+    if stack["wqkv"].device.type != "cuda":
+        return True
+    return (
+        all(stack[k].dtype == torch.bfloat16 for k in STACK_KEYS)
+        and cfg.head_dim == HEAD_DIM
+        and cfg.n_head * cfg.head_dim == cfg.dim
+        and cfg.dim % 8 == 0 and cfg.intermediate_size % 8 == 0
+        and vocab <= MAX_VOCAB
+    )
+
+
+def _check(params, cfg, samp, hidden, rp_tokens, gumbel, is_eos, cos_t, sin_t):
+    stack = params["fast"]
+    who = "fused_fast_frame_batched"
+    bf16 = {"hidden": hidden, "fast_norm": params["fast_norm"],
+            "fast_output": params["fast_output"],
+            "fast_embeddings": params["fast_embeddings"],
+            **{f"fast.{k}": stack[k] for k in STACK_KEYS}}
+    for name, t in bf16.items():
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{who}: {name} must be bfloat16, got {t.dtype}")
+    typed = {"rp_tokens": (rp_tokens, torch.int32), "gumbel": (gumbel, torch.float32),
+             "is_eos": (is_eos, torch.bool), "cos": (cos_t, torch.float32),
+             "sin": (sin_t, torch.float32), "temp": (samp.temp, torch.float32),
+             "top_p": (samp.top_p, torch.float32), "top_k": (samp.top_k, torch.int32),
+             "rep_pen": (samp.rep_pen, torch.float32)}
+    for name, (t, dtype) in typed.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{who}: {name} must be {dtype}, got {t.dtype}")
+    for name, t in {**bf16, **{k: v[0] for k, v in typed.items()}}.items():
+        if t.device != hidden.device:
+            raise ValueError(f"{who}: {name} is on {t.device}, hidden on {hidden.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{who}: {name} must be contiguous")
+    b = hidden.shape[0]
+    if not fused_fast_frame_batched_supported(cfg, params, b, gumbel.shape[-1]):
+        raise ValueError(
+            f"{who}: the kernel does not take batch {b}, dim {cfg.dim}, heads "
+            f"{cfg.n_head}x{cfg.head_dim}, codebook {cfg.codebook_size}")
+    n_cb, vocab, d = cfg.num_codebooks, cfg.codebook_size, cfg.dim
+    qkv = (cfg.n_head + 2 * cfg.n_local_heads) * cfg.head_dim
+    n_layer, f = cfg.n_fast_layer, cfg.intermediate_size
+    want = {"wqkv": (n_layer, d, qkv), "wo": (n_layer, d, d), "w1": (n_layer, d, f),
+            "w3": (n_layer, d, f), "w2": (n_layer, f, d),
+            "attention_norm": (n_layer, d), "ffn_norm": (n_layer, d)}
+    bad = {k: tuple(stack[k].shape) for k, v in want.items() if tuple(stack[k].shape) != v}
+    if (bad or tuple(hidden.shape) != (b, d)
+            or tuple(params["fast_output"].shape) != (d, cfg.fast_output_size)
+            or params["fast_embeddings"].shape[0] < cfg.fast_vocab_size
+            or params["fast_embeddings"].shape[1] != d
+            or rp_tokens.dim() != 3 or tuple(rp_tokens.shape[:2]) != (b, n_cb)
+            or not 1 <= rp_tokens.shape[2] <= MAX_WINDOW
+            or gumbel.dim() != 3 or tuple(gumbel.shape[:2]) != (b, n_cb)
+            or not 1 <= gumbel.shape[2] <= vocab
+            or tuple(is_eos.shape) != (b,)
+            or any(tuple(t.shape) != (b,) for t in samp)
+            or cos_t.shape[0] < n_cb or tuple(cos_t.shape[1:]) != (HEAD_DIM // 2,)
+            or cos_t.shape != sin_t.shape):
+        raise ValueError(
+            f"{who}: shapes hidden {tuple(hidden.shape)}, fast_output "
+            f"{tuple(params['fast_output'].shape)}, fast_embeddings "
+            f"{tuple(params['fast_embeddings'].shape)}, rp_tokens {tuple(rp_tokens.shape)}, "
+            f"gumbel {tuple(gumbel.shape)}, is_eos {tuple(is_eos.shape)}, sampling "
+            f"{[tuple(t.shape) for t in samp]}, rope {tuple(cos_t.shape)}, stack {bad or 'ok'}")

@@ -115,17 +115,19 @@ def fused_slow_step_supported(cfg: DualARConfig, params, batch: int,
                               cache_len: int = 0) -> bool:
     """Whether `fused_slow_step` takes these parameters at this batch and
     cache length: dense (not int8) stacks and an even head dim; on CUDA
-    also the kernels' limits (head dim 64, H * hd == D, widths that are
-    multiples of 8, batch <= 4, the GEMV's staged rows and the attention
-    scores within shared memory). CPU tensors run the plain version,
-    which takes any batch."""
+    also the kernels' limits (bf16, head dim 64, H * hd == D, widths that
+    are multiples of 8, batch <= 4, the GEMV's staged rows and the
+    attention scores within shared memory). CPU tensors run the plain
+    version, which takes any batch and dtype."""
     if not is_dense(params, "slow") or cfg.head_dim % 2:
         return False
-    if params["slow"]["wqkv"].device.type != "cuda":
+    stack = params["slow"]
+    if stack["wqkv"].device.type != "cuda":
         return True
     s = cache_len or cfg.max_seq_len
     return (
-        cfg.head_dim == HEAD_DIM
+        all(stack[k].dtype == torch.bfloat16 for k in STACK_KEYS)
+        and cfg.head_dim == HEAD_DIM
         and cfg.n_head * cfg.head_dim == cfg.dim
         and cfg.dim % 8 == 0 and cfg.intermediate_size % 8 == 0
         and 1 <= batch <= MAX_BATCH

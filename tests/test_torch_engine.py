@@ -8,6 +8,7 @@ frames. The port's firefly_decode of those codes must match the JAX
 package's PCM within 1e-4 absolute (float32, convolutions summed in
 another order)."""
 
+import dataclasses
 import io
 import wave
 
@@ -25,8 +26,10 @@ from fish_speech_tpu.ops.sampling import SamplingArgs as JaxSampling
 from fish_speech_tpu_torch import config as tcfg
 from fish_speech_tpu_torch.audio.wav import pcm_to_wav_bytes
 from fish_speech_tpu_torch.generate.engine import LMEngine
+from fish_speech_tpu_torch.generate.frame import FrameNoise
 from fish_speech_tpu_torch.io.convert import dual_ar_params_from_numpy, firefly_params_from_numpy
 from fish_speech_tpu_torch.models.codec.firefly import FireflyCodec, init_firefly_params
+from fish_speech_tpu_torch.models.dual_ar import init_dual_ar_params as init_dual_ar_params_t
 from fish_speech_tpu_torch.ops.sampling import SamplingArgs
 
 torch.set_num_threads(1)
@@ -205,3 +208,98 @@ def test_bf16_slice_runs_on_cpu(slice_setup):
     pcm16 = FireflyCodec(to_bf16(fparams), tf, device="cpu").decode(res.tokens)
     assert np.isfinite(pcm16).all()
     np.testing.assert_allclose(pcm16, pcm32, atol=5e-2, rtol=0)
+
+
+# -- Fish <= 1.4 and DualAR at temp 0 -------------------------------------------
+
+LEGACY_TOK = dict(im_end_id=9, pad_id=5, semantic_start_id=5, semantic_end_id=None)
+
+
+class _JaxStaticNoise:
+    """The draws of the JAX static engine's one key chain at temp 0: each
+    frame splits (key, frame key), the frame key splits (rest, semantic
+    key), and Fish <= 1.4 draws its PAD/EOS uniforms from the latter."""
+
+    def __init__(self, seed):
+        self.key = jax.random.PRNGKey(seed)
+
+    def __call__(self, state, sampling, rows):
+        self.key, frame_key = jax.random.split(self.key)
+        _, sem_key = jax.random.split(frame_key)
+        u = jax.random.uniform(sem_key, (len(rows),))
+        return FrameNoise(semantic=torch.from_numpy(np.array(u)), codebooks=None)
+
+
+def _lm_setup(lm):
+    """Fish <= 1.4: a large constant in embedding dim 0 makes the final
+    hidden's dim 0 large and positive, and the PAD column reads it, so
+    p(PAD) is ~0.9 a frame and a stream runs several frames; each stop
+    still rests on the uniform draw. DualAR: the Fish-1.5 layout with
+    the im_end column zeroed."""
+    legacy = lm in ("FISH_1_2", "FISH_1_4")
+    tok = LEGACY_TOK if legacy else TOK
+    jc = jcfg.DualARConfig(**{**KW, "vocab_size": VOCAB})
+    params = jax.jit(init_dual_ar_params, static_argnums=(1, 2))(
+        jax.random.PRNGKey(2), jc, jnp.float32)
+    if legacy:
+        params["embeddings"] = params["embeddings"].at[:, 0].set(10.0)
+        params["output"] = (params["output"].at[:, tok["pad_id"]].set(0.0)
+                            .at[:, tok["im_end_id"]].set(0.0).at[0, tok["pad_id"]].set(0.3))
+    else:
+        params["output"] = params["output"].at[:, tok["im_end_id"]].set(0.0)
+    rng = np.random.default_rng(3)
+    sem = np.full((1, 9), tok["semantic_start_id"]) if legacy else rng.integers(10, 1010, (1, 9))
+    prompt = np.concatenate([sem, rng.integers(0, 1000, size=(2, 9))]).astype(np.int32)
+    return jc, tok, params, prompt
+
+
+@pytest.mark.parametrize("lm", ["FISH_1_2", "FISH_1_4", "DUAL_AR"])
+def test_temp0_codes_follow_the_seed_and_jax(lm):
+    """At temp 0 Fish <= 1.4 still draws PAD or <|im_end|> at random:
+    the draw comes from the engine's generator, so one seed gives one
+    stream (three calls), and on the JAX engine's uniforms the codes are
+    the JAX engine's. DualAR (argmax throughout) likewise."""
+    jc, tok, params, prompt = _lm_setup(lm)
+    sampling = SamplingArgs(temp=0.0, repetition_penalty=1.2)
+    ref_engine = JaxEngine(params, jc, jcfg.TokenConfig(**tok), jcfg.WhichLM[lm],
+                           attention_impl="xla", prefill_impl="xla", slow_impl="xla",
+                           fast_frame_impl="xla", cache_len=64, max_frames=16,
+                           prompt_buckets=(16, 32), dtype=jnp.float32)
+    ref, _ = ref_engine.generate(prompt, max_new_tokens=16,
+                                 sampling=JaxSampling(temp=0.0, repetition_penalty=1.2), seed=7)
+    engine = LMEngine(dual_ar_params_from_numpy(jax.tree.map(np.asarray, params)), tc_of(jc),
+                      tcfg.TokenConfig(**tok), tcfg.WhichLM[lm], cache_len=64, max_frames=16,
+                      prompt_buckets=(16, 32), dtype=torch.float32, device="cpu")
+    runs = [engine.generate(prompt, max_new_tokens=16, sampling=sampling, seed=7)[0]
+            for _ in range(3)]
+    for r in runs[1:]:
+        np.testing.assert_array_equal(r.semantic, runs[0].semantic)
+        np.testing.assert_array_equal(r.tokens, runs[0].tokens)
+    engine._noise = _JaxStaticNoise(7)
+    got, _ = engine.generate(prompt, max_new_tokens=16, sampling=sampling, seed=7)
+    assert ref.frames > 3
+    np.testing.assert_array_equal(got.semantic, ref.semantic)
+    np.testing.assert_array_equal(got.tokens, ref.tokens)
+
+
+def tc_of(jc):
+    return tcfg.DualARConfig(**{f.name: getattr(jc, f.name)
+                                for f in dataclasses.fields(tcfg.DualARConfig)})
+
+
+@pytest.mark.cuda
+def test_cuda_engine_refuses_non_bf16():
+    """On CUDA the kernels take bf16 only; an engine built from float32
+    weights, or with a float32 cache, says so at construction."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = tcfg.DualARConfig(**{**KW, "vocab_size": VOCAB, "n_head": 4, "dim": 256,
+                               "head_dim": 64})
+    for dtype, params_dtype in ((torch.bfloat16, torch.float32),
+                                (torch.float32, torch.bfloat16)):
+        params = init_dual_ar_params_t(cfg, 0, params_dtype, "cpu")
+        with pytest.raises(ValueError, match="bfloat16"):
+            LMEngine(params, cfg, tcfg.TokenConfig(**TOK), tcfg.WhichLM.FISH_1_5,
+                     dtype=dtype, device="cuda")
+    LMEngine(init_dual_ar_params_t(cfg, 0, torch.bfloat16, "cpu"), cfg,
+             tcfg.TokenConfig(**TOK), tcfg.WhichLM.FISH_1_5, device="cuda")

@@ -168,6 +168,17 @@ class _CudaLooking(torch.Tensor):
         return torch.device("cuda", 0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_supported_on_cuda_is_bf16_only(dtype):
+    """On CUDA the kernel takes bf16 stacks only, so `auto` must not pick
+    it for others (before, float32 stacks were "supported" and failed at
+    the first frame)."""
+    tc = tcfg.DualARConfig(**{**KW, "n_head": 4, "dim": 256, "head_dim": 64})
+    params = torch_init(tc, seed=0, dtype=dtype, device="cpu")
+    fast = {k: v.as_subclass(_CudaLooking) for k, v in params["fast"].items()}
+    assert ff.fused_fast_frame_supported(tc, {"fast": fast}, 1) == (dtype == torch.bfloat16)
+
+
 def test_cuda_tensor_never_runs_plain(monkeypatch):
     """A CUDA input launches the kernel or raises: here the parameters
     lie on the CPU, so the wrapper raises before any launch."""

@@ -45,6 +45,15 @@ fused = LMEngine(init_dual_ar_params(cfg, 0, torch.float32, "cpu"), cfg, tok,
                  c.WhichLM.FISH_1_5, prompt_buckets=(8,), device="cpu",
                  slow_impl="fused", fast_frame_impl="fused")
 fused.generate(np.zeros((3, 4), np.int32), max_new_tokens=3, sampling=SamplingArgs(), seed=0)
+from fish_speech_tpu_torch.generate.continuous import ContinuousBatcher
+import fish_speech_tpu_torch.ops.fast_frame_batched
+batched = LMEngine(init_dual_ar_params(cfg, 0, torch.float32, "cpu"), cfg, tok,
+                   c.WhichLM.FISH_1_5, batch_size=2, prompt_buckets=(8,), device="cpu",
+                   dynamic_sampling=True, slow_impl="fused", fast_frame_impl="fused")
+batched.generate_batch([np.zeros((3, 4), np.int32)] * 2, max_new_tokens=3)
+batcher = ContinuousBatcher(batched, SamplingArgs(), horizon=2)
+assert len(list(batcher.submit([np.zeros((3, 4), np.int32)], 0, 3).iter_chunks(timeout=60))) == 1
+batcher.shutdown()
 fc = c.FireflyConfig(head=c.HiFiGANConfig(upsample_rates=(2,), upsample_kernel_sizes=(4,),
                                           resblock_kernel_sizes=(3,),
                                           resblock_dilation_sizes=((1,),), num_mels=8,
@@ -61,7 +70,8 @@ print("FORBIDDEN", bad)
 
 def test_port_imports_no_jax_and_no_jax_package():
     """A fresh interpreter imports the port, runs one CPU generation on
-    the unfused and on the fused decode path and one decode, and holds no
+    the unfused and on the fused decode path, a batched dynamic
+    generation and one batcher request, and one decode, and holds no
     jax* and no fish_speech_tpu module."""
     out = subprocess.run([sys.executable, "-c", _ONE_CPU_STEP], cwd=REPO, capture_output=True,
                          text=True, timeout=300)

@@ -121,6 +121,21 @@ class _CudaLooking(torch.Tensor):
         return torch.device("cuda", 0)
 
 
+def _cuda_looking(stack):
+    return {k: v.as_subclass(_CudaLooking) for k, v in stack.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_supported_on_cuda_is_bf16_only(dtype):
+    """On CUDA the kernel takes bf16 stacks only, so `auto` must not pick
+    it for others (before, float32 stacks were "supported" and failed at
+    the first frame)."""
+    tc = tcfg.DualARConfig(**{**KW, "n_head": 4, "dim": 256, "head_dim": 64})
+    params = torch_init(tc, seed=0, dtype=dtype, device="cpu")
+    assert ss.fused_slow_step_supported(tc, {"slow": _cuda_looking(params["slow"])}, 1,
+                                        CACHE) == (dtype == torch.bfloat16)
+
+
 def test_cuda_tensor_never_runs_plain(monkeypatch):
     """A CUDA input launches the kernel or raises: here the parameters
     lie on the CPU, so the wrapper raises before any launch."""
