@@ -19,7 +19,10 @@ per phase, each with the seconds since start:
               (pos 0, 1, 104, 4095; batch 1 and 2), the fused fast
               frame (32 frames sampled, argmax, no rep-pen, EOS) and the
               batched fast frame (B = 4 and 16: argmax, sampled and
-              mixed rows);
+              mixed rows); then the same three on int8 stacks (the
+              kernels' int8 bodies) at the same positions and batches,
+              held to the plain version's distance to a float32
+              evaluation of the dequantized weights;
   4. main     40-token prompt -> LMEngine.generate at the default
               `auto` decode path (fused slow step + fused fast frame,
               128 frames, temp 0.7 / top_p 0.8 / top_k 256 / rep-pen
@@ -28,6 +31,11 @@ per phase, each with the seconds since start:
               (slow_impl = fast_frame_impl = "xla", decode attention,
               32 frames) with its counts, and one full-width unfused
               decode step through the kernels and the plain versions;
+              then the int8 engine (quantize_int8=True, quantized on
+              the card and checked bit-equal to the CPU quantization)
+              on the `auto` path, 128 frames, with its int8 launch
+              counts, and the bf16/int8 A/B in turns (bf16, int8, int8,
+              bf16);
   5. profile  torch.profiler over 8 decode frames of each path;
   6. serving  continuous batching at the serving configuration (16 rows,
               cache 512, horizon 16, rep-pen window 12, dynamic
@@ -38,7 +46,21 @@ per phase, each with the seconds since start:
               codebook loop (`fast_frame_impl="xla"`) in turns, with
               frames/s, per-request RTF p50/p95 and a profile of 4 decode
               frames of each; each seeded request is run again alone on a
-              fresh batcher and must give the same codes.
+              fresh batcher and must give the same codes; the int8
+              serving engine (the batched frame's int8 body) takes part
+              in the turns (auto, xla, int8, int8, xla, auto), with its
+              own launch counts, profile and seeded requests alone;
+  7. int8     the int8 proxy of bench.py --int8-proxy at full size on the
+              same weights: teacher-forced and free-running agreement of
+              the int8 and bf16 engines, mel-L1 and SNR of the two
+              predictions' PCM against the bf16-vs-float32 vocoder
+              floor, and utils/int8_policy.evaluate's verdict (reported;
+              random weights are not what the criteria are for; no
+              decision file is written).
+
+The kernel launch counts are read around the run of the path that
+launches the kernel: the bf16 kernels in the bf16 runs, the int8 bodies
+(each wrapper's int8_launches) in the int8 runs.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}. Without CUDA, or
@@ -331,11 +353,40 @@ def layer_elems(cfg) -> int:
     return d * qkv + d * d + 3 * d * f + 2 * d
 
 
+def layer_bytes(cfg, int8: bool) -> int:
+    """Bytes of one DualAR layer's weights: bf16, or int8 matmul weights
+    with one bf16 scale per output column (the norms stay bf16)."""
+    if not int8:
+        return 2 * layer_elems(cfg)
+    d, f = cfg.dim, cfg.intermediate_size
+    qkv = (cfg.n_head + 2 * cfg.n_local_heads) * cfg.head_dim
+    return (layer_elems(cfg) - 2 * d) + 2 * (qkv + d + 2 * f + d) + 2 * 2 * d
+
+
+def is_int8(engine) -> bool:
+    from fish_speech_tpu_torch.ops.quant import is_quantized
+
+    return is_quantized(engine.params["slow"]["wqkv"])
+
+
 def float32_copy(tree):
-    """The parameter tree with every tensor in float32 (the reference)."""
+    """The parameter tree with every tensor in float32 and int8 weights
+    dequantized (the reference)."""
+    from fish_speech_tpu_torch.ops.quant import dequantize_weight, is_quantized
+
+    if is_quantized(tree):
+        return dequantize_weight(tree)
     if isinstance(tree, dict):
         return {k: float32_copy(v) for k, v in tree.items()}
     return tree.float()
+
+
+def first_layers(stack, n: int):
+    """The first n layers of a stacked (dense or int8) parameter dict."""
+    from fish_speech_tpu_torch.ops.quant import is_quantized
+
+    return {k: ({"q": v["q"][:n], "s": v["s"][:n]} if is_quantized(v) else v[:n])
+            for k, v in stack.items()}
 
 
 def as_accurate(name: str, got, plain, ref):
@@ -352,6 +403,8 @@ def check_slow_step(torch, engine, params32, main_pos: int):
     from fish_speech_tpu_torch.ops import slow_step as ss
 
     cfg, params, rope = engine.cfg, engine.params, engine.rope
+    int8 = is_int8(engine)
+    name = "fused_slow_step_int8" if int8 else "fused_slow_step"
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(99)
@@ -373,7 +426,7 @@ def check_slow_step(torch, engine, params32, main_pos: int):
         pl_l, pl_h = ss.fused_slow_step_plain(params, cfg, x0, pos, ckp, cvp, rope)
         ref_l, ref_h = ss.fused_slow_step_plain(params32, cfg, x0.float(), pos, ck32, cv32, rope)
         torch.cuda.synchronize()
-        what = f"fused_slow_step pos={positions}"
+        what = f"{name} pos={positions}"
         check(bool(torch.isfinite(got_l).all()), f"{what}: non-finite logits")
         rows, p = torch.arange(len(positions), device=dev), pos.long()
         errs = {
@@ -384,10 +437,10 @@ def check_slow_step(torch, engine, params32, main_pos: int):
             "new v rows": as_accurate(f"{what} new v rows", cv[:, rows, :, p], cvp[:, rows, :, p],
                                       cv32[:, rows, :, p]),
         }
-        for name, got_c, pl_c in (("k", ck, ckp), ("v", cv, cvp)):
+        for kv_name, got_c, pl_c in (("k", ck, ckp), ("v", cv, cvp)):
             rest = got_c.clone()
             rest[:, rows, :, p] = pl_c[:, rows, :, p]
-            check(torch.equal(rest, pl_c), f"{what}: {name} cache rows other than pos changed")
+            check(torch.equal(rest, pl_c), f"{what}: {kv_name} cache rows other than pos changed")
         vs_plain = float((got_l - pl_l).abs().max())
         h_ulp, _ = within_ulp(torch, got_h, pl_h)
         argmax = [got_l.argmax(-1).tolist(), pl_l.argmax(-1).tolist(), ref_l.argmax(-1).tolist()]
@@ -401,7 +454,7 @@ def check_slow_step(torch, engine, params32, main_pos: int):
 
     # how far one rounding flip spreads: one layer, kernel vs plain
     one = dataclasses.replace(cfg, n_layer=1)
-    one_params = dict(params, slow={k: v[:1] for k, v in params["slow"].items()})
+    one_params = dict(params, slow=first_layers(params["slow"], 1))
     spread = []
     for _ in range(4):
         x0, pos, ck, cv = inputs((main_pos,))
@@ -409,7 +462,7 @@ def check_slow_step(torch, engine, params32, main_pos: int):
         got_h = ss.fused_slow_step(one_params, one, x0, pos, ck, cv, rope)[1]
         pl_h = ss.fused_slow_step_plain(one_params, one, x0, pos, ck.clone(), cv.clone(), rope)[1]
         spread.append(int((got_h != pl_h).sum()))
-    log("kernels", f"fused_slow_step, one layer at pos {main_pos}, 4 inputs: hidden elements "
+    log("kernels", f"{name}, one layer at pos {main_pos}, 4 inputs: hidden elements "
         f"differing from the plain version {spread} of {cfg.dim}")
 
     x0, pos, ck, cv = inputs((main_pos,))
@@ -421,35 +474,42 @@ def check_slow_step(torch, engine, params32, main_pos: int):
         calls=3, replays=3)
     d, w = cfg.dim, params["output"].shape[1]
     weights = n_layer * layer_elems(cfg) + d + d * w
-    # bytes: weights, x0, pos, the rope rows and K/V rows 0..pos-1 read
-    # once; the new K/V rows, logits and hidden written once
-    nbytes = (2 * weights + 2 * d + 4 + 4 * hd + 2 * n_layer * 2 * kv * main_pos * hd
-              + 2 * n_layer * 2 * kv * hd + 4 * w + 2 * d)
+    # bytes: weights (int8 ones with their scales), x0, pos, the rope rows
+    # and K/V rows 0..pos-1 read once; the new K/V rows, logits and hidden
+    # written once
+    nbytes = (n_layer * layer_bytes(cfg, int8) + 2 * (d + d * w) + 2 * d + 4 + 4 * hd
+              + 2 * n_layer * 2 * kv * main_pos * hd + 2 * n_layer * 2 * kv * hd + 4 * w + 2 * d)
     flops = 2 * (weights - (2 * n_layer + 1) * d) + n_layer * 4 * cfg.n_head * (main_pos + 1) * hd
     bound_ms, bound_by = bound(nbytes, flops)
-    log("kernels", f"fused_slow_step B=1 pos={main_pos}: kernel {ms:.4f} ms (eager call "
+    log("kernels", f"{name} B=1 pos={main_pos}: kernel {ms:.4f} ms (eager call "
         f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, "
         f"{nbytes / 1e6:.1f} MB)")
     return {
-        "name": "fused_slow_step", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "fish_speech_tpu_torch/csrc/slow_step.cu",
-        "replaces": "fish_speech_tpu/ops/slow_step_pallas.py:447",
+        "replaces": "fish_speech_tpu/ops/slow_step_pallas.py:" + ("152" if int8 else "447"),
         "max_abs_err": worst["vs_plain"],
         "err_vs_float32": {k: list(v) for k, v in worst.items() if k != "vs_plain"},
         "ms": ms, "kernel_ms": ms, "eager_call_ms": call_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "shape": f"x0 (1,{d}), {n_layer} layers, head ({d},{w}), cache "
-                 f"({n_layer},1,{kv},{s},{hd}) bf16, pos {main_pos}",
+        "shape": f"x0 (1,{d}), {n_layer} layers ({'int8' if int8 else 'bf16'}), head "
+                 f"({d},{w}), cache ({n_layer},1,{kv},{s},{hd}) bf16, pos {main_pos}",
     }
 
 
 def exact_fast_params(torch, params, cfg):
     """Fast-frame parameters whose every sum is exact: zero layer
-    weights (each layer is then the identity on x) and one-hot embedding
-    rows; the head stays."""
+    weights (each layer is then the identity on x; int8 ones quantize to
+    q = 0, s = bf16(1e-8)) and one-hot embedding rows; the head stays."""
+    from fish_speech_tpu_torch.ops.quant import is_quantized, quantize_weight
+
+    def zero(v):
+        if is_quantized(v):
+            return quantize_weight(torch.zeros_like(v["q"], dtype=torch.bfloat16))
+        return torch.zeros_like(v)
+
     out = dict(params)
-    out["fast"] = {k: (v if k.endswith("norm") else torch.zeros_like(v))
-                   for k, v in params["fast"].items()}
+    out["fast"] = {k: (v if k.endswith("norm") else zero(v)) for k, v in params["fast"].items()}
     emb = torch.zeros_like(params["fast_embeddings"])
     rows = torch.arange(emb.shape[0], device=emb.device)
     emb[rows, rows % cfg.dim] = 1
@@ -462,6 +522,8 @@ def check_fast_frame(torch, engine, params32):
     from fish_speech_tpu_torch.ops.sampling import SamplingArgs, gumbel_noise, top_k_width
 
     cfg, params, rope = engine.cfg, engine.params, engine.rope
+    int8 = is_int8(engine)
+    name = "fused_fast_frame_int8" if int8 else "fused_fast_frame"
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(77)
@@ -490,7 +552,7 @@ def check_fast_frame(torch, engine, params32):
              ("no rep-pen", SamplingArgs(temp=0.7, top_p=0.8, top_k=256,
                                          repetition_penalty=1.0), False, False, 8),
              ("is_eos", sampled, True, True, 4))
-    for name, sampling, rep, eos, frames in cases:
+    for case, sampling, rep, eos, frames in cases:
         n_diff = n_tied = 0
         for _ in range(frames):
             hidden, window, gumbel, is_eos = inputs(sampling, eos, one_hot=True)
@@ -499,14 +561,14 @@ def check_fast_frame(torch, engine, params32):
             ref, ref_l = ff.fused_fast_frame_plain(exact, cfg, sampling, hidden, window, gumbel,
                                                    is_eos, rope, rep_enabled=rep,
                                                    return_logits=True)
-            check(torch.equal(got_l, ref_l), f"fused_fast_frame {name}: exact logits differ")
+            check(torch.equal(got_l, ref_l), f"{name} {case}: exact logits differ")
             n_diff += int((got != ref).sum())
             n_tied += sum(vocab - len(torch.unique(row)) for row in ref_l)
             if eos:
-                check(not bool(got.any()), "fused_fast_frame is_eos: tokens are not all 0")
-        check(n_diff == 0, f"fused_fast_frame {name}: {n_diff} of {frames * n_cb} tokens "
+                check(not bool(got.any()), f"{name} is_eos: tokens are not all 0")
+        check(n_diff == 0, f"{name} {case}: {n_diff} of {frames * n_cb} tokens "
               f"differ from the plain version")
-        log("kernels", f"fused_fast_frame exact inputs, {name} ({sampling}, rep_enabled={rep}): "
+        log("kernels", f"{name} exact inputs, {case} ({sampling}, rep_enabled={rep}): "
             f"{frames * n_cb} tokens over {frames} frames equal to the plain version "
             f"(logits bit-equal, {n_tied} tied logit values)")
 
@@ -530,9 +592,9 @@ def check_fast_frame(torch, engine, params32):
         err_p = max(err_p, float((lp[:n] - lr[:n]).abs().max()))
         vs_plain = max(vs_plain, float((lk[:n] - lp[:n]).abs().max()))
     check(err_k <= ACCURACY_FACTOR * err_p + 1e-6,
-          f"fused_fast_frame step logits: {err_k:.4e} from the float32 evaluation, plain "
+          f"{name} step logits: {err_k:.4e} from the float32 evaluation, plain "
           f"version {err_p:.4e}")
-    log("kernels", f"fused_fast_frame full weights, argmax, {FAST_FRAMES} frames: step logits "
+    log("kernels", f"{name} full weights, argmax, {FAST_FRAMES} frames: step logits "
         f"over {steps} steps, max abs distance to the float32 evaluation kernel {err_k:.4f} | "
         f"plain {err_p:.4f}, kernel vs plain {vs_plain:.4f}; tokens equal to the plain "
         f"version {same_tokens} of {FAST_FRAMES * n_cb}")
@@ -549,7 +611,7 @@ def check_fast_frame(torch, engine, params32):
                                        rep_enabled=True)
         same_kp += int((tk == tp).sum())
         same_pr += int((tp == tr).sum())
-    log("kernels", f"fused_fast_frame full weights, sampled, 8 frames: tokens equal kernel vs "
+    log("kernels", f"{name} full weights, sampled, 8 frames: tokens equal kernel vs "
         f"plain {same_kp} of {8 * n_cb}, plain vs float32 evaluation {same_pr} of {8 * n_cb}")
 
     hidden, window, gumbel, is_eos = inputs(sampled)
@@ -563,28 +625,30 @@ def check_fast_frame(torch, engine, params32):
         calls=2, replays=3)
     n_layer, k_eff = cfg.n_fast_layer, gumbel.shape[1]
     weights = n_layer * layer_elems(cfg) + d + d * vocab
-    # read once: the weights and head (bf16), hidden, the C-1 embedding
-    # rows gathered, windows, noise, is_eos; written: the C tokens.
-    # The re-read floor streams the weights and head at every step.
-    once = 2 * weights + 2 * d + 2 * d * (n_cb - 1) + 4 * n_cb * 16 + 4 * n_cb * k_eff + 1 + 4 * n_cb
-    reread = once + 2 * (n_cb - 1) * weights
+    wbytes = n_layer * layer_bytes(cfg, int8) + 2 * (d + d * vocab)
+    # read once: the weights (int8 ones with their scales) and head,
+    # hidden, the C-1 embedding rows gathered, windows, noise, is_eos;
+    # written: the C tokens. The re-read floor streams the weights and
+    # head at every step.
+    once = wbytes + 2 * d + 2 * d * (n_cb - 1) + 4 * n_cb * 16 + 4 * n_cb * k_eff + 1 + 4 * n_cb
+    reread = once + (n_cb - 1) * wbytes
     flops = n_cb * 2 * (weights - (2 * n_layer + 1) * d)
     bound_ms, bound_by = bound(once, flops)
     reread_ms, _ = bound(reread, flops)
-    log("kernels", f"fused_fast_frame ({n_cb} steps x {n_layer} layers): kernel {ms:.4f} ms "
+    log("kernels", f"{name} ({n_cb} steps x {n_layer} layers): kernel {ms:.4f} ms "
         f"(eager call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
         f"({bound_by}, read once, {once / 1e6:.1f} MB), re-read floor {reread_ms:.6f} ms "
         f"({reread / 1e6:.1f} MB)")
     return {
-        "name": "fused_fast_frame", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "fish_speech_tpu_torch/csrc/fast_frame.cu",
-        "replaces": "fish_speech_tpu/ops/fast_frame_pallas.py:495",
+        "replaces": "fish_speech_tpu/ops/fast_frame_pallas.py:" + ("127" if int8 else "495"),
         "max_abs_err": vs_plain, "err_vs_float32": [err_k, err_p],
         "ms": ms, "kernel_ms": ms, "eager_call_ms": call_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "bound_reread_ms": reread_ms, "library_ms": None,
-        "shape": f"hidden (1,{d}), {n_cb} codebooks x {n_layer} layers, vocab {vocab}, "
-                 f"k_eff {k_eff}, window 16, bf16",
+        "shape": f"hidden (1,{d}), {n_cb} codebooks x {n_layer} layers "
+                 f"({'int8' if int8 else 'bf16'}), vocab {vocab}, k_eff {k_eff}, window 16",
     }
 
 
@@ -624,6 +688,8 @@ def check_fast_frame_batched(torch, engine, params32):
     from fish_speech_tpu_torch.ops import fast_frame_batched as fb
 
     cfg, params, rope = engine.cfg, engine.params, engine.rope
+    int8 = is_int8(engine)
+    name = "fused_fast_frame_batched_int8" if int8 else "fused_fast_frame_batched"
     gen = torch.Generator(device=torch.device("cuda"))
     gen.manual_seed(55)
     n_cb, vocab, d, b = cfg.num_codebooks, cfg.codebook_size, cfg.dim, engine.batch_size
@@ -640,15 +706,14 @@ def check_fast_frame_batched(torch, engine, params32):
                                                          return_logits=True)
                 ref, ref_l = fb.fused_fast_frame_batched_plain(exact, *args, rep_enabled=True,
                                                                return_logits=True)
-                check(torch.equal(got_l, ref_l),
-                      f"fused_fast_frame_batched B={rows} {mode}: exact logits differ")
+                check(torch.equal(got_l, ref_l), f"{name} B={rows} {mode}: exact logits differ")
                 n_diff = int((got != ref).sum())
-                check(n_diff == 0, f"fused_fast_frame_batched B={rows} {mode}: {n_diff} of "
+                check(n_diff == 0, f"{name} B={rows} {mode}: {n_diff} of "
                       f"{rows * n_cb} tokens differ from the plain version")
                 if mode == "mixed":
-                    check(not bool(got[2].any()), "fused_fast_frame_batched: EOS row not all 0")
+                    check(not bool(got[2].any()), f"{name}: EOS row not all 0")
                 n_tied += sum(vocab - len(torch.unique(r)) for r in ref_l.reshape(-1, vocab))
-            log("kernels", f"fused_fast_frame_batched exact inputs, B={rows}, {mode} rows: "
+            log("kernels", f"{name} exact inputs, B={rows}, {mode} rows: "
                 f"{4 * rows * n_cb} tokens over 4 frames equal to the plain version (step "
                 f"logits bit-equal, {n_tied} tied logit values)")
 
@@ -676,9 +741,9 @@ def check_fast_frame_batched(torch, engine, params32):
             err_p = max(err_p, float((lp[:n, r] - lr[:n, r]).abs().max()))
             vs_plain = max(vs_plain, float((lk[:n, r] - lp[:n, r]).abs().max()))
     check(err_k <= ACCURACY_FACTOR * err_p + 1e-6,
-          f"fused_fast_frame_batched step logits: {err_k:.4e} from the float32 evaluation, "
+          f"{name} step logits: {err_k:.4e} from the float32 evaluation, "
           f"plain version {err_p:.4e}")
-    log("kernels", f"fused_fast_frame_batched full weights, B={b} argmax, 4 frames: step "
+    log("kernels", f"{name} full weights, B={b} argmax, 4 frames: step "
         f"logits over {steps} row-steps, max abs distance to the float32 evaluation kernel "
         f"{err_k:.4f} | plain {err_p:.4f}, kernel vs plain {vs_plain:.4f}; tokens equal to the "
         f"plain version {same} of {4 * b * n_cb}")
@@ -694,31 +759,32 @@ def check_fast_frame_batched(torch, engine, params32):
         calls=2, replays=3)
     n_layer, h, hd = cfg.n_fast_layer, cfg.n_head, cfg.head_dim
     weights = n_layer * layer_elems(cfg) + d + d * vocab
-    # read once: the weights and head (bf16); per row the hidden, the C-1
-    # embedding rows gathered, its windows, draws, knobs and EOS flag;
-    # written: the C tokens of each row. The re-read floor streams the
-    # weights and head at every step.
+    wbytes = n_layer * layer_bytes(cfg, int8) + 2 * (d + d * vocab)
+    # read once: the weights (int8 ones with their scales) and head; per
+    # row the hidden, the C-1 embedding rows gathered, its windows, draws,
+    # knobs and EOS flag; written: the C tokens of each row. The re-read
+    # floor streams the weights and head at every step.
     per_row = 2 * d + 2 * d * (n_cb - 1) + 4 * n_cb * 12 + 4 * n_cb * k_dyn + 4 * 4 + 1 + 4 * n_cb
-    once = 2 * weights + b * per_row
-    reread = once + 2 * (n_cb - 1) * weights
+    once = wbytes + b * per_row
+    reread = once + (n_cb - 1) * wbytes
     attn = 4 * h * hd * n_cb * (n_cb + 1) // 2 * n_layer
     flops = b * (n_cb * 2 * (weights - (2 * n_layer + 1) * d) + attn)
     bound_ms, bound_by = bound(once, flops)
     reread_ms, _ = bound(reread, flops)
-    log("kernels", f"fused_fast_frame_batched B={b} ({n_cb} steps x {n_layer} layers): kernel "
+    log("kernels", f"{name} B={b} ({n_cb} steps x {n_layer} layers): kernel "
         f"{ms:.4f} ms (eager call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
         f"{bound_ms:.6f} ms ({bound_by}, read once, {once / 1e6:.1f} MB), re-read floor "
         f"{reread_ms:.6f} ms ({reread / 1e6:.1f} MB)")
     return {
-        "name": "fused_fast_frame_batched", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "fish_speech_tpu_torch/csrc/fast_frame_batched.cu",
-        "replaces": "fish_speech_tpu/ops/fast_frame_pallas.py:1007",
+        "replaces": "fish_speech_tpu/ops/fast_frame_pallas.py:" + ("532" if int8 else "1007"),
         "max_abs_err": vs_plain, "err_vs_float32": [err_k, err_p],
         "ms": ms, "kernel_ms": ms, "eager_call_ms": call_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "bound_reread_ms": reread_ms, "library_ms": None,
-        "shape": f"hidden ({b},{d}), {n_cb} codebooks x {n_layer} layers, vocab {vocab}, "
-                 f"k_dyn {k_dyn}, window 12, bf16",
+        "shape": f"hidden ({b},{d}), {n_cb} codebooks x {n_layer} layers "
+                 f"({'int8' if int8 else 'bf16'}), vocab {vocab}, k_dyn {k_dyn}, window 12",
     }
 
 
@@ -730,9 +796,11 @@ def check_fast_frame_batched(torch, engine, params32):
 def build_models(torch):
     """Fish-1.5 engines on random bf16 weights (seed 0), sharing the
     weights: the default `auto` batch-1 engine (fused decode path), the
-    unfused one, and the two 16-row serving engines (`auto`: the batched
-    fast-frame kernel; `xla`: the unfused codebook loop); the Firefly-1.5
-    codec (seed 1)."""
+    unfused one, the two 16-row serving engines (`auto`: the batched
+    fast-frame kernel; `xla`: the unfused codebook loop), and the int8
+    batch-1 and serving `auto` engines (quantize_int8=True, quantized on
+    the card); the Firefly-1.5 codec (seed 1). Returns the engines, the
+    codec and the full (un-gathered) parameters for the int8 proxy."""
     from fish_speech_tpu_torch.config import (
         DualARConfig, FireflyConfig, FishVersion, TokenConfig, WhichLM)
     from fish_speech_tpu_torch.generate.engine import LMEngine
@@ -753,31 +821,70 @@ def build_models(torch):
                      prompt_buckets=(64,))
     unfused = LMEngine(params, cfg, tok, WhichLM.FISH_1_5, max_frames=N_FRAMES_UNFUSED,
                        prompt_buckets=(64,), slow_impl="xla", fast_frame_impl="xla")
-    serving = {impl: LMEngine(params, cfg, tok, WhichLM.FISH_1_5, batch_size=SERVE_ROWS,
-                              cache_len=SERVE_CACHE, max_frames=N_FRAMES, prompt_buckets=(64,),
-                              rep_pen_window=BATCHED_REP_PEN_WINDOW, dynamic_sampling=True,
-                              fast_frame_impl=impl)
+    serve_kw = dict(batch_size=SERVE_ROWS, cache_len=SERVE_CACHE, max_frames=N_FRAMES,
+                    prompt_buckets=(64,), rep_pen_window=BATCHED_REP_PEN_WINDOW,
+                    dynamic_sampling=True)
+    serving = {impl: LMEngine(params, cfg, tok, WhichLM.FISH_1_5, fast_frame_impl=impl,
+                              **serve_kw)
                for impl in ("auto", "xla")}
-    del params
+    t1 = time.perf_counter()
+    int8 = {"batch1": LMEngine(params, cfg, tok, WhichLM.FISH_1_5, max_frames=N_FRAMES,
+                               prompt_buckets=(64,), quantize_int8=True),
+            "serving": LMEngine(params, cfg, tok, WhichLM.FISH_1_5, quantize_int8=True,
+                                **serve_kw)}
+    torch.cuda.synchronize()
+    quant_s = (time.perf_counter() - t1) / 2
     check(fused.use_fused_slow and fused.use_fused_fast,
           "the default engine on CUDA at batch 1 is not on the fused path")
     check(not (unfused.use_fused_slow or unfused.use_fused_fast), "the xla engine is fused")
     check(serving["auto"].use_fused_fast and not serving["auto"].use_fused_slow,
           "the serving engine's auto path is not the batched fast frame + unfused slow step")
     check(not serving["xla"].use_fused_fast, "the xla serving engine is fused")
+    check(int8["batch1"].use_fused_slow and int8["batch1"].use_fused_fast,
+          "the int8 engine on CUDA at batch 1 is not on the fused path")
+    check(int8["serving"].use_fused_fast and not int8["serving"].use_fused_slow,
+          "the int8 serving engine's auto path is not the batched fast frame")
     codec = FireflyCodec(codec_params, codec_cfg)
     torch.cuda.synchronize()
     log("main", f"Fish-1.5 bf16 params (seed 0) + Firefly-1.5 bf16 codec (seed 1) on the card "
         f"in {time.perf_counter() - t0:.1f}s; cache_len {fused.cache_len}; engines: auto "
         f"(fused slow step + fused fast frame), xla (unfused), and {SERVE_ROWS}-row serving "
-        f"engines (cache {SERVE_CACHE}) auto (batched fast frame) and xla")
-    return fused, unfused, serving, codec, tok, codec_cfg
+        f"engines (cache {SERVE_CACHE}) auto (batched fast frame) and xla; int8 batch-1 and "
+        f"serving auto engines, {quant_s:.2f}s each to quantize on the card")
+    check_card_quantization(torch, params, int8["batch1"])
+    return fused, unfused, serving, int8, codec, tok, codec_cfg, params
+
+
+def check_card_quantization(torch, params, engine) -> None:
+    """The int8 engine's stacks, quantized on the card, are bit-equal to
+    the CPU quantization of the same bf16 weights."""
+    from fish_speech_tpu_torch.ops.quant import QUANT_KEYS, quantize_weight
+
+    n = 0
+    for stack in ("slow", "fast"):
+        for k in QUANT_KEYS:
+            ref = quantize_weight(params[stack][k].cpu())
+            got = engine.params[stack][k]
+            check(torch.equal(got["q"].cpu(), ref["q"]) and torch.equal(got["s"].cpu(), ref["s"]),
+                  f"int8 {stack}.{k}: the card's quantization differs from the CPU's")
+            n += ref["q"].numel()
+    log("main", f"int8 quantization on the card: q and s of the {2 * len(QUANT_KEYS)} slow and "
+        f"fast matmul stacks ({n} weights) bit-equal to the CPU quantization")
+
+
+def main_prompt(np, cfg):
+    """The 40-token prompt of the batch-1 runs (text frames)."""
+    rng = np.random.default_rng(0)
+    return np.concatenate([
+        rng.integers(1000, 90000, size=(1, PROMPT_LEN)),
+        np.zeros((cfg.num_codebooks, PROMPT_LEN), np.int64),
+    ]).astype(np.int32)
 
 
 def run_path(torch, np, engine, codec, tok, codec_cfg, n_frames: int, label: str):
     """Generate n_frames from the 40-token prompt, vocode, check codes,
-    PCM and WAV; returns the launch counts of the run, its state and
-    frames/s."""
+    PCM and WAV; returns the launch counts of the run (all, and those of
+    the int8 bodies), its state and its sampling."""
     from fish_speech_tpu_torch.audio.wav import pcm_to_wav_bytes
     from fish_speech_tpu_torch.ops import decode_attention as da
     from fish_speech_tpu_torch.ops import fast_frame as ff
@@ -786,11 +893,7 @@ def run_path(torch, np, engine, codec, tok, codec_cfg, n_frames: int, label: str
     from fish_speech_tpu_torch.ops.sampling import SamplingArgs
 
     cfg = engine.cfg
-    rng = np.random.default_rng(0)
-    prompt = np.concatenate([
-        rng.integers(1000, 90000, size=(1, PROMPT_LEN)),
-        np.zeros((cfg.num_codebooks, PROMPT_LEN), np.int64),
-    ]).astype(np.int32)
+    prompt = main_prompt(np, cfg)
     sampling = SamplingArgs(**SAMPLING)
 
     t0 = time.perf_counter()
@@ -804,10 +907,12 @@ def run_path(torch, np, engine, codec, tok, codec_cfg, n_frames: int, label: str
             "fused_fast_frame": ff}
     for m in mods.values():
         m.launches = 0
+        m.int8_launches = 0
     t0 = time.perf_counter()
     res, state = engine.generate(prompt, max_new_tokens=n_frames, sampling=sampling, seed=1)
     lm_s = time.perf_counter() - t0
     launches = {name: m.launches for name, m in mods.items()}
+    int8 = {name: getattr(m, "int8_launches", 0) for name, m in mods.items()}
     t1 = time.perf_counter()
     pcm = codec.decode(res.tokens)
     torch.cuda.synchronize()
@@ -829,29 +934,32 @@ def run_path(torch, np, engine, codec, tok, codec_cfg, n_frames: int, label: str
     audio_s = n_frames / codec_cfg.frame_rate
     log("main", f"{label}: codes {codes.shape} in range; pcm {pcm.shape} finite, "
         f"|pcm|max={float(np.abs(pcm).max()):.3e}; WAV {len(wav)} bytes parses; "
-        f"launches {json.dumps(launches)}")
+        f"launches {json.dumps(launches)}, of them int8 bodies "
+        f"{json.dumps({k: v for k, v in int8.items() if k in ('fused_slow_step', 'fused_fast_frame')})}")
     log("main", f"{label}: lm {lm_s:.3f}s (prefill {res.prefill_s:.3f}s, decode "
         f"{res.decode_s:.3f}s) = {n_frames / lm_s:.1f} frames/s "
         f"({(n_frames - 1) / res.decode_s:.1f} decode frames/s); vocode {voc_s:.3f}s; "
         f"audio {audio_s:.3f}s; RTF {(lm_s + voc_s) / audio_s:.4f}")
-    return launches, state, sampling
+    return launches, int8, state, sampling, (n_frames / lm_s, (lm_s + voc_s) / audio_s)
 
 
 def run_main_path(torch, np, fused, unfused, codec, tok, codec_cfg):
     """Both decode paths, each with its launch counts read around its own
-    run; returns {kernel: launches on the path that runs it}."""
+    run; returns {kernel: launches on the path that runs it} and the
+    `auto` run's (frames/s, RTF)."""
     n_layer = fused.cfg.n_layer
     steps = N_FRAMES - 1
-    lf, state, sampling = run_path(torch, np, fused, codec, tok, codec_cfg, N_FRAMES,
-                                   "auto (fused)")
+    lf, l8, state, sampling, stats = run_path(torch, np, fused, codec, tok, codec_cfg,
+                                              N_FRAMES, "auto (fused)")
     want = {"fused_slow_step": steps, "fused_fast_frame": steps,
             "prefill_attention": n_layer, "decode_attention": 0}
-    check(lf == want, f"auto path launches {lf}, expected {want}")
+    check(lf == want and not any(l8.values()), f"auto path launches {lf} (int8 {l8}), "
+          f"expected {want}")
     profile_decode(torch, fused, state, sampling, "auto (fused)")
 
     steps_u = N_FRAMES_UNFUSED - 1
-    lu, state_u, _ = run_path(torch, np, unfused, codec, tok, codec_cfg, N_FRAMES_UNFUSED,
-                              "xla (unfused)")
+    lu, _, state_u, _, _ = run_path(torch, np, unfused, codec, tok, codec_cfg,
+                                    N_FRAMES_UNFUSED, "xla (unfused)")
     want = {"fused_slow_step": 0, "fused_fast_frame": 0,
             "prefill_attention": n_layer, "decode_attention": n_layer * steps_u}
     check(lu == want, f"xla path launches {lu}, expected {want}")
@@ -859,7 +967,31 @@ def run_main_path(torch, np, fused, unfused, codec, tok, codec_cfg):
     profile_decode(torch, unfused, state_u, sampling, "xla (unfused)")
     return {"fused_slow_step": lf["fused_slow_step"], "fused_fast_frame": lf["fused_fast_frame"],
             "prefill_attention": lf["prefill_attention"],
-            "decode_attention": lu["decode_attention"]}
+            "decode_attention": lu["decode_attention"]}, stats
+
+
+def run_int8_main_path(torch, np, engine, fused, bf16_first, codec, tok, codec_cfg):
+    """The int8 engine's `auto` path, 128 frames: the int8 bodies of the
+    fused slow step and fast frame; returns their launch counts. With
+    one more int8 run and one more bf16 run, the A/B against the bf16
+    `auto` engine is in turns: bf16 (bf16_first, the main path's run),
+    int8, int8, bf16."""
+    n_layer = engine.cfg.n_layer
+    steps = N_FRAMES - 1
+    lf, l8, state, sampling, first = run_path(torch, np, engine, codec, tok, codec_cfg,
+                                              N_FRAMES, "int8 auto (fused)")
+    want = {"fused_slow_step": steps, "fused_fast_frame": steps,
+            "prefill_attention": n_layer, "decode_attention": 0}
+    check(lf == want and l8["fused_slow_step"] == steps and l8["fused_fast_frame"] == steps,
+          f"int8 auto path launches {lf} (int8 bodies {l8}), expected {want}, all int8")
+    again = run_path(torch, np, engine, codec, tok, codec_cfg, N_FRAMES, "int8 auto run 2")[4]
+    bf16 = run_path(torch, np, fused, codec, tok, codec_cfg, N_FRAMES, "auto (fused) run 2")[4]
+    log("main", f"batch-1 A/B in turns (bf16, int8, int8, bf16), means of two runs: int8 "
+        f"{(first[0] + again[0]) / 2:.1f} frames/s, RTF {(first[1] + again[1]) / 2:.4f}; bf16 "
+        f"{(bf16_first[0] + bf16[0]) / 2:.1f} frames/s, RTF {(bf16_first[1] + bf16[1]) / 2:.4f}")
+    profile_decode(torch, engine, state, sampling, "int8 auto (fused)")
+    return {"fused_slow_step_int8": l8["fused_slow_step"],
+            "fused_fast_frame_int8": l8["fused_fast_frame"]}
 
 
 def profile_decode(torch, engine, state, sampling, label: str, frames: int = 8) -> None:
@@ -1039,9 +1171,13 @@ def profile_serving(torch, np, engine, label: str, frames: int = 4) -> None:
 
 
 def run_serving(torch, np, serving, codec, tok, codec_cfg):
-    """The serving phase: the launch counts of the `auto` run, the A/B in
-    turns (auto, xla, xla, auto), the seeded requests alone, profiles.
-    Returns {kernel: launches on the first auto run}."""
+    """The serving phase: serving["auto"] (bf16, the batched kernel),
+    serving["xla"] (bf16, the unfused codebook loop) and serving["int8"]
+    (the batched kernel's int8 body) in turns: auto, xla, int8, int8, xla,
+    auto; the launch counts of the first auto run and of the first int8
+    run; each seeded request alone on a fresh batcher of auto and of
+    int8; profiles. Returns {kernel: launches}: the bf16 kernels' on the
+    first auto run, the int8 body's on the first int8 run."""
     from fish_speech_tpu_torch.generate.continuous import ContinuousBatcher
     from fish_speech_tpu_torch.ops import decode_attention as da
     from fish_speech_tpu_torch.ops import fast_frame as ff
@@ -1053,43 +1189,112 @@ def run_serving(torch, np, serving, codec, tok, codec_cfg):
     reqs = serving_requests(np, serving["auto"].cfg)
     mods = {"decode_attention": da, "prefill_attention": pa, "fused_slow_step": ss,
             "fused_fast_frame": ff, "fused_fast_frame_batched": fb}
-    runs = {"auto": [], "xla": []}
-    launches = None
-    for impl in ("auto", "xla", "xla", "auto"):
-        counting = launches is None
+    runs = {"auto": [], "xla": [], "int8": []}
+    first, counted = {}, {}
+    for impl in ("auto", "xla", "int8", "int8", "xla", "auto"):
+        counting = impl != "xla" and impl not in counted
         if counting:
             for m in mods.values():
                 m.launches = 0
+                m.int8_launches = 0
         res, fps, p50 = serving_run(torch, np, serving[impl], codec, tok, codec_cfg, reqs,
                                     f"{impl} run {len(runs[impl]) + 1}")
         if counting:
             launches = {name: m.launches for name, m in mods.items()}
-            log("serving", f"auto run 1 launches (warm-up request included) "
-                f"{json.dumps(launches)}")
+            int8 = {name: getattr(m, "int8_launches", 0) for name, m in mods.items()}
+            log("serving", f"{impl} run 1 launches (warm-up request included) "
+                f"{json.dumps(launches)}, of them int8 bodies {int8['fused_fast_frame_batched']}")
+            want_int8 = launches["fused_fast_frame_batched"] if impl == "int8" else 0
             check(launches["fused_fast_frame_batched"] > 0 and launches["decode_attention"] > 0
-                  and launches["fused_fast_frame"] == 0 and launches["fused_slow_step"] == 0,
-                  f"the serving auto path launched {launches}")
-            first = res
+                  and launches["fused_fast_frame"] == 0 and launches["fused_slow_step"] == 0
+                  and int8["fused_fast_frame_batched"] == want_int8,
+                  f"the serving {impl} path launched {launches} (int8 bodies {int8})")
+            counted[impl] = launches if impl == "auto" else {
+                "fused_fast_frame_batched_int8": int8["fused_fast_frame_batched"]}
+            first[impl] = res
         runs[impl].append((fps, p50))
     mean = {k: (sum(f for f, _ in v) / len(v), sum(p for _, p in v) / len(v))
             for k, v in runs.items()}
     log("serving", f"A/B (two runs each, in turns): auto (batched kernel) {mean['auto'][0]:.1f} "
         f"frames/s, RTF p50 {mean['auto'][1]:.4f}; xla (unfused codebook loop) "
-        f"{mean['xla'][0]:.1f} frames/s, RTF p50 {mean['xla'][1]:.4f}")
+        f"{mean['xla'][0]:.1f} frames/s, RTF p50 {mean['xla'][1]:.4f}; int8 auto "
+        f"{mean['int8'][0]:.1f} frames/s, RTF p50 {mean['int8'][1]:.4f}")
 
-    batcher = ContinuousBatcher(serving["auto"], SamplingArgs(**SAMPLING), horizon=SERVE_HORIZON)
-    try:
-        for i in SERVE_SEEDED:
-            alone = serve(torch, np, batcher, codec, [reqs[i]])[0][0]
-            check(np.array_equal(alone, first[i][0]),
-                  f"serving: seeded request {i} gives other codes alone than among 19 others")
-    finally:
-        batcher.shutdown()
-    log("serving", f"seeded requests {list(SERVE_SEEDED)}: the same codes alone on a fresh "
-        f"batcher as among {SERVE_REQUESTS - 1} co-tenants")
-    for impl in ("auto", "xla"):
+    for impl in ("auto", "int8"):
+        batcher = ContinuousBatcher(serving[impl], SamplingArgs(**SAMPLING),
+                                    horizon=SERVE_HORIZON)
+        try:
+            for i in SERVE_SEEDED:
+                alone = serve(torch, np, batcher, codec, [reqs[i]])[0][0]
+                check(np.array_equal(alone, first[impl][i][0]),
+                      f"serving {impl}: seeded request {i} gives other codes alone than "
+                      f"among 19 others")
+        finally:
+            batcher.shutdown()
+        log("serving", f"{impl}: seeded requests {list(SERVE_SEEDED)}: the same codes alone on "
+            f"a fresh batcher as among {SERVE_REQUESTS - 1} co-tenants")
+    for impl in ("auto", "xla", "int8"):
         profile_serving(torch, np, serving[impl], impl)
-    return launches
+    return {**counted["auto"], **counted["int8"]}
+
+
+# --------------------------------------------------------------------------
+# Phase 7: the int8 proxy
+# --------------------------------------------------------------------------
+
+
+def run_int8_proxy(torch, np, engine, engine8, params, codec, codec_cfg) -> None:
+    """bench.py::bench_int8_proxy at full size on the same random weights:
+    the bf16 and the int8 engine generate 128 frames at argmax; both
+    parameter sets score the bf16 trajectory teacher-forced; the two
+    sets of predicted codes are vocoded by the bf16 codec, and their
+    mel-L1 is set against the bf16-vs-float32 vocoder floor on the same
+    codes. The verdict of int8_policy.evaluate is reported; no decision
+    file is written."""
+    from fish_speech_tpu_torch.models.codec.firefly import FireflyCodec, init_firefly_params
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs
+    from fish_speech_tpu_torch.utils import int8_policy
+    from fish_speech_tpu_torch.utils.quality import (
+        mel_l1_distance, pcm_metrics, teacher_forced_agreement, teacher_forced_predictions)
+
+    t0 = time.perf_counter()
+    cfg, tok = engine.cfg, engine.token_cfg
+    sampling = SamplingArgs(temp=0.0, top_p=1.0, top_k=1, repetition_penalty=1.0)
+    prompt = main_prompt(np, cfg)
+    gen = {name: e.generate(prompt, max_new_tokens=N_FRAMES, sampling=sampling, seed=0)[0]
+           for name, e in (("bf16", engine), ("int8", engine8))}
+    n_free = min(r.tokens.shape[-1] for r in gen.values())
+    free = float(np.mean(gen["bf16"].tokens[:, :n_free] == gen["int8"].tokens[:, :n_free]))
+    seq = np.concatenate([prompt, np.concatenate([gen["bf16"].semantic[None],
+                                                  gen["bf16"].tokens])], axis=1)
+    params8 = dict(params, slow=engine8.params["slow"], fast=engine8.params["fast"])
+    preds = teacher_forced_predictions(params, cfg, tok, seq)
+    preds8 = teacher_forced_predictions(params8, cfg, tok, seq)
+    tf = teacher_forced_agreement(preds, preds8)
+    mask = preds[2]
+    codes = preds[1][mask].T.astype(np.int32)
+    codes8 = preds8[1][mask].T.astype(np.int32)
+    check(codes.shape == codes8.shape == (cfg.num_codebooks, N_FRAMES),
+          f"int8 proxy: teacher-forced codes {codes.shape} / {codes8.shape}")
+    pcm, pcm8 = codec.decode(codes)[0], codec.decode(codes8)[0]
+    m = min(len(pcm), len(pcm8))
+    mel = mel_l1_distance(pcm[:m], pcm8[:m], codec_cfg.spec_transform)
+    wave_m = pcm_metrics(pcm[:m], pcm8[:m])
+    codec32 = FireflyCodec(init_firefly_params(codec_cfg, seed=1, dtype=torch.float32,
+                                               device="cuda"), codec_cfg)
+    pcm32 = codec32.decode(codes)[0]
+    del codec32
+    floor = mel_l1_distance(pcm[:len(pcm32)], pcm32[:len(pcm)], codec_cfg.spec_transform)
+    passed = int8_policy.evaluate(tf["combined"], mel, floor, wave_m["snr_db"])
+    check(all(np.isfinite(v) for v in (tf["combined"], free, mel, floor)),
+          "int8 proxy: a non-finite metric")
+    log("int8", f"proxy: teacher-forced agreement {tf['combined']:.4f} over {tf['n']:.0f} "
+        f"predictions (slow {tf['slow']:.4f}, fast {tf['fast']:.4f}); free-running "
+        f"{free:.4f} over {n_free} frames; mel-L1 {mel:.6f} against the bf16-vs-float32 "
+        f"vocoder floor {floor:.6f}; SNR {wave_m['snr_db']:.2f} dB (|pcm|max "
+        f"{float(np.abs(pcm).max()):.3e}); int8_policy.evaluate -> "
+        f"{'PASS' if passed else 'FAIL'} (criteria {int8_policy.criteria_dict()}; random "
+        f"weights, reported only) in {time.perf_counter() - t0:.1f}s")
 
 
 def log_ptxas(nvcc_log: str) -> None:
@@ -1097,13 +1302,17 @@ def log_ptxas(nvcc_log: str) -> None:
     once, with the sources that compile it."""
     units, lines = {}, {}
     unit, kernel = "?", "?"
+    types = {"a": "int8", "13__nv_bfloat16": "bf16"}
     for line in nvcc_log.splitlines():
         if line.startswith("== "):
             unit = line[3:].strip()
             continue
-        entry = re.search(r"Compiling entry function '.*?([a-z_]+_kernel)(I(?:Li-?\d+E)+)?", line)
+        entry = re.search(
+            r"Compiling entry function '.*?([a-z_]+_kernel)(I(?:Li-?\d+E|13__nv_bfloat16|a)+E)?",
+            line)
         if entry:
-            args = re.findall(r"Li(-?\d+)E", entry.group(2) or "")
+            args = re.findall(r"Li(-?\d+)E|(13__nv_bfloat16|a)", entry.group(2) or "")
+            args = [n or types[t] for n, t in args]
             kernel = entry.group(1) + (f"<{','.join(args)}>" if args else "")
             units.setdefault(kernel, []).append(unit)
         elif "registers" in line:
@@ -1155,16 +1364,21 @@ def main() -> int:
         check_decode_kernel(torch, cfg, cache_len, main_pos=main_pos),
         check_prefill_kernel(torch, cfg, cache_len, main_s_pad=64, main_len=PROMPT_LEN),
     ]
-    fused, unfused, serving, codec, tok, codec_cfg = build_models(torch)
+    fused, unfused, serving, int8, codec, tok, codec_cfg, params = build_models(torch)
     with torch.inference_mode():
-        params32 = float32_copy(fused.params)
-        kernels += [check_slow_step(torch, fused, params32, main_pos),
-                    check_fast_frame(torch, fused, params32),
-                    check_fast_frame_batched(torch, serving["auto"], params32)]
-        del params32
-    launches = run_main_path(torch, np, fused, unfused, codec, tok, codec_cfg)
-    served = run_serving(torch, np, serving, codec, tok, codec_cfg)
-    launches["fused_fast_frame_batched"] = served["fused_fast_frame_batched"]
+        for batch1, rows in ((fused, serving["auto"]), (int8["batch1"], int8["serving"])):
+            params32 = float32_copy(batch1.params)
+            kernels += [check_slow_step(torch, batch1, params32, main_pos),
+                        check_fast_frame(torch, batch1, params32),
+                        check_fast_frame_batched(torch, rows, params32)]
+            del params32
+    launches, bf16_stats = run_main_path(torch, np, fused, unfused, codec, tok, codec_cfg)
+    launches.update(run_int8_main_path(torch, np, int8["batch1"], fused, bf16_stats, codec, tok,
+                                       codec_cfg))
+    served = run_serving(torch, np, dict(serving, int8=int8["serving"]), codec, tok, codec_cfg)
+    for name in ("fused_fast_frame_batched", "fused_fast_frame_batched_int8"):
+        launches[name] = served[name]
+    run_int8_proxy(torch, np, fused, int8["batch1"], params, codec, codec_cfg)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path")

@@ -127,10 +127,12 @@ class TokenConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SpecTransformConfig:
-    """Sample rate and hop of the codec's audio (the mel front end of
-    the encoder is not ported yet)."""
+    """The codec's audio: sample rate, and the log-mel front end's
+    framing (`audio/mel.py`)."""
 
     sample_rate: int = 44100
+    n_mels: int = 160
+    n_fft: int = 2048
     hop_length: int = 512
 
 

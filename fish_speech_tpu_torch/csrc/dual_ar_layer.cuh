@@ -1,6 +1,6 @@
 // Device code shared by the fused slow step (slow_step.cu) and the fused
-// fast frame (fast_frame.cu): the kernels one DualAR decode layer is made
-// of at batch B <= 4, for Hopper (sm_90a).
+// fast frames (fast_frame.cu, fast_frame_batched.cu): the kernels one
+// DualAR decode layer is made of at batch B <= 4, for Hopper (sm_90a).
 //
 // One layer is five launches on the caller's stream:
 //   1. gemv<kQkv>      RMSNorm(x) @ wqkv            -> qkv  (B, QKV) bf16
@@ -12,20 +12,30 @@
 //   5. gemv<kResidual> x += g @ w2
 // and a stack ends with gemv<kHead>: RMSNorm(x) @ head -> f32 logits.
 //
+// The layer weights are bf16, or int8 with one bf16 scale per output
+// column (ops/quant.py; the TPU kernels' quantized bodies,
+// slow_step_pallas.py:152-174, 198-207, 313-323 and fast_frame_pallas.py:
+// 127-151, 174-186, 284-294). The GEMVs are templated on the weight type;
+// the head is always bf16.
+//
 // What bounds these kernels: bytes. At B <= 4 a GEMV does 2 * B flops per
-// weight element (2 bytes), ~1000x below the ratio at which the tensor
-// cores become the limit, so the time is the weight stream.
+// weight element (2 bytes in bf16, 1 in int8), ~1000x below the ratio at
+// which the tensor cores become the limit, so the time is the weight
+// stream.
 //
 // Design:
 // * Weights are stored (in, out) and applied as x @ W, so a GEMV reads
-//   rows of W. Threads walk the out dimension: in the 8-wide path a pair
-//   of threads covers a 16-column tile (32 bytes, one sector, per row)
-//   and the block's 128 thread pairs split the in dimension; the partial
-//   sums are added in a fixed order (deterministic). Four rows are loaded
-//   before they are used, to keep loads in flight.
+//   rows of W. Threads walk the out dimension in 16-column tiles (one
+//   tile per block); each thread loads 16 bytes of a row at a time: in
+//   bf16 a pair of threads covers the tile's 32 bytes (one sector), in
+//   int8 one thread covers its 16 bytes. The block's threads split the in
+//   dimension; the partial sums are added in a fixed order
+//   (deterministic). Four rows are loaded before they are used, to keep
+//   loads in flight.
 // * The input rows (B x K bf16) sit in shared memory; the norm modes
 //   normalise them there, each block on its own (the 2 KB row is read
-//   from L2 by every block, instead of a separate norm launch).
+//   from L2 by every block, instead of a separate norm launch). The
+//   partial sums reuse the same shared memory once the products are done.
 // * Every bf16 rounding sits where the TPU kernels
 //   (fish_speech_tpu/ops/slow_step_pallas.py:229-334,
 //   fast_frame_pallas.py:200-301) and the port's plain versions put it:
@@ -34,6 +44,10 @@
 //   product, then bf16, times the bf16 w3 product. Products that the
 //   plain version computes in separate PyTorch ops use the _rn
 //   intrinsics, so nvcc does not fuse them into one FMA.
+// * An int8 product is the TPU kernels' _wdot: each weight converts to
+//   float exactly, the f32 sum rounds to bf16, is multiplied by the
+//   column's bf16 scale in f32 and rounds to bf16 again. silu sees that
+//   rescaled bf16 w1 product, not an unrounded one.
 // * Attention runs one block per (row, query head). Rows 0..pos-1 are
 //   read from the cache; row pos is taken from shared memory, so the
 //   blocks of one KV group never read the row that the group's first
@@ -47,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -69,12 +85,13 @@ __device__ __forceinline__ float round_bf16(float v) {
 
 enum GemvMode { kQkv = 0, kResidual = 1, kSwiglu = 2, kHead = 3 };
 
-// VEC consecutive bf16 weights of one row, loaded in one instruction.
-template <int VEC>
+// VEC consecutive weights of one row, loaded in one instruction and
+// converted to float.
+template <typename W, int VEC>
 struct WRow;
 
 template <>
-struct WRow<8> {
+struct WRow<bf16, 8> {
   static constexpr int TILE = 16;  // columns per block
   uint4 raw;
   __device__ __forceinline__ void load(const bf16* p) {
@@ -92,31 +109,68 @@ struct WRow<8> {
 };
 
 template <>
-struct WRow<1> {
+struct WRow<bf16, 1> {
   static constexpr int TILE = 32;
   bf16 raw;
   __device__ __forceinline__ void load(const bf16* p) { raw = __ldg(p); }
   __device__ __forceinline__ void to_float(float (&f)[1]) const { f[0] = bf(raw); }
 };
 
-// out[b, n] = epilogue(sum_k in'[b, k] * w[k, n]) for n in [0, N), where
-// in' is RMSNorm(in) * norm_w (rounded to bf16) for the norm modes and in
-// otherwise. in: (NB, K) contiguous bf16; w: K rows of stride ldw.
+// 16 int8 weights (16 bytes, the whole tile of one row). Each converts to
+// float exactly without an int-to-float instruction: the byte, offset to
+// 0..255, becomes the low mantissa bits of 2^23, and 2^23 + 128 is
+// subtracted again.
+template <>
+struct WRow<int8_t, 16> {
+  static constexpr int TILE = 16;
+  uint4 raw;
+  __device__ __forceinline__ void load(const int8_t* p) {
+    raw = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void to_float(float (&f)[16]) const {
+    const unsigned words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const unsigned u = words[i] ^ 0x80808080u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        f[4 * i + e] = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + e)),
+                                 8388736.f);
+    }
+  }
+};
+
+// The stack product of column n as the TPU kernels' _wdot gives it: the
+// f32 sum y for bf16 weights; bf16(bf16(y) * s[n]) for int8 weights.
+template <typename W>
+__device__ __forceinline__ float stack_product(float y, const bf16* __restrict__ scale, int n) {
+  if constexpr (std::is_same<W, int8_t>::value)
+    return round_bf16(__fmul_rn(round_bf16(y), bf(scale[n])));
+  else
+    return y;
+}
+
+// out[b, n] = epilogue(p(sum_k in'[b, k] * w[k, n])) for n in [0, N),
+// where in' is RMSNorm(in) * norm_w (rounded to bf16) for the norm modes
+// and in otherwise, and p is stack_product (with scale, int8 only). in:
+// (NB, K) contiguous bf16; w: K rows of stride ldw.
 //   kQkv:      out (NB, N) bf16 = bf16(y)
 //   kResidual: out (NB, N) bf16 += bf16(y), in place (the residual x)
 //   kSwiglu:   out (NB, N) bf16 = bf16(bf16(silu(y)) * bf16(y_b)), y_b
-//              the same product with w_b
-//   kHead:     out_f32 (NB, N) = y, unrounded
-// grid: ceil(N / TILE) blocks; dynamic shared memory: NB * K bf16.
-template <int MODE, int VEC, int NB>
+//              the same product with w_b (and scale_b)
+//   kHead:     out_f32 (NB, N) = y, unrounded (bf16 weights only)
+// grid: ceil(N / TILE) blocks; dynamic shared memory: the larger of
+// NB * K bf16 (the input rows) and KS * TILE floats (the partial sums).
+template <int MODE, typename W, int VEC, int NB>
 __global__ void __launch_bounds__(THREADS)
     gemv_kernel(const bf16* __restrict__ in, const bf16* __restrict__ norm_w,
-                const bf16* __restrict__ w, const bf16* __restrict__ w_b,
+                const W* __restrict__ w, const W* __restrict__ w_b,
+                const bf16* __restrict__ scale, const bf16* __restrict__ scale_b,
                 int K, int N, int ldw, float eps, bf16* out,
                 float* __restrict__ out_f32) {
   constexpr bool NORM = MODE != kResidual;
   constexpr int NA = MODE == kSwiglu ? 2 : 1;  // weight matrices
-  constexpr int TILE = WRow<VEC>::TILE;
+  constexpr int TILE = WRow<W, VEC>::TILE;
   constexpr int CT = TILE / VEC;      // threads across a tile
   constexpr int KS = THREADS / CT;    // slices of the in dimension
   constexpr int TPC = THREADS / TILE; // reducing threads per column
@@ -124,8 +178,8 @@ __global__ void __launch_bounds__(THREADS)
   constexpr int U = 4;                // rows loaded ahead
 
   extern __shared__ __align__(16) unsigned char gemv_smem[];
-  bf16* in_s = reinterpret_cast<bf16*>(gemv_smem);  // [NB][K]
-  __shared__ float red[KS * TILE];
+  bf16* in_s = reinterpret_cast<bf16*>(gemv_smem);  // [NB][K], steps 1-2
+  float* red = reinterpret_cast<float*>(gemv_smem); // [KS][TILE], step 3
   __shared__ float nred[NWARPS][NB];
   __shared__ float inv_rms[NB];
 
@@ -177,12 +231,12 @@ __global__ void __launch_bounds__(THREADS)
       for (int v = 0; v < VEC; ++v) acc[a][b][v] = 0.f;
 
   if (n0 < N) {
-    const bf16* wp[NA];
+    const W* wp[NA];
     wp[0] = w + n0;
     if (NA == 2) wp[NA - 1] = w_b + n0;
     int k = ks;
     for (; k + (U - 1) * KS < K; k += U * KS) {
-      WRow<VEC> r[NA][U];
+      WRow<W, VEC> r[NA][U];
 #pragma unroll
       for (int u = 0; u < U; ++u)
 #pragma unroll
@@ -205,7 +259,7 @@ __global__ void __launch_bounds__(THREADS)
     for (; k < K; k += KS) {
 #pragma unroll
       for (int a = 0; a < NA; ++a) {
-        WRow<VEC> r;
+        WRow<W, VEC> r;
         r.load(wp[a] + (size_t)k * ldw);
         float wf[VEC];
         r.to_float(wf);
@@ -219,7 +273,8 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 
-  // 3. add the KS partial sums of each column in a fixed order
+  // 3. add the KS partial sums of each column in a fixed order (the first
+  //    barrier also ends every read of in_s, whose memory red reuses)
   const int col = tid / TPC;
   const int part = tid % TPC;
   float y[NA][NB];
@@ -246,17 +301,17 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int b = 0; b < NB; ++b) {
     const size_t o = (size_t)b * N + n;
+    const float y0 = stack_product<W>(y[0][b], scale, n);
     if (MODE == kQkv) {
-      out[o] = __float2bfloat16(y[0][b]);
+      out[o] = __float2bfloat16(y0);
     } else if (MODE == kResidual) {
-      out[o] = __float2bfloat16(__fadd_rn(bf(out[o]), round_bf16(y[0][b])));
+      out[o] = __float2bfloat16(__fadd_rn(bf(out[o]), round_bf16(y0)));
     } else if (MODE == kSwiglu) {
-      const float z = y[0][b];
-      const float gate = round_bf16(__fdiv_rn(z, __fadd_rn(1.f, expf(-z))));
-      const float up = round_bf16(y[NA - 1][b]);
+      const float gate = round_bf16(__fdiv_rn(y0, __fadd_rn(1.f, expf(-y0))));
+      const float up = round_bf16(stack_product<W>(y[NA - 1][b], scale_b, n));
       out[o] = __float2bfloat16(__fmul_rn(gate, up));
     } else {
-      out_f32[o] = y[0][b];
+      out_f32[o] = y0;
     }
   }
 }
@@ -265,25 +320,30 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <int MODE, int VEC>
+template <int MODE, typename W, int VEC>
 cudaError_t launch_gemv_vec(int nb, const bf16* in, const bf16* norm_w,
-                            const bf16* w, const bf16* w_b, int K, int N,
-                            int ldw, float eps, bf16* out, float* out_f32,
+                            const W* w, const W* w_b, const bf16* scale,
+                            const bf16* scale_b, int K, int N, int ldw,
+                            float eps, bf16* out, float* out_f32,
                             cudaStream_t st) {
-  const int grid = (N + WRow<VEC>::TILE - 1) / WRow<VEC>::TILE;
-  const size_t smem = (size_t)nb * K * sizeof(bf16);
+  constexpr int TILE = WRow<W, VEC>::TILE;
+  constexpr int KS = THREADS / (TILE / VEC);
+  const int grid = (N + TILE - 1) / TILE;
+  const size_t in_bytes = (size_t)nb * K * sizeof(bf16);
+  const size_t red_bytes = (size_t)KS * TILE * sizeof(float);
+  const size_t smem = in_bytes > red_bytes ? in_bytes : red_bytes;
   switch (nb) {
     case 1:
-      gemv_kernel<MODE, VEC, 1><<<grid, THREADS, smem, st>>>(in, norm_w, w, w_b, K, N, ldw, eps, out, out_f32);
+      gemv_kernel<MODE, W, VEC, 1><<<grid, THREADS, smem, st>>>(in, norm_w, w, w_b, scale, scale_b, K, N, ldw, eps, out, out_f32);
       break;
     case 2:
-      gemv_kernel<MODE, VEC, 2><<<grid, THREADS, smem, st>>>(in, norm_w, w, w_b, K, N, ldw, eps, out, out_f32);
+      gemv_kernel<MODE, W, VEC, 2><<<grid, THREADS, smem, st>>>(in, norm_w, w, w_b, scale, scale_b, K, N, ldw, eps, out, out_f32);
       break;
     case 3:
-      gemv_kernel<MODE, VEC, 3><<<grid, THREADS, smem, st>>>(in, norm_w, w, w_b, K, N, ldw, eps, out, out_f32);
+      gemv_kernel<MODE, W, VEC, 3><<<grid, THREADS, smem, st>>>(in, norm_w, w, w_b, scale, scale_b, K, N, ldw, eps, out, out_f32);
       break;
     case 4:
-      gemv_kernel<MODE, VEC, 4><<<grid, THREADS, smem, st>>>(in, norm_w, w, w_b, K, N, ldw, eps, out, out_f32);
+      gemv_kernel<MODE, W, VEC, 4><<<grid, THREADS, smem, st>>>(in, norm_w, w, w_b, scale, scale_b, K, N, ldw, eps, out, out_f32);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -291,19 +351,68 @@ cudaError_t launch_gemv_vec(int nb, const bf16* in, const bf16* norm_w,
   return cudaGetLastError();
 }
 
-// The 8-wide path needs 16-byte aligned rows; the head of the slow stack
-// (W = 1025 gathered columns) takes the 1-wide path.
-template <int MODE>
-cudaError_t launch_gemv(int nb, const bf16* in, const bf16* norm_w,
-                        const bf16* w, const bf16* w_b, int K, int N, int ldw,
-                        float eps, bf16* out, float* out_f32, cudaStream_t st) {
-  const bool vec8 = N % 8 == 0 && ldw % 8 == 0 && aligned16(w) &&
-                    (w_b == nullptr || aligned16(w_b));
-  if (vec8)
-    return launch_gemv_vec<MODE, 8>(nb, in, norm_w, w, w_b, K, N, ldw, eps, out, out_f32, st);
-  if constexpr (MODE == kHead)
-    return launch_gemv_vec<MODE, 1>(nb, in, norm_w, w, w_b, K, N, ldw, eps, out, out_f32, st);
+// Each thread loads 16 bytes of a row (8 bf16 or 16 int8 weights), so
+// rows must be 16-byte aligned; the head of the slow stack (W = 1025
+// gathered bf16 columns) takes the 1-wide path.
+template <int MODE, typename W>
+cudaError_t launch_gemv(int nb, const bf16* in, const bf16* norm_w, const W* w,
+                        const W* w_b, const bf16* scale, const bf16* scale_b,
+                        int K, int N, int ldw, float eps, bf16* out,
+                        float* out_f32, cudaStream_t st) {
+  constexpr int VEC = 16 / sizeof(W);
+  const bool vec = N % VEC == 0 && ldw % VEC == 0 && aligned16(w) &&
+                   (w_b == nullptr || aligned16(w_b));
+  if (vec)
+    return launch_gemv_vec<MODE, W, VEC>(nb, in, norm_w, w, w_b, scale, scale_b, K, N, ldw, eps, out, out_f32, st);
+  if constexpr (MODE == kHead && std::is_same<W, bf16>::value)
+    return launch_gemv_vec<MODE, W, 1>(nb, in, norm_w, w, w_b, scale, scale_b, K, N, ldw, eps, out, out_f32, st);
   return cudaErrorInvalidValue;  // the wrappers check the other widths
+}
+
+// The bf16 head: RMSNorm(x) @ head -> f32 logits, unrounded.
+inline cudaError_t launch_head(int nb, const bf16* x, const bf16* norm_w, const bf16* head,
+                               int K, int N, int ldw, float eps, float* logits,
+                               cudaStream_t st) {
+  return launch_gemv<kHead, bf16>(nb, x, norm_w, head, nullptr, nullptr, nullptr, K, N, ldw,
+                                  eps, nullptr, logits, st);
+}
+
+// A layer stack: norms (L, D) bf16; weights (L, in, out) of type W;
+// scales (L, 1, out) bf16 for int8 weights, null for bf16 ones.
+template <typename W>
+struct Stack {
+  const bf16* attn_norm;
+  const bf16* ffn_norm;
+  const W* wqkv;
+  const W* wo;
+  const W* w1;
+  const W* w3;
+  const W* w2;
+  const bf16* s_qkv;
+  const bf16* s_o;
+  const bf16* s_1;
+  const bf16* s_3;
+  const bf16* s_2;
+
+  // Layer l of a stack of width D, QKV and F: the same fields, offset.
+  Stack layer(int l, int D, int QKV, int F) const {
+    const size_t L = (size_t)l;
+    auto sc = [L](const bf16* s, int n) { return s ? s + L * n : nullptr; };
+    return {attn_norm + L * D, ffn_norm + L * D,
+            wqkv + L * D * QKV, wo + L * D * D, w1 + L * D * F, w3 + L * D * F, w2 + L * F * D,
+            sc(s_qkv, QKV), sc(s_o, D), sc(s_1, F), sc(s_3, F), sc(s_2, D)};
+  }
+};
+
+// The C entries' stack arguments: norms, the five weights in the order
+// wqkv, wo, w1, w3, w2 and their five scales (null for bf16).
+template <typename W>
+Stack<W> make_stack(const void* attn_norm, const void* ffn_norm, const void* const* wts,
+                    const void* const* scales) {
+  auto b = [](const void* p) { return static_cast<const bf16*>(p); };
+  auto q = [](const void* p) { return static_cast<const W*>(p); };
+  return {b(attn_norm), b(ffn_norm), q(wts[0]), q(wts[1]), q(wts[2]), q(wts[3]), q(wts[4]),
+          b(scales[0]), b(scales[1]), b(scales[2]), b(scales[3]), b(scales[4])};
 }
 
 // ---------------------------------------------------------------------------
@@ -478,28 +587,26 @@ inline cudaError_t launch_rope_attention(const bf16* qkv, const float* cos_t,
 }
 
 // One decode layer (the five launches above) on rows x (B, D), updated in
-// place. Weights of the layer: wqkv (D, QKV), wo (H*HDIM, D), w1/w3
-// (D, F), w2 (F, D), norms (D,). Scratch: qkv (B, QKV), attn (B, D),
-// ffn (B, F).
-inline cudaError_t run_layer(bf16* x, const bf16* attn_norm, const bf16* wqkv,
-                             const bf16* wo, const bf16* ffn_norm,
-                             const bf16* w1, const bf16* w3, const bf16* w2,
-                             const float* cos_t, const float* sin_t,
-                             const int* pos_arr, int pos_const, bf16* ck,
-                             bf16* cv, int layer, bf16* qkv, bf16* attn,
-                             bf16* ffn, int B, int D, int H, int KV, int F,
-                             int S, float eps, cudaStream_t st) {
+// place, with layer lw of a stack (Stack::layer): wqkv (D, QKV), wo
+// (H*HDIM, D), w1/w3 (D, F), w2 (F, D), norms (D,). Scratch: qkv
+// (B, QKV), attn (B, D), ffn (B, F).
+template <typename W>
+cudaError_t run_layer(bf16* x, const Stack<W>& lw, const float* cos_t,
+                      const float* sin_t, const int* pos_arr, int pos_const,
+                      bf16* ck, bf16* cv, int layer, bf16* qkv, bf16* attn,
+                      bf16* ffn, int B, int D, int H, int KV, int F, int S,
+                      float eps, cudaStream_t st) {
   const int QKV = (H + 2 * KV) * HDIM;
   cudaError_t err;
-  err = launch_gemv<kQkv>(B, x, attn_norm, wqkv, nullptr, D, QKV, QKV, eps, qkv, nullptr, st);
+  err = launch_gemv<kQkv, W>(B, x, lw.attn_norm, lw.wqkv, nullptr, lw.s_qkv, nullptr, D, QKV, QKV, eps, qkv, nullptr, st);
   if (err != cudaSuccess) return err;
   err = launch_rope_attention(qkv, cos_t, sin_t, pos_arr, pos_const, ck, cv, attn, B, H, KV, S, layer, st);
   if (err != cudaSuccess) return err;
-  err = launch_gemv<kResidual>(B, attn, nullptr, wo, nullptr, H * HDIM, D, D, eps, x, nullptr, st);
+  err = launch_gemv<kResidual, W>(B, attn, nullptr, lw.wo, nullptr, lw.s_o, nullptr, H * HDIM, D, D, eps, x, nullptr, st);
   if (err != cudaSuccess) return err;
-  err = launch_gemv<kSwiglu>(B, x, ffn_norm, w1, w3, D, F, F, eps, ffn, nullptr, st);
+  err = launch_gemv<kSwiglu, W>(B, x, lw.ffn_norm, lw.w1, lw.w3, lw.s_1, lw.s_3, D, F, F, eps, ffn, nullptr, st);
   if (err != cudaSuccess) return err;
-  return launch_gemv<kResidual>(B, ffn, nullptr, w2, nullptr, F, D, D, eps, x, nullptr, st);
+  return launch_gemv<kResidual, W>(B, ffn, nullptr, lw.w2, nullptr, lw.s_2, nullptr, F, D, D, eps, x, nullptr, st);
 }
 
 }  // namespace

@@ -10,7 +10,10 @@
 // token's embedding row (the step's row block when depthwise_wte) is the
 // next step's x. The whole frame stays on the card: each token is
 // written to device memory and the next step reads it there, with no
-// host read per codebook.
+// host read per codebook. The stack may be int8 with bf16 per-column
+// scales (ops/quant.py): the TPU kernel's quantized body
+// (fast_frame_pallas.py:127-151, 174-186, 284-294), the same launches with
+// the int8 GEMVs of dual_ar_layer.cuh.
 //
 // What bounds it on this card: bytes. The fast stack is ~120 MB at
 // Fish-1.5 width (4 layers x ~29.9 MB), more than the 50 MB L2 and the
@@ -100,10 +103,53 @@ __global__ void __launch_bounds__(SAMPLER_THREADS)
   }
 }
 
+// The C steps of one frame with the layer stack of type W.
+template <typename W>
+int fast_frame(const bf16* hidden, const Stack<W>& stack, const bf16* fast_norm,
+               const bf16* head, const bf16* emb, const float* cos_t, const float* sin_t,
+               const int* window, const float* gumbel, const unsigned char* eos, int* tokens,
+               bf16* x, bf16* qkv_buf, bf16* attn_buf, bf16* ffn_buf, float* logits_buf,
+               bf16* k_hist, bf16* v_hist, int L, int D, int H, int KV, int F, int C, int V,
+               int head_ld, int depthwise_output, int depthwise_wte, int window_len,
+               int k_eff, int rep_enabled, float temp, float top_p, float penalty, float eps,
+               cudaStream_t st) {
+  const int QKV = (H + 2 * KV) * HDIM;
+  cudaError_t err = cudaMemcpyAsync(x, hidden, (size_t)D * sizeof(bf16),
+                                    cudaMemcpyDeviceToDevice, st);
+  if (err != cudaSuccess) return (int)err;
+  for (int cb = 0; cb < C; ++cb) {
+    float* logits = logits_buf + (size_t)cb * V;
+    for (int l = 0; l < L; ++l) {
+      err = run_layer<W>(x, stack.layer(l, D, QKV, F), cos_t, sin_t, nullptr, cb, k_hist,
+                         v_hist, l, qkv_buf, attn_buf, ffn_buf, 1, D, H, KV, F, C, eps, st);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const bf16* head_cb = head + (depthwise_output ? (size_t)cb * V : 0);
+    err = launch_head(1, x, fast_norm, head_cb, D, V, head_ld, eps, logits, st);
+    if (err != cudaSuccess) return (int)err;
+    // the last step's token needs no embedding
+    const bf16* emb_cb = cb + 1 < C ? emb + (depthwise_wte ? (size_t)cb * V * D : 0) : nullptr;
+    const int* win = rep_enabled ? window + (size_t)cb * window_len : nullptr;
+    const float* gum = gumbel ? gumbel + (size_t)cb * k_eff : nullptr;
+    int* tok = tokens + cb;
+    const int items = (V + SAMPLER_THREADS - 1) / SAMPLER_THREADS;
+    if (items <= 1)
+      codebook_sample_kernel<1><<<1, SAMPLER_THREADS, 0, st>>>(logits, V, win, window_len, penalty, temp, top_p, k_eff, gum, eos, emb_cb, D, tok, x);
+    else if (items <= 2)
+      codebook_sample_kernel<2><<<1, SAMPLER_THREADS, 0, st>>>(logits, V, win, window_len, penalty, temp, top_p, k_eff, gum, eos, emb_cb, D, tok, x);
+    else
+      codebook_sample_kernel<4><<<1, SAMPLER_THREADS, 0, st>>>(logits, V, win, window_len, penalty, temp, top_p, k_eff, gum, eos, emb_cb, D, tok, x);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
 }  // namespace
 
-// hidden (1, D) bf16, the slow hidden. Stacked fast-layer weights as in
-// fs_slow_step; fast_norm (D,); head: the fast output (D, head_ld), whose
+// hidden (1, D) bf16, the slow hidden. The fast-layer stack as in
+// fs_slow_step (norms, five weights bf16 or int8, five scales or nulls);
+// fast_norm (D,); head: the fast output (D, head_ld), whose
 // columns [cb*V, cb*V + V) serve step cb when depthwise_output, else
 // columns [0, V); emb: the fast embeddings, rows [cb*V, cb*V + V) for
 // step cb's token when depthwise_wte, else rows [0, V). window (C,
@@ -114,9 +160,10 @@ __global__ void __launch_bounds__(SAMPLER_THREADS)
 // (L, 1, KV, C, 64) bf16. Returns the first CUDA error of the launches
 // (0 on success).
 extern "C" int fs_fast_frame(
-    const void* hidden, const void* attn_norm, const void* wqkv,
-    const void* wo, const void* ffn_norm, const void* w1, const void* w3,
-    const void* w2, const void* fast_norm, const void* head, const void* emb,
+    const void* hidden, const void* attn_norm, const void* ffn_norm, const void* wqkv,
+    const void* wo, const void* w1, const void* w3, const void* w2, const void* s_qkv,
+    const void* s_o, const void* s_1, const void* s_3, const void* s_2,
+    const void* fast_norm, const void* head, const void* emb,
     const void* cos_t, const void* sin_t, const void* window,
     const void* gumbel, const void* is_eos, void* tokens, void* x_buf,
     void* qkv_buf, void* attn_buf, void* ffn_buf, void* logits_buf,
@@ -129,53 +176,25 @@ extern "C" int fs_fast_frame(
       window_len > MAX_WINDOW || (rep_enabled && window_len < 1) ||
       (temp > 1e-7f && (gumbel == nullptr || k_eff < 1)))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int QKV = (H + 2 * KV) * HDIM;
-  bf16* x = static_cast<bf16*>(x_buf);
-  cudaError_t err = cudaMemcpyAsync(x, hidden, (size_t)D * sizeof(bf16),
-                                    cudaMemcpyDeviceToDevice, st);
-  if (err != cudaSuccess) return (int)err;
-  const bf16* an = static_cast<const bf16*>(attn_norm);
-  const bf16* fn = static_cast<const bf16*>(ffn_norm);
-  const bf16* wq = static_cast<const bf16*>(wqkv);
-  const bf16* wo_ = static_cast<const bf16*>(wo);
-  const bf16* w1_ = static_cast<const bf16*>(w1);
-  const bf16* w3_ = static_cast<const bf16*>(w3);
-  const bf16* w2_ = static_cast<const bf16*>(w2);
-  for (int cb = 0; cb < C; ++cb) {
-    float* logits = static_cast<float*>(logits_buf) + (size_t)cb * V;
-    for (int l = 0; l < L; ++l) {
-      err = run_layer(x, an + (size_t)l * D, wq + (size_t)l * D * QKV,
-                      wo_ + (size_t)l * D * D, fn + (size_t)l * D,
-                      w1_ + (size_t)l * D * F, w3_ + (size_t)l * D * F,
-                      w2_ + (size_t)l * F * D, static_cast<const float*>(cos_t),
-                      static_cast<const float*>(sin_t), nullptr, cb,
-                      static_cast<bf16*>(k_hist), static_cast<bf16*>(v_hist), l,
-                      static_cast<bf16*>(qkv_buf), static_cast<bf16*>(attn_buf),
-                      static_cast<bf16*>(ffn_buf), 1, D, H, KV, F, C, eps, st);
-      if (err != cudaSuccess) return (int)err;
-    }
-    const bf16* head_cb = static_cast<const bf16*>(head) + (depthwise_output ? (size_t)cb * V : 0);
-    err = launch_gemv<kHead>(1, x, static_cast<const bf16*>(fast_norm), head_cb,
-                             nullptr, D, V, head_ld, eps, nullptr, logits, st);
-    if (err != cudaSuccess) return (int)err;
-    // the last step's token needs no embedding
-    const bf16* emb_cb = cb + 1 < C
-        ? static_cast<const bf16*>(emb) + (depthwise_wte ? (size_t)cb * V * D : 0)
-        : nullptr;
-    const int* win = rep_enabled ? static_cast<const int*>(window) + (size_t)cb * window_len : nullptr;
-    const float* gum = gumbel ? static_cast<const float*>(gumbel) + (size_t)cb * k_eff : nullptr;
-    int* tok = static_cast<int*>(tokens) + cb;
-    const unsigned char* eos = static_cast<const unsigned char*>(is_eos);
-    const int items = (V + SAMPLER_THREADS - 1) / SAMPLER_THREADS;
-    if (items <= 1)
-      codebook_sample_kernel<1><<<1, SAMPLER_THREADS, 0, st>>>(logits, V, win, window_len, penalty, temp, top_p, k_eff, gum, eos, emb_cb, D, tok, x);
-    else if (items <= 2)
-      codebook_sample_kernel<2><<<1, SAMPLER_THREADS, 0, st>>>(logits, V, win, window_len, penalty, temp, top_p, k_eff, gum, eos, emb_cb, D, tok, x);
-    else
-      codebook_sample_kernel<4><<<1, SAMPLER_THREADS, 0, st>>>(logits, V, win, window_len, penalty, temp, top_p, k_eff, gum, eos, emb_cb, D, tok, x);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  const void* wts[5] = {wqkv, wo, w1, w3, w2};
+  const void* scales[5] = {s_qkv, s_o, s_1, s_3, s_2};
+  const bool int8 = s_qkv != nullptr;
+  for (const void* s : scales)
+    if ((s != nullptr) != int8) return (int)cudaErrorInvalidValue;
+  auto run = [&](auto stack) {
+    return fast_frame(static_cast<const bf16*>(hidden), stack,
+                      static_cast<const bf16*>(fast_norm), static_cast<const bf16*>(head),
+                      static_cast<const bf16*>(emb), static_cast<const float*>(cos_t),
+                      static_cast<const float*>(sin_t), static_cast<const int*>(window),
+                      static_cast<const float*>(gumbel),
+                      static_cast<const unsigned char*>(is_eos), static_cast<int*>(tokens),
+                      static_cast<bf16*>(x_buf), static_cast<bf16*>(qkv_buf),
+                      static_cast<bf16*>(attn_buf), static_cast<bf16*>(ffn_buf),
+                      static_cast<float*>(logits_buf), static_cast<bf16*>(k_hist),
+                      static_cast<bf16*>(v_hist), L, D, H, KV, F, C, V, head_ld,
+                      depthwise_output, depthwise_wte, window_len, k_eff, rep_enabled, temp,
+                      top_p, penalty, eps, static_cast<cudaStream_t>(stream));
+  };
+  if (int8) return run(make_stack<int8_t>(attn_norm, ffn_norm, wts, scales));
+  return run(make_stack<bf16>(attn_norm, ffn_norm, wts, scales));
 }

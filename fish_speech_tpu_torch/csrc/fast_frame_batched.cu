@@ -11,7 +11,10 @@
 // top_p, top_k and Gumbel draws (indexed by rank), and the EOS rule give
 // the token, and the token's embedding row (the step's row block when
 // depthwise_wte) is the row's next x. Tokens and embeddings stay on the
-// card: nothing is read by the host inside the frame.
+// card: nothing is read by the host inside the frame. The stack may be
+// int8 with bf16 per-column scales (ops/quant.py): the TPU kernel's
+// quantized body (fast_frame_pallas.py:532, 569-573, 595-604, 706-712),
+// the same launches with rows_gemm reading int8 weights.
 //
 // What bounds it on this card: bytes. The fast stack is ~120 MB at
 // Fish-1.5 width, more than the 50 MB L2, so each codebook step streams
@@ -33,10 +36,12 @@
 // rows_gemm stages the input rows in shared memory a chunk of K at a
 // time (the w2 input is 16 x 4096 bf16 = 128 KB at B = 16), so the rows
 // the GEMV of dual_ar_layer.cuh takes (4) do not bound B here. Each
-// thread owns two adjacent columns and a slice of K and keeps one f32 sum
-// per (row, column); the slices are added in one fixed order, whatever B,
-// so a row's results are deterministic and do not depend on the rows
-// beside it. The sampler reads each row's knobs from device arrays and
+// thread owns two adjacent columns (one bf16x2 or two int8 loaded at
+// once) and a slice of K and keeps one f32 sum per (row, column); the
+// slices are added in one fixed order, whatever B and the weight type, so
+// a row's results are deterministic and do not depend on the rows beside
+// it. An int8 product is rounded and rescaled as dual_ar_layer.cuh's
+// stack_product does. The sampler reads each row's knobs from device arrays and
 // is codebook_sampler.cuh's sort, scan and draw. The TPU
 // kernel's row-block grid, flat-lane E/R matrices, lane rolls, one-hot
 // embedding matmul and sel_rows scatter are Mosaic workarounds and are
@@ -54,15 +59,40 @@ constexpr int RG_KS = THREADS / RG_CT;     // slices of the in dimension
 constexpr int RG_KC = 256;                 // in-dimension chunk staged at once
 constexpr int MAX_BATCH_ROWS = 32;
 
-// out[b, n] = epilogue(sum_k in'[b, k] * w[k, n]) for b < nb, n < N: the
-// modes and roundings of dual_ar_layer.cuh's gemv_kernel, for up to NB
-// rows. in: (nb, K) contiguous bf16; w: K rows of stride ldw. Rows nb..NB
-// of the staged input are zero, and their results are not written.
-// grid: ceil(N / RG_TILE) blocks.
-template <int MODE, int NB>
+// Two adjacent weights of one row, loaded at once and converted to float.
+template <typename W>
+struct WPair;
+
+template <>
+struct WPair<bf16> {
+  __nv_bfloat162 raw;
+  __device__ __forceinline__ void load(const bf16* p) {
+    raw = __ldg(reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  __device__ __forceinline__ float2 to_float() const { return __bfloat1622float2(raw); }
+};
+
+template <>
+struct WPair<int8_t> {
+  char2 raw;
+  __device__ __forceinline__ void load(const int8_t* p) {
+    raw = __ldg(reinterpret_cast<const char2*>(p));
+  }
+  __device__ __forceinline__ float2 to_float() const {
+    return make_float2((float)raw.x, (float)raw.y);
+  }
+};
+
+// out[b, n] = epilogue(p(sum_k in'[b, k] * w[k, n])) for b < nb, n < N:
+// the modes, roundings and int8 rescale p of dual_ar_layer.cuh's
+// gemv_kernel, for up to NB rows. in: (nb, K) contiguous bf16; w: K rows
+// of stride ldw. Rows nb..NB of the staged input are zero, and their
+// results are not written. grid: ceil(N / RG_TILE) blocks.
+template <int MODE, typename W, int NB>
 __global__ void __launch_bounds__(THREADS)
     rows_gemm_kernel(const bf16* __restrict__ in, const bf16* __restrict__ norm_w,
-                     const bf16* __restrict__ w, const bf16* __restrict__ w_b, int nb,
+                     const W* __restrict__ w, const W* __restrict__ w_b,
+                     const bf16* __restrict__ scale, const bf16* __restrict__ scale_b, int nb,
                      int K, int N, int ldw, float eps, bf16* out,
                      float* __restrict__ out_f32) {
   constexpr bool NORM = MODE != kResidual;
@@ -126,23 +156,21 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();
     if (n0 >= N) continue;
-    const bf16* wp[NA];
+    const W* wp[NA];
     wp[0] = w + (size_t)k0 * ldw + n0;
     if (NA == 2) wp[NA - 1] = w_b + (size_t)k0 * ldw + n0;
     int k = ks;
     for (; k + (U - 1) * RG_KS < kc; k += U * RG_KS) {
-      __nv_bfloat162 r[NA][U];
+      WPair<W> r[NA][U];
 #pragma unroll
       for (int u = 0; u < U; ++u)
 #pragma unroll
-        for (int a = 0; a < NA; ++a)
-          r[a][u] = __ldg(reinterpret_cast<const __nv_bfloat162*>(
-              wp[a] + (size_t)(k + u * RG_KS) * ldw));
+        for (int a = 0; a < NA; ++a) r[a][u].load(wp[a] + (size_t)(k + u * RG_KS) * ldw);
 #pragma unroll
       for (int u = 0; u < U; ++u) {
 #pragma unroll
         for (int a = 0; a < NA; ++a) {
-          const float2 wf = __bfloat1622float2(r[a][u]);
+          const float2 wf = r[a][u].to_float();
 #pragma unroll
           for (int b = 0; b < NB; ++b) {
             const float xv = bf(in_s[b * RG_KC + k + u * RG_KS]);
@@ -155,8 +183,9 @@ __global__ void __launch_bounds__(THREADS)
     for (; k < kc; k += RG_KS) {
 #pragma unroll
       for (int a = 0; a < NA; ++a) {
-        const float2 wf = __bfloat1622float2(__ldg(
-            reinterpret_cast<const __nv_bfloat162*>(wp[a] + (size_t)k * ldw)));
+        WPair<W> r;
+        r.load(wp[a] + (size_t)k * ldw);
+        const float2 wf = r.to_float();
 #pragma unroll
         for (int b = 0; b < NB; ++b) {
           const float xv = bf(in_s[b * RG_KC + k]);
@@ -203,35 +232,36 @@ __global__ void __launch_bounds__(THREADS)
     const int b = p * PASS + pr;
     if (b >= nb) continue;
     const size_t o = (size_t)b * N + n;
+    const float y0 = stack_product<W>(y[0][p], scale, n);
     if (MODE == kQkv) {
-      out[o] = __float2bfloat16(y[0][p]);
+      out[o] = __float2bfloat16(y0);
     } else if (MODE == kResidual) {
-      out[o] = __float2bfloat16(__fadd_rn(bf(out[o]), round_bf16(y[0][p])));
+      out[o] = __float2bfloat16(__fadd_rn(bf(out[o]), round_bf16(y0)));
     } else if (MODE == kSwiglu) {
-      const float z = y[0][p];
-      const float gate = round_bf16(__fdiv_rn(z, __fadd_rn(1.f, expf(-z))));
-      const float up = round_bf16(y[NA - 1][p]);
+      const float gate = round_bf16(__fdiv_rn(y0, __fadd_rn(1.f, expf(-y0))));
+      const float up = round_bf16(stack_product<W>(y[NA - 1][p], scale_b, n));
       out[o] = __float2bfloat16(__fmul_rn(gate, up));
     } else {
-      out_f32[o] = y[0][p];
+      out_f32[o] = y0;
     }
   }
 }
 
-template <int MODE>
-cudaError_t launch_rows_gemm(int nb, const bf16* in, const bf16* norm_w, const bf16* w,
-                             const bf16* w_b, int K, int N, int ldw, float eps, bf16* out,
-                             float* out_f32, cudaStream_t st) {
+template <int MODE, typename W>
+cudaError_t launch_rows_gemm(int nb, const bf16* in, const bf16* norm_w, const W* w,
+                             const W* w_b, const bf16* scale, const bf16* scale_b, int K,
+                             int N, int ldw, float eps, bf16* out, float* out_f32,
+                             cudaStream_t st) {
   if (N % RG_VEC || ldw % RG_VEC) return cudaErrorInvalidValue;
   const int grid = (N + RG_TILE - 1) / RG_TILE;
   if (nb <= 4)
-    rows_gemm_kernel<MODE, 4><<<grid, THREADS, 0, st>>>(in, norm_w, w, w_b, nb, K, N, ldw, eps, out, out_f32);
+    rows_gemm_kernel<MODE, W, 4><<<grid, THREADS, 0, st>>>(in, norm_w, w, w_b, scale, scale_b, nb, K, N, ldw, eps, out, out_f32);
   else if (nb <= 8)
-    rows_gemm_kernel<MODE, 8><<<grid, THREADS, 0, st>>>(in, norm_w, w, w_b, nb, K, N, ldw, eps, out, out_f32);
+    rows_gemm_kernel<MODE, W, 8><<<grid, THREADS, 0, st>>>(in, norm_w, w, w_b, scale, scale_b, nb, K, N, ldw, eps, out, out_f32);
   else if (nb <= 16)
-    rows_gemm_kernel<MODE, 16><<<grid, THREADS, 0, st>>>(in, norm_w, w, w_b, nb, K, N, ldw, eps, out, out_f32);
+    rows_gemm_kernel<MODE, W, 16><<<grid, THREADS, 0, st>>>(in, norm_w, w, w_b, scale, scale_b, nb, K, N, ldw, eps, out, out_f32);
   else if (nb <= MAX_BATCH_ROWS)
-    rows_gemm_kernel<MODE, 32><<<grid, THREADS, 0, st>>>(in, norm_w, w, w_b, nb, K, N, ldw, eps, out, out_f32);
+    rows_gemm_kernel<MODE, W, 32><<<grid, THREADS, 0, st>>>(in, norm_w, w, w_b, scale, scale_b, nb, K, N, ldw, eps, out, out_f32);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
@@ -298,31 +328,75 @@ __global__ void __launch_bounds__(SAMPLER_THREADS)
 }
 
 // One decode layer for B rows (the five launches above) on x (B, D),
-// updated in place; attention over the history rows 0..cb of each row.
-cudaError_t run_rows_layer(bf16* x, const bf16* attn_norm, const bf16* wqkv, const bf16* wo,
-                           const bf16* ffn_norm, const bf16* w1, const bf16* w3,
-                           const bf16* w2, const float* cos_t, const float* sin_t, int cb,
-                           bf16* k_hist, bf16* v_hist, int layer, bf16* qkv, bf16* attn,
+// updated in place, with layer lw of a stack; attention over the history
+// rows 0..cb of each row.
+template <typename W>
+cudaError_t run_rows_layer(bf16* x, const Stack<W>& lw, const float* cos_t, const float* sin_t,
+                           int cb, bf16* k_hist, bf16* v_hist, int layer, bf16* qkv, bf16* attn,
                            bf16* ffn, int B, int D, int H, int KV, int F, int C, float eps,
                            cudaStream_t st) {
   const int QKV = (H + 2 * KV) * HDIM;
   cudaError_t err;
-  err = launch_rows_gemm<kQkv>(B, x, attn_norm, wqkv, nullptr, D, QKV, QKV, eps, qkv, nullptr, st);
+  err = launch_rows_gemm<kQkv, W>(B, x, lw.attn_norm, lw.wqkv, nullptr, lw.s_qkv, nullptr, D, QKV, QKV, eps, qkv, nullptr, st);
   if (err != cudaSuccess) return err;
   err = launch_rope_attention(qkv, cos_t, sin_t, nullptr, cb, k_hist, v_hist, attn, B, H, KV, C,
                               layer, st);
   if (err != cudaSuccess) return err;
-  err = launch_rows_gemm<kResidual>(B, attn, nullptr, wo, nullptr, H * HDIM, D, D, eps, x, nullptr, st);
+  err = launch_rows_gemm<kResidual, W>(B, attn, nullptr, lw.wo, nullptr, lw.s_o, nullptr, H * HDIM, D, D, eps, x, nullptr, st);
   if (err != cudaSuccess) return err;
-  err = launch_rows_gemm<kSwiglu>(B, x, ffn_norm, w1, w3, D, F, F, eps, ffn, nullptr, st);
+  err = launch_rows_gemm<kSwiglu, W>(B, x, lw.ffn_norm, lw.w1, lw.w3, lw.s_1, lw.s_3, D, F, F, eps, ffn, nullptr, st);
   if (err != cudaSuccess) return err;
-  return launch_rows_gemm<kResidual>(B, ffn, nullptr, w2, nullptr, F, D, D, eps, x, nullptr, st);
+  return launch_rows_gemm<kResidual, W>(B, ffn, nullptr, lw.w2, nullptr, lw.s_2, nullptr, F, D, D, eps, x, nullptr, st);
+}
+
+// The C steps of one frame for B rows with the layer stack of type W.
+template <typename W>
+int fast_frame_batched(const bf16* hidden, const Stack<W>& stack, const bf16* fast_norm,
+                       const bf16* head, const bf16* emb, const float* cos_t,
+                       const float* sin_t, const int* window, const float* gumbel,
+                       const float* temp, const float* top_p, const int* top_k,
+                       const float* penalty, const unsigned char* eos, int* tokens, bf16* x,
+                       bf16* qkv_buf, bf16* attn_buf, bf16* ffn_buf, float* logits_buf,
+                       bf16* k_hist, bf16* v_hist, int B, int L, int D, int H, int KV, int F,
+                       int C, int V, int head_ld, int depthwise_output, int depthwise_wte,
+                       int window_len, int k_dyn, int rep_enabled, float eps,
+                       cudaStream_t st) {
+  const int QKV = (H + 2 * KV) * HDIM;
+  cudaError_t err = cudaMemcpyAsync(x, hidden, (size_t)B * D * sizeof(bf16),
+                                    cudaMemcpyDeviceToDevice, st);
+  if (err != cudaSuccess) return (int)err;
+  const int items = (V + SAMPLER_THREADS - 1) / SAMPLER_THREADS;
+  const int* win = rep_enabled ? window : nullptr;
+  for (int cb = 0; cb < C; ++cb) {
+    float* logits = logits_buf + (size_t)cb * B * V;
+    for (int l = 0; l < L; ++l) {
+      err = run_rows_layer<W>(x, stack.layer(l, D, QKV, F), cos_t, sin_t, cb, k_hist, v_hist, l,
+                              qkv_buf, attn_buf, ffn_buf, B, D, H, KV, F, C, eps, st);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const bf16* head_cb = head + (depthwise_output ? (size_t)cb * V : 0);
+    err = launch_rows_gemm<kHead, bf16>(B, x, fast_norm, head_cb, nullptr, nullptr, nullptr, D,
+                                        V, head_ld, eps, nullptr, logits, st);
+    if (err != cudaSuccess) return (int)err;
+    // the last step's tokens need no embedding
+    const bf16* emb_cb = cb + 1 < C ? emb + (depthwise_wte ? (size_t)cb * V * D : 0) : nullptr;
+    if (items <= 1)
+      rows_sample_kernel<1><<<B, SAMPLER_THREADS, 0, st>>>(logits, V, win, window_len, C, cb, temp, top_p, top_k, penalty, eos, gumbel, k_dyn, emb_cb, D, tokens, x);
+    else if (items <= 2)
+      rows_sample_kernel<2><<<B, SAMPLER_THREADS, 0, st>>>(logits, V, win, window_len, C, cb, temp, top_p, top_k, penalty, eos, gumbel, k_dyn, emb_cb, D, tokens, x);
+    else
+      rows_sample_kernel<4><<<B, SAMPLER_THREADS, 0, st>>>(logits, V, win, window_len, C, cb, temp, top_p, top_k, penalty, eos, gumbel, k_dyn, emb_cb, D, tokens, x);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace
 
-// hidden (B, D) bf16, the rows' slow hiddens. Stacked fast-layer weights
-// as in fs_slow_step; fast_norm (D,); head: the fast output (D, head_ld),
+// hidden (B, D) bf16, the rows' slow hiddens. The fast-layer stack as in
+// fs_slow_step (norms, five weights bf16 or int8, five scales or nulls);
+// fast_norm (D,); head: the fast output (D, head_ld),
 // whose columns [cb*V, cb*V + V) serve step cb when depthwise_output, else
 // columns [0, V); emb: the fast embeddings, rows [cb*V, cb*V + V) for step
 // cb's token when depthwise_wte, else rows [0, V). window (B, C,
@@ -333,8 +407,9 @@ cudaError_t run_rows_layer(bf16* x, const bf16* attn_norm, const bf16* wqkv, con
 // ffn (B, F) bf16, k_hist and v_hist (L, B, KV, C, 64) bf16. Returns the
 // first CUDA error of the launches (0 on success).
 extern "C" int fs_fast_frame_batched(
-    const void* hidden, const void* attn_norm, const void* wqkv, const void* wo,
-    const void* ffn_norm, const void* w1, const void* w3, const void* w2,
+    const void* hidden, const void* attn_norm, const void* ffn_norm, const void* wqkv,
+    const void* wo, const void* w1, const void* w3, const void* w2, const void* s_qkv,
+    const void* s_o, const void* s_1, const void* s_3, const void* s_2,
     const void* fast_norm, const void* head, const void* emb, const void* cos_t,
     const void* sin_t, const void* window, const void* gumbel, const void* temp,
     const void* top_p, const void* top_k, const void* penalty, const void* is_eos,
@@ -347,57 +422,26 @@ extern "C" int fs_fast_frame_batched(
       window_len > MAX_WINDOW || (rep_enabled && window_len < 1) || k_dyn < 1 ||
       k_dyn > V)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int QKV = (H + 2 * KV) * HDIM;
-  bf16* x = static_cast<bf16*>(x_buf);
-  cudaError_t err = cudaMemcpyAsync(x, hidden, (size_t)B * D * sizeof(bf16),
-                                    cudaMemcpyDeviceToDevice, st);
-  if (err != cudaSuccess) return (int)err;
-  const bf16* an = static_cast<const bf16*>(attn_norm);
-  const bf16* fn = static_cast<const bf16*>(ffn_norm);
-  const bf16* wq = static_cast<const bf16*>(wqkv);
-  const bf16* wo_ = static_cast<const bf16*>(wo);
-  const bf16* w1_ = static_cast<const bf16*>(w1);
-  const bf16* w3_ = static_cast<const bf16*>(w3);
-  const bf16* w2_ = static_cast<const bf16*>(w2);
-  const int items = (V + SAMPLER_THREADS - 1) / SAMPLER_THREADS;
-  for (int cb = 0; cb < C; ++cb) {
-    float* logits = static_cast<float*>(logits_buf) + (size_t)cb * B * V;
-    for (int l = 0; l < L; ++l) {
-      err = run_rows_layer(x, an + (size_t)l * D, wq + (size_t)l * D * QKV,
-                           wo_ + (size_t)l * D * D, fn + (size_t)l * D,
-                           w1_ + (size_t)l * D * F, w3_ + (size_t)l * D * F,
-                           w2_ + (size_t)l * F * D, static_cast<const float*>(cos_t),
-                           static_cast<const float*>(sin_t), cb, static_cast<bf16*>(k_hist),
-                           static_cast<bf16*>(v_hist), l, static_cast<bf16*>(qkv_buf),
-                           static_cast<bf16*>(attn_buf), static_cast<bf16*>(ffn_buf), B, D, H,
-                           KV, F, C, eps, st);
-      if (err != cudaSuccess) return (int)err;
-    }
-    const bf16* head_cb = static_cast<const bf16*>(head) + (depthwise_output ? (size_t)cb * V : 0);
-    err = launch_rows_gemm<kHead>(B, x, static_cast<const bf16*>(fast_norm), head_cb, nullptr, D,
-                                  V, head_ld, eps, nullptr, logits, st);
-    if (err != cudaSuccess) return (int)err;
-    // the last step's tokens need no embedding
-    const bf16* emb_cb = cb + 1 < C
-        ? static_cast<const bf16*>(emb) + (depthwise_wte ? (size_t)cb * V * D : 0)
-        : nullptr;
-    const int* win = rep_enabled ? static_cast<const int*>(window) : nullptr;
-    const float* tp = static_cast<const float*>(temp);
-    const float* pp = static_cast<const float*>(top_p);
-    const int* kp = static_cast<const int*>(top_k);
-    const float* pen = static_cast<const float*>(penalty);
-    const unsigned char* eos = static_cast<const unsigned char*>(is_eos);
-    const float* gum = static_cast<const float*>(gumbel);
-    int* tok = static_cast<int*>(tokens);
-    if (items <= 1)
-      rows_sample_kernel<1><<<B, SAMPLER_THREADS, 0, st>>>(logits, V, win, window_len, C, cb, tp, pp, kp, pen, eos, gum, k_dyn, emb_cb, D, tok, x);
-    else if (items <= 2)
-      rows_sample_kernel<2><<<B, SAMPLER_THREADS, 0, st>>>(logits, V, win, window_len, C, cb, tp, pp, kp, pen, eos, gum, k_dyn, emb_cb, D, tok, x);
-    else
-      rows_sample_kernel<4><<<B, SAMPLER_THREADS, 0, st>>>(logits, V, win, window_len, C, cb, tp, pp, kp, pen, eos, gum, k_dyn, emb_cb, D, tok, x);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  const void* wts[5] = {wqkv, wo, w1, w3, w2};
+  const void* scales[5] = {s_qkv, s_o, s_1, s_3, s_2};
+  const bool int8 = s_qkv != nullptr;
+  for (const void* s : scales)
+    if ((s != nullptr) != int8) return (int)cudaErrorInvalidValue;
+  auto run = [&](auto stack) {
+    return fast_frame_batched(
+        static_cast<const bf16*>(hidden), stack, static_cast<const bf16*>(fast_norm),
+        static_cast<const bf16*>(head), static_cast<const bf16*>(emb),
+        static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
+        static_cast<const int*>(window), static_cast<const float*>(gumbel),
+        static_cast<const float*>(temp), static_cast<const float*>(top_p),
+        static_cast<const int*>(top_k), static_cast<const float*>(penalty),
+        static_cast<const unsigned char*>(is_eos), static_cast<int*>(tokens),
+        static_cast<bf16*>(x_buf), static_cast<bf16*>(qkv_buf), static_cast<bf16*>(attn_buf),
+        static_cast<bf16*>(ffn_buf), static_cast<float*>(logits_buf),
+        static_cast<bf16*>(k_hist), static_cast<bf16*>(v_hist), B, L, D, H, KV, F, C, V,
+        head_ld, depthwise_output, depthwise_wte, window_len, k_dyn, rep_enabled, eps,
+        static_cast<cudaStream_t>(stream));
+  };
+  if (int8) return run(make_stack<int8_t>(attn_norm, ffn_norm, wts, scales));
+  return run(make_stack<bf16>(attn_norm, ffn_norm, wts, scales));
 }

@@ -7,9 +7,13 @@
 // RMSNorm -> SwiGLU + residual; then the final RMSNorm and the gathered
 // head give f32 logits, unrounded as in the TPU kernel.
 //
-// What bounds it on this card: bytes. A step reads ~717 MiB of layer
-// weights and the 2.1 MB head once; at B = 1 that is ~0.22 ms at
-// 3.35 TB/s, and the flops are ~1000x below the tensor cores' rate.
+// The stack may be int8 with bf16 per-column scales (ops/quant.py): the TPU
+// kernel's quantized body (slow_step_pallas.py:152-174, 198-207,
+// 313-323), the same launches with the int8 GEMVs of dual_ar_layer.cuh.
+//
+// What bounds it on this card: bytes. A step reads ~717 MiB of bf16
+// layer weights (half of it in int8, plus ~0.6 MB of scales) and the
+// 2.1 MB head once; the flops are ~1000x below the tensor cores' rate.
 //
 // Design: the TPU kernel is one kernel whose grid walks the layers, so
 // Pallas prefetches layer l+1's weights while layer l computes and the
@@ -24,53 +28,62 @@
 
 #include "dual_ar_layer.cuh"
 
-// x0 (B, D), stacked layer weights attn_norm/ffn_norm (L, D), wqkv
-// (L, D, QKV), wo (L, D, D), w1/w3 (L, D, F), w2 (L, F, D), norm (D,),
-// head (D, W), all bf16 and contiguous; pos (B,) int32; cos_t/sin_t
+namespace {
+
+template <typename W>
+int slow_step(const bf16* x0, const int* pos, const Stack<W>& stack, const bf16* norm,
+              const bf16* head, const float* cos_t, const float* sin_t, bf16* ck, bf16* cv,
+              float* logits, bf16* x, bf16* qkv_buf, bf16* attn_buf, bf16* ffn_buf, int B,
+              int L, int D, int H, int KV, int F, int W_, int S, float eps, cudaStream_t st) {
+  const int QKV = (H + 2 * KV) * HDIM;
+  cudaError_t err = cudaMemcpyAsync(x, x0, (size_t)B * D * sizeof(bf16),
+                                    cudaMemcpyDeviceToDevice, st);
+  if (err != cudaSuccess) return (int)err;
+  for (int l = 0; l < L; ++l) {
+    err = run_layer<W>(x, stack.layer(l, D, QKV, F), cos_t, sin_t, pos, 0, ck, cv, l, qkv_buf,
+                       attn_buf, ffn_buf, B, D, H, KV, F, S, eps, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)launch_head(B, x, norm, head, D, W_, W_, eps, logits, st);
+}
+
+}  // namespace
+
+// x0 (B, D) bf16; the stack's norms attn_norm/ffn_norm (L, D) bf16, its
+// weights wqkv (L, D, QKV), wo (L, D, D), w1/w3 (L, D, F), w2 (L, F, D),
+// all bf16, or all int8 with scales (L, 1, out) bf16 (null for bf16); norm
+// (D,) and head (D, W) bf16; all contiguous; pos (B,) int32; cos_t/sin_t
 // (P, 32) f32 RoPE tables; ck/cv (L, B, KV, S, 64) bf16, updated in
 // place. Out: logits (B, W) f32, hidden (B, D) bf16 (the residual after
 // the last layer; it is also the working activation). Scratch: qkv
 // (B, QKV), attn (B, D), ffn (B, F) bf16. Returns the first CUDA error
 // of the launches (0 on success).
-extern "C" int fs_slow_step(const void* x0, const void* pos,
-                            const void* attn_norm, const void* wqkv,
-                            const void* wo, const void* ffn_norm,
+extern "C" int fs_slow_step(const void* x0, const void* pos, const void* attn_norm,
+                            const void* ffn_norm, const void* wqkv, const void* wo,
                             const void* w1, const void* w3, const void* w2,
-                            const void* norm, const void* head,
-                            const void* cos_t, const void* sin_t, void* ck,
-                            void* cv, void* logits, void* hidden,
-                            void* qkv_buf, void* attn_buf, void* ffn_buf,
-                            int B, int L, int D, int H, int KV, int F, int W,
-                            int S, float eps, void* stream) {
+                            const void* s_qkv, const void* s_o, const void* s_1,
+                            const void* s_3, const void* s_2, const void* norm,
+                            const void* head, const void* cos_t, const void* sin_t, void* ck,
+                            void* cv, void* logits, void* hidden, void* qkv_buf,
+                            void* attn_buf, void* ffn_buf, int B, int L, int D, int H, int KV,
+                            int F, int W, int S, float eps, void* stream) {
   if (B < 1 || B > MAX_ROWS || KV <= 0 || H % KV != 0 || H * HDIM != D ||
       D % 8 != 0 || F % 8 != 0 || L < 1 || S < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int QKV = (H + 2 * KV) * HDIM;
-  bf16* x = static_cast<bf16*>(hidden);
-  cudaError_t err = cudaMemcpyAsync(x, x0, (size_t)B * D * sizeof(bf16),
-                                    cudaMemcpyDeviceToDevice, st);
-  if (err != cudaSuccess) return (int)err;
-  const bf16* an = static_cast<const bf16*>(attn_norm);
-  const bf16* fn = static_cast<const bf16*>(ffn_norm);
-  const bf16* wq = static_cast<const bf16*>(wqkv);
-  const bf16* wo_ = static_cast<const bf16*>(wo);
-  const bf16* w1_ = static_cast<const bf16*>(w1);
-  const bf16* w3_ = static_cast<const bf16*>(w3);
-  const bf16* w2_ = static_cast<const bf16*>(w2);
-  for (int l = 0; l < L; ++l) {
-    err = run_layer(x, an + (size_t)l * D, wq + (size_t)l * D * QKV,
-                    wo_ + (size_t)l * D * D, fn + (size_t)l * D,
-                    w1_ + (size_t)l * D * F, w3_ + (size_t)l * D * F,
-                    w2_ + (size_t)l * F * D, static_cast<const float*>(cos_t),
-                    static_cast<const float*>(sin_t), static_cast<const int*>(pos),
-                    0, static_cast<bf16*>(ck), static_cast<bf16*>(cv), l,
-                    static_cast<bf16*>(qkv_buf), static_cast<bf16*>(attn_buf),
-                    static_cast<bf16*>(ffn_buf), B, D, H, KV, F, S, eps, st);
-    if (err != cudaSuccess) return (int)err;
-  }
-  err = launch_gemv<kHead>(B, x, static_cast<const bf16*>(norm),
-                           static_cast<const bf16*>(head), nullptr, D, W, W,
-                           eps, nullptr, static_cast<float*>(logits), st);
-  return (int)err;
+  const void* wts[5] = {wqkv, wo, w1, w3, w2};
+  const void* scales[5] = {s_qkv, s_o, s_1, s_3, s_2};
+  const bool int8 = s_qkv != nullptr;
+  for (const void* s : scales)
+    if ((s != nullptr) != int8) return (int)cudaErrorInvalidValue;
+  auto run = [&](auto stack) {
+    return slow_step(static_cast<const bf16*>(x0), static_cast<const int*>(pos), stack,
+                     static_cast<const bf16*>(norm), static_cast<const bf16*>(head),
+                     static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
+                     static_cast<bf16*>(ck), static_cast<bf16*>(cv), static_cast<float*>(logits),
+                     static_cast<bf16*>(hidden), static_cast<bf16*>(qkv_buf),
+                     static_cast<bf16*>(attn_buf), static_cast<bf16*>(ffn_buf), B, L, D, H, KV,
+                     F, W, S, eps, static_cast<cudaStream_t>(stream));
+  };
+  if (int8) return run(make_stack<int8_t>(attn_norm, ffn_norm, wts, scales));
+  return run(make_stack<bf16>(attn_norm, ffn_norm, wts, scales));
 }

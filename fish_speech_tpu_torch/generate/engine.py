@@ -28,9 +28,17 @@ The decode path follows the JAX engine's choice:
   row-block grid and serialised per-row sampler); this port has neither.
 
 On CUDA tensors every fused step and attention call launches the port's
-kernels, which take bfloat16 only: a CUDA engine refuses other weights
-or a cache of another dtype at construction. On CPU tensors they run
-their plain versions. The engine runs eagerly; there is no CUDA graph.
+kernels, which take bfloat16 only, apart from int8-quantized matmul
+stacks with bfloat16 scales: a CUDA engine refuses other weights or a
+cache of another dtype at construction. On CPU tensors they run their
+plain versions. The engine runs eagerly; there is no CUDA graph.
+
+`quantize_int8=True` quantizes the slow and fast matmul stacks after the
+head gather (`ops/quant.py`, as the JAX engine does at engine.py:154-167)
+and keeps no bf16 copy of them; a tree that is quantized already (a JAX
+tree through `io.convert`) runs the same way without the flag. The fused
+kernels take the int8 stacks as they are; the unfused paths convert each
+int8 weight to the activation dtype at every product.
 
 * Prompts are right-padded to a bucket, and each row is prefilled by a
   call of its own (see `_prefill_rows_raw`); the attention read extent is
@@ -69,6 +77,7 @@ from fish_speech_tpu_torch.models.dual_ar import (
 )
 from fish_speech_tpu_torch.ops.fast_frame import fused_fast_frame_supported
 from fish_speech_tpu_torch.ops.fast_frame_batched import fused_fast_frame_batched_supported
+from fish_speech_tpu_torch.ops.quant import is_quantized, quantize_lm_params
 from fish_speech_tpu_torch.ops.sampling import (
     SINGLE_STREAM_REP_PEN_WINDOW,
     RepPenWindow,
@@ -123,12 +132,18 @@ def _set_rows(t: torch.Tensor, row0: int, rows: torch.Tensor) -> torch.Tensor:
 
 
 def _check_cuda_dtypes(params, dtype) -> None:
-    """The CUDA kernels take bfloat16 only: refuse anything else before a
-    first prefill would."""
+    """The CUDA kernels take bfloat16 weights and cache, and int8
+    quantized weights {"q": int8, "s": bfloat16}: refuse anything else
+    before a first prefill would."""
     bad = []
 
     def walk(tree, name):
-        if isinstance(tree, dict):
+        if is_quantized(tree):
+            if tree["q"].dtype != torch.int8:
+                bad.append(f"{name}.q ({tree['q'].dtype}, not int8)")
+            if tree["s"].dtype != torch.bfloat16:
+                bad.append(f"{name}.s ({tree['s'].dtype})")
+        elif isinstance(tree, dict):
             for k, v in tree.items():
                 walk(v, f"{name}.{k}" if name else k)
         elif tree.is_floating_point() and tree.dtype != torch.bfloat16:
@@ -137,8 +152,9 @@ def _check_cuda_dtypes(params, dtype) -> None:
     walk(params, "")
     if dtype != torch.bfloat16 or bad:
         raise ValueError(
-            "LMEngine on CUDA: the port's kernels take bfloat16 weights and cache only; got "
-            f"dtype={dtype}" + (f" and weights {', '.join(bad[:4])}" if bad else "")
+            "LMEngine on CUDA: the port's kernels take bfloat16 weights and cache (and int8 "
+            f"quantized weights with bfloat16 scales) only; got dtype={dtype}"
+            + (f" and weights {', '.join(bad[:4])}" if bad else "")
             + ". Convert with io.convert.dual_ar_params_from_numpy(..., dtype=torch.bfloat16)")
 
 
@@ -164,16 +180,22 @@ class LMEngine:
         fast_frame_impl: str = "auto",
         dynamic_sampling: bool = False,
         dyn_top_k_cap: int = 256,
+        quantize_int8: bool = False,
     ) -> None:
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             _check_cuda_dtypes(params, dtype)
+        if quantize_int8 and any(is_quantized(v) for st in ("slow", "fast")
+                                 for v in params[st].values()):
+            raise ValueError("LMEngine(quantize_int8=True): the stacks are quantized already")
         # Gather the LM head down to the audio-legal columns once; the
-        # full head is not kept.
+        # full head is not kept, nor, under int8, the bf16 stacks.
         params = dict(params)
         cols = torch.as_tensor(semantic_head_columns(lm, token_cfg, cfg), dtype=torch.long)
         params["output"] = params["output"][:, cols.to(params["output"].device)].contiguous()
-        self.params = tree_to(params, self.device)
+        params = tree_to(params, self.device)
+        self.quantize_int8 = quantize_int8
+        self.params = quantize_lm_params(params) if quantize_int8 else params
         self.cfg = cfg
         self.token_cfg = token_cfg
         self.lm = lm
@@ -211,7 +233,7 @@ class LMEngine:
             return supported and auto
         if impl == "fused" and not supported:
             raise ValueError(f"{name}='fused': the fused path does not take this "
-                             "configuration (batch, head dim, dtype, int8 or shared memory)")
+                             "configuration (batch, head dim, dtype, widths or shared memory)")
         return impl == "fused"
 
     # -- state ------------------------------------------------------------

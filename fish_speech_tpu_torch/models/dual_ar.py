@@ -10,7 +10,10 @@ parameter layout, so one converter serves both packages:
             attention_norm, ffn_norm},
    "fast": {the same, stacked over the fast layers}}
 
-Linear weights are (in, out) and applied as `x @ w`.
+Linear weights are (in, out) and applied as `x @ w`. A stack's matmul
+weights may be int8-quantized (`ops/quant.py`: {"q": (L, in, out) int8,
+"s": (L, 1, out) bf16}); every stack product goes through
+`ops.quant.matmul`.
 
 * The KV cache is a static `(L, B, KV, S, hd)` buffer updated in place.
 * Prefill attention goes through `ops.prefill_attention` and decode
@@ -33,6 +36,8 @@ from fish_speech_tpu_torch.ops.decode_attention import decode_attention
 from fish_speech_tpu_torch.ops.norms import rms_norm
 from fish_speech_tpu_torch.ops.prefill_attention import prefill_attention
 from fish_speech_tpu_torch.ops.attention import gqa_attention
+from fish_speech_tpu_torch.ops.quant import is_quantized
+from fish_speech_tpu_torch.ops.quant import matmul as _mm
 from fish_speech_tpu_torch.ops.rope import apply_rope_interleaved, precompute_freqs_cis
 
 DualARParams = Dict[str, object]
@@ -107,8 +112,11 @@ def init_dual_ar_params(cfg: DualARConfig, seed: int = 0,
     }
 
 
-def _layer(stack: Dict[str, torch.Tensor], l: int) -> Dict[str, torch.Tensor]:
-    return {k: v[l] for k, v in stack.items()}
+def _layer(stack: Dict[str, object], l: int) -> Dict[str, object]:
+    """Layer l of a stacked parameter dict; quantized entries give
+    {"q": (in, out), "s": (1, out)} pairs."""
+    return {k: ({"q": v["q"][l], "s": v["s"][l]} if is_quantized(v) else v[l])
+            for k, v in stack.items()}
 
 
 # --------------------------------------------------------------------------
@@ -147,7 +155,7 @@ def embed_tokens(params, cfg: DualARConfig, token_cfg: TokenConfig,
 def _project_qkv(x, lp, cfg: DualARConfig):
     """x (B, S, D) -> q (B, H, S, hd), k, v (B, KV, S, hd)."""
     b, s, _ = x.shape
-    qkv = x @ lp["wqkv"]
+    qkv = _mm(x, lp["wqkv"])
     q_sz = cfg.n_head * cfg.head_dim
     kv_sz = cfg.n_local_heads * cfg.head_dim
     q = qkv[..., :q_sz].reshape(b, s, cfg.n_head, cfg.head_dim)
@@ -159,13 +167,18 @@ def _project_qkv(x, lp, cfg: DualARConfig):
 def _attn_out_ffn(x, attn, lp, cfg: DualARConfig, unrounded: bool = False):
     """Residual attention projection, then the SwiGLU feed-forward.
     unrounded: silu sees the w1 product in float32, as in the fused TPU
-    kernels, instead of the product rounded to x's dtype."""
+    kernels, instead of the product rounded to x's dtype. An int8 w1 has
+    no unrounded product: silu sees the rescaled product in x's dtype,
+    in the fused TPU kernels too (slow_step_pallas.py:313-323)."""
     b, s, d = x.shape
-    x = x + attn.transpose(1, 2).reshape(b, s, d) @ lp["wo"]
+    x = x + _mm(attn.transpose(1, 2).reshape(b, s, d), lp["wo"])
     h2 = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-    up = h2.float() @ lp["w1"].float() if unrounded else (h2 @ lp["w1"]).float()
+    if unrounded and not is_quantized(lp["w1"]):
+        up = h2.float() @ lp["w1"].float()
+    else:
+        up = _mm(h2, lp["w1"]).float()
     gate = F.silu(up).to(x.dtype)
-    return x + (gate * (h2 @ lp["w3"])) @ lp["w2"]
+    return x + _mm(gate * _mm(h2, lp["w3"]), lp["w2"])
 
 
 @lru_cache(maxsize=None)
@@ -280,8 +293,9 @@ def fast_step(params, cfg: DualARConfig, x: torch.Tensor, hist, codebook_idx: in
 
     x: (B, 1, D); hist: per-layer (k, v) histories (B, KV, codebook_idx,
     hd). The single query attends to the whole history, so no mask.
-    unrounded: the w1 product before silu and the head product stay in
-    float32, as in the fused TPU kernel (ops/fast_frame.py).
+    unrounded: the w1 product before silu (of a dense stack) and the
+    head product stay in float32, as in the fused TPU kernel
+    (ops/fast_frame.py).
     Returns (logits (B, codebook_size) float32, grown hist)."""
     cos_t, sin_t = rope
     cos = cos_t[codebook_idx:codebook_idx + 1]

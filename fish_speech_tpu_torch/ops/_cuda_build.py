@@ -48,22 +48,25 @@ SIGNATURES = {
     # window, scale,
     # stream
     "fs_prefill_attention": [_P] * 5 + [_I] * 9 + [_F, _P],
-    # x0, pos, attn_norm, wqkv, wo, ffn_norm, w1, w3, w2, norm, head,
+    # The three stack entries take the layer stacks as attn_norm,
+    # ffn_norm, then the five weights wqkv, wo, w1, w3, w2 (bf16, or int8
+    # q) and their five scales (bf16 s; all null for a bf16 stack).
+    # x0, pos, attn_norm, ffn_norm, 5 weights, 5 scales, norm, head,
     # cos, sin, ck, cv, logits, hidden, qkv, attn, ffn,
     # B, L, D, H, KV, F, W, S, eps, stream
-    "fs_slow_step": [_P] * 20 + [_I] * 8 + [_F, _P],
-    # hidden, attn_norm, wqkv, wo, ffn_norm, w1, w3, w2, fast_norm, head,
+    "fs_slow_step": [_P] * 25 + [_I] * 8 + [_F, _P],
+    # hidden, attn_norm, ffn_norm, 5 weights, 5 scales, fast_norm, head,
     # emb, cos, sin, window, gumbel, is_eos, tokens, x, qkv, attn, ffn,
     # logits, k_hist, v_hist,
     # L, D, H, KV, F, C, V, head_ld, depthwise_output, depthwise_wte,
     # window_len, k_eff, rep_enabled, temp, top_p, penalty, eps, stream
-    "fs_fast_frame": [_P] * 24 + [_I] * 13 + [_F] * 4 + [_P],
-    # hidden, attn_norm, wqkv, wo, ffn_norm, w1, w3, w2, fast_norm, head,
+    "fs_fast_frame": [_P] * 29 + [_I] * 13 + [_F] * 4 + [_P],
+    # hidden, attn_norm, ffn_norm, 5 weights, 5 scales, fast_norm, head,
     # emb, cos, sin, window, gumbel, temp, top_p, top_k, penalty, is_eos,
     # tokens, x, qkv, attn, ffn, logits, k_hist, v_hist,
     # B, L, D, H, KV, F, C, V, head_ld, depthwise_output, depthwise_wte,
     # window_len, k_dyn, rep_enabled, eps, stream
-    "fs_fast_frame_batched": [_P] * 28 + [_I] * 14 + [_F, _P],
+    "fs_fast_frame_batched": [_P] * 33 + [_I] * 14 + [_F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

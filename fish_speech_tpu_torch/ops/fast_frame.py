@@ -7,7 +7,10 @@ the repetition penalty, the top-k/top-p draw with the given Gumbel noise,
 the EOS rule and the next step's embedding. The head product is float32
 and unrounded, and silu sees the unrounded float32 w1 product, as in the
 TPU kernel (fast_frame_pallas.py:283-301); the unfused codebook loop of
-`generate/frame.py` rounds both to bf16.
+`generate/frame.py` rounds both to bf16. An int8-quantized fast stack
+takes the TPU kernel's int8 body (fast_frame_pallas.py:127-151, 174-186,
+284-294): each stack product is bf16(bf16(x @ q) * s), and silu sees
+that rescaled bf16 w1 product.
 """
 
 from __future__ import annotations
@@ -20,9 +23,11 @@ from fish_speech_tpu_torch.ops import _cuda_build
 from fish_speech_tpu_torch.ops.sampling import (
     RepPenWindow, SamplingArgs, sample_top_k_top_p, top_k_width)
 from fish_speech_tpu_torch.ops.slow_step import (
-    GEMV_SMEM, HEAD_DIM, STACK_KEYS, check_dense, is_dense)
+    GEMV_SMEM, HEAD_DIM, check_stack, stack_dtypes_ok, stack_pointers, stack_shapes_bad,
+    stack_weight, stack_widths_ok)
 
 launches = 0  # kernel-sequence launches since the last reset (set to 0 to reset)
+int8_launches = 0  # those of them on int8 stacks (the int8 kernel body)
 
 MAX_VOCAB = 4096  # codebook entries the sampler block takes
 MAX_WINDOW = 64  # rep-pen window length the sampler takes
@@ -36,7 +41,6 @@ def fused_fast_frame_plain(params, cfg: DualARConfig, sampling: SamplingArgs, hi
     mode; is_eos (1,) bool. Returns the frame's codebook tokens (C,)
     int32, all 0 when is_eos; with return_logits, also each step's head
     logits (C, codebook_size) float32 before the penalty."""
-    check_dense(params, "fast", "fused_fast_frame")
     n_cb = cfg.num_codebooks
     hist = fast_hist_init(cfg, 1, hidden.dtype, hidden.device)
     x = hidden[:, None, :]
@@ -69,16 +73,16 @@ def fused_fast_frame(params, cfg: DualARConfig, sampling: SamplingArgs, hidden,
                                       return_logits=return_logits)
     if hidden.device.type != "cuda":
         raise ValueError(f"fused_fast_frame: unsupported device {hidden.device}")
-    check_dense(params, "fast", "fused_fast_frame")
     stack = params["fast"]
     cos_t, sin_t = rope
     n_cb, vocab = cfg.num_codebooks, cfg.codebook_size
     k_eff = top_k_width(sampling.top_k, vocab)
     _check(params, cfg, sampling, hidden, rp_tokens, gumbel, is_eos, cos_t, sin_t, k_eff)
     lib = _cuda_build.load_library()
-    n_layer, d, qkv = stack["wqkv"].shape
-    f = stack["w1"].shape[2]
+    n_layer, d, qkv = stack_weight(stack["wqkv"]).shape
+    f = stack_weight(stack["w1"]).shape[2]
     kv = cfg.n_local_heads
+    weights, scales = stack_pointers(stack)
     dev = hidden.device
     dt = hidden.dtype
     tokens = torch.empty((n_cb,), dtype=torch.int32, device=dev)
@@ -91,9 +95,8 @@ def fused_fast_frame(params, cfg: DualARConfig, sampling: SamplingArgs, hidden,
     v_hist = torch.empty_like(k_hist)
     head = params["fast_output"]
     rc = lib.fs_fast_frame(
-        hidden.data_ptr(), stack["attention_norm"].data_ptr(), stack["wqkv"].data_ptr(),
-        stack["wo"].data_ptr(), stack["ffn_norm"].data_ptr(), stack["w1"].data_ptr(),
-        stack["w3"].data_ptr(), stack["w2"].data_ptr(), params["fast_norm"].data_ptr(),
+        hidden.data_ptr(), stack["attention_norm"].data_ptr(), stack["ffn_norm"].data_ptr(),
+        *weights, *scales, params["fast_norm"].data_ptr(),
         head.data_ptr(), params["fast_embeddings"].data_ptr(),
         cos_t.data_ptr(), sin_t.data_ptr(), rp_tokens.data_ptr(),
         None if gumbel is None else gumbel.data_ptr(), is_eos.data_ptr(),
@@ -106,23 +109,24 @@ def fused_fast_frame(params, cfg: DualARConfig, sampling: SamplingArgs, hidden,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda_build.check(rc, "fs_fast_frame")
-    global launches
+    global launches, int8_launches
     launches += 1
+    int8_launches += int(scales[0] is not None)
     return (tokens, logits_buf) if return_logits else tokens
 
 
 def fused_fast_frame_supported(cfg: DualARConfig, params, batch: int) -> bool:
-    """Whether `fused_fast_frame` takes these parameters: one row, dense
-    (not int8) stacks and an even head dim; on CUDA also the kernels'
-    limits (bf16, head dim 64, H * hd == D, widths that are multiples of
-    8, a codebook of at most 4096 entries)."""
-    if batch != 1 or cfg.head_dim % 2 or not is_dense(params, "fast"):
+    """Whether `fused_fast_frame` takes these parameters: one row and an
+    even head dim; on CUDA also the kernels' limits (bf16 stacks or int8
+    ones with bf16 scales and out % 16 == 0, head dim 64, H * hd == D,
+    widths that are multiples of 8, a codebook of at most 4096 entries)."""
+    if batch != 1 or cfg.head_dim % 2:
         return False
     stack = params["fast"]
-    if stack["wqkv"].device.type != "cuda":
+    if stack_weight(stack["wqkv"]).device.type != "cuda":
         return True
     return (
-        all(stack[k].dtype == torch.bfloat16 for k in STACK_KEYS)
+        stack_dtypes_ok(stack) and stack_widths_ok(stack)
         and cfg.head_dim == HEAD_DIM
         and cfg.n_head * cfg.head_dim == cfg.dim
         and cfg.dim % 8 == 0 and cfg.intermediate_size % 8 == 0
@@ -133,10 +137,10 @@ def fused_fast_frame_supported(cfg: DualARConfig, params, batch: int) -> bool:
 
 def _check(params, cfg, sampling, hidden, rp_tokens, gumbel, is_eos, cos_t, sin_t, k_eff):
     stack = params["fast"]
+    check_stack(stack, "fused_fast_frame", "fast", hidden.device)
     bf16 = {"hidden": hidden, "fast_norm": params["fast_norm"],
             "fast_output": params["fast_output"],
-            "fast_embeddings": params["fast_embeddings"],
-            **{f"fast.{k}": stack[k] for k in STACK_KEYS}}
+            "fast_embeddings": params["fast_embeddings"]}
     for name, t in bf16.items():
         if t.dtype != torch.bfloat16:
             raise TypeError(f"fused_fast_frame: {name} must be bfloat16, got {t.dtype}")
@@ -158,11 +162,7 @@ def _check(params, cfg, sampling, hidden, rp_tokens, gumbel, is_eos, cos_t, sin_
             f"{cfg.dim}, heads {cfg.n_head}x{cfg.head_dim}, codebook {cfg.codebook_size}")
     n_cb, vocab, d = cfg.num_codebooks, cfg.codebook_size, cfg.dim
     qkv = (cfg.n_head + 2 * cfg.n_local_heads) * cfg.head_dim
-    n_layer, f = cfg.n_fast_layer, cfg.intermediate_size
-    want = {"wqkv": (n_layer, d, qkv), "wo": (n_layer, d, d), "w1": (n_layer, d, f),
-            "w3": (n_layer, d, f), "w2": (n_layer, f, d),
-            "attention_norm": (n_layer, d), "ffn_norm": (n_layer, d)}
-    bad = {k: tuple(stack[k].shape) for k, v in want.items() if tuple(stack[k].shape) != v}
+    bad = stack_shapes_bad(stack, cfg.n_fast_layer, d, qkv, cfg.intermediate_size)
     if (bad or tuple(hidden.shape) != (1, d)
             or tuple(params["fast_output"].shape) != (d, cfg.fast_output_size)
             or params["fast_embeddings"].shape[0] < cfg.fast_vocab_size

@@ -9,7 +9,10 @@ draw with the row's temp/top_p/top_k/penalty and Gumbel draws indexed by
 rank, the EOS rule and the next step's embedding. As in the batch-1
 frame (`ops/fast_frame.py`), the head product is float32 and unrounded
 and silu sees the unrounded float32 w1 product; the unfused codebook
-loop of `generate/frame.py` rounds both to bf16.
+loop of `generate/frame.py` rounds both to bf16. An int8-quantized fast
+stack takes the TPU kernel's int8 body (fast_frame_pallas.py:532,
+569-573, 595-604, 706-712): each stack product is bf16(bf16(x @ q) * s),
+and silu sees that rescaled bf16 w1 product.
 """
 
 from __future__ import annotations
@@ -22,9 +25,12 @@ from fish_speech_tpu_torch.ops import _cuda_build
 from fish_speech_tpu_torch.ops.fast_frame import MAX_VOCAB, MAX_WINDOW
 from fish_speech_tpu_torch.ops.sampling import (
     RepPenWindow, RowSampling, sample_top_k_top_p_dynamic)
-from fish_speech_tpu_torch.ops.slow_step import HEAD_DIM, STACK_KEYS, check_dense, is_dense
+from fish_speech_tpu_torch.ops.slow_step import (
+    HEAD_DIM, check_stack, stack_dtypes_ok, stack_pointers, stack_shapes_bad, stack_weight,
+    stack_widths_ok)
 
 launches = 0  # kernel-sequence launches since the last reset (set to 0 to reset)
+int8_launches = 0  # those of them on int8 stacks (the int8 kernel body)
 
 MAX_ROWS = 32  # rows the JAX kernel and this one take
 
@@ -38,7 +44,6 @@ def fused_fast_frame_batched_plain(params, cfg: DualARConfig, samp: RowSampling,
     frame's codebook tokens (B, C) int32, all 0 on EOS rows; with
     return_logits, also each step's head logits (C, B, codebook_size)
     float32 before the penalty."""
-    check_dense(params, "fast", "fused_fast_frame_batched")
     b, n_cb = hidden.shape[0], cfg.num_codebooks
     k_dyn = gumbel.shape[-1]
     hist = fast_hist_init(cfg, b, hidden.dtype, hidden.device)
@@ -71,13 +76,13 @@ def fused_fast_frame_batched(params, cfg: DualARConfig, samp: RowSampling, hidde
                                               return_logits=return_logits)
     if hidden.device.type != "cuda":
         raise ValueError(f"fused_fast_frame_batched: unsupported device {hidden.device}")
-    check_dense(params, "fast", "fused_fast_frame_batched")
     cos_t, sin_t = rope
     _check(params, cfg, samp, hidden, rp_tokens, gumbel, is_eos, cos_t, sin_t)
     lib = _cuda_build.load_library()
     stack = params["fast"]
-    n_layer, d, qkv = stack["wqkv"].shape
-    f = stack["w1"].shape[2]
+    n_layer, d, qkv = stack_weight(stack["wqkv"]).shape
+    f = stack_weight(stack["w1"]).shape[2]
+    weights, scales = stack_pointers(stack)
     b, n_cb, vocab, kv = hidden.shape[0], cfg.num_codebooks, cfg.codebook_size, cfg.n_local_heads
     dev, dt = hidden.device, hidden.dtype
     tokens = torch.empty((b, n_cb), dtype=torch.int32, device=dev)
@@ -90,9 +95,8 @@ def fused_fast_frame_batched(params, cfg: DualARConfig, samp: RowSampling, hidde
     v_hist = torch.empty_like(k_hist)
     head = params["fast_output"]
     rc = lib.fs_fast_frame_batched(
-        hidden.data_ptr(), stack["attention_norm"].data_ptr(), stack["wqkv"].data_ptr(),
-        stack["wo"].data_ptr(), stack["ffn_norm"].data_ptr(), stack["w1"].data_ptr(),
-        stack["w3"].data_ptr(), stack["w2"].data_ptr(), params["fast_norm"].data_ptr(),
+        hidden.data_ptr(), stack["attention_norm"].data_ptr(), stack["ffn_norm"].data_ptr(),
+        *weights, *scales, params["fast_norm"].data_ptr(),
         head.data_ptr(), params["fast_embeddings"].data_ptr(),
         cos_t.data_ptr(), sin_t.data_ptr(), rp_tokens.data_ptr(), gumbel.data_ptr(),
         samp.temp.data_ptr(), samp.top_p.data_ptr(), samp.top_k.data_ptr(),
@@ -105,8 +109,9 @@ def fused_fast_frame_batched(params, cfg: DualARConfig, samp: RowSampling, hidde
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda_build.check(rc, "fs_fast_frame_batched")
-    global launches
+    global launches, int8_launches
     launches += 1
+    int8_launches += int(scales[0] is not None)
     return (tokens, logits_buf) if return_logits else tokens
 
 
@@ -115,22 +120,22 @@ def fused_fast_frame_batched_supported(cfg: DualARConfig, params, batch: int,
     """Whether `fused_fast_frame_batched` takes these parameters: the JAX
     kernel's bounds (1 <= batch <= 32, an even head dim, codebook tiles
     and depthwise blocks that divide, a top-k cap that is a multiple of
-    128 or covers the codebook) and dense (not int8) stacks; on CUDA also
-    the kernels' limits (bf16, head dim 64, H * hd == D, widths that are
-    multiples of 8, a codebook of at most 4096 entries)."""
+    128 or covers the codebook); on CUDA also the kernels' limits (bf16
+    stacks or int8 ones with bf16 scales and out % 16 == 0, head dim 64,
+    H * hd == D, widths that are multiples of 8, a codebook of at most
+    4096 entries)."""
     vocab = cfg.codebook_size
     if (not 1 <= batch <= MAX_ROWS or cfg.head_dim % 2 or vocab % min(128, vocab)
-            or (dyn_top_k_cap % 128 and dyn_top_k_cap < vocab)
-            or not is_dense(params, "fast")):
+            or (dyn_top_k_cap % 128 and dyn_top_k_cap < vocab)):
         return False
     if cfg.num_codebooks > 1 and ((cfg.depthwise_output and vocab % 128)
                                   or (cfg.depthwise_wte and vocab % 8)):
         return False
     stack = params["fast"]
-    if stack["wqkv"].device.type != "cuda":
+    if stack_weight(stack["wqkv"]).device.type != "cuda":
         return True
     return (
-        all(stack[k].dtype == torch.bfloat16 for k in STACK_KEYS)
+        stack_dtypes_ok(stack) and stack_widths_ok(stack)
         and cfg.head_dim == HEAD_DIM
         and cfg.n_head * cfg.head_dim == cfg.dim
         and cfg.dim % 8 == 0 and cfg.intermediate_size % 8 == 0
@@ -141,10 +146,10 @@ def fused_fast_frame_batched_supported(cfg: DualARConfig, params, batch: int,
 def _check(params, cfg, samp, hidden, rp_tokens, gumbel, is_eos, cos_t, sin_t):
     stack = params["fast"]
     who = "fused_fast_frame_batched"
+    check_stack(stack, who, "fast", hidden.device)
     bf16 = {"hidden": hidden, "fast_norm": params["fast_norm"],
             "fast_output": params["fast_output"],
-            "fast_embeddings": params["fast_embeddings"],
-            **{f"fast.{k}": stack[k] for k in STACK_KEYS}}
+            "fast_embeddings": params["fast_embeddings"]}
     for name, t in bf16.items():
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{who}: {name} must be bfloat16, got {t.dtype}")
@@ -168,11 +173,7 @@ def _check(params, cfg, samp, hidden, rp_tokens, gumbel, is_eos, cos_t, sin_t):
             f"{cfg.n_head}x{cfg.head_dim}, codebook {cfg.codebook_size}")
     n_cb, vocab, d = cfg.num_codebooks, cfg.codebook_size, cfg.dim
     qkv = (cfg.n_head + 2 * cfg.n_local_heads) * cfg.head_dim
-    n_layer, f = cfg.n_fast_layer, cfg.intermediate_size
-    want = {"wqkv": (n_layer, d, qkv), "wo": (n_layer, d, d), "w1": (n_layer, d, f),
-            "w3": (n_layer, d, f), "w2": (n_layer, f, d),
-            "attention_norm": (n_layer, d), "ffn_norm": (n_layer, d)}
-    bad = {k: tuple(stack[k].shape) for k, v in want.items() if tuple(stack[k].shape) != v}
+    bad = stack_shapes_bad(stack, cfg.n_fast_layer, d, qkv, cfg.intermediate_size)
     if (bad or tuple(hidden.shape) != (b, d)
             or tuple(params["fast_output"].shape) != (d, cfg.fast_output_size)
             or params["fast_embeddings"].shape[0] < cfg.fast_vocab_size

@@ -10,6 +10,11 @@ w1 product, as in the TPU kernel (slow_step_pallas.py:317-334); the
 unfused `models/dual_ar.py::slow_decode_step` rounds both to bf16.
 Unlike the JAX function, which returns new caches, both versions here
 update ck/cv in place and return (logits, hidden).
+
+An int8-quantized stack (`ops/quant.py`) takes the TPU kernel's int8
+body (slow_step_pallas.py:152-174, 198-207, 313-323): each stack product
+is bf16(bf16(x @ q) * s), and silu sees that rescaled bf16 w1 product.
+The head stays bf16 and its product float32.
 """
 
 from __future__ import annotations
@@ -21,32 +26,90 @@ from fish_speech_tpu_torch.models.dual_ar import _attn_out_ffn, _layer, _project
 from fish_speech_tpu_torch.ops import _cuda_build
 from fish_speech_tpu_torch.ops.decode_attention import decode_attention_plain
 from fish_speech_tpu_torch.ops.norms import rms_norm
+from fish_speech_tpu_torch.ops.quant import is_quantized
 from fish_speech_tpu_torch.ops.rope import apply_rope_interleaved
 
 launches = 0  # kernel-sequence launches since the last reset (set to 0 to reset)
+int8_launches = 0  # those of them on int8 stacks (the int8 kernel body)
 
 HEAD_DIM = 64  # the attention kernel's head dim
 MAX_BATCH = 4  # rows the kernel's GEMVs take
 GEMV_SMEM = 40960  # bytes of staged input rows a GEMV block may hold
 ATTN_SMEM = 232448  # bytes of shared memory one block may use on sm_90
-STACK_KEYS = ("wqkv", "wo", "w1", "w3", "w2", "attention_norm", "ffn_norm")
+MATMUL_KEYS = ("wqkv", "wo", "w1", "w3", "w2")  # order of the C entries' weights and scales
+NORM_KEYS = ("attention_norm", "ffn_norm")
+INT8_COLS = 16  # int8 weights are read 16 columns (16 bytes) at a time
 
 
-def is_dense(params, stack: str) -> bool:
-    """False for int8-quantized stacks (a dict per weight), not ported yet."""
-    return not any(isinstance(params[stack][k], dict) for k in STACK_KEYS)
+def stack_weight(w) -> torch.Tensor:
+    """The tensor a stack entry streams: the weight, or its int8 q."""
+    return w["q"] if is_quantized(w) else w
 
 
-def check_dense(params, stack: str, who: str) -> None:
-    if not is_dense(params, stack):
-        raise TypeError(f"{who}: int8-quantized {stack} stacks are not supported")
+def stack_dtypes_ok(stack) -> bool:
+    """Whether the CUDA kernels take the stack's types: bf16 norms, and
+    bf16 matmul weights or int8 ones (all five) with bf16 scales."""
+    if any(stack[k].dtype != torch.bfloat16 for k in NORM_KEYS):
+        return False
+    ws = [stack[k] for k in MATMUL_KEYS]
+    if all(is_quantized(w) for w in ws):
+        return all(w["q"].dtype == torch.int8 and w["s"].dtype == torch.bfloat16 for w in ws)
+    return all(not is_quantized(w) and w.dtype == torch.bfloat16 for w in ws)
+
+
+def stack_widths_ok(stack) -> bool:
+    """int8 weight rows must be whole 16-byte loads."""
+    return all(not is_quantized(stack[k]) or stack[k]["q"].shape[-1] % INT8_COLS == 0
+               for k in MATMUL_KEYS)
+
+
+def check_stack(stack, who: str, prefix: str, device) -> None:
+    """Raise unless the kernels take the stack: its types, its int8 row
+    widths, and every tensor on `device`, contiguous and 16-byte aligned
+    (so are the (L, in, out) layer slices, since out % 16 == 0)."""
+    if not stack_dtypes_ok(stack):
+        got = {k: (str(v["q"].dtype), str(v["s"].dtype)) if is_quantized(v) else str(v.dtype)
+               for k, v in stack.items()}
+        raise TypeError(f"{who}: {prefix} must be bfloat16, or int8 q with bfloat16 s for all "
+                        f"of {MATMUL_KEYS} and bfloat16 norms; got {got}")
+    if not stack_widths_ok(stack):
+        raise ValueError(f"{who}: int8 {prefix} weights need a multiple of {INT8_COLS} "
+                         "output columns")
+    for k, v in stack.items():
+        for name, t in ({f"{k}.q": v["q"], f"{k}.s": v["s"]} if is_quantized(v) else {k: v}).items():
+            if t.device != device:
+                raise ValueError(f"{who}: {prefix}.{name} is on {t.device}, not {device}")
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError(f"{who}: {prefix}.{name} must be contiguous and 16-byte aligned")
+    for k in MATMUL_KEYS:
+        v = stack[k]
+        if is_quantized(v) and tuple(v["s"].shape) != (v["q"].shape[0], 1, v["q"].shape[2]):
+            raise ValueError(f"{who}: {prefix}.{k}.s has shape {tuple(v['s'].shape)} for q "
+                             f"{tuple(v['q'].shape)}")
+
+
+def stack_pointers(stack):
+    """The five matmul weights' pointers in MATMUL_KEYS order and their
+    scales' (None for a bf16 stack)."""
+    ws = [stack[k] for k in MATMUL_KEYS]
+    if is_quantized(ws[0]):
+        return [w["q"].data_ptr() for w in ws], [w["s"].data_ptr() for w in ws]
+    return [w.data_ptr() for w in ws], [None] * len(ws)
+
+
+def stack_shapes_bad(stack, n_layer: int, d: int, qkv: int, f: int) -> dict:
+    """{key: shape} of the entries whose (weight or q) shape is wrong."""
+    want = {"wqkv": (n_layer, d, qkv), "wo": (n_layer, d, d), "w1": (n_layer, d, f),
+            "w3": (n_layer, d, f), "w2": (n_layer, f, d),
+            "attention_norm": (n_layer, d), "ffn_norm": (n_layer, d)}
+    return {k: tuple(stack_weight(stack[k]).shape) for k, v in want.items()
+            if tuple(stack_weight(stack[k]).shape) != v}
 
 
 def fused_slow_step_plain(params, cfg: DualARConfig, x0, pos, ck, cv, rope):
     """x0 (B, D), pos (B,) int, ck/cv (L, B, KV, S, hd), rope (cos, sin)
     tables. Writes each layer's new K/V at row pos[b] in place and
     returns (logits (B, W) float32, hidden (B, D))."""
-    check_dense(params, "slow", "fused_slow_step")
     cos_t, sin_t = rope
     cos = cos_t[pos.long()][:, None, None, :]
     sin = sin_t[pos.long()][:, None, None, :]
@@ -76,15 +139,15 @@ def fused_slow_step(params, cfg: DualARConfig, x0, pos, ck, cv, rope):
         return fused_slow_step_plain(params, cfg, x0, pos, ck, cv, rope)
     if x0.device.type != "cuda":
         raise ValueError(f"fused_slow_step: unsupported device {x0.device}")
-    check_dense(params, "slow", "fused_slow_step")
     stack = params["slow"]
     head = params["output"]
     cos_t, sin_t = rope
     bsz, d = x0.shape
     n_layer, _, kv, s, _ = ck.shape
-    f = stack["w1"].shape[2]
+    f = stack_weight(stack["w1"]).shape[2]
     w = head.shape[1]
     _check(cfg, x0, pos, ck, cv, stack, params["norm"], head, cos_t, sin_t)
+    weights, scales = stack_pointers(stack)
     lib = _cuda_build.load_library()
     qkv = (cfg.n_head + 2 * kv) * HEAD_DIM
     dev = x0.device
@@ -94,10 +157,8 @@ def fused_slow_step(params, cfg: DualARConfig, x0, pos, ck, cv, rope):
     attn_buf = torch.empty((bsz, d), dtype=x0.dtype, device=dev)
     ffn_buf = torch.empty((bsz, f), dtype=x0.dtype, device=dev)
     rc = lib.fs_slow_step(
-        x0.data_ptr(), pos.data_ptr(),
-        stack["attention_norm"].data_ptr(), stack["wqkv"].data_ptr(),
-        stack["wo"].data_ptr(), stack["ffn_norm"].data_ptr(),
-        stack["w1"].data_ptr(), stack["w3"].data_ptr(), stack["w2"].data_ptr(),
+        x0.data_ptr(), pos.data_ptr(), stack["attention_norm"].data_ptr(),
+        stack["ffn_norm"].data_ptr(), *weights, *scales,
         params["norm"].data_ptr(), head.data_ptr(),
         cos_t.data_ptr(), sin_t.data_ptr(), ck.data_ptr(), cv.data_ptr(),
         logits.data_ptr(), hidden.data_ptr(),
@@ -106,27 +167,28 @@ def fused_slow_step(params, cfg: DualARConfig, x0, pos, ck, cv, rope):
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda_build.check(rc, "fs_slow_step")
-    global launches
+    global launches, int8_launches
     launches += 1
+    int8_launches += int(scales[0] is not None)
     return logits, hidden
 
 
 def fused_slow_step_supported(cfg: DualARConfig, params, batch: int,
                               cache_len: int = 0) -> bool:
     """Whether `fused_slow_step` takes these parameters at this batch and
-    cache length: dense (not int8) stacks and an even head dim; on CUDA
-    also the kernels' limits (bf16, head dim 64, H * hd == D, widths that
-    are multiples of 8, batch <= 4, the GEMV's staged rows and the
-    attention scores within shared memory). CPU tensors run the plain
-    version, which takes any batch and dtype."""
-    if not is_dense(params, "slow") or cfg.head_dim % 2:
+    cache length: an even head dim; on CUDA also the kernels' limits
+    (bf16 stacks or int8 ones with bf16 scales and out % 16 == 0, head
+    dim 64, H * hd == D, widths that are multiples of 8, batch <= 4, the
+    GEMV's staged rows and the attention scores within shared memory).
+    CPU tensors run the plain version, which takes any batch and dtype."""
+    if cfg.head_dim % 2:
         return False
     stack = params["slow"]
-    if stack["wqkv"].device.type != "cuda":
+    if stack_weight(stack["wqkv"]).device.type != "cuda":
         return True
     s = cache_len or cfg.max_seq_len
     return (
-        all(stack[k].dtype == torch.bfloat16 for k in STACK_KEYS)
+        stack_dtypes_ok(stack) and stack_widths_ok(stack)
         and cfg.head_dim == HEAD_DIM
         and cfg.n_head * cfg.head_dim == cfg.dim
         and cfg.dim % 8 == 0 and cfg.intermediate_size % 8 == 0
@@ -137,8 +199,8 @@ def fused_slow_step_supported(cfg: DualARConfig, params, batch: int,
 
 
 def _check(cfg, x0, pos, ck, cv, stack, norm, head, cos_t, sin_t):
-    bf16 = {"x0": x0, "ck": ck, "cv": cv, "norm": norm, "output": head,
-            **{f"slow.{k}": stack[k] for k in STACK_KEYS}}
+    check_stack(stack, "fused_slow_step", "slow", x0.device)
+    bf16 = {"x0": x0, "ck": ck, "cv": cv, "norm": norm, "output": head}
     for name, t in bf16.items():
         if t.dtype != torch.bfloat16:
             raise TypeError(f"fused_slow_step: {name} must be bfloat16, got {t.dtype}")
@@ -159,11 +221,7 @@ def _check(cfg, x0, pos, ck, cv, stack, norm, head, cos_t, sin_t):
             f"dim {cfg.dim}, heads {cfg.n_head}/{cfg.n_local_heads}x{cfg.head_dim}, "
             f"ffn {cfg.intermediate_size}")
     qkv = (cfg.n_head + 2 * kv) * hd
-    f = cfg.intermediate_size
-    want = {"wqkv": (n_layer, d, qkv), "wo": (n_layer, d, d), "w1": (n_layer, d, f),
-            "w3": (n_layer, d, f), "w2": (n_layer, f, d),
-            "attention_norm": (n_layer, d), "ffn_norm": (n_layer, d)}
-    bad = {k: tuple(stack[k].shape) for k, v in want.items() if tuple(stack[k].shape) != v}
+    bad = stack_shapes_bad(stack, n_layer, d, qkv, cfg.intermediate_size)
     if (bad or d != cfg.dim or n_layer != cfg.n_layer or kv != cfg.n_local_heads
             or hd != HEAD_DIM or cb != bsz or ck.shape != cv.shape
             or tuple(pos.shape) != (bsz,) or tuple(norm.shape) != (d,)

@@ -2,9 +2,12 @@
 package's TPU kernel `fish_speech_tpu/ops/fast_frame_pallas.py::
 fused_fast_frame`, run in interpret mode as tests/test_fast_frame.py
 runs it, at that file's tiny config in float32 and fed the JAX
-package's own Gumbel draws; the fused branch of `generate_frame`
-against the JAX frame; its dispatch rules; and, on a card only, the
-CUDA kernel sequence against its plain version.
+package's own Gumbel draws, with bf16 and with int8 stacks (the kernel's
+quantized body, as tests/test_fast_frame.py:262 runs it); the bf16 int8
+plain version's step logits against the JAX unfused int8 steps; the
+fused branch of `generate_frame` against the JAX frame; its dispatch
+rules; and, on a card only, the CUDA kernel sequence against its plain
+version.
 
 Every comparison on the CPU asserts sampled tokens exactly equal. On
 the card the kernel sums in another order than cuBLAS, which reorders
@@ -23,7 +26,11 @@ import torch
 from fish_speech_tpu import config as jcfg
 from fish_speech_tpu.generate.frame import generate_frame as j_generate_frame
 from fish_speech_tpu.generate.frame import semantic_head_columns
+from fish_speech_tpu.models.dual_ar import fast_embed as jax_fast_embed
+from fish_speech_tpu.models.dual_ar import fast_hist_init as jax_fast_hist_init
+from fish_speech_tpu.models.dual_ar import fast_step as jax_fast_step
 from fish_speech_tpu.models.dual_ar import init_dual_ar_params
+from fish_speech_tpu.ops import quant as jq
 from fish_speech_tpu.ops import sampling as js
 from fish_speech_tpu.ops.fast_frame_pallas import fused_fast_frame as jax_fused_fast_frame
 from fish_speech_tpu_torch import config as tcfg
@@ -34,6 +41,7 @@ from fish_speech_tpu_torch.models.dual_ar import init_dual_ar_params as torch_in
 from fish_speech_tpu_torch.models.dual_ar import rope_tables
 from fish_speech_tpu_torch.ops import _cuda_build
 from fish_speech_tpu_torch.ops import fast_frame as ff
+from fish_speech_tpu_torch.ops import quant as tq
 from fish_speech_tpu_torch.ops import sampling as ts
 
 torch.set_num_threads(1)
@@ -49,19 +57,25 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _models(depthwise: bool):
+def _models(depthwise: bool, int8: bool = False, dtype=jnp.float32):
     jc = jcfg.DualARConfig(**KW, depthwise_wte=depthwise, depthwise_output=depthwise)
     params = dict(jax.jit(init_dual_ar_params, static_argnums=(1, 2))(
-        jax.random.PRNGKey(0), jc, jnp.float32))
+        jax.random.PRNGKey(0), jc, dtype))
     cols = semantic_head_columns(jcfg.WhichLM.FISH_1_5, jcfg.TokenConfig(**TOK), jc)
     params["output"] = jnp.take(params["output"], jnp.asarray(cols), axis=1)
+    if int8:
+        params = jq.quantize_lm_params(params)
     tc = tcfg.DualARConfig(**KW, depthwise_wte=depthwise, depthwise_output=depthwise)
     return jc, tc, params, dual_ar_params_from_numpy(jax.tree.map(np.asarray, params))
 
 
 @pytest.fixture(scope="module")
 def models():
-    return {dw: _models(dw) for dw in (False, True)}
+    """Keyed by depthwise, and by (depthwise, "int8") for the stacks
+    quantized by the JAX package."""
+    out = {dw: _models(dw) for dw in (False, True)}
+    out.update({(dw, "int8"): _models(dw, int8=True) for dw in (False, True)})
+    return out
 
 
 CASES = {
@@ -72,13 +86,19 @@ CASES = {
     "no_rep_pen": (4, dict(temp=0.9, top_p=1.0, top_k=8, repetition_penalty=1.0), False, False),
     "is_eos": (5, SAMPLED, True, False),
     "depthwise": (7, SAMPLED, False, True),
+    "int8_seed8": (8, SAMPLED, False, False),
+    "int8_seed9": (9, SAMPLED, False, False),
+    "int8_argmax": (3, dict(temp=0.0, top_p=1.0, top_k=32, repetition_penalty=1.3), False, False),
+    "int8_is_eos": (5, SAMPLED, True, False),
+    "int8_depthwise": (7, SAMPLED, False, True),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_plain_matches_pallas_interpret(models, case):
     seed, samp, eos, depthwise = CASES[case]
-    jc, tc, jp, tp = models[depthwise]
+    jc, tc, jp, tp = models[(depthwise, "int8") if case.startswith("int8") else depthwise]
+    assert tq.is_quantized(tp["fast"]["w1"]) == case.startswith("int8")
     j_sampling, t_sampling = js.SamplingArgs(**samp), ts.SamplingArgs(**samp)
     rep_enabled = not depthwise and samp["repetition_penalty"] != 1.0
     rng = np.random.default_rng(seed)
@@ -142,14 +162,44 @@ def _tiny(dtype=torch.float32):
     return tc, torch_init(tc, seed=0, dtype=dtype, device="cpu")
 
 
-def test_int8_stack_raises_type_error():
-    tc, params = _tiny()
-    params["fast"] = dict(params["fast"], w2={"q": params["fast"]["w2"], "s": None})
-    assert not ff.fused_fast_frame_supported(tc, params, 1)
-    with pytest.raises(TypeError, match="int8"):
-        ff.fused_fast_frame(params, tc, ts.SamplingArgs(temp=0.0), torch.zeros(1, tc.dim),
-                            torch.full((4, 16), -1, dtype=torch.int32), None,
-                            torch.tensor([False]), rope_tables(tc, "cpu"), rep_enabled=False)
+def _bf16_t(a):
+    return torch.from_numpy(np.asarray(a).view(np.int16).copy()).view(torch.bfloat16)
+
+
+def jax_unfused_step_logits(jp, jc, hidden, tokens):
+    """The JAX unfused codebook steps (`fast_step`, `fast_embed`) driven
+    by the given frame tokens (B, C): each step's logits (C, B, V)."""
+    x = jnp.asarray(hidden)[:, None, :]
+    hist = jax_fast_hist_init(jc, hidden.shape[0], x.dtype)
+    out = []
+    for cb in range(jc.num_codebooks):
+        logits, hist = jax_fast_step(jp, jc, x, hist, cb)
+        out.append(np.asarray(logits))
+        x = jax_fast_embed(jp, jc, jnp.asarray(tokens[:, cb]), cb)
+    return np.stack(out)
+
+
+def assert_within_half_bf16_ulp(got, ref):
+    """The unfused steps round each head product to bf16, the fused
+    plain version keeps it in float32: the two differ by at most half a
+    bf16 ulp of the reference."""
+    half_ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(ref), 1e-30))) - 8)
+    assert (np.abs(got - ref) <= half_ulp + 1e-7).all(), np.abs(got - ref).max()
+
+
+def test_bf16_int8_plain_step_logits_match_jax_unfused():
+    """bf16 weights quantized by the JAX package: the plain int8 frame's
+    step logits against the JAX unfused int8 steps on the same tokens
+    (x @ q rounded to bf16, rescaled and rounded again, silu of that)."""
+    jc, tc, jp, tp = _models(False, int8=True, dtype=jnp.bfloat16)
+    rng = np.random.default_rng(12)
+    hidden = jnp.asarray(rng.normal(size=(1, jc.dim)), jnp.bfloat16)
+    argmax = ts.SamplingArgs(temp=0.0, top_p=1.0, top_k=32, repetition_penalty=1.0)
+    tokens, logits = ff.fused_fast_frame(
+        tp, tc, argmax, _bf16_t(hidden), torch.full((4, 16), -1, dtype=torch.int32), None,
+        torch.tensor([False]), rope_tables(tc, "cpu"), rep_enabled=False, return_logits=True)
+    ref = jax_unfused_step_logits(jp, jc, hidden, tokens.numpy()[None])
+    assert_within_half_bf16_ulp(logits.numpy(), ref[:, 0])
 
 
 def test_supported_is_batch_one():
@@ -166,6 +216,21 @@ class _CudaLooking(torch.Tensor):
     @property
     def device(self):
         return torch.device("cuda", 0)
+
+
+def test_supported_on_cuda_takes_int8_with_bf16_scales():
+    tc = tcfg.DualARConfig(**{**KW, "n_head": 4, "dim": 256, "head_dim": 64})
+    params = tq.quantize_lm_params(torch_init(tc, seed=0, dtype=torch.bfloat16, device="cpu"))
+
+    def looks_cuda(tree):
+        if isinstance(tree, dict):
+            return {k: looks_cuda(v) for k, v in tree.items()}
+        return tree.as_subclass(_CudaLooking)
+
+    assert ff.fused_fast_frame_supported(tc, {"fast": looks_cuda(params["fast"])}, 1)
+    fast = dict(params["fast"], w3={"q": params["fast"]["w3"]["q"].to(torch.bfloat16),
+                                    "s": params["fast"]["w3"]["s"]})
+    assert not ff.fused_fast_frame_supported(tc, {"fast": looks_cuda(fast)}, 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
@@ -214,17 +279,33 @@ def _card_model(device, depthwise=False):
     return tc, torch_init(tc, seed=0, dtype=torch.bfloat16, device=device)
 
 
+def float32_reference(tree):
+    """The parameters in float32, int8 stacks dequantized: the float32
+    evaluation the kernels are held to."""
+    if tq.is_quantized(tree):
+        return tq.dequantize_weight(tree)
+    if isinstance(tree, dict):
+        return {k: float32_reference(v) for k, v in tree.items()}
+    return tree.float()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["sampled", "argmax", "no_rep_pen", "is_eos", "depthwise"])
+@pytest.mark.parametrize("case", ["sampled", "argmax", "no_rep_pen", "is_eos", "depthwise",
+                                  "int8_sampled", "int8_argmax"])
 def test_kernel_tokens_equal_plain_on_exact_inputs(cuda_device, case):
     """Zero fast-layer weights, one-hot hidden and one-hot embedding rows
     make every sum exact (each step's logits are one head row times the
     normalised one-hot value), so logits and tokens must be equal; the
-    bf16-valued logits have many ties, which both rank by index."""
+    bf16-valued logits have many ties, which both rank by index. int8:
+    the zero weights quantize to q = 0, s = bf16(1e-8)."""
+    int8 = case.startswith("int8")
+    case = case[5:] if int8 else case
     depthwise = case == "depthwise"
     tc, params = _card_model(cuda_device, depthwise)
     params["fast"] = {k: (v if k.endswith("norm") else torch.zeros_like(v))
                       for k, v in params["fast"].items()}
+    if int8:
+        params = tq.quantize_lm_params(params)
     emb = torch.zeros_like(params["fast_embeddings"])
     rows = torch.arange(emb.shape[0], device=cuda_device)
     emb[rows, rows % tc.dim] = 1
@@ -251,13 +332,16 @@ def test_kernel_tokens_equal_plain_on_exact_inputs(cuda_device, case):
 
 
 @pytest.mark.cuda
-def test_kernel_step_logits_as_accurate_as_plain_on_card(cuda_device):
+@pytest.mark.parametrize("int8", [False, True])
+def test_kernel_step_logits_as_accurate_as_plain_on_card(cuda_device, int8):
     """Real weights, argmax: each step's logits (up to the first step
     whose input token differs) are as close to the float32 evaluation as
-    the plain version's, within a factor of 2."""
+    the plain version's, within a factor of 2 (int8: the float32
+    evaluation of the dequantized weights)."""
     tc, params = _card_model(cuda_device)
-    params32 = {k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict) else v.float())
-                for k, v in params.items()}
+    if int8:
+        params = tq.quantize_lm_params(params)
+    params32 = float32_reference(params)
     sampling = ts.SamplingArgs(temp=0.0, top_p=1.0, top_k=512, repetition_penalty=1.4)
     g = torch.Generator(device=cuda_device).manual_seed(4)
     rope = rope_tables(tc, cuda_device)

@@ -3,7 +3,9 @@
 frame (`generate_frame(samp=...)`, the XLA path) and its TPU kernel
 `fused_fast_frame_batched` in interpret mode, at the tiny config of
 tests/test_fast_frame.py in float32, on the JAX package's own per-row
-draws; tokens must be exactly equal. On a card only: the CUDA kernel
+draws, with bf16 and with int8 stacks (the kernel's quantized body);
+tokens must be exactly equal. The bf16 int8 plain version's step logits
+against the JAX unfused int8 steps. On a card only: the CUDA kernel
 sequence against its plain version."""
 
 import dataclasses
@@ -18,6 +20,7 @@ from fish_speech_tpu import config as jcfg
 from fish_speech_tpu.generate.frame import generate_frame as j_generate_frame
 from fish_speech_tpu.generate.frame import semantic_head_columns
 from fish_speech_tpu.models.dual_ar import init_dual_ar_params
+from fish_speech_tpu.ops import quant as jq
 from fish_speech_tpu.ops import sampling as js
 from fish_speech_tpu.ops.fast_frame_pallas import (
     fused_fast_frame_batched as jax_fused_fast_frame_batched)
@@ -30,7 +33,9 @@ from fish_speech_tpu_torch.models.dual_ar import rope_tables
 from fish_speech_tpu_torch.ops import _cuda_build
 from fish_speech_tpu_torch.ops import fast_frame_batched as fb
 from fish_speech_tpu_torch.ops import sampling as ts
+from fish_speech_tpu_torch.ops.quant import dequantize_weight, is_quantized, quantize_lm_params
 from test_torch_dynamic_sampling import jax_frame_noise
+from test_torch_fast_frame import assert_within_half_bf16_ulp, jax_unfused_step_logits
 
 torch.set_num_threads(1)
 
@@ -45,15 +50,27 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-@pytest.fixture(scope="module")
-def model():
+def _model(int8=False, dtype=jnp.float32):
     jc = jcfg.DualARConfig(**KW)
     params = dict(jax.jit(init_dual_ar_params, static_argnums=(1, 2))(
-        jax.random.PRNGKey(0), jc, jnp.float32))
+        jax.random.PRNGKey(0), jc, dtype))
     cols = semantic_head_columns(jcfg.WhichLM.FISH_1_5, jcfg.TokenConfig(**TOK), jc)
     params["output"] = jnp.take(params["output"], jnp.asarray(cols), axis=1)
+    if int8:
+        params = jq.quantize_lm_params(params)
     return jc, tcfg.DualARConfig(**KW), params, dual_ar_params_from_numpy(
         jax.tree.map(np.asarray, params))
+
+
+@pytest.fixture(scope="module")
+def model():
+    return _model()
+
+
+@pytest.fixture(scope="module")
+def model_int8():
+    """The same weights, int8-quantized by the JAX package."""
+    return _model(int8=True)
 
 
 def _mixed_rows(batch, width, seed):
@@ -84,12 +101,14 @@ def _samplings(knobs):
     return j, t
 
 
-@pytest.mark.parametrize("batch", [2, 4, 8])
-def test_dynamic_frame_matches_jax(model, batch):
+@pytest.mark.parametrize("batch", [2, 4, 8, "int8_4"])
+def test_dynamic_frame_matches_jax(model, model_int8, batch):
     """generate_frame(samp=...) of the port, on the unfused loop and on
     the batched fused frame's plain version, against the JAX dynamic
-    frame's XLA path, on the JAX frame's own per-row draws."""
-    jc, tc, jp, tp = model
+    frame's XLA path, on the JAX frame's own per-row draws; "int8_4": 4
+    rows on the int8 stacks."""
+    jc, tc, jp, tp = model_int8 if batch == "int8_4" else model
+    batch = 4 if batch == "int8_4" else batch
     w = jp["output"].shape[1]
     logits, knobs, hidden, window, prev = _mixed_rows(batch, w, batch)
     j_samp, t_samp = _samplings(knobs)
@@ -115,7 +134,16 @@ def test_dynamic_frame_matches_jax(model, batch):
 def test_plain_matches_pallas_interpret(model):
     """The batched fused frame's plain version against the TPU kernel in
     interpret mode, B = 2, mixed rows (an EOS row and an argmax row)."""
-    jc, tc, jp, tp = model
+    _plain_matches_pallas_interpret(*model)
+
+
+def test_plain_int8_matches_pallas_interpret(model_int8):
+    """The same on the int8 stacks (the kernel's quantized body)."""
+    assert is_quantized(model_int8[3]["fast"]["wo"])
+    _plain_matches_pallas_interpret(*model_int8)
+
+
+def _plain_matches_pallas_interpret(jc, tc, jp, tp):
     _, knobs, hidden, window, _ = _mixed_rows(2, 2, 11)
     j_samp, t_samp = _samplings(knobs)
     gumbel = np.asarray(jax.random.gumbel(jax.random.PRNGKey(5), (2, jc.num_codebooks, 128),
@@ -129,6 +157,25 @@ def test_plain_matches_pallas_interpret(model):
     assert got.dtype == torch.int32 and got.shape == (2, jc.num_codebooks)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert not got[0].any()
+
+
+def test_bf16_int8_plain_step_logits_match_jax_unfused():
+    """bf16 weights quantized by the JAX package, 3 argmax rows: the plain
+    int8 frame's step logits against the JAX unfused int8 steps on the
+    same tokens (x @ q rounded to bf16, rescaled and rounded again, silu
+    of that), within half a bf16 ulp (the unfused head rounds)."""
+    jc, tc, jp, tp = _model(int8=True, dtype=jnp.bfloat16)
+    rng = np.random.default_rng(13)
+    hidden = jnp.asarray(rng.normal(size=(3, jc.dim)), jnp.bfloat16)
+    samp = ts.RowSampling.broadcast(ts.SamplingArgs(temp=0.0, top_k=0), 3)
+    tokens, logits = fb.fused_fast_frame_batched(
+        tp, tc, samp, torch.from_numpy(np.asarray(hidden).view(np.int16).copy()).view(
+            torch.bfloat16), torch.full((3, 4, 12), -1, dtype=torch.int32),
+        torch.zeros(3, 4, KW["codebook_size"]), torch.zeros(3, dtype=torch.bool),
+        rope_tables(tc, "cpu"),
+        rep_enabled=False, return_logits=True)
+    ref = jax_unfused_step_logits(jp, jc, hidden, tokens.numpy())
+    assert_within_half_bf16_ulp(logits.numpy(), ref)
 
 
 def _tiny(dtype=torch.float32, **kw):
@@ -145,10 +192,10 @@ class _CudaLooking(torch.Tensor):
         return torch.device("cuda", 0)
 
 
-def _cuda_looking(params):
-    return {k: ({kk: vv.as_subclass(_CudaLooking) for kk, vv in v.items()}
-                if isinstance(v, dict) else v.as_subclass(_CudaLooking))
-            for k, v in params.items()}
+def _cuda_looking(tree):
+    if isinstance(tree, dict):
+        return {k: _cuda_looking(v) for k, v in tree.items()}
+    return tree.as_subclass(_CudaLooking)
 
 
 def test_supported_bounds():
@@ -171,8 +218,13 @@ def test_supported_bounds():
     tc32, p32 = _tiny(torch.float32, **card)
     assert not fb.fused_fast_frame_batched_supported(tc32, _cuda_looking(p32), 16)
     assert not fb.fused_fast_frame_batched_supported(tc, _cuda_looking(params), 16)
-    params["fast"] = dict(params["fast"], w1={"q": params["fast"]["w1"], "s": None})
-    assert not fb.fused_fast_frame_batched_supported(tc, params, 4)
+    # int8 stacks: the plain version takes them; on CUDA the kernel takes
+    # int8 q with bf16 s (out % 16 == 0), not a float q
+    assert fb.fused_fast_frame_batched_supported(tc, quantize_lm_params(params), 4)
+    q64 = quantize_lm_params(p64)
+    assert fb.fused_fast_frame_batched_supported(tc64, _cuda_looking(q64), 16)
+    q64["fast"] = dict(q64["fast"], w1={"q": p64["fast"]["w1"], "s": q64["fast"]["w1"]["s"]})
+    assert not fb.fused_fast_frame_batched_supported(tc64, _cuda_looking(q64), 16)
 
 
 def test_cuda_tensor_never_runs_plain(monkeypatch):
@@ -232,16 +284,30 @@ def _card_model(device, depthwise=False):
     return tc, torch_init(tc, seed=0, dtype=torch.bfloat16, device=device)
 
 
+def float32_reference(tree):
+    """The parameters in float32, int8 stacks dequantized: the float32
+    evaluation the kernels are held to."""
+    if is_quantized(tree):
+        return dequantize_weight(tree)
+    if isinstance(tree, dict):
+        return {k: float32_reference(v) for k, v in tree.items()}
+    return tree.float()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["sampled", "argmax", "mixed", "depthwise"])
+@pytest.mark.parametrize("case", ["sampled", "argmax", "mixed", "depthwise", "int8_sampled",
+                                  "int8_mixed"])
 @pytest.mark.parametrize("batch", [4, 16])
 def test_kernel_tokens_equal_plain_on_exact_inputs(cuda_device, case, batch):
     """Zero fast-layer weights, one-hot hidden and one-hot embedding rows
     make every sum exact, so step logits and tokens must equal the plain
-    version's."""
+    version's. int8: the zero weights quantize to q = 0, s = bf16(1e-8)."""
     tc, params = _card_model(cuda_device, case == "depthwise")
     params["fast"] = {k: (v if k.endswith("norm") else torch.zeros_like(v))
                       for k, v in params["fast"].items()}
+    if case.startswith("int8"):
+        params = quantize_lm_params(params)
+        case = case[5:]
     emb = torch.zeros_like(params["fast_embeddings"])
     rows = torch.arange(emb.shape[0], device=cuda_device)
     emb[rows, rows % tc.dim] = 1
@@ -265,13 +331,16 @@ def test_kernel_tokens_equal_plain_on_exact_inputs(cuda_device, case, batch):
 
 
 @pytest.mark.cuda
-def test_kernel_step_logits_as_accurate_as_plain_on_card(cuda_device):
+@pytest.mark.parametrize("int8", [False, True])
+def test_kernel_step_logits_as_accurate_as_plain_on_card(cuda_device, int8):
     """Real weights, argmax rows: each step's logits (up to the first step
     whose input token differs) are as close to the float32 evaluation as
-    the plain version's, within a factor of 2."""
+    the plain version's, within a factor of 2 (int8: the float32
+    evaluation of the dequantized weights)."""
     tc, params = _card_model(cuda_device)
-    params32 = {k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict) else v.float())
-                for k, v in params.items()}
+    if int8:
+        params = quantize_lm_params(params)
+    params32 = float32_reference(params)
     g = torch.Generator(device=cuda_device).manual_seed(4)
     rope = rope_tables(tc, cuda_device)
     err_k = err_p = 0.0

@@ -14,9 +14,10 @@ import torch
 
 from fish_speech_tpu_torch import config as tcfg
 from fish_speech_tpu_torch.audio.wav import pcm_to_wav_bytes
-from fish_speech_tpu_torch.generate.engine import LMEngine
+from fish_speech_tpu_torch.generate.engine import LMEngine, _check_cuda_dtypes
 from fish_speech_tpu_torch.models.codec.firefly import FireflyCodec
 from fish_speech_tpu_torch.models.dual_ar import init_dual_ar_params
+from fish_speech_tpu_torch.ops.quant import quantize_lm_params
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -62,6 +63,23 @@ fc = c.FireflyConfig(head=c.HiFiGANConfig(upsample_rates=(2,), upsample_kernel_s
                                                      downsample_factor=(2,)))
 codec = FireflyCodec(init_firefly_params(fc, 1, torch.float32, "cpu"), fc, device="cpu")
 pcm_to_wav_bytes(codec.decode(np.zeros((2, 3), np.int32))[0], 44100)
+int8 = LMEngine(init_dual_ar_params(cfg, 0, torch.float32, "cpu"), cfg, tok,
+                c.WhichLM.FISH_1_5, prompt_buckets=(8,), device="cpu", quantize_int8=True,
+                slow_impl="fused", fast_frame_impl="fused")
+int8.generate(np.zeros((3, 4), np.int32), max_new_tokens=3, sampling=SamplingArgs(), seed=0)
+import fish_speech_tpu_torch.ops.quant
+from fish_speech_tpu_torch.utils import int8_policy
+from fish_speech_tpu_torch.utils.quality import (
+    mel_l1_distance, pcm_metrics, teacher_forced_agreement, teacher_forced_predictions)
+import fish_speech_tpu_torch.train.loss
+import fish_speech_tpu_torch.audio.mel
+seq = np.concatenate([np.full((1, 6), 12), np.zeros((2, 6))]).astype(np.int32)
+preds = teacher_forced_predictions(int8.params, cfg, tok, seq)
+teacher_forced_agreement(preds, preds)
+pcm = np.sin(np.arange(4096) * 0.01).astype(np.float32)
+mel_l1_distance(pcm, pcm, c.SpecTransformConfig(), device="cpu")
+pcm_metrics(pcm, pcm)
+int8_policy.evaluate(1.0, 0.0, 0.0, 99.0)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0].startswith("jax") or m.split(".")[0] == "fish_speech_tpu")
 print("FORBIDDEN", bad)
@@ -71,8 +89,10 @@ print("FORBIDDEN", bad)
 def test_port_imports_no_jax_and_no_jax_package():
     """A fresh interpreter imports the port, runs one CPU generation on
     the unfused and on the fused decode path, a batched dynamic
-    generation and one batcher request, and one decode, and holds no
-    jax* and no fish_speech_tpu module."""
+    generation and one batcher request, one decode, an int8 generation
+    and the int8 decision machinery (quant, train/loss, audio/mel,
+    utils/quality, utils/int8_policy), and holds no jax* and no
+    fish_speech_tpu module."""
     out = subprocess.run([sys.executable, "-c", _ONE_CPU_STEP], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -111,6 +131,28 @@ def test_entry_points_default_to_cuda(entry):
                      tcfg.WhichLM.FISH_1_5)
         else:
             FireflyCodec({}, tcfg.FireflyConfig())
+
+
+def test_cuda_engine_takes_int8_only_with_bf16_scales():
+    """What an engine on CUDA accepts: bf16 weights, or int8 q with bf16
+    s; float32 scales, a float q or float32 weights beside int8 stacks
+    are refused before a first prefill would."""
+    cfg, _ = _tiny()
+    params = quantize_lm_params(init_dual_ar_params(cfg, 0, torch.bfloat16, "cpu"))
+    _check_cuda_dtypes(params, torch.bfloat16)
+    w1 = params["slow"]["w1"]
+    bad = {
+        "float32 scales": {"q": w1["q"], "s": w1["s"].float()},
+        "bf16 q": {"q": w1["q"].to(torch.bfloat16), "s": w1["s"]},
+        "float32 q": {"q": w1["q"].float(), "s": w1["s"]},
+    }
+    for what, w in bad.items():
+        with pytest.raises(ValueError, match="slow.w1"):
+            _check_cuda_dtypes(dict(params, slow=dict(params["slow"], w1=w)), torch.bfloat16)
+    with pytest.raises(ValueError, match="output"):
+        _check_cuda_dtypes(dict(params, output=params["output"].float()), torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype=torch.float32"):
+        _check_cuda_dtypes(params, torch.float32)
 
 
 def test_wav_bytes_parse_and_clip():

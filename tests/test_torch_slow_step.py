@@ -1,8 +1,11 @@
 """The port's fused slow step (ops/slow_step.py) against the JAX
 package's TPU kernel `fish_speech_tpu/ops/slow_step_pallas.py::
 fused_slow_step`, run in interpret mode as tests/test_slow_step.py runs
-it, at that file's tiny config in float32; its dispatch rules; and, on a
-card only, the CUDA kernel sequence against its plain version.
+it, at that file's tiny config in float32, with bf16 and with int8
+stacks (the kernel's quantized body, as tests/test_slow_step.py:251 runs
+it); the bf16 int8 plain version against the JAX unfused int8 step; its
+dispatch rules; and, on a card only, the CUDA kernel sequence against
+its plain version.
 
 Tolerances (float32 on the CPU): logits and hidden 1e-4 absolute (the
 same arithmetic over three layers, summed in another order), the caches
@@ -16,13 +19,18 @@ import torch
 
 from fish_speech_tpu import config as jcfg
 from fish_speech_tpu.generate.frame import semantic_head_columns
+from fish_speech_tpu.models.dual_ar import KVCache as JaxKVCache
+from fish_speech_tpu.models.dual_ar import embed_tokens as jax_embed_tokens
 from fish_speech_tpu.models.dual_ar import init_dual_ar_params
+from fish_speech_tpu.models.dual_ar import slow_decode_step as jax_slow_decode_step
+from fish_speech_tpu.ops import quant as jq
 from fish_speech_tpu.ops.slow_step_pallas import fused_slow_step as jax_fused_slow_step
 from fish_speech_tpu_torch import config as tcfg
 from fish_speech_tpu_torch.io.convert import dual_ar_params_from_numpy
 from fish_speech_tpu_torch.models.dual_ar import init_dual_ar_params as torch_init
 from fish_speech_tpu_torch.models.dual_ar import rope_tables
 from fish_speech_tpu_torch.ops import _cuda_build
+from fish_speech_tpu_torch.ops import quant as tq
 from fish_speech_tpu_torch.ops import slow_step as ss
 
 torch.set_num_threads(1)
@@ -40,18 +48,27 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
+def _gathered(params, jc, lm):
+    jp = dict(params)
+    cols = semantic_head_columns(lm, jcfg.TokenConfig(**TOK), jc)
+    jp["output"] = jnp.take(params["output"], jnp.asarray(cols), axis=1)
+    return jp
+
+
 @pytest.fixture(scope="module")
 def models():
-    """JAX parameters with the head gathered per LM, and the port's copy."""
+    """JAX parameters with the head gathered per LM, dense ("FISH_1_5",
+    "FISH_1_2") and int8-quantized by the JAX package ("FISH_1_5_int8",
+    "FISH_1_2_int8"), and the port's copy of each."""
     jc = jcfg.DualARConfig(**KW)
     params = jax.jit(init_dual_ar_params, static_argnums=(1, 2))(
         jax.random.PRNGKey(0), jc, jnp.float32)
     out = {}
     for lm in (jcfg.WhichLM.FISH_1_5, jcfg.WhichLM.FISH_1_2):
-        jp = dict(params)
-        cols = semantic_head_columns(lm, jcfg.TokenConfig(**TOK), jc)
-        jp["output"] = jnp.take(params["output"], jnp.asarray(cols), axis=1)
+        jp = _gathered(params, jc, lm)
         out[lm.name] = (jp, dual_ar_params_from_numpy(jax.tree.map(np.asarray, jp)))
+        jq_p = jq.quantize_lm_params(jp)
+        out[f"{lm.name}_int8"] = (jq_p, dual_ar_params_from_numpy(jax.tree.map(np.asarray, jq_p)))
     return jc, tcfg.DualARConfig(**KW), out
 
 
@@ -61,10 +78,16 @@ def models():
     ((31,), "FISH_1_5"),
     ((3, 29), "FISH_1_5"),   # two rows, each at its own position
     ((0,), "FISH_1_2"),      # Fish <= 1.4: the two-way [pad, im_end] head
+    ((0,), "FISH_1_5_int8"),
+    ((5,), "FISH_1_5_int8"),
+    ((31,), "FISH_1_5_int8"),
+    ((3, 29), "FISH_1_5_int8"),
+    ((7,), "FISH_1_2_int8"),
 ])
 def test_plain_matches_pallas_interpret(models, positions, lm):
     jc, tc, by_lm = models
     jp, tp = by_lm[lm]
+    assert tq.is_quantized(tp["slow"]["wqkv"]) == lm.endswith("int8")
     b = len(positions)
     rng = np.random.default_rng(sum(positions) + b)
     x0 = rng.normal(size=(b, jc.dim)).astype(np.float32)
@@ -95,15 +118,39 @@ def _tiny_params(dtype=torch.float32):
     return tc, torch_init(tc, seed=0, dtype=dtype, device="cpu")
 
 
-def test_int8_stack_raises_type_error():
-    tc, params = _tiny_params()
-    params["slow"] = dict(params["slow"], wqkv={"q": params["slow"]["wqkv"], "s": None})
-    assert not ss.fused_slow_step_supported(tc, params, 1)
-    x0 = torch.zeros(1, tc.dim)
-    ck = torch.zeros(tc.n_layer, 1, tc.n_local_heads, CACHE, tc.head_dim)
-    with pytest.raises(TypeError, match="int8"):
-        ss.fused_slow_step(params, tc, x0, torch.zeros(1, dtype=torch.int32), ck, ck.clone(),
-                           rope_tables(tc, "cpu"))
+def _bf16_t(a):
+    return torch.from_numpy(np.asarray(a).view(np.int16).copy()).view(torch.bfloat16)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_int8_plain_matches_jax_unfused(seed):
+    """bf16 weights quantized by the JAX package: the plain int8 step
+    against the JAX unfused int8 step (`slow_decode_step`, x @ q rounded
+    to bf16, rescaled and rounded again, silu of that). Hidden and the
+    caches are bit-equal; the logits differ only by the unfused path's
+    bf16 rounding of the head product, so by at most half a bf16 ulp."""
+    jc, tc = jcfg.DualARConfig(**KW), tcfg.DualARConfig(**KW)
+    jp = jq.quantize_lm_params(_gathered(jax.jit(init_dual_ar_params, static_argnums=(1, 2))(
+        jax.random.PRNGKey(0), jc, jnp.bfloat16), jc, jcfg.WhichLM.FISH_1_5))
+    tp = dual_ar_params_from_numpy(jax.tree.map(np.asarray, jp))
+    rng = np.random.default_rng(seed)
+    tokens = np.concatenate([rng.integers(10, 42, (2, 1)), rng.integers(0, 32, (2, 4))],
+                            axis=1).astype(np.int32)
+    shape = (jc.n_layer, 2, jc.n_local_heads, CACHE, jc.head_dim)
+    cache = JaxKVCache(*(jnp.asarray(rng.normal(size=shape) * 0.5, jnp.bfloat16)
+                         for _ in range(2)))
+    pos = np.array([3, 17], np.int32)
+    j_logits, j_hidden, j_cache = jax_slow_decode_step(jp, jc, jcfg.TokenConfig(**TOK),
+                                                       jnp.asarray(tokens), cache, jnp.asarray(pos))
+    x0 = jax_embed_tokens(jp, jc, jcfg.TokenConfig(**TOK), jnp.asarray(tokens)[:, :, None])
+    tck, tcv = _bf16_t(cache.k), _bf16_t(cache.v)
+    logits, hidden = ss.fused_slow_step(tp, tc, _bf16_t(x0[:, 0, :]), _t(pos), tck, tcv,
+                                        rope_tables(tc, "cpu"))
+    assert torch.equal(hidden, _bf16_t(j_hidden))
+    assert torch.equal(tck, _bf16_t(j_cache.k)) and torch.equal(tcv, _bf16_t(j_cache.v))
+    ref = np.asarray(j_logits)
+    half_ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(ref), 1e-30))) - 8)
+    assert (np.abs(logits.numpy() - ref) <= half_ulp + 1e-7).all()
 
 
 def test_supported_on_cpu_takes_any_batch():
@@ -123,6 +170,36 @@ class _CudaLooking(torch.Tensor):
 
 def _cuda_looking(stack):
     return {k: v.as_subclass(_CudaLooking) for k, v in stack.items()}
+
+
+def test_supported_on_cuda_takes_int8_with_bf16_scales():
+    """On CUDA the kernel takes int8 q with bf16 s and whole 16-byte
+    rows; a float q, float32 scales or a width that is not a multiple of
+    16 are refused, by `supported` and by the wrapper."""
+    card = {**KW, "n_head": 4, "dim": 256, "head_dim": 64}
+    tc = tcfg.DualARConfig(**card)
+    params = tq.quantize_lm_params(torch_init(tc, seed=0, dtype=torch.bfloat16, device="cpu"))
+    stack = params["slow"]
+    assert ss.fused_slow_step_supported(tc, {"slow": _cuda_looking_tree(stack)}, 1, CACHE)
+    float_q = dict(stack, w2={"q": stack["w2"]["q"].float(), "s": stack["w2"]["s"]})
+    f32_s = dict(stack, wo={"q": stack["wo"]["q"], "s": stack["wo"]["s"].float()})
+    for bad in (float_q, f32_s):
+        assert not ss.fused_slow_step_supported(tc, {"slow": _cuda_looking_tree(bad)}, 1, CACHE)
+        with pytest.raises(TypeError, match="int8 q with bfloat16 s"):
+            ss.check_stack(bad, "fused_slow_step", "slow", torch.device("cpu"))
+    narrow_cfg = tcfg.DualARConfig(**{**card, "intermediate_size": 200})
+    narrow = tq.quantize_lm_params(torch_init(narrow_cfg, seed=0, dtype=torch.bfloat16,
+                                              device="cpu"))["slow"]
+    assert not ss.fused_slow_step_supported(narrow_cfg, {"slow": _cuda_looking_tree(narrow)}, 1,
+                                            CACHE)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ss.check_stack(narrow, "fused_slow_step", "slow", torch.device("cpu"))
+
+
+def _cuda_looking_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _cuda_looking_tree(v) for k, v in tree.items()}
+    return tree.as_subclass(_CudaLooking)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
@@ -174,21 +251,33 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def float32_reference(tree):
+    """The parameters in float32, int8 stacks dequantized: the float32
+    evaluation the kernels are held to."""
+    if tq.is_quantized(tree):
+        return tq.dequantize_weight(tree)
+    if isinstance(tree, dict):
+        return {k: float32_reference(v) for k, v in tree.items()}
+    return tree.float()
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("positions", [(0,), (1,), (104,), (255,), (7, 200)])
-def test_kernel_matches_plain_on_card(cuda_device, positions):
-    """bf16 at head dim 64. The kernel sums in another order than cuBLAS
-    and bf16 rounding flips cascade through the layers, so logits,
-    hidden and the new cache rows must be as close to the float32
-    evaluation of the same function (the plain version on float32
-    weights) as the plain version is, within a factor of 2; every other
-    cache row is bit-equal."""
+def test_kernel_matches_plain_on_card(cuda_device, positions, int8):
+    """bf16 at head dim 64, and int8 stacks. The kernel sums in another
+    order than cuBLAS and bf16 rounding flips cascade through the
+    layers, so logits, hidden and the new cache rows must be as close to
+    the float32 evaluation of the same function (the plain version on
+    float32 weights, dequantized under int8) as the plain version is,
+    within a factor of 2; every other cache row is bit-equal."""
     tc = tcfg.DualARConfig(**{**KW, "n_head": 8, "dim": 512, "intermediate_size": 1024,
                               "head_dim": 64, "max_seq_len": 256})
     params = torch_init(tc, seed=0, dtype=torch.bfloat16, device=cuda_device)
     params["output"] = params["output"][:, :33].contiguous()
-    params32 = {k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict) else v.float())
-                for k, v in params.items()}
+    if int8:
+        params = tq.quantize_lm_params(params)
+    params32 = float32_reference(params)
     g = torch.Generator(device=cuda_device).manual_seed(len(positions))
     b = len(positions)
     x0 = torch.randn((b, tc.dim), generator=g, device=cuda_device).to(torch.bfloat16)
