@@ -15,11 +15,17 @@ per phase, each with the seconds since start:
               card at the main path's shapes (bf16), with the tolerance
               stated, then timed beside the plain version and, where one
               exists, one PyTorch library call used as a yardstick only:
-              decode attention, prefill attention, the fused slow step
+              decode attention (pos 0, 1, 63, 1024, 4095 at cache 4096,
+              and 16 rows at cache 512 with ragged pos, one row also
+              alone; timed at pos 104 and 4095 and at the serving shape
+              beside SDPA), prefill attention, the fused slow step
               (pos 0, 1, 104, 4095; batch 1 and 2), the fused fast
               frame (32 frames sampled, argmax, no rep-pen, EOS) and the
               batched fast frame (B = 4 and 16: argmax, sampled and
-              mixed rows); then the same three on int8 stacks (the
+              mixed rows), with each of its five GEMMs on its own
+              (fs_rows_gemm at B = 16 against rows_gemm_plain, a row
+              alone bit-equal, timed beside cuBLAS and the byte bound,
+              one line a GEMM); then the same three on int8 stacks (the
               kernels' int8 bodies) at the same positions and batches,
               held to the plain version's distance to a float32
               evaluation of the dequantized weights;
@@ -115,7 +121,6 @@ ACCURACY_FACTOR = 2.0
 # one-hot embedding rows (each step's logits are then 32 x one head row,
 # exact in both versions, and bf16-valued, so ties are common).
 FAST_FRAMES = 32
-
 N_FRAMES = 128
 N_FRAMES_UNFUSED = 32
 PROMPT_LEN = 40
@@ -237,33 +242,90 @@ def check_decode_kernel(torch, cfg, cache_len: int, main_pos: int):
         log("kernels", f"decode_attention pos={pos} layer={layer}: cache bit-equal, "
             f"attn max_abs_err={err:.3e} (atol={DECODE_ATOL}, rtol={DECODE_RTOL})")
 
-    # timing at the main path's shape: one layer, pos in mid-generation
-    q, kn, vn, p, ck, cv = inputs(main_pos)
-    kernel = lambda: da.decode_attention(q, kn, vn, p, ck, cv, layer)  # noqa: E731
-    ms = device_ms(torch, kernel)
-    call_ms = eager_ms(torch, kernel, 200)
-    plain_ms = device_ms(torch, lambda: da.decode_attention_plain(q, kn, vn, p, ck, cv, layer))
-    n = main_pos + 1
-    kc, vc = ck[layer, :, :, :n], cv[layer, :, :, :n]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = device_ms(torch, lambda: sdpa(q[:, :, None], kc, vc, enable_gqa=True))
-    # bytes: q, k_new, v_new, pos and K/V rows 0..pos read once; attn
-    # and the two new cache rows written once. flops: QK^T and PV.
-    nbytes = 2 * (h * hd + 2 * kv * hd) + 4 + 2 * (2 * kv * n * hd) + 2 * (h * hd + 2 * kv * hd)
-    flops = 4 * h * n * hd
-    bound_ms, bound_by = bound(nbytes, flops)
-    log("kernels", f"decode_attention pos={main_pos}: kernel {ms:.4f} ms (eager call "
-        f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-        f"bound {bound_ms:.6f} ms ({bound_by})")
+    # the serving shape: 16 rows, cache 512, a ragged pos per row
+    g_rows = torch.Generator(device=dev).manual_seed(4321)
+    pos_rows = torch.randint(39, 168, (SERVE_ROWS,), generator=g_rows, device=dev,
+                             dtype=torch.int32)
+    serve_in = serving_decode_inputs(torch, cfg, gen, pos_rows)
+    q, kn, vn, p, ck, cv = serve_in
+    ck2, cv2 = ck.clone(), cv.clone()
+    got = da.decode_attention(q, kn, vn, p, ck, cv, layer)
+    ref = da.decode_attention_plain(q, kn, vn, p, ck2, cv2, layer)
+    alone = da.decode_attention(q[3:4].clone(), kn[3:4].clone(), vn[3:4].clone(), p[3:4].clone(),
+                                ck2[:, 3:4].clone(), cv2[:, 3:4].clone(), layer)
+    torch.cuda.synchronize()
+    check(torch.equal(ck, ck2) and torch.equal(cv, cv2),
+          "decode_attention serving shape: cache differs from the plain version")
+    err, ok = within(torch, got, ref, DECODE_ATOL, DECODE_RTOL)
+    check(ok, f"decode_attention serving shape: max abs err {err}")
+    check(torch.equal(alone, got[3:4]), "decode_attention: row 3 alone differs from row 3 of 16")
+    max_err = max(max_err, err)
+    log("kernels", f"decode_attention B={SERVE_ROWS} cache={SERVE_CACHE} pos "
+        f"{int(p.min())}..{int(p.max())} layer={layer}: cache bit-equal, attn max_abs_err="
+        f"{err:.3e} (atol={DECODE_ATOL}, rtol={DECODE_RTOL}); row 3 alone bit-equal to row 3 "
+        f"among {SERVE_ROWS}")
+
+    # timings: batch 1 at the main path's pos and at the cache's end, and
+    # the serving shape; SDPA on the same valid K/V is the yardstick
+    timed = {}
+    for label, args in ((f"B=1 pos={main_pos}", inputs(main_pos)),
+                        (f"B=1 pos={cache_len - 1}", inputs(cache_len - 1)),
+                        (f"B={SERVE_ROWS} cache={SERVE_CACHE} ragged", serve_in)):
+        timed[label] = time_decode(torch, da, cfg, args, layer)
+        t = timed[label]
+        log("kernels", f"decode_attention {label}: kernel {t['ms']:.4f} ms (eager call "
+            f"{t['eager_call_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, sdpa "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']}); "
+            f"{t['blocks']} blocks in clusters of {t['cluster']}")
+    main = timed[f"B=1 pos={main_pos}"]
     return {
         "name": "decode_attention", "route": "cuda",
         "source": "fish_speech_tpu_torch/csrc/decode_attention.cu",
         "replaces": "fish_speech_tpu/ops/attention_pallas.py:125",
-        "max_abs_err": max_err, "ms": ms, "kernel_ms": ms, "eager_call_ms": call_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms,
+        "max_abs_err": max_err, **{k: v for k, v in main.items() if k not in ("cluster", "blocks")},
+        "kernel_ms": main["ms"],
         "shape": f"q (1,{h},{hd}), cache ({n_layer},1,{kv},{cache_len},{hd}) bf16, pos {main_pos}",
+        "timings": timed,
     }
+
+
+def serving_decode_inputs(torch, cfg, gen, pos):
+    """Decode attention inputs at the serving shape: one row per pos,
+    caches of SERVE_CACHE."""
+    dev = pos.device
+    b, h, kv, hd, n_layer = len(pos), cfg.n_head, cfg.n_local_heads, cfg.head_dim, cfg.n_layer
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)  # noqa: E731
+    return (rnd(b, h, hd), rnd(b, kv, hd), rnd(b, kv, hd), pos,
+            rnd(n_layer, b, kv, SERVE_CACHE, hd), rnd(n_layer, b, kv, SERVE_CACHE, hd))
+
+
+def time_decode(torch, da, cfg, args, layer: int) -> dict:
+    """Kernel, eager call, plain version and SDPA (over each row's valid
+    keys, by a mask) on one input set; the bound of this input's work."""
+    q, kn, vn, p, ck, cv = args
+    kernel = lambda: da.decode_attention(q, kn, vn, p, ck, cv, layer)  # noqa: E731
+    ms = device_ms(torch, kernel)
+    call_ms = eager_ms(torch, kernel, 200)
+    plain_ms = device_ms(torch, lambda: da.decode_attention_plain(q, kn, vn, p, ck, cv, layer))
+    b, h, hd = q.shape
+    kv, s = ck.shape[2], ck.shape[3]
+    n_max = int(p.max()) + 1
+    kc, vc = ck[layer, :, :, :n_max], cv[layer, :, :, :n_max]
+    valid = (torch.arange(n_max, device=q.device)[None, :] <= p[:, None].long())[:, None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = None if b == 1 else valid  # one row: every key up to pos is valid
+    library_ms = device_ms(torch, lambda: sdpa(q[:, :, None], kc, vc, attn_mask=mask,
+                                               enable_gqa=True))
+    # bytes: q, k_new, v_new, pos and each row's K/V rows 0..pos read
+    # once; attn and the new cache rows written once. flops: QK^T and PV.
+    keys = int((p.long() + 1).sum())
+    nbytes = (b * (2 * (h * hd + 2 * kv * hd) + 4) + 2 * (2 * kv * keys * hd)
+              + b * 2 * (h * hd + 2 * kv * hd))
+    bound_ms, bound_by = bound(nbytes, 4 * h * keys * hd)
+    plan = da.decode_plan(s)
+    return {"ms": ms, "eager_call_ms": call_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "cluster": plan.cluster,
+            "blocks": plan.blocks(b, kv)}
 
 
 def check_prefill_kernel(torch, cfg, cache_len: int, main_s_pad: int, main_len: int):
@@ -748,6 +810,7 @@ def check_fast_frame_batched(torch, engine, params32):
         f"{err_k:.4f} | plain {err_p:.4f}, kernel vs plain {vs_plain:.4f}; tokens equal to the "
         f"plain version {same} of {4 * b * n_cb}")
 
+    gemms = check_rows_gemms(torch, engine)
     samp, hidden, window, gumbel, is_eos = batched_inputs(torch, cfg, gen, b, k_dyn, "sampled",
                                                           False)
     args = (cfg, samp, hidden, window, gumbel, is_eos, rope)
@@ -785,7 +848,111 @@ def check_fast_frame_batched(torch, engine, params32):
         "bound_reread_ms": reread_ms, "library_ms": None,
         "shape": f"hidden ({b},{d}), {n_cb} codebooks x {n_layer} layers "
                  f"({'int8' if int8 else 'bf16'}), vocab {vocab}, k_dyn {k_dyn}, window 12",
+        "gemms": gemms,
     }
+
+
+def check_rows_gemms(torch, engine) -> list:
+    """Each of the batched frame's five GEMMs on its own (fs_rows_gemm) at
+    the serving engine's B = 16, on layer 0 of its fast stack and its
+    head: the plan the kernel launches with equals rows_plan's; the kernel
+    as close to a float32 evaluation (the plain version on float32 copies
+    of the inputs, int8 weights dequantized) as the plain version is,
+    within ACCURACY_FACTOR (tensor cores and cuBLAS add the products in
+    other orders, and a sum that cancels can move a bf16 rounding by more
+    than an ulp of the result); a row's bits alike at 1 and 16 rows; then
+    kernel, plain and cuBLAS (torch.matmul of the same (16, K) x (K, N)
+    bf16 product, the yardstick only) timed beside the byte bound, the
+    kernel and cuBLAS both with the weights warm in L2 (back-to-back
+    calls) and cold (a 64 MB write before each call, its own time
+    subtracted), as the frame finds them."""
+    from fish_speech_tpu_torch.ops import fast_frame_batched as fb
+    from fish_speech_tpu_torch.ops.quant import is_quantized
+
+    cfg, params = engine.cfg, engine.params
+    int8 = is_int8(engine)
+    b = engine.batch_size
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(66)
+    fast = params["fast"]
+    layer0 = lambda k: ({"q": fast[k]["q"][0], "s": fast[k]["s"][0]}  # noqa: E731
+                        if is_quantized(fast[k]) else fast[k][0])
+    vocab = cfg.codebook_size
+    gemms = (("wqkv", "qkv", layer0("wqkv"), None, fast["attention_norm"][0]),
+             ("wo", "residual", layer0("wo"), None, None),
+             ("w1+w3", "swiglu", layer0("w1"), layer0("w3"), fast["ffn_norm"][0]),
+             ("w2", "residual", layer0("w2"), None, None),
+             ("head", "head", params["fast_output"][:, :vocab], None, params["fast_norm"]))
+    # a 64 MB write evicts the 50 MB L2: in the frame each GEMM finds its
+    # weights cold (a fast layer is ~29 MB, four of them stream per step)
+    junk = torch.empty(16 * 2**20, dtype=torch.float32, device=dev)
+
+    def flush_l2():
+        junk.zero_()
+
+    flush_ms = device_ms(torch, flush_l2, calls=20, replays=5)
+    out = []
+    for name, mode, w, w_b, norm_w in gemms:
+        q8 = is_quantized(w)
+        dense = w["q"] if q8 else w
+        k, n = dense.shape
+        plan = fb.rows_plan(k, n, mode, q8)
+        check(fb.rows_plan_on_card(k, n, mode, q8) == plan,
+              f"rows_gemm {name}: the kernel's plan differs from rows_plan")
+        x = torch.randn((b, k), generator=gen, device=dev).to(torch.bfloat16)
+        res = torch.randn((b, n), generator=gen, device=dev).to(torch.bfloat16)
+        eps = float(cfg.norm_eps)
+
+        def run(fn, rows=b):
+            o = res[:rows].clone() if mode == "residual" else None
+            return fn(mode, x[:rows].contiguous(), w, norm_w, w_b, eps, o)
+
+        got, plain, one = run(fb.rows_gemm), run(fb.rows_gemm_plain), run(fb.rows_gemm, 1)
+        f32 = lambda t: None if t is None else float32_copy(t)  # noqa: E731
+        ref = fb.rows_gemm_plain(mode, x.float(), f32(w), f32(norm_w), f32(w_b), eps,
+                                 res.float() if mode == "residual" else None)
+        torch.cuda.synchronize()
+        check(torch.equal(one, got[:1]), f"rows_gemm {name}: row 0 alone differs from row 0 of {b}")
+        err_k, err_p = as_accurate(f"rows_gemm {name}", got, plain, ref)
+        vs_plain = float((got.float() - plain.float()).abs().max())
+        tol = (f"distance to the float32 evaluation kernel {err_k:.3e} | plain {err_p:.3e}, "
+               f"kernel vs plain {vs_plain:.3e}")
+
+        def kernel():
+            return run(fb.rows_gemm)
+
+        ms = device_ms(torch, kernel)
+        cold_ms = device_ms(torch, lambda: (flush_l2(), kernel()), calls=20, replays=5) - flush_ms
+        plain_ms = device_ms(torch, lambda: run(fb.rows_gemm_plain), calls=10, replays=5)
+        # the yardstick's weights: bf16 (int8 ones converted beforehand);
+        # w1 and w3 side by side, the same products as the SwiGLU mode
+        mats = [m["q"] if q8 else m for m in ((w,) if w_b is None else (w, w_b))]
+        lib_w = torch.cat([m.to(torch.bfloat16) for m in mats], dim=1).contiguous()
+        library_ms = device_ms(torch, lambda: torch.matmul(x, lib_w))
+        library_cold_ms = device_ms(torch, lambda: (flush_l2(), torch.matmul(x, lib_w)),
+                                    calls=20, replays=5) - flush_ms
+        # bytes: the weights (int8 ones with their scales), the input rows,
+        # the norm weights, the residual read; the outputs written once
+        n_w = 2 if mode == "swiglu" else 1
+        w_bytes = n_w * (dense.numel() * dense.element_size() + (2 * n if q8 else 0))
+        nbytes = (w_bytes + 2 * b * k + (2 * k if norm_w is not None else 0)
+                  + (2 * b * n if mode == "residual" else 0)
+                  + (4 if mode == "head" else 2) * b * n)
+        bound_ms, bound_by = bound(nbytes, n_w * 2 * b * k * n)
+        log("kernels", f"rows_gemm {name} ({mode}, {'int8' if q8 else 'bf16'}, B={b}, K={k}, "
+            f"N={n}; {plan.blocks} blocks = {plan.blocks // plan.splits} tiles x {plan.splits} "
+            f"splits, {plan.stages} stages): kernel {ms:.4f} ms L2-warm, {cold_ms:.4f} ms "
+            f"L2-cold; plain {plain_ms:.4f} ms; cuBLAS bf16 matmul {library_ms:.4f} ms warm, "
+            f"{library_cold_ms:.4f} ms cold; bound {bound_ms:.6f} ms ({bound_by}, "
+            f"{nbytes / 1e6:.2f} MB); "
+            f"{tol}; row 0 alone bit-equal")
+        out.append({"gemm": name, "mode": mode, "K": k, "N": n, "int8": q8, "blocks": plan.blocks,
+                    "splits": plan.splits, "err_vs_float32": [err_k, err_p],
+                    "max_abs_err": vs_plain, "ms": ms, "cold_ms": cold_ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms, "library_cold_ms": library_cold_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by})
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -22,8 +22,9 @@
 // point of the TPU kernel is that all rows share that stream, and so do
 // they here: each block of a layer's GEMM reads its weight columns once
 // and computes every row from them. At B = 16 a weight element feeds 16
-// FMAs, still far below the tensor cores' balance point, so the GEMM
-// runs on the CUDA cores.
+// multiply-adds, far below the tensor cores' balance point, so a GEMM
+// is bound by its weight bytes plus the latency of its few steps (~1-3
+// us of byte bound each at Fish-1.5 width).
 //
 // Design: a fixed sequence of launches from this C entry on the caller's
 // stream, 22 per step at Fish-1.5 depth (176 a frame), as in the batch-1
@@ -33,213 +34,490 @@
 //   dual_ar_layer.cuh), rows_gemm<kResidual> (wo), rows_gemm<kSwiglu>
 //   (RMSNorm + w1, w3), rows_gemm<kResidual> (w2);
 //   then rows_gemm<kHead> and one sampler block per row.
-// rows_gemm stages the input rows in shared memory a chunk of K at a
-// time (the w2 input is 16 x 4096 bf16 = 128 KB at B = 16), so the rows
-// the GEMV of dual_ar_layer.cuh takes (4) do not bound B here. Each
-// thread owns two adjacent columns (one bf16x2 or two int8 loaded at
-// once) and a slice of K and keeps one f32 sum per (row, column); the
-// slices are added in one fixed order, whatever B and the weight type, so
-// a row's results are deterministic and do not depend on the rows beside
-// it. An int8 product is rounded and rescaled as dual_ar_layer.cuh's
-// stack_product does. The sampler reads each row's knobs from device arrays and
-// is codebook_sampler.cuh's sort, scan and draw. The TPU
+// rows_gemm (redesigned for Hopper; the first version ran on the CUDA
+// cores with 64-80 blocks and one shared-memory load per two FMAs):
+// * Tensor cores, mma.sync.m16n8k16 bf16 with f32 accumulation, in the
+//   "swap-AB" form: a weight tile is the A operand (16 columns x 16 k,
+//   M = columns) and the batch rows are N (8 a tile, 8/16/32 rows), so no
+//   row is padded past the next multiple of 8. mma.sync was picked over
+//   wgmma: at N <= 32 rows a block's work is a few dozen 16x8x16 products
+//   per warp, wgmma's 64-row warpgroup tile would need four warps on 64
+//   columns of one K slice, and the bytes, not the issue rate, bound it.
+//   bf16 A fragments come from the weight ring by ldmatrix.trans; int8
+//   ones are read as 2-byte pairs of adjacent columns from the int8 ring
+//   (which stays int8, at half the bytes) and converted to bf16 as the
+//   fragment is formed (exact for -128..127). B fragments are 32-bit
+//   loads of the staged input rows.
+// * Weight stream: an 8-stage ring of 64-row chunks (4 where 8 would
+//   not fit, or would keep a cluster of 4-8 blocks from finding room for
+//   all its blocks at once) filled by 16-byte cp.async copies (columns past
+//   N and rows past K zero-filled), up to 7 chunks in flight, so
+//   every weight byte is read from HBM once per step in 16-byte requests.
+//   The block's slices of the input rows and norm weights come by
+//   cp.async too, with the first chunk, and the residuals the epilogue
+//   adds are loaded then, so the RMS pre-pass runs while all of them are
+//   in flight. Rows of
+//   the ring and of the staged input are padded by 16 bytes, so the
+//   fragment loads hit distinct banks.
+// * K-split: the grid is column tiles (64 columns) x K-splits; the split
+//   blocks of a tile form one cluster: each block pushes the f32 partials
+//   of every column to the rank that finishes it (distributed shared
+//   memory stores), one cluster.sync(), and each rank adds its columns'
+//   partials from its own shared memory in fixed rank order and applies
+//   the epilogue once to its 64 / splits columns. No global workspace, no
+//   second launch, no remote load on the way out. Every Fish-1.5 GEMM at
+//   B = 16 launches >= 128 blocks (wo, w2, head 16 x 8; QKV 20 x 8;
+//   w1 + w3 64 x 2).
+// * The plan (tile width, splits, rows of K a block, stages; rows_plan)
+//   is a function of (K, N, mode, weight type) only, never of the row
+//   count, and each output element's sum runs in one order (k ascending
+//   within a block, blocks in rank order) whatever the rows beside it:
+//   a row gives the same bits alone as among 31 co-tenants.
+// * Each block recomputes the RMS of the input rows over the whole of K
+//   (<= 256 KB, from L2, in 16-byte loads), then stages its slice of K
+//   normalised and rounded to bf16.
+// An int8 product is rounded and rescaled as dual_ar_layer.cuh's
+// stack_product does. The sampler reads each row's knobs from device
+// arrays and is codebook_sampler.cuh's sort, scan and draw. The TPU
 // kernel's row-block grid, flat-lane E/R matrices, lane rolls, one-hot
 // embedding matmul and sel_rows scatter are Mosaic workarounds and are
 // not ported.
 
+#include <cooperative_groups.h>
+
 #include "codebook_sampler.cuh"
 #include "dual_ar_layer.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int RG_TILE = 16;                // columns per block
-constexpr int RG_VEC = 2;                  // columns per thread (one bf16x2)
-constexpr int RG_CT = RG_TILE / RG_VEC;    // threads across a tile
-constexpr int RG_KS = THREADS / RG_CT;     // slices of the in dimension
-constexpr int RG_KC = 256;                 // in-dimension chunk staged at once
 constexpr int MAX_BATCH_ROWS = 32;
 
-// Two adjacent weights of one row, loaded at once and converted to float.
+// ---------------------------------------------------------------------------
+// rows_gemm: out[b, n] = epilogue(p(sum_k in'[b, k] * w[k, n])), b < nb <= 32
+// ---------------------------------------------------------------------------
+
+constexpr int RG_TN = 64;            // output columns of a cluster (and of each block)
+constexpr int RG_BK = 64;            // rows of K in one pipeline stage
+constexpr int RG_STAGES = 8;         // stages of the cp.async ring (4 where 8 do not fit)
+constexpr int RG_MAX_SPLITS = 8;     // blocks of a cluster, split over K (portable size)
+constexpr int RG_MIN_BLOCKS = 128;   // the plan splits K until the grid has this many
+constexpr int RG_THREADS = 128;      // 4 warps, 16 columns each
+constexpr int RG_MAX_SMEM = 232448 - 1024;  // dynamic shared memory a block may use on
+                                            // sm_90, less a margin for the static part
+constexpr int RG_HALF_SM_SMEM = 113 * 1024;  // two such blocks fit on one SM
+
+// Bytes of one weight row of a stage in shared memory: the tile's 64
+// columns plus 16 bytes, so that the 8 rows one ldmatrix reads (bf16),
+// or the 4 rows one int8 fragment reads, fall in distinct banks.
 template <typename W>
-struct WPair;
+__host__ __device__ constexpr int rg_pitch() {
+  return RG_TN * (int)sizeof(W) + 16;
+}
+
+// The launch plan of one GEMM: a function of (K, N, mode, weight type)
+// only, never of the number of rows, so a row's sums run in one order
+// whatever its co-tenants (ops/fast_frame_batched.py::rows_plan mirrors
+// it). tiles x splits blocks; each cluster of `splits` blocks owns 64
+// columns, each block `kb` rows of K.
+struct RowsPlan {
+  int tiles, splits, kb, stages, smem;
+};
+
+// Ring slots in use: every chunk of a block's slice in flight at once
+// where the slice has fewer chunks than stages.
+inline int rows_slots(int kb, int stages) {
+  const int chunks = (kb + RG_BK - 1) / RG_BK;
+  return chunks < stages ? chunks : stages;
+}
+
+inline int rows_smem(int mode, bool int8, int kb, int stages) {
+  const int na = mode == kSwiglu ? 2 : 1;
+  const int pitch = int8 ? rg_pitch<int8_t>() : rg_pitch<bf16>();
+  return rows_slots(kb, stages) * na * RG_BK * pitch  // the weight ring
+         + MAX_BATCH_ROWS * (2 * kb + 16)             // the staged input rows
+         + 2 * kb + 16                                // the slice of the norm weights
+         + na * MAX_BATCH_ROWS * RG_TN * 4;           // the f32 partials of the splits
+}
+
+inline RowsPlan rows_plan(int K, int N, int mode, bool int8) {
+  RowsPlan p;
+  p.tiles = (N + RG_TN - 1) / RG_TN;
+  p.splits = 1;
+  while (p.splits < RG_MAX_SPLITS && p.tiles * p.splits < RG_MIN_BLOCKS &&
+         K >= 2 * p.splits * RG_BK)
+    p.splits *= 2;
+  p.kb = ((K + p.splits - 1) / p.splits + 15) / 16 * 16;
+  // clusters of 4 or 8 are placed within one GPC, whose SMs must all hold
+  // one: a block that leaves room for a second on its SM keeps every
+  // cluster of a 128-block grid resident at once
+  const int budget = p.splits >= 4 ? RG_HALF_SM_SMEM : RG_MAX_SMEM;
+  p.stages = rows_smem(mode, int8, p.kb, RG_STAGES) <= budget ? RG_STAGES : RG_STAGES / 2;
+  p.smem = rows_smem(mode, int8, p.kb, p.stages);
+  return p;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* smem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void unpack8(const uint4& raw, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 v = __bfloat1622float2(h[e]);
+    f[2 * e] = v.x;
+    f[2 * e + 1] = v.y;
+  }
+}
+
+// The two halves of cluster.sync(): a block arrives as it starts and
+// waits before its first store into another block's shared memory, which
+// is legal only once every block of the cluster has started.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Bytes 0 and 2 (lo_hi = 0) or 1 and 3 (lo_hi = 1) of w, four int8 weights
+// offset by 128 (w ^ 0x80808080), as a bf16 pair (exact for -128..127):
+// each byte becomes the low mantissa bits of 2^23, from which 2^23 + 128
+// is subtracted, without an int-to-float conversion.
+__device__ __forceinline__ unsigned int8_pair(unsigned w, int lo_hi) {
+  const float lo = __fsub_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 + lo_hi)),
+                             8388736.f);
+  const float hi = __fsub_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7542 + lo_hi)),
+                             8388736.f);
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// The A fragment (16 columns x 16 k) of weight tile rows k..k+15 at the
+// warp's columns c0..c0+15, for mma.m16n8k16 with the weights as A
+// ("swap-AB": the columns are M, the rows of the batch N).
+//   bf16: ldmatrix.trans of four 8x8 blocks; fragment row m is column
+//         c0 + m.
+//   int8: each lane reads 2 bytes from each of its 4 k rows: columns
+//         c0 + 2g and c0 + 2g + 1, which become fragment rows g and g + 8
+//         (so fragment row m is column c0 + 2m for m < 8, c0 + 2(m-8) + 1
+//         otherwise); converted to bf16 as the fragment is formed.
+template <typename W>
+struct Frag;
 
 template <>
-struct WPair<bf16> {
-  __nv_bfloat162 raw;
-  __device__ __forceinline__ void load(const bf16* p) {
-    raw = __ldg(reinterpret_cast<const __nv_bfloat162*>(p));
+struct Frag<bf16> {
+  __device__ __forceinline__ static void load(unsigned (&a)[4], const unsigned char* tile, int k,
+                                              int c0, int lane) {
+    const int mi = lane >> 3;
+    const int row = k + (mi >> 1) * 8 + (lane & 7);
+    const int col = c0 + (mi & 1) * 8;
+    ldmatrix_x4_trans(a, tile + row * rg_pitch<bf16>() + col * 2);
   }
-  __device__ __forceinline__ float2 to_float() const { return __bfloat1622float2(raw); }
+  __device__ __forceinline__ static int column(int c0, int m) { return c0 + m; }
 };
 
 template <>
-struct WPair<int8_t> {
-  char2 raw;
-  __device__ __forceinline__ void load(const int8_t* p) {
-    raw = __ldg(reinterpret_cast<const char2*>(p));
+struct Frag<int8_t> {
+  __device__ __forceinline__ static void load(unsigned (&a)[4], const unsigned char* tile, int k,
+                                              int c0, int lane) {
+    const int g = lane >> 2;
+    const int c = lane & 3;
+    const unsigned char* base = tile + (k + 2 * c) * rg_pitch<int8_t>() + c0 + 2 * g;
+    auto pair_rows = [&](int r) {  // rows k + r, k + r + 1: [g@r, g+8@r, g@r+1, g+8@r+1]
+      const unsigned lo = *reinterpret_cast<const unsigned short*>(base + r * rg_pitch<int8_t>());
+      const unsigned hi =
+          *reinterpret_cast<const unsigned short*>(base + (r + 1) * rg_pitch<int8_t>());
+      return __byte_perm(lo, hi, 0x5410) ^ 0x80808080u;
+    };
+    const unsigned w01 = pair_rows(0);
+    const unsigned w89 = pair_rows(8);
+    a[0] = int8_pair(w01, 0);
+    a[1] = int8_pair(w01, 1);
+    a[2] = int8_pair(w89, 0);
+    a[3] = int8_pair(w89, 1);
   }
-  __device__ __forceinline__ float2 to_float() const {
-    return make_float2((float)raw.x, (float)raw.y);
+  __device__ __forceinline__ static int column(int c0, int m) {
+    return c0 + (m < 8 ? 2 * m : 2 * (m - 8) + 1);
   }
 };
 
 // out[b, n] = epilogue(p(sum_k in'[b, k] * w[k, n])) for b < nb, n < N:
 // the modes, roundings and int8 rescale p of dual_ar_layer.cuh's
-// gemv_kernel, for up to NB rows. in: (nb, K) contiguous bf16; w: K rows
-// of stride ldw. Rows nb..NB of the staged input are zero, and their
-// results are not written. grid: ceil(N / RG_TILE) blocks.
-template <int MODE, typename W, int NB>
-__global__ void __launch_bounds__(THREADS)
+// gemv_kernel. in: (nb, K) contiguous bf16; w (and w_b): K rows of stride
+// ldw. grid: tiles * splits blocks in clusters of `splits` (rank = K
+// slice); dynamic shared memory: rows_smem(). Rows nb..NB of the staged
+// input are zero and their results are not written.
+template <int MODE, typename W, int NB, int STAGES>
+__global__ void __launch_bounds__(RG_THREADS)
     rows_gemm_kernel(const bf16* __restrict__ in, const bf16* __restrict__ norm_w,
                      const W* __restrict__ w, const W* __restrict__ w_b,
                      const bf16* __restrict__ scale, const bf16* __restrict__ scale_b, int nb,
-                     int K, int N, int ldw, float eps, bf16* out,
-                     float* __restrict__ out_f32) {
+                     int K, int N, int ldw, float eps, bf16* out, float* __restrict__ out_f32,
+                     int kb) {
   constexpr bool NORM = MODE != kResidual;
   constexpr int NA = MODE == kSwiglu ? 2 : 1;
-  constexpr int PASS = 8;                          // rows reduced at once
-  constexpr int NPASS = (NB + PASS - 1) / PASS;
-  constexpr int PARTS = THREADS / (PASS * RG_TILE);  // threads per (row, column)
-  constexpr int PER = RG_KS / PARTS;               // partial sums each adds
-  constexpr int U = 4;                             // rows of w loaded ahead
+  constexpr int NT = NB / 8;                       // n-tiles of 8 rows
+  constexpr int WARPS = RG_THREADS / 32;
+  constexpr int PITCH = rg_pitch<W>();
+  constexpr int PIECES = RG_TN * (int)sizeof(W) / 16;  // 16-byte copies a row
+  constexpr int ELEMS = 16 / (int)sizeof(W);          // weights a copy
 
-  __shared__ __align__(16) bf16 in_s[NB * RG_KC];
-  __shared__ float red[RG_KS * PASS * RG_TILE];
+  extern __shared__ __align__(16) unsigned char rg_smem[];
+  unsigned char* ring = rg_smem;                                  // [STAGES][NA][BK][PITCH]
+  const int chunks = (kb + RG_BK - 1) / RG_BK;
+  const int slots = min(chunks, STAGES);
+  unsigned char* xs = ring + slots * NA * RG_BK * PITCH;          // [32][2 kb + 16]
+  unsigned char* nws = xs + MAX_BATCH_ROWS * (2 * kb + 16);       // [kb + 8] bf16
+  float* red = reinterpret_cast<float*>(nws + 2 * kb + 16);       // [splits][NA][32][per]
   __shared__ float inv_rms[NB];
 
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_arrive_relaxed();
+  const int splits = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int n0 = (blockIdx.x / splits) * RG_TN;
+  const int k0 = rank * kb;
+  const int k_end = min(K, k0 + kb);
+  const int xpitch = 2 * kb + 16;
 
-  // 1. RMS of each input row over the whole of K (norm modes)
-  if (NORM) {
-    for (int b = warp; b < nb; b += NWARPS) {
-      float ss = 0.f;
-      for (int i = lane; i < K; i += 32) {
-        const float v = bf(in[(size_t)b * K + i]);
-        ss = __fadd_rn(ss, __fmul_rn(v, v));
-      }
+  // the RMS pre-pass's first loads go out before any copy is queued:
+  // each warp takes NB / 4 rows at once, each lane 8 elements (16 bytes)
+  // of a row at a time, UNR of them loaded before any is used (zeros past
+  // nb and K add exactly nothing)
+  constexpr int RPW = NB / WARPS;  // rows a warp
+  constexpr int UNR = 16 / RPW;    // 16-byte loads of a row in flight
+  float ss[RPW];
+  uint4 rv[RPW][UNR];
+  auto load_rms = [&](int i0) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(FULL, ss, off);
-      if (lane == 0) inv_rms[b] = rsqrtf(__fadd_rn(__fdiv_rn(ss, (float)K), eps));
+    for (int j = 0; j < RPW; ++j)
+#pragma unroll
+      for (int u = 0; u < UNR; ++u) {
+        const int b = warp + WARPS * j;
+        const int i = i0 + 32 * u;
+        rv[j][u] = b < nb && i < K / 8 ? reinterpret_cast<const uint4*>(in + (size_t)b * K)[i]
+                                       : make_uint4(0u, 0u, 0u, 0u);
+      }
+  };
+  if (NORM) {
+#pragma unroll
+    for (int j = 0; j < RPW; ++j) ss[j] = 0.f;
+    load_rms(lane);
+  }
+
+  // 1. the input slice and the weight stream, by 16-byte cp.async: group
+  //    0 holds this block's slice of the input rows (zero past nb and K),
+  //    of the norm weights, and weight chunk 0; group c weight chunk c, in
+  //    ring slot c % STAGES (rows past the slice, columns past N zero)
+  const int chunks8 = kb / 8;  // K % 8 == 0: a chunk lies all in or all past K
+  for (int i = tid; i < NB * chunks8; i += RG_THREADS) {
+    const int b = i / chunks8;
+    const int k = k0 + 8 * (i - b * chunks8);
+    const bool ok = b < nb && k < k_end;
+    cp_async16(xs + b * xpitch + (i - b * chunks8) * 16,
+               ok ? (const void*)(in + (size_t)b * K + k) : (const void*)in, ok ? 16 : 0);
+  }
+  if (NORM)
+    for (int i = tid; i < chunks8; i += RG_THREADS) {
+      const bool ok = k0 + 8 * i < k_end;
+      cp_async16(nws + 16 * i, ok ? (const void*)(norm_w + k0 + 8 * i) : (const void*)norm_w,
+                 ok ? 16 : 0);
+    }
+  auto issue = [&](int c) {
+    if (c < chunks) {
+      unsigned char* slot = ring + (c % STAGES) * NA * RG_BK * PITCH;
+#pragma unroll
+      for (int a = 0; a < NA; ++a) {
+        const W* src = a == 0 ? w : w_b;
+        for (int i = tid; i < RG_BK * PIECES; i += RG_THREADS) {
+          const int r = i / PIECES;
+          const int piece = i - r * PIECES;
+          const int k = k0 + c * RG_BK + r;
+          const int n = n0 + piece * ELEMS;
+          const bool ok = k < k_end && n < N;
+          cp_async16(slot + (a * RG_BK + r) * PITCH + piece * 16,
+                     ok ? (const void*)(src + (size_t)k * ldw + n) : (const void*)src, ok ? 16 : 0);
+        }
+      }
+    }
+    cp_async_commit();  // an empty group past the last chunk keeps the count
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) issue(s);
+
+  // the epilogue's items (row, column) of this thread; in the residual
+  // mode their residual values are loaded now, while the copies fly
+  constexpr int EPI = NB * RG_TN / RG_THREADS;  // most items a thread takes
+  const int per = RG_TN / splits;               // columns this rank finishes
+  const int items = nb * per;
+  float res_pf[EPI];
+#pragma unroll
+  for (int j = 0; j < EPI; ++j) {
+    res_pf[j] = 0.f;
+    const int i = tid + j * RG_THREADS;
+    const int b = i / per;
+    const int n = n0 + rank * per + (i - b * per);
+    if (MODE == kResidual && i < items && n < N) res_pf[j] = bf(out[(size_t)b * N + n]);
+  }
+
+  if (NORM) {
+    // 2. RMS of each input row over the whole of K (the first batch of
+    //    loads is in flight since the start)
+    for (int i0 = lane; i0 < K / 8; i0 += 32 * UNR) {
+      if (i0 != lane) load_rms(i0);
+#pragma unroll
+      for (int u = 0; u < UNR; ++u)
+#pragma unroll
+        for (int j = 0; j < RPW; ++j) {
+          float f[8];
+          unpack8(rv[j][u], f);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) ss[j] = __fadd_rn(ss[j], __fmul_rn(f[e], f[e]));
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < RPW; ++j) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) ss[j] += __shfl_xor_sync(FULL, ss[j], off);
+      const int b = warp + WARPS * j;
+      if (lane == 0 && b < nb) inv_rms[b] = rsqrtf(__fadd_rn(__fdiv_rn(ss[j], (float)K), eps));
+    }
+
+    // 3. normalise the staged slice in place, rounded to bf16
+    cp_async_wait<STAGES - 2>();  // group 0: the slices
+    __syncthreads();              // the slices and inv_rms visible to all
+    for (int i = tid; i < nb * chunks8; i += RG_THREADS) {
+      const int b = i / chunks8;
+      const int k = k0 + 8 * (i - b * chunks8);
+      if (k >= k_end) continue;
+      uint4* dst = reinterpret_cast<uint4*>(xs + b * xpitch + (i - b * chunks8) * 16);
+      float f[8], nw[8];
+      unpack8(*dst, f);
+      unpack8(*reinterpret_cast<const uint4*>(nws + 2 * (k - k0)), nw);
+      uint4 v;
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        h[e] = __floats2bfloat162_rn(__fmul_rn(__fmul_rn(f[2 * e], inv_rms[b]), nw[2 * e]),
+                                     __fmul_rn(__fmul_rn(f[2 * e + 1], inv_rms[b]), nw[2 * e + 1]));
+      *dst = v;
     }
   }
 
-  // 2. partial products: chunk by chunk of K, the staged input rows
-  //    (normalised in the norm modes) times this thread's slice of W
-  const int ct = tid % RG_CT;
-  const int ks = tid / RG_CT;
-  const int n0 = blockIdx.x * RG_TILE + ct * RG_VEC;
-  float acc[NA][NB][RG_VEC];
+  // 4. the products on the tensor cores, chunk by chunk, k ascending
+  const int g = lane >> 2;
+  const int cq = lane & 3;
+  const int c0 = warp * 16;
+  float acc[NA][NT][4];
 #pragma unroll
   for (int a = 0; a < NA; ++a)
 #pragma unroll
-    for (int b = 0; b < NB; ++b)
+    for (int t = 0; t < NT; ++t)
 #pragma unroll
-      for (int v = 0; v < RG_VEC; ++v) acc[a][b][v] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += RG_KC) {
-    const int kc = min(RG_KC, K - k0);
-    __syncthreads();  // inv_rms written; the previous chunk consumed
-    for (int i = tid; i < NB * RG_KC; i += THREADS) {
-      const int b = i / RG_KC;
-      const int kk = i - b * RG_KC;
-      bf16 v = __float2bfloat16(0.f);
-      if (b < nb && kk < kc) {
-        v = in[(size_t)b * K + k0 + kk];
-        if (NORM) {
-          const float h = __fmul_rn(bf(v), inv_rms[b]);
-          v = __float2bfloat16(__fmul_rn(h, bf(norm_w[k0 + kk])));
-        }
+      for (int e = 0; e < 4; ++e) acc[a][t][e] = 0.f;
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // chunk c landed for all; slot (c - 1) % STAGES consumed
+    issue(c + STAGES - 1);
+    const unsigned char* slot = ring + (c % STAGES) * NA * RG_BK * PITCH;
+    const int steps = min(RG_BK, kb - c * RG_BK) / 16;
+    for (int s = 0; s < steps; ++s) {
+      const int kx = c * RG_BK + s * 16;  // within the slice
+      unsigned bfrag[NT][2];
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const unsigned char* xrow = xs + (t * 8 + g) * xpitch + (kx + 2 * cq) * 2;
+        bfrag[t][0] = *reinterpret_cast<const unsigned*>(xrow);
+        bfrag[t][1] = *reinterpret_cast<const unsigned*>(xrow + 16);
       }
-      in_s[i] = v;
-    }
-    __syncthreads();
-    if (n0 >= N) continue;
-    const W* wp[NA];
-    wp[0] = w + (size_t)k0 * ldw + n0;
-    if (NA == 2) wp[NA - 1] = w_b + (size_t)k0 * ldw + n0;
-    int k = ks;
-    for (; k + (U - 1) * RG_KS < kc; k += U * RG_KS) {
-      WPair<W> r[NA][U];
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-#pragma unroll
-        for (int a = 0; a < NA; ++a) r[a][u].load(wp[a] + (size_t)(k + u * RG_KS) * ldw);
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-#pragma unroll
-        for (int a = 0; a < NA; ++a) {
-          const float2 wf = r[a][u].to_float();
-#pragma unroll
-          for (int b = 0; b < NB; ++b) {
-            const float xv = bf(in_s[b * RG_KC + k + u * RG_KS]);
-            acc[a][b][0] = fmaf(xv, wf.x, acc[a][b][0]);
-            acc[a][b][1] = fmaf(xv, wf.y, acc[a][b][1]);
-          }
-        }
-      }
-    }
-    for (; k < kc; k += RG_KS) {
 #pragma unroll
       for (int a = 0; a < NA; ++a) {
-        WPair<W> r;
-        r.load(wp[a] + (size_t)k * ldw);
-        const float2 wf = r.to_float();
+        unsigned afrag[4];
+        Frag<W>::load(afrag, slot + a * RG_BK * PITCH, s * 16, c0, lane);
 #pragma unroll
-        for (int b = 0; b < NB; ++b) {
-          const float xv = bf(in_s[b * RG_KC + k]);
-          acc[a][b][0] = fmaf(xv, wf.x, acc[a][b][0]);
-          acc[a][b][1] = fmaf(xv, wf.y, acc[a][b][1]);
-        }
+        for (int t = 0; t < NT; ++t) mma_bf16(acc[a][t], afrag, bfrag[t][0], bfrag[t][1]);
       }
     }
   }
+  cp_async_wait<0>();
 
-  // 3. add the RG_KS partial sums of each (row, column) in a fixed order,
-  //    PASS rows at a time; the order is the same for every NB, so a
-  //    row's result does not depend on how many rows run beside it
-  const int part = tid % PARTS;
-  const int col = (tid / PARTS) % RG_TILE;
-  const int pr = tid / (PARTS * RG_TILE);
-  float y[NA][NPASS];
+  // 5. the block's partial sums, pushed to the rank that finishes each
+  //    column (columns [q * per, q * per + per) to rank q), into slot
+  //    [rank] of its buffer red[splits][NA][32][per]: fragment element
+  //    (m, n) of n-tile t is column Frag::column(c0, m), row 8 t + n
+  cluster_wait();  // every block of the cluster has started
 #pragma unroll
-  for (int a = 0; a < NA; ++a) {
+  for (int a = 0; a < NA; ++a)
 #pragma unroll
-    for (int p = 0; p < NPASS; ++p) {
-      __syncthreads();
+    for (int t = 0; t < NT; ++t)
 #pragma unroll
-      for (int r = 0; r < PASS; ++r)
+      for (int e = 0; e < 4; ++e) {
+        const int col = Frag<W>::column(c0, g + (e >> 1) * 8);
+        const int row = t * 8 + 2 * cq + (e & 1);
+        const int q = col / per;
+        cluster.map_shared_rank(red, q)[((rank * NA + a) * MAX_BATCH_ROWS + row) * per +
+                                        (col - q * per)] = acc[a][t][e];
+      }
+  // every rank's pushes have landed; after this no block touches another's
+  // shared memory, so each may finish and leave on its own
+  cluster.sync();
+
+  // 6. epilogue: each rank adds the splits' partials of its own columns
+  //    in rank order, from its own shared memory, then applies the mode
 #pragma unroll
-        for (int v = 0; v < RG_VEC; ++v)
-          red[(ks * PASS + r) * RG_TILE + ct * RG_VEC + v] =
-              p * PASS + r < NB ? acc[a][p * PASS + r][v] : 0.f;
-      __syncthreads();
-      float s = 0.f;
+  for (int j = 0; j < EPI; ++j) {
+    const int i = tid + j * RG_THREADS;
+    const int b = i / per;
+    const int cl = i - b * per;  // column within this rank's share
+    const int n = n0 + rank * per + cl;
+    if (i >= items || n >= N) continue;
+    float y[NA];
 #pragma unroll
-      for (int i = 0; i < PER; ++i) s += red[((part * PER + i) * PASS + pr) * RG_TILE + col];
-#pragma unroll
-      for (int off = PARTS / 2; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
-      y[a][p] = s;
+    for (int a = 0; a < NA; ++a) {
+      y[a] = red[(a * MAX_BATCH_ROWS + b) * per + cl];
+      for (int r = 1; r < splits; ++r) y[a] += red[((r * NA + a) * MAX_BATCH_ROWS + b) * per + cl];
     }
-  }
-
-  // 4. epilogue
-  const int n = blockIdx.x * RG_TILE + col;
-  if (part != 0 || n >= N) return;
-#pragma unroll
-  for (int p = 0; p < NPASS; ++p) {
-    const int b = p * PASS + pr;
-    if (b >= nb) continue;
     const size_t o = (size_t)b * N + n;
-    const float y0 = stack_product<W>(y[0][p], scale, n);
+    const float y0 = stack_product<W>(y[0], scale, n);
     if (MODE == kQkv) {
       out[o] = __float2bfloat16(y0);
     } else if (MODE == kResidual) {
-      out[o] = __float2bfloat16(__fadd_rn(bf(out[o]), round_bf16(y0)));
+      out[o] = __float2bfloat16(__fadd_rn(res_pf[j], round_bf16(y0)));
     } else if (MODE == kSwiglu) {
       const float gate = round_bf16(__fdiv_rn(y0, __fadd_rn(1.f, expf(-y0))));
-      const float up = round_bf16(stack_product<W>(y[NA - 1][p], scale_b, n));
+      const float up = round_bf16(stack_product<W>(y[NA - 1], scale_b, n));
       out[o] = __float2bfloat16(__fmul_rn(gate, up));
     } else {
       out_f32[o] = y0;
@@ -247,24 +525,68 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+template <int MODE, typename W, int NB, int STAGES>
+cudaError_t launch_rows_gemm_st(const RowsPlan& p, int nb, const bf16* in, const bf16* norm_w,
+                                const W* w, const W* w_b, const bf16* scale,
+                                const bf16* scale_b, int K, int N, int ldw, float eps, bf16* out,
+                                float* out_f32, cudaStream_t st) {
+  auto kern = rows_gemm_kernel<MODE, W, NB, STAGES>;
+  // raise the dynamic shared memory limit once per kernel and size, not
+  // per launch (and not while a CUDA graph is captured after warm-up)
+  static int smem_set = 0;
+  if (p.smem > smem_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != cudaSuccess) return err;
+    smem_set = p.smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.tiles * p.splits);
+  cfg.blockDim = dim3(RG_THREADS);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, in, norm_w, w, w_b, scale, scale_b, nb,
+                                             K, N, ldw, eps, out, out_f32, p.kb);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int MODE, typename W, int NB>
+cudaError_t launch_rows_gemm_nb(const RowsPlan& p, int nb, const bf16* in, const bf16* norm_w,
+                                const W* w, const W* w_b, const bf16* scale,
+                                const bf16* scale_b, int K, int N, int ldw, float eps, bf16* out,
+                                float* out_f32, cudaStream_t st) {
+  if (p.stages == RG_STAGES)
+    return launch_rows_gemm_st<MODE, W, NB, RG_STAGES>(p, nb, in, norm_w, w, w_b, scale, scale_b, K, N, ldw, eps, out, out_f32, st);
+  return launch_rows_gemm_st<MODE, W, NB, RG_STAGES / 2>(p, nb, in, norm_w, w, w_b, scale, scale_b, K, N, ldw, eps, out, out_f32, st);
+}
+
 template <int MODE, typename W>
 cudaError_t launch_rows_gemm(int nb, const bf16* in, const bf16* norm_w, const W* w,
                              const W* w_b, const bf16* scale, const bf16* scale_b, int K,
                              int N, int ldw, float eps, bf16* out, float* out_f32,
                              cudaStream_t st) {
-  if (N % RG_VEC || ldw % RG_VEC) return cudaErrorInvalidValue;
-  const int grid = (N + RG_TILE - 1) / RG_TILE;
-  if (nb <= 4)
-    rows_gemm_kernel<MODE, W, 4><<<grid, THREADS, 0, st>>>(in, norm_w, w, w_b, scale, scale_b, nb, K, N, ldw, eps, out, out_f32);
-  else if (nb <= 8)
-    rows_gemm_kernel<MODE, W, 8><<<grid, THREADS, 0, st>>>(in, norm_w, w, w_b, scale, scale_b, nb, K, N, ldw, eps, out, out_f32);
-  else if (nb <= 16)
-    rows_gemm_kernel<MODE, W, 16><<<grid, THREADS, 0, st>>>(in, norm_w, w, w_b, scale, scale_b, nb, K, N, ldw, eps, out, out_f32);
-  else if (nb <= MAX_BATCH_ROWS)
-    rows_gemm_kernel<MODE, W, 32><<<grid, THREADS, 0, st>>>(in, norm_w, w, w_b, scale, scale_b, nb, K, N, ldw, eps, out, out_f32);
-  else
+  constexpr int ELEMS = 16 / (int)sizeof(W);
+  const RowsPlan p = rows_plan(K, N, MODE, std::is_same<W, int8_t>::value);
+  if (K < 1 || K % 8 || N % ELEMS || ldw % ELEMS || p.smem > RG_MAX_SMEM ||
+      reinterpret_cast<uintptr_t>(in) % 16 ||
+      (norm_w != nullptr && reinterpret_cast<uintptr_t>(norm_w) % 16) ||
+      reinterpret_cast<uintptr_t>(w) % 16 || (w_b != nullptr && reinterpret_cast<uintptr_t>(w_b) % 16))
     return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  if (nb <= 8)
+    return launch_rows_gemm_nb<MODE, W, 8>(p, nb, in, norm_w, w, w_b, scale, scale_b, K, N, ldw, eps, out, out_f32, st);
+  if (nb <= 16)
+    return launch_rows_gemm_nb<MODE, W, 16>(p, nb, in, norm_w, w, w_b, scale, scale_b, K, N, ldw, eps, out, out_f32, st);
+  if (nb <= MAX_BATCH_ROWS)
+    return launch_rows_gemm_nb<MODE, W, 32>(p, nb, in, norm_w, w, w_b, scale, scale_b, K, N, ldw, eps, out, out_f32, st);
+  return cudaErrorInvalidValue;
 }
 
 // One codebook step's draw for row b = blockIdx.x, the semantics of
@@ -444,4 +766,71 @@ extern "C" int fs_fast_frame_batched(
   };
   if (int8) return run(make_stack<int8_t>(attn_norm, ffn_norm, wts, scales));
   return run(make_stack<bf16>(attn_norm, ffn_norm, wts, scales));
+}
+
+namespace {
+
+template <typename W>
+int rows_gemm_entry(int mode, const void* in, const void* norm_w, const void* w, const void* w_b,
+                    const void* scale, const void* scale_b, int nb, int K, int N, int ldw,
+                    float eps, void* out, void* out_f32, cudaStream_t st) {
+  const bf16* x = static_cast<const bf16*>(in);
+  const bf16* nw = static_cast<const bf16*>(norm_w);
+  const W* wa = static_cast<const W*>(w);
+  const W* wb = static_cast<const W*>(w_b);
+  const bf16* sa = static_cast<const bf16*>(scale);
+  const bf16* sb = static_cast<const bf16*>(scale_b);
+  bf16* o = static_cast<bf16*>(out);
+  float* of = static_cast<float*>(out_f32);
+  switch (mode) {
+    case kQkv: return (int)launch_rows_gemm<kQkv, W>(nb, x, nw, wa, nullptr, sa, nullptr, K, N, ldw, eps, o, nullptr, st);
+    case kResidual: return (int)launch_rows_gemm<kResidual, W>(nb, x, nullptr, wa, nullptr, sa, nullptr, K, N, ldw, eps, o, nullptr, st);
+    case kSwiglu: return (int)launch_rows_gemm<kSwiglu, W>(nb, x, nw, wa, wb, sa, sb, K, N, ldw, eps, o, nullptr, st);
+    default:
+      if constexpr (std::is_same<W, bf16>::value)
+        return (int)launch_rows_gemm<kHead, bf16>(nb, x, nw, wa, nullptr, nullptr, nullptr, K, N, ldw, eps, nullptr, of, st);
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// One rows_gemm launch, as the frame makes it (for the card's checks and
+// timings): mode 0..3 = kQkv, kResidual, kSwiglu, kHead. in (nb, K) bf16;
+// norm_w (K,) bf16 in the norm modes (all but kResidual); w (K rows of
+// stride ldw) and, for kSwiglu, w_b: bf16, or int8 when scale (and, for
+// kSwiglu, scale_b) (N,) bf16 is given; kHead takes bf16 only. out (nb, N)
+// bf16, updated in place for kResidual; out_f32 (nb, N) f32 for kHead.
+// Returns the launch's CUDA error (0 on success).
+extern "C" int fs_rows_gemm(int mode, const void* in, const void* norm_w, const void* w,
+                            const void* w_b, const void* scale, const void* scale_b, int nb,
+                            int K, int N, int ldw, float eps, void* out, void* out_f32,
+                            void* stream) {
+  const bool int8 = scale != nullptr;
+  if (mode < kQkv || mode > kHead || nb < 1 || nb > MAX_BATCH_ROWS || in == nullptr ||
+      w == nullptr || (mode == kSwiglu) != (w_b != nullptr) ||
+      (int8 && (mode == kSwiglu) != (scale_b != nullptr)) ||
+      (mode != kResidual && norm_w == nullptr) || (mode == kHead && (int8 || out_f32 == nullptr)) ||
+      (mode != kHead && out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (int8)
+    return rows_gemm_entry<int8_t>(mode, in, norm_w, w, w_b, scale, scale_b, nb, K, N, ldw, eps, out, out_f32, st);
+  return rows_gemm_entry<bf16>(mode, in, norm_w, w, w_b, scale, scale_b, nb, K, N, ldw, eps, out, out_f32, st);
+}
+
+// The plan rows_gemm launches with for (K, N, mode, int8): plan[0..5] =
+// columns per cluster, splits (blocks a cluster, over K), rows of K a
+// block, pipeline stages, dynamic shared memory bytes a block, blocks.
+extern "C" int fs_rows_gemm_plan(int K, int N, int mode, int int8, int* plan) {
+  if (K < 1 || N < 1 || mode < kQkv || mode > kHead || plan == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const RowsPlan p = rows_plan(K, N, mode, int8 != 0);
+  plan[0] = RG_TN;
+  plan[1] = p.splits;
+  plan[2] = p.kb;
+  plan[3] = p.stages;
+  plan[4] = p.smem;
+  plan[5] = p.tiles * p.splits;
+  return 0;
 }

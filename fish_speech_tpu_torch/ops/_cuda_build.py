@@ -42,8 +42,8 @@ _F = ctypes.c_float
 # c_void_p (a bare Python int would be cut to 32 bits), ints are c_int.
 SIGNATURES = {
     # q, k_new, v_new, pos, ck, cv, out,
-    # B, H, KV, S, L, layer, scale, stream
-    "fs_decode_attention": [_P] * 7 + [_I] * 6 + [_F, _P],
+    # B, H, KV, S, L, layer, cluster, scale, stream
+    "fs_decode_attention": [_P] * 7 + [_I] * 7 + [_F, _P],
     # q, k, v, seq_lens, out, B, H, KV, S_pad, E, k_sb, k_skv, offset,
     # window, scale,
     # stream
@@ -67,6 +67,11 @@ SIGNATURES = {
     # B, L, D, H, KV, F, C, V, head_ld, depthwise_output, depthwise_wte,
     # window_len, k_dyn, rep_enabled, eps, stream
     "fs_fast_frame_batched": [_P] * 33 + [_I] * 14 + [_F, _P],
+    # mode, in, norm_w, w, w_b, scale, scale_b, nb, K, N, ldw, eps, out,
+    # out_f32, stream
+    "fs_rows_gemm": [_I] + [_P] * 6 + [_I] * 4 + [_F] + [_P] * 3,
+    # K, N, mode, int8, plan (6 ints out)
+    "fs_rows_gemm_plan": [_I] * 4 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

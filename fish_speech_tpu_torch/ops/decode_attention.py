@@ -8,6 +8,8 @@ caches, both versions here update `ck`/`cv` in place and return attn.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from fish_speech_tpu_torch.ops import _cuda_build
@@ -17,7 +19,50 @@ launches = 0  # kernel launches since the last reset (set to 0 to reset)
 
 HEAD_DIM = 64
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
-_WARPS = 8
+MAX_GROUP = 8  # query heads per KV head the kernel takes (1, 2, 4 or 8)
+# the kernel's constants (csrc/decode_attention.cu)
+_THREADS = 256
+_WARPS = _THREADS // 32
+_TILE = 32  # keys a block step
+_MAX_STEPS = 16  # tiles a rank takes
+_MAX_CLUSTER = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """The launch of csrc/decode_attention.cu for a cache of length S:
+    `cluster` blocks per (row, KV head), each taking key tiles of 32
+    keys round-robin. A function of S alone: never of the batch or of
+    pos, so a row's sums run in one order whatever its co-tenants and a
+    CUDA graph can hold the launch."""
+
+    cluster: int
+    max_cache: int  # the longest cache the plan takes
+
+    def blocks(self, batch: int, kv_heads: int) -> int:
+        return batch * kv_heads * self.cluster
+
+
+def decode_plan(cache_len: int) -> DecodePlan:
+    """P = the power of two >= ceil(S / 128), at most 8: 4 blocks a (row,
+    KV head) at the serving cache of 512, 8 at 4096."""
+    cluster = 1
+    while cluster < _MAX_CLUSTER and cluster * 128 < cache_len:
+        cluster *= 2
+    return DecodePlan(cluster=cluster, max_cache=cluster * _TILE * _MAX_STEPS)
+
+
+def decode_smem_bytes(group: int) -> int:
+    """Static shared memory of one block: the warps' per-head max and sum,
+    the cluster's per-head max and sum slots and the PV partials, sized
+    by the group, not by S."""
+    return 4 * (2 * _WARPS * group + 2 * _MAX_CLUSTER * group + _WARPS * group * HEAD_DIM
+                + group * HEAD_DIM)
+
+
+def decode_supported(cache_len: int, group: int) -> bool:
+    """Whether the kernel takes a cache of this length at this group."""
+    return group in (1, 2, 4, MAX_GROUP) and cache_len <= decode_plan(cache_len).max_cache
 
 
 def decode_attention_plain(q, k_new, v_new, pos, ck, cv, layer: int):
@@ -47,17 +92,17 @@ def decode_attention(q, k_new, v_new, pos, ck, cv, layer: int):
     n_layer, _, kv, s, _ = ck.shape
     _check(q, k_new, v_new, pos, ck, cv, layer)
     group = h // kv
-    smem = (group * s + _WARPS * group * hd) * 4
-    if smem > SMEM_LIMIT:
+    if not decode_supported(s, group):
         raise ValueError(
-            f"decode_attention: cache length {s} x group {group} needs "
-            f"{smem} bytes of shared memory (> {SMEM_LIMIT})"
+            f"decode_attention: the kernel takes groups of 1, 2, 4 or {MAX_GROUP} query "
+            f"heads and caches of at most {decode_plan(s).max_cache}; got group {group}, "
+            f"cache length {s}"
         )
     out = torch.empty_like(q)
     rc = lib.fs_decode_attention(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), pos.data_ptr(),
         ck.data_ptr(), cv.data_ptr(), out.data_ptr(),
-        bsz, h, kv, s, n_layer, int(layer), 1.0 / hd**0.5,
+        bsz, h, kv, s, n_layer, int(layer), decode_plan(s).cluster, 1.0 / hd**0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _cuda_build.check(rc, "fs_decode_attention")

@@ -13,16 +13,27 @@ loop of `generate/frame.py` rounds both to bf16. An int8-quantized fast
 stack takes the TPU kernel's int8 body (fast_frame_pallas.py:532,
 569-573, 595-604, 706-712): each stack product is bf16(bf16(x @ q) * s),
 and silu sees that rescaled bf16 w1 product.
+
+`rows_gemm` is one GEMM of the kernel sequence on its own (the C entry
+`fs_rows_gemm`), with its plain version `rows_gemm_plain` and its launch
+plan `rows_plan`, for the card's checks and timings of each GEMM.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import math
+
 import torch
+import torch.nn.functional as F
 
 from fish_speech_tpu_torch.config import DualARConfig
 from fish_speech_tpu_torch.models.dual_ar import fast_embed, fast_hist_init, fast_step
 from fish_speech_tpu_torch.ops import _cuda_build
 from fish_speech_tpu_torch.ops.fast_frame import MAX_VOCAB, MAX_WINDOW
+from fish_speech_tpu_torch.ops.norms import rms_norm
+from fish_speech_tpu_torch.ops.quant import is_quantized
 from fish_speech_tpu_torch.ops.sampling import (
     RepPenWindow, RowSampling, sample_top_k_top_p_dynamic)
 from fish_speech_tpu_torch.ops.slow_step import (
@@ -32,7 +43,150 @@ from fish_speech_tpu_torch.ops.slow_step import (
 launches = 0  # kernel-sequence launches since the last reset (set to 0 to reset)
 int8_launches = 0  # those of them on int8 stacks (the int8 kernel body)
 
+rows_gemm_launches = 0  # fs_rows_gemm launches (set to 0 to reset)
+
 MAX_ROWS = 32  # rows the JAX kernel and this one take
+
+# rows_gemm's modes, in the C entry's order, and its plan's constants
+# (csrc/fast_frame_batched.cu)
+ROWS_MODES = ("qkv", "residual", "swiglu", "head")
+_RG_TILE_N = 64
+_RG_BK = 64
+_RG_STAGES = 8  # 4 where 8 do not fit
+_RG_MAX_SPLITS = 8
+_RG_MIN_BLOCKS = 128
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+_RG_SMEM_BUDGET = SMEM_LIMIT - 1024  # for the dynamic part, less a margin for the static
+_RG_HALF_SM = 113 * 1024  # two such blocks fit on one SM
+
+
+@dataclasses.dataclass(frozen=True)
+class RowsPlan:
+    """The launch of one rows_gemm: clusters of `splits` blocks own
+    `tile_n` output columns each, a block `k_per_split` rows of K through
+    a ring of `stages` chunks. A function of (K, N, mode, weight type)
+    only, never of the number of rows: a row's sums run in one order
+    whatever its co-tenants."""
+
+    tile_n: int
+    splits: int
+    k_per_split: int
+    stages: int
+    smem: int  # dynamic shared memory of one block, bytes
+    blocks: int
+
+
+def rows_plan(k: int, n: int, mode: str, int8: bool) -> RowsPlan:
+    """The plan csrc/fast_frame_batched.cu::rows_plan computes: 64-column
+    tiles; K split in two until the grid has 128 blocks, 8 splits (the
+    portable cluster size) at most, 64 rows of K a split at least; a ring
+    of 8 chunks of 64 rows where it fits in shared memory (in half an SM's
+    for clusters of 4-8), else 4."""
+    tiles = math.ceil(n / _RG_TILE_N)
+    splits = 1
+    while splits < _RG_MAX_SPLITS and tiles * splits < _RG_MIN_BLOCKS \
+            and k >= 2 * splits * _RG_BK:
+        splits *= 2
+    kb = math.ceil(math.ceil(k / splits) / 16) * 16
+    n_w = 2 if mode == "swiglu" else 1
+    pitch = _RG_TILE_N * (1 if int8 else 2) + 16
+
+    def smem(stages):
+        slots = min(math.ceil(kb / _RG_BK), stages)
+        return (slots * n_w * _RG_BK * pitch + MAX_ROWS * (2 * kb + 16) + 2 * kb + 16
+                + n_w * MAX_ROWS * _RG_TILE_N * 4)
+
+    # a cluster of 4-8 blocks fits its GPC only if every block leaves room
+    # for a second on its SM
+    budget = _RG_HALF_SM if splits >= 4 else _RG_SMEM_BUDGET
+    stages = _RG_STAGES if smem(_RG_STAGES) <= budget else _RG_STAGES // 2
+    return RowsPlan(tile_n=_RG_TILE_N, splits=splits, k_per_split=kb, stages=stages,
+                    smem=smem(stages), blocks=tiles * splits)
+
+
+def _stack_product(h, w):
+    """The f32 sum of h @ w; for an int8 w, bf16(bf16(sum) * s) (the TPU
+    kernels' _wdot)."""
+    if is_quantized(w):
+        y = (h.float() @ w["q"].float()).to(torch.bfloat16)
+        return (y.float() * w["s"].float()).to(torch.bfloat16).float()
+    return h.float() @ w.float()
+
+
+def rows_gemm_plain(mode: str, x, w, norm_w=None, w_b=None, eps: float = 1e-6, out=None):
+    """One GEMM of the batched frame on rows x (nb, K) bf16 with w (K, N)
+    bf16 or int8 {"q", "s"}:
+      qkv:      bf16(p(RMSNorm(x) @ w))
+      residual: out += bf16(p(x @ w)), in place; returns out
+      swiglu:   bf16(bf16(silu(p(h @ w))) * bf16(p(h @ w_b))), h = RMSNorm(x)
+      head:     RMSNorm(x) @ w in float32, unrounded
+    where RMSNorm rounds to bf16 and p is the f32 sum (rescaled for int8)."""
+    h = x if mode == "residual" else rms_norm(x, norm_w, eps)
+    y = _stack_product(h, w)
+    if mode == "qkv":
+        return y.to(x.dtype)
+    if mode == "residual":
+        out.copy_(out + y.to(out.dtype))
+        return out
+    if mode == "swiglu":
+        return F.silu(y).to(x.dtype) * _stack_product(h, w_b).to(x.dtype)
+    if mode == "head":
+        return y
+    raise ValueError(f"rows_gemm: unknown mode {mode!r}")
+
+
+def rows_gemm(mode: str, x, w, norm_w=None, w_b=None, eps: float = 1e-6, out=None):
+    """Same contract as `rows_gemm_plain`. CPU tensors run the plain
+    version; CUDA tensors launch the kernel (one fs_rows_gemm) or raise."""
+    if x.device.type == "cpu":
+        return rows_gemm_plain(mode, x, w, norm_w, w_b, eps, out)
+    if x.device.type != "cuda":
+        raise ValueError(f"rows_gemm: unsupported device {x.device}")
+    if mode not in ROWS_MODES:
+        raise ValueError(f"rows_gemm: unknown mode {mode!r}")
+    int8 = is_quantized(w)
+    weight = w["q"] if int8 else w
+    nb, k = x.shape
+    n = weight.shape[1]
+    if (x.dtype != torch.bfloat16 or not x.is_contiguous() or not 1 <= nb <= MAX_ROWS
+            or weight.shape[0] != k or weight.stride(1) != 1
+            or weight.dtype != (torch.int8 if int8 else torch.bfloat16)
+            or (mode == "swiglu") != (w_b is not None) or (mode == "head" and int8)
+            or (mode != "residual" and (norm_w is None or tuple(norm_w.shape) != (k,)))):
+        raise ValueError(f"rows_gemm {mode}: x {tuple(x.shape)} {x.dtype}, weight "
+                         f"{tuple(weight.shape)} {weight.dtype}")
+    lib = _cuda_build.load_library()
+    if mode == "head":
+        out = torch.empty((nb, n), dtype=torch.float32, device=x.device)
+    elif mode == "residual":
+        if out is None or tuple(out.shape) != (nb, n) or out.dtype != torch.bfloat16 \
+                or not out.is_contiguous():
+            raise ValueError(f"rows_gemm residual: out must be a contiguous ({nb}, {n}) bf16")
+    else:
+        out = torch.empty((nb, n), dtype=torch.bfloat16, device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    wb = None if w_b is None else (w_b["q"] if int8 else w_b)
+    rc = lib.fs_rows_gemm(
+        ROWS_MODES.index(mode), x.data_ptr(), ptr(norm_w), weight.data_ptr(), ptr(wb),
+        ptr(w["s"]) if int8 else None, ptr(w_b["s"]) if int8 and w_b is not None else None,
+        nb, k, n, weight.stride(0), float(eps),
+        None if mode == "head" else out.data_ptr(), out.data_ptr() if mode == "head" else None,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _cuda_build.check(rc, "fs_rows_gemm")
+    global rows_gemm_launches
+    rows_gemm_launches += 1
+    return out
+
+
+def rows_plan_on_card(k: int, n: int, mode: str, int8: bool) -> RowsPlan:
+    """The plan as the built kernel computes it (fs_rows_gemm_plan), to
+    hold `rows_plan` to it."""
+    buf = (ctypes.c_int * 6)()
+    rc = _cuda_build.load_library().fs_rows_gemm_plan(k, n, ROWS_MODES.index(mode), int(int8),
+                                                       ctypes.cast(buf, ctypes.c_void_p))
+    _cuda_build.check(rc, "fs_rows_gemm_plan")
+    return RowsPlan(tile_n=buf[0], splits=buf[1], k_per_split=buf[2], stages=buf[3],
+                    smem=buf[4], blocks=buf[5])
 
 
 def fused_fast_frame_batched_plain(params, cfg: DualARConfig, samp: RowSampling, hidden,
@@ -123,7 +277,7 @@ def fused_fast_frame_batched_supported(cfg: DualARConfig, params, batch: int,
     128 or covers the codebook); on CUDA also the kernels' limits (bf16
     stacks or int8 ones with bf16 scales and out % 16 == 0, head dim 64,
     H * hd == D, widths that are multiples of 8, a codebook of at most
-    4096 entries)."""
+    4096 entries, a multiple of 8)."""
     vocab = cfg.codebook_size
     if (not 1 <= batch <= MAX_ROWS or cfg.head_dim % 2 or vocab % min(128, vocab)
             or (dyn_top_k_cap % 128 and dyn_top_k_cap < vocab)):
@@ -139,7 +293,7 @@ def fused_fast_frame_batched_supported(cfg: DualARConfig, params, batch: int,
         and cfg.head_dim == HEAD_DIM
         and cfg.n_head * cfg.head_dim == cfg.dim
         and cfg.dim % 8 == 0 and cfg.intermediate_size % 8 == 0
-        and vocab <= MAX_VOCAB
+        and vocab % 8 == 0 and vocab <= MAX_VOCAB
     )
 
 

@@ -8,6 +8,8 @@ Tolerances (float32 on the CPU): 1e-5 absolute for attention outputs,
 the same arithmetic summed in another order; the decode caches must be
 exactly equal. On the card (bf16): one bf16 ulp of slack, see each test."""
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -94,6 +96,41 @@ def test_prefill_plain_matches_xla_ragged(s, e, offset, lens, window):
     assert np.isfinite(got).all()
     for row, n in enumerate(lens):
         np.testing.assert_allclose(got[row, :, :n], ref[row, :, :n], rtol=TOL, atol=TOL)
+
+
+# -- the decode kernel's launch plan -------------------------------------------
+
+
+def test_decode_plan_takes_only_the_cache_length():
+    """The plan is a function of S alone: no argument can carry the
+    batch, the rows' positions or a device-side pos."""
+    assert list(inspect.signature(da.decode_plan).parameters) == ["cache_len"]
+
+
+@pytest.mark.parametrize("s", [1, 16, 64, 100, 129, 512, 1000, 2048, 4096])
+def test_decode_plan_bounds(s):
+    """P is a power of two <= 8 (the portable cluster size) and takes
+    the whole cache; a block's shared memory does not grow with S."""
+    plan = da.decode_plan(s)
+    assert 1 <= plan.cluster <= 8 and plan.cluster & (plan.cluster - 1) == 0
+    assert s <= plan.max_cache
+    assert plan == da.decode_plan(s)
+    assert da.decode_smem_bytes(8) <= min(48 * 1024, da.SMEM_LIMIT)  # static, any S
+
+
+def test_decode_plan_at_the_main_shapes():
+    """Serving (B = 16, cache 512, 2 KV heads) launches >= 128 blocks; the
+    batch-1 cache of 4096 takes clusters of 8; the new cache-length rule
+    accepts S = 4096 at G = 8 (the old one capped S by G x S floats of
+    shared memory) and refuses what the kernel cannot hold."""
+    assert da.decode_plan(512).cluster == 4
+    assert da.decode_plan(512).blocks(16, 2) >= 128
+    assert da.decode_plan(4096).cluster == 8
+    assert da.decode_plan(4096).blocks(1, 2) == 16
+    assert da.decode_supported(4096, 8)
+    assert da.decode_supported(512, 8) and da.decode_supported(64, 1)
+    assert not da.decode_supported(4097, 8)
+    assert not da.decode_supported(4096, 16)
 
 
 # -- dispatch rules of the wrappers -------------------------------------------
@@ -191,3 +228,37 @@ def test_prefill_kernel_matches_plain_on_card(cuda_device, s_pad, offset):
     for b, n in enumerate(lens):
         torch.testing.assert_close(got[b, :, :n].float(), ref[b, :, :n].float(),
                                    atol=2e-2, rtol=2e-2)
+
+
+def _serving_inputs(dev, seed, b=16, s=512, n_layer=4):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+    pos = torch.randint(39, 168, (b,), generator=g, device=dev, dtype=torch.int32)
+    return (rnd(b, 16, 64), rnd(b, 2, 64), rnd(b, 2, 64), pos,
+            rnd(n_layer, b, 2, s, 64), rnd(n_layer, b, 2, s, 64))
+
+
+@pytest.mark.cuda
+def test_decode_kernel_matches_plain_at_serving_shape(cuda_device):
+    """B = 16, cache 512, a ragged pos per row (39..167, as serving
+    has): cache bit-equal, attn within one bf16 ulp as above."""
+    q, kn, vn, p, ck, cv = _serving_inputs(cuda_device, 11)
+    ck2, cv2 = ck.clone(), cv.clone()
+    got = da.decode_attention(q, kn, vn, p, ck, cv, 2)
+    ref = da.decode_attention_plain(q, kn, vn, p, ck2, cv2, 2)
+    assert torch.equal(ck, ck2) and torch.equal(cv, cv2)
+    torch.testing.assert_close(got.float(), ref.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_decode_row_bits_alone_and_among_16(cuda_device):
+    """A row's attn is bit-equal run alone and among 16 rows with other
+    positions: the plan and every sum's order depend on S and the row's
+    own pos only."""
+    q, kn, vn, p, ck, cv = _serving_inputs(cuda_device, 12)
+    full = da.decode_attention(q, kn, vn, p, ck.clone(), cv.clone(), 1)
+    for row in (0, 7, 15):
+        sl = slice(row, row + 1)
+        alone = da.decode_attention(q[sl].clone(), kn[sl].clone(), vn[sl].clone(),
+                                    p[sl].clone(), ck[:, sl].clone(), cv[:, sl].clone(), 1)
+        assert torch.equal(alone, full[sl]), row
