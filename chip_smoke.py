@@ -19,10 +19,20 @@ per phase, each with the seconds since start:
               and 16 rows at cache 512 with ragged pos, one row also
               alone; timed at pos 104 and 4095 and at the serving shape
               beside SDPA), prefill attention, the fused slow step
-              (pos 0, 1, 104, 4095; batch 1 and 2), the fused fast
-              frame (32 frames sampled, argmax, no rep-pen, EOS) and the
-              batched fast frame (B = 4 and 16: argmax, sampled and
-              mixed rows), with each of its five GEMMs on its own
+              (pos 0, 1, 104, 4095; batch 1 and 2; timed at pos 104,
+              255, 256 and 4095), the fused fast frame (32 frames
+              sampled, argmax, no rep-pen, EOS), each of these two
+              persistent kernels also held to its contract (its plan as
+              built equal to ops/decode_stack.py's mirror, one launch a
+              call or a persistent and a sampler launch a codebook step,
+              grid syncs and key-split exchanges, as the kernels count
+              them, equal to the plan's, five calls bit-identical, a
+              CUDA graph's replay equal to the eager call, completion
+              beside a long kernel on a second stream, and for the
+              slow step a row alone bit-equal to itself among four) with
+              its grid, shared memory, ring stages and share of the
+              bound, and the batched fast frame (B = 4 and 16: argmax,
+              sampled and mixed rows), with each of its five GEMMs on its own
               (fs_rows_gemm at B = 16 against rows_gemm_plain, a row
               alone bit-equal, timed beside cuBLAS and the byte bound,
               one line a GEMM); then the same three on int8 stacks (the
@@ -462,6 +472,7 @@ def as_accurate(name: str, got, plain, ref):
 
 
 def check_slow_step(torch, engine, params32, main_pos: int):
+    from fish_speech_tpu_torch.ops import decode_stack as ds
     from fish_speech_tpu_torch.ops import slow_step as ss
 
     cfg, params, rope = engine.cfg, engine.params, engine.rope
@@ -536,27 +547,186 @@ def check_slow_step(torch, engine, params32, main_pos: int):
         calls=3, replays=3)
     d, w = cfg.dim, params["output"].shape[1]
     weights = n_layer * layer_elems(cfg) + d + d * w
-    # bytes: weights (int8 ones with their scales), x0, pos, the rope rows
-    # and K/V rows 0..pos-1 read once; the new K/V rows, logits and hidden
-    # written once
-    nbytes = (n_layer * layer_bytes(cfg, int8) + 2 * (d + d * w) + 2 * d + 4 + 4 * hd
-              + 2 * n_layer * 2 * kv * main_pos * hd + 2 * n_layer * 2 * kv * hd + 4 * w + 2 * d)
-    flops = 2 * (weights - (2 * n_layer + 1) * d) + n_layer * 4 * cfg.n_head * (main_pos + 1) * hd
-    bound_ms, bound_by = bound(nbytes, flops)
+
+    def step_bound(p):
+        # bytes: weights (int8 ones with their scales), x0, pos, the rope
+        # rows and K/V rows 0..p-1 read once; the new K/V rows, logits and
+        # hidden written once
+        nbytes = (n_layer * layer_bytes(cfg, int8) + 2 * (d + d * w) + 2 * d + 4 + 4 * hd
+                  + 2 * n_layer * 2 * kv * p * hd + 2 * n_layer * 2 * kv * hd + 4 * w + 2 * d)
+        flops = 2 * (weights - (2 * n_layer + 1) * d) + n_layer * 4 * cfg.n_head * (p + 1) * hd
+        return (*bound(nbytes, flops), nbytes)
+
+    bound_ms, bound_by, nbytes = step_bound(main_pos)
     log("kernels", f"{name} B=1 pos={main_pos}: kernel {ms:.4f} ms (eager call "
         f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, "
         f"{nbytes / 1e6:.1f} MB)")
-    return {
+    # long caches: the last position at which each block computes every
+    # rank itself, the first whose attention is split over a head's
+    # blocks, and the cache's last
+    long_ms = {}
+    split_keys = ds.SPLIT_TILES * ds.KV_TILE
+    for p_long in (split_keys - 1, split_keys, s - 1):
+        x0l, posl, ckl, cvl = inputs((p_long,))
+        long_ms[p_long] = device_ms(
+            torch, lambda: ss.fused_slow_step(params, cfg, x0l, posl, ckl, cvl, rope),
+            calls=20, replays=5)
+        b_ms = step_bound(p_long)[0]
+        log("kernels", f"{name} B=1 pos={p_long}: kernel {long_ms[p_long]:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({100 * b_ms / long_ms[p_long]:.1f}% of it)")
+    contract = check_stack_contract(torch, engine, False, name, ms, bound_ms)
+    return {**contract,
         "name": name, "route": "cuda",
         "source": "fish_speech_tpu_torch/csrc/slow_step.cu",
         "replaces": "fish_speech_tpu/ops/slow_step_pallas.py:" + ("152" if int8 else "447"),
         "max_abs_err": worst["vs_plain"],
         "err_vs_float32": {k: list(v) for k, v in worst.items() if k != "vs_plain"},
         "ms": ms, "kernel_ms": ms, "eager_call_ms": call_ms,
+        "kernel_ms_at_pos": {str(k): v for k, v in long_ms.items()},
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "shape": f"x0 (1,{d}), {n_layer} layers ({'int8' if int8 else 'bf16'}), head "
                  f"({d},{w}), cache ({n_layer},1,{kv},{s},{hd}) bf16, pos {main_pos}",
     }
+
+
+def check_stack_contract(torch, engine, fast: bool, name: str, ms: float, bound_ms: float) -> dict:
+    """The persistent kernel's contract on the card (csrc/decode_stack.cuh):
+    its plan as built equals ops/decode_stack.py's mirror; one launch a
+    call (a fast frame: a persistent and a sampler launch a codebook step)
+    and the grid syncs and key-split exchanges of a launch, all counted by
+    the kernels themselves, equal to the plan's;
+    five repeated calls bit-identical; a CUDA graph's replay equal to the
+    eager call; the call completes while a long kernel holds an SM on a
+    second stream; for the slow step (four rows, one past the key-split
+    threshold), a row alone bit-equal to the same row among four. Returns
+    the plan's and the measured numbers for the kernels line."""
+
+    from fish_speech_tpu_torch.ops import decode_stack as ds
+    from fish_speech_tpu_torch.ops import fast_frame as ff
+    from fish_speech_tpu_torch.ops import slow_step as ss
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs, gumbel_noise, top_k_width
+
+    cfg, params, rope = engine.cfg, engine.params, engine.rope
+    int8 = is_int8(engine)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    grid = ds.grid_of(dev)
+    if fast:
+        mirror = ff.fast_plan(cfg, int8, grid)
+        card = ds.plan_on_card(ds.FAST, cfg.dim, cfg.n_head, cfg.n_local_heads,
+                               cfg.intermediate_size, cfg.codebook_size, cfg.num_codebooks, int8)
+        n_layer, steps = cfg.n_fast_layer, cfg.num_codebooks
+        sampling = SamplingArgs(**SAMPLING)
+        hidden = torch.randn((1, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+        window = torch.randint(-1, cfg.codebook_size, (steps, 16), generator=gen, device=dev,
+                               dtype=torch.int32)
+        gumbel = gumbel_noise((steps, top_k_width(sampling.top_k, cfg.codebook_size)), gen, dev)
+        eos = torch.tensor([False], device=dev)
+
+        def call():
+            return ff.fused_fast_frame(params, cfg, sampling, hidden, window, gumbel, eos, rope,
+                                       rep_enabled=True, return_logits=True)
+        counter = ff
+    else:
+        head_cols, s = params["output"].shape[1], engine.cache_len
+        mirror = ss.slow_plan(cfg, head_cols, s, int8, grid)
+        card = ds.plan_on_card(ds.SLOW, cfg.dim, cfg.n_head, cfg.n_local_heads,
+                               cfg.intermediate_size, head_cols, s, int8)
+        n_layer, steps = cfg.n_layer, 1
+        positions = (104, 3, s - 1, 40)
+        ids = torch.randint(0, cfg.vocab_size, (4,), generator=gen, device=dev)
+        x0 = params["embeddings"][ids].contiguous()
+        pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+        shape = (n_layer, 4, cfg.n_local_heads, s, cfg.head_dim)
+        ck0, cv0 = ((torch.randn(shape, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+                    for _ in range(2))
+        ck, cv = ck0.clone(), cv0.clone()
+
+        def call(rows=slice(0, 4), caches=None):
+            k, v = caches if caches is not None else (ck0[:, rows].clone(), cv0[:, rows].clone())
+            out = ss.fused_slow_step(params, cfg, x0[rows].clone(), pos[rows].clone(),
+                                     k, v, rope)
+            return (*out, k, v)
+        counter = ss
+    check(card == mirror, f"{name}: the plan on the card {card} differs from the mirror {mirror}")
+    kind = ds.FAST if fast else ds.SLOW
+    syncs = mirror.syncs_per_launch(kind, n_layer)
+    exchanges = mirror.kv_exchanges(n_layer, [] if fast else positions)
+
+    before, on_card = counter.launches, ds.launch_counts(dev)
+    outs = [call() for _ in range(5)]
+    torch.cuda.synchronize()
+    launched, sampled = (a - b for a, b in zip(ds.launch_counts(dev), on_card))
+    card_syncs, card_exchanges = ds.last_call_counts(dev)
+    check(counter.launches - before == 5, f"{name}: {counter.launches - before} calls counted "
+          "in 5 calls")
+    check((launched, sampled) == (5 * steps, 5 * steps if fast else 0),
+          f"{name}: the kernels counted {launched} persistent and {sampled} sampler launches in "
+          "5 calls")
+    check((card_syncs, card_exchanges) == (syncs, exchanges),
+          f"{name}: the kernel counted {card_syncs} grid syncs and {card_exchanges} key-split "
+          f"exchanges a launch, the plan {syncs} and {exchanges}")
+    same = all(torch.equal(a, b) for o in outs[1:] for a, b in zip(o, outs[0]))
+    check(same, f"{name}: five repeated calls are not bit-identical")
+
+    # a CUDA graph's replay against the eager call (the slow step's graph
+    # writes its own cache copies, reset before each replay)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call() if fast else call(caches=(ck, cv))
+    for _ in range(3):
+        if not fast:
+            ck.copy_(ck0)
+            cv.copy_(cv0)
+        graph.replay()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(captured, outs[0])),
+              f"{name}: a CUDA graph's replay differs from the eager call")
+
+    # beside a long kernel on another stream: the launch waits, no deadlock
+    other = torch.cuda.Stream()
+    with torch.cuda.stream(other):
+        torch.cuda._sleep(400_000_000)  # ~0.2 s of one spinning block
+    t0 = time.perf_counter()
+    got = call()
+    torch.cuda.synchronize()
+    beside_s = time.perf_counter() - t0
+    check(all(torch.equal(a, b) for a, b in zip(got, outs[0])),
+          f"{name}: the call beside a second stream's kernel differs")
+
+    alone = ""
+    if not fast:
+        four = call(rows=slice(0, 4))
+        for r in range(4):
+            one = call(rows=slice(r, r + 1))
+            check(torch.equal(one[0][0], four[0][r]) and torch.equal(one[1][0], four[1][r])
+                  and torch.equal(one[2][:, 0], four[2][:, r])
+                  and torch.equal(one[3][:, 0], four[3][:, r]),
+                  f"{name}: row {r} (pos {positions[r]}) alone differs from the same row among 4")
+        alone = "; each of 4 rows (pos 104, 3, cache-1, 40) alone bit-equal to itself among 4"
+    log("kernels", f"{name} persistent kernel: plan on the card equal to the mirror (grid "
+        f"{mirror.grid} x {ds.BLOCK_THREADS} threads, {mirror.smem} B of shared memory a block, "
+        f"ring of {mirror.stages} stages x {ds.THREADS * mirror.piece_bytes} B, QKV {mirror.qkv_tiles}"
+        f"x{mirror.qkv_splits} units, attention+wo {mirror.attn_units}, w1/w3+w2 "
+        f"{mirror.sw_units} ({mirror.sw_split}-way K-split)); counted on the card: "
+        f"{card_syncs} grid syncs a launch ({mirror.syncs_per_layer} a layer) and "
+        f"{card_exchanges} key-split exchanges a head a launch (positions "
+        f"{list(range(steps)) if fast else list(positions)}); {launched // 5} persistent and "
+        f"{sampled // 5} sampler launches a call; 5 calls bit-identical; CUDA "
+        f"graph replay equal to eager; completes beside a kernel on a second stream "
+        f"({beside_s:.3f} s including the wait){alone}; kernel {ms:.4f} ms against the bound "
+        f"{bound_ms:.6f} ms: {100 * bound_ms / ms:.1f}% of the bound")
+    return {"grid": mirror.grid, "smem": mirror.smem, "ring_stages": mirror.stages,
+            "syncs_per_call": card_syncs * (launched // 5),
+            "kv_exchanges_per_call": card_exchanges * (launched // 5),
+            "launches_per_call": (launched + sampled) // 5,
+            "share_of_bound": bound_ms / ms}
 
 
 def exact_fast_params(torch, params, cfg):
@@ -701,7 +871,8 @@ def check_fast_frame(torch, engine, params32):
         f"(eager call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
         f"({bound_by}, read once, {once / 1e6:.1f} MB), re-read floor {reread_ms:.6f} ms "
         f"({reread / 1e6:.1f} MB)")
-    return {
+    contract = check_stack_contract(torch, engine, True, name, ms, reread_ms)
+    return {**contract,
         "name": name, "route": "cuda",
         "source": "fish_speech_tpu_torch/csrc/fast_frame.cu",
         "replaces": "fish_speech_tpu/ops/fast_frame_pallas.py:" + ("127" if int8 else "495"),

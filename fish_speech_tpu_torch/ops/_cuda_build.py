@@ -52,15 +52,18 @@ SIGNATURES = {
     # ffn_norm, then the five weights wqkv, wo, w1, w3, w2 (bf16, or int8
     # q) and their five scales (bf16 s; all null for a bf16 stack).
     # x0, pos, attn_norm, ffn_norm, 5 weights, 5 scales, norm, head,
-    # cos, sin, ck, cv, logits, hidden, qkv, attn, ffn,
-    # B, L, D, H, KV, F, W, S, eps, stream
-    "fs_slow_step": [_P] * 25 + [_I] * 8 + [_F, _P],
+    # cos, sin, ck, cv, logits, hidden, scratch, state,
+    # B, L, D, H, KV, F, W, S, scratch_bytes, eps, stream
+    "fs_slow_step": [_P] * 24 + [_I] * 9 + [_F, _P],
     # hidden, attn_norm, ffn_norm, 5 weights, 5 scales, fast_norm, head,
-    # emb, cos, sin, window, gumbel, is_eos, tokens, x, qkv, attn, ffn,
-    # logits, k_hist, v_hist,
+    # emb, cos, sin, window, gumbel, is_eos, tokens, logits, k_hist,
+    # v_hist, scratch, state,
     # L, D, H, KV, F, C, V, head_ld, depthwise_output, depthwise_wte,
-    # window_len, k_eff, rep_enabled, temp, top_p, penalty, eps, stream
-    "fs_fast_frame": [_P] * 29 + [_I] * 13 + [_F] * 4 + [_P],
+    # window_len, k_eff, rep_enabled, scratch_bytes, temp, top_p, penalty,
+    # eps, stream
+    "fs_fast_frame": [_P] * 27 + [_I] * 14 + [_F] * 4 + [_P],
+    # fast, D, H, KV, F, head_n, S, int8, plan (24 ints out)
+    "fs_decode_stack_plan": [_I] * 8 + [_P],
     # hidden, attn_norm, ffn_norm, 5 weights, 5 scales, fast_norm, head,
     # emb, cos, sin, window, gumbel, temp, top_p, top_k, penalty, is_eos,
     # tokens, x, qkv, attn, ffn, logits, k_hist, v_hist,

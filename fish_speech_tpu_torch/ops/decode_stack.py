@@ -1,0 +1,285 @@
+"""The plan of the persistent decode kernel (`csrc/decode_stack.cuh`) that
+runs the fused slow step (`ops/slow_step.py`) and the fused batch-1 fast
+frame (`ops/fast_frame.py`), mirrored from `ds_make_plan`, and the grid
+sync state the kernel keeps on each card.
+
+One cooperative launch puts one block on every SM. The plan cuts each
+layer's GEMVs into work units from the shapes, the weight type and the
+grid alone, never from the batch or the data, so a row's bits do not
+depend on its co-tenants:
+
+* QKV: `qkv_cols`-column tiles (whole 128-byte lines a row: 64 bf16, 128
+  int8 columns) x K-splits of `qkv_klen` rows, as many splits as keep
+  tiles x splits within the grid; the attention blocks add the splits in
+  order.
+* attention + wo: `q_blocks` blocks a query head; block (h, q) computes
+  head h's attention and the wo partial of its `wo_cols` columns. The
+  keys are in 32-key tiles dealt round-robin to `kv_ranks` ranks; past
+  SPLIT_TILES tiles block q is rank q and the head's blocks exchange
+  their (max, sum) pairs and PV partials, below it each computes every
+  rank itself (the same sums in the same order).
+* w1 + w3 + w2: `sw_cols`-column slices of F (whole lines a row), each
+  over `sw_split` K-splits whose blocks exchange their partial sums; the
+  block of split h then owns `sw_cols / sw_split` g columns, which are its
+  K-rows of w2 (all D columns).
+* the residual x: `x_tiles` 8-column tiles, added by `owners` blocks.
+* the head: 64-column tiles x K-splits, read directly (not through the
+  weight ring).
+
+Each thread streams 8 weight columns of one row at a time (16 bytes bf16,
+8 bytes int8) through a ring of `stages` stages of 256 pieces.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from fish_speech_tpu_torch.ops import _cuda_build
+
+HEAD_DIM = 64
+THREADS = 256  # consumer threads of a block
+BLOCK_THREADS = THREADS + 32  # and the producer warp that fills the weight ring
+MAX_ROWS = 4  # batch rows the slow step takes
+TILE = 64  # columns of a head tile
+KV_TILE = 32  # keys of an attention tile
+MAX_Q = 8  # blocks (and key ranks) a head
+SMEM_LIMIT = 232448  # dynamic shared memory one block may use on sm_90
+MAX_STAGES = 128
+MAX_SEGS = 16  # weight segments a block streams each layer
+STATE_WORDS = 1024  # sync state: arrivals, finished blocks, publishes of x, F-slice groups,
+# heads' key-split exchanges; the last four words: launches of the sampler and of the
+# persistent kernel so far, the last launch's grid syncs and head 0's exchanges
+SPLIT_TILES = 8  # attention over more key tiles (256 keys) is split over a head's blocks
+MAX_WINDOW = 64  # rep-pen window entries the sampler takes
+DIMS = (256, 512, 1024, 2048)  # model widths the kernel takes
+H100_SMS = 132  # the grid on an H100 SXM, for plans made without a card
+RED_BYTES = THREADS * MAX_ROWS * 8 * 4  # the GEMV reduction scratch (its largest need)
+
+SLOW, FAST = 0, 1
+
+PLAN_FIELDS = (
+    "grid", "stages", "piece_bytes", "smem", "scratch_bytes",
+    "qkv_cols", "qkv_tiles", "qkv_splits", "qkv_klen", "qkv_units",
+    "q_blocks", "wo_cols", "attn_units", "kv_ranks",
+    "sw_cols", "sw_split", "sw_units", "x_tiles", "owners",
+    "head_tiles", "head_splits", "head_klen", "head_units", "syncs_per_layer",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class StackPlan:
+    """What `ds_make_plan` computes, in the C entry's order."""
+
+    grid: int
+    stages: int
+    piece_bytes: int
+    smem: int
+    scratch_bytes: int
+    qkv_cols: int
+    qkv_tiles: int
+    qkv_splits: int
+    qkv_klen: int
+    qkv_units: int
+    q_blocks: int
+    wo_cols: int
+    attn_units: int
+    kv_ranks: int
+    sw_cols: int
+    sw_split: int
+    sw_units: int
+    x_tiles: int
+    owners: int
+    head_tiles: int
+    head_splits: int
+    head_klen: int
+    head_units: int
+    syncs_per_layer: int
+
+    def syncs_per_launch(self, kind: int, n_layer: int) -> int:
+        """Grid syncs of one launch: three a layer, and the slow step's one
+        for its head (a fast frame's step hands its head's partials to the
+        sampler launch that follows it)."""
+        return self.syncs_per_layer * n_layer + (1 if kind == SLOW else 0)
+
+    def syncs_per_call(self, kind: int, n_layer: int, steps: int = 1) -> int:
+        """Grid syncs of one call: a slow step is one launch, a fast frame
+        one launch a codebook step."""
+        return self.syncs_per_launch(kind, n_layer) * (1 if kind == SLOW else steps)
+
+    def kv_exchanges(self, n_layer: int, positions, steps: int = 1) -> int:
+        """Key-split exchanges a call makes on each head's counter: two a
+        layer for every row whose keys 0..pos span more than SPLIT_TILES
+        tiles (the fast frame's rows never do)."""
+        split = sum(1 for p in positions if self.kv_ranks > 1 and p // KV_TILE + 1 > SPLIT_TILES)
+        return 2 * n_layer * steps * split
+
+    def segments(self, block: int) -> list:
+        """(matrix, row0, col0, rows, 8-column pieces a row, pieces a
+        thread) of each weight segment block `block` streams a layer, in
+        the order it takes them; matrix "w13" is w1 and w3 interleaved."""
+        segs = []
+        for u in range(block, self.qkv_units, self.grid):
+            s = u % self.qkv_splits
+            rows = min(self.qkv_klen, self._d - s * self.qkv_klen)
+            cpr = self.qkv_cols // 8
+            segs.append(("wqkv", s * self.qkv_klen, (u // self.qkv_splits) * self.qkv_cols, rows,
+                         cpr, rows * cpr // THREADS))
+        for u in range(block, self.attn_units, self.grid):
+            cpr = self.wo_cols // 8
+            segs.append(("wo", (u // self.q_blocks) * HEAD_DIM, (u % self.q_blocks) * self.wo_cols,
+                         HEAD_DIM, cpr, HEAD_DIM * cpr // THREADS))
+        for u in range(block, self.sw_units, self.grid):
+            t, h = divmod(u, self.sw_split)
+            cpr = self.sw_cols // 8
+            kr = self._d // self.sw_split
+            gs = self.sw_cols // self.sw_split
+            segs.append(("w13", h * kr, t * self.sw_cols, kr, cpr, 2 * kr * cpr // THREADS))
+            segs.append(("w2", t * self.sw_cols + h * gs, 0, gs, self._d // 8,
+                         gs * (self._d // 8) // THREADS))
+        return segs
+
+    @property
+    def _d(self) -> int:
+        return self.x_tiles * 8
+
+
+def _ksplit(k: int, n: int, cols: int, grid: int):
+    tiles = -(-n // cols)
+    chunks = k // 32
+    s = min(max(grid // tiles, 1), chunks)
+    klen = -(-chunks // s) * 32
+    splits = -(-k // klen)
+    return tiles, splits, klen, tiles * splits
+
+
+def _align(v: int, a: int) -> int:
+    return -(-v // a) * a
+
+
+def stack_plan(kind: int, d: int, n_head: int, kv: int, f: int, head_n: int, cache_len: int,
+               int8: bool, grid: int):
+    """The plan for a stack of width d, n_head query and kv KV heads of
+    dim 64, ffn f; head_n head columns (the slow step's gathered W, the
+    fast frame's V); cache_len keys (the fast frame: C); on `grid` blocks.
+    None when the kernel does not take the shapes."""
+    if (grid < 1 or kv < 1 or n_head % kv or n_head * HEAD_DIM != d or f < 64 or f % 64
+            or head_n < 1 or cache_len < 1 or (kind == FAST and head_n > 4 * 1024)
+            or d not in DIMS):
+        return None
+    piece_bytes = 8 if int8 else 16
+    # QKV and w1/w3 tiles are whole 128-byte lines a row
+    qkv_cols = 128 if int8 else 64
+    qkv_tiles, qkv_splits, qkv_klen, qkv_units = _ksplit(
+        d, (n_head + 2 * kv) * HEAD_DIM, qkv_cols, grid)
+    q = min(MAX_Q, _pow2_floor(max(grid // n_head, 1)), d // 32)
+    sw_cols = 128 if int8 else 64
+    if f % sw_cols:
+        return None
+    split = min(4, _pow2_floor(max(grid // (f // sw_cols), 1)))
+    while split > 1 and (d % (split * 32) or sw_cols // split < 8):
+        split //= 2
+    sw_units = f // sw_cols * split
+    if sw_units > grid and split > 1:
+        return None
+    x_tiles = d // 8
+    owners = min(x_tiles, grid)
+    head_tiles, head_splits, head_klen, head_units = _ksplit(d, head_n, TILE, grid)
+    segs = (-(-qkv_units // grid) + -(-(n_head * q) // grid) + 2 * -(-sw_units // grid))
+    if segs > MAX_SEGS or 3 + f // sw_cols + n_head + 4 > STATE_WORDS:
+        return None
+
+    off = 2 * _align(MAX_ROWS * d * 2, 16)  # x, h
+    off += _align(MAX_ROWS * HEAD_DIM * 2, 16)  # attention output
+    off += _align(MAX_ROWS * sw_cols * 2, 16)  # g
+    off += 512  # segments and the weight table
+    s_pad = _align(cache_len, KV_TILE)
+    scr = max(RED_BYTES,
+              4 * (s_pad + 2 * (s_pad // KV_TILE) + 2 * MAX_Q + MAX_Q * HEAD_DIM + 6 * HEAD_DIM),
+              4 * 4 * MAX_ROWS * TILE)
+    off += _align(scr, 16)
+    stages = min(MAX_STAGES, (SMEM_LIMIT - off - 16) // (16 + THREADS * piece_bytes))
+    if stages < 2:
+        return None
+    smem = _align(off + 16 * stages, 16) + stages * THREADS * piece_bytes
+    if smem > SMEM_LIMIT:
+        return None
+    scratch = (_align(2 * MAX_ROWS * d * 2, 256) + _align(qkv_units * MAX_ROWS * qkv_cols * 4, 256)
+               + _align(n_head * MAX_ROWS * d * 4, 256)
+               + _align(sw_units * MAX_ROWS * 2 * sw_cols * 4, 256)
+               + _align(sw_units * MAX_ROWS * d * 4, 256)
+               + _align(head_units * MAX_ROWS * TILE * 4, 256)
+               + _align(n_head * MAX_Q * (2 + HEAD_DIM) * 4, 256)
+               + _align(d * 2, 256))
+    return StackPlan(
+        grid=grid, stages=stages, piece_bytes=piece_bytes, smem=smem, scratch_bytes=scratch,
+        qkv_cols=qkv_cols, qkv_tiles=qkv_tiles, qkv_splits=qkv_splits, qkv_klen=qkv_klen,
+        qkv_units=qkv_units,
+        q_blocks=q, wo_cols=d // q, attn_units=n_head * q, kv_ranks=q,
+        sw_cols=sw_cols, sw_split=split, sw_units=sw_units, x_tiles=x_tiles, owners=owners,
+        head_tiles=head_tiles, head_splits=head_splits, head_klen=head_klen,
+        head_units=head_units, syncs_per_layer=3)
+
+
+def _pow2_floor(v: int) -> int:
+    p = 1
+    while p * 2 <= v:
+        p *= 2
+    return p
+
+
+def grid_of(device) -> int:
+    """One block on every SM of the card."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def plan_on_card(kind: int, d: int, n_head: int, kv: int, f: int, head_n: int, cache_len: int,
+                 int8: bool):
+    """The plan as the built kernel computes it on the current card
+    (fs_decode_stack_plan), or None when it does not take the shapes."""
+    import ctypes
+
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    rc = _cuda_build.load_library().fs_decode_stack_plan(
+        kind, d, n_head, kv, f, head_n, cache_len, int(int8), ctypes.addressof(out))
+    if rc != 0:
+        return None
+    return StackPlan(*list(out))
+
+
+_state = {}  # device index -> the kernel's grid sync state
+
+
+def sync_state(device) -> torch.Tensor:
+    """The card's grid sync state (STATE_WORDS int32, zero): made once per
+    device, outside any CUDA graph capture. Every call leaves its counters
+    zeroed (the last block of a launch sets them back), so a captured
+    graph can replay the kernel without clearing them; that block also
+    counts the launch and writes its counts into the last words
+    (`launch_counts`, `last_call_counts`)."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    state = _state.get(idx)
+    if state is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("decode_stack: call the fused kernels once before capturing a "
+                               "CUDA graph, so their sync state exists outside the graph's pool")
+        state = torch.zeros(STATE_WORDS, dtype=torch.int32, device=torch.device("cuda", idx))
+        _state[idx] = state
+    return state
+
+
+def last_call_counts(device) -> tuple:
+    """(grid syncs, key-split exchanges of head 0) of the last finished
+    persistent launch on this card, as its last block counted them
+    (synchronizes the device)."""
+    words = sync_state(device)[-2:].tolist()
+    return words[0], words[1]
+
+
+def launch_counts(device) -> tuple:
+    """(persistent launches, sampler launches) finished on this card so
+    far, each counted by the launch itself (synchronizes the device)."""
+    sampler, persistent = sync_state(device)[-4:-2].tolist()
+    return persistent, sampler

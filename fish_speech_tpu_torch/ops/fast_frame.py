@@ -1,5 +1,7 @@
-"""One whole fast (codebook) frame at batch 1: the CUDA kernel sequence
-(`csrc/fast_frame.cu`) and its plain PyTorch version.
+"""One whole fast (codebook) frame at batch 1: the persistent CUDA kernel
+(`csrc/fast_frame.cu`: for each codebook step one cooperative launch of
+`csrc/decode_stack.cuh`, then one launch of its sampler) and its plain
+PyTorch version.
 
 Counterpart of the TPU kernel `fish_speech_tpu/ops/fast_frame_pallas.py::
 fused_fast_frame`: C codebook steps of the fast layers, each followed by
@@ -19,18 +21,19 @@ import torch
 
 from fish_speech_tpu_torch.config import DualARConfig
 from fish_speech_tpu_torch.models.dual_ar import fast_embed, fast_hist_init, fast_step
-from fish_speech_tpu_torch.ops import _cuda_build
+from fish_speech_tpu_torch.ops import _cuda_build, decode_stack
+from fish_speech_tpu_torch.ops.quant import is_quantized
 from fish_speech_tpu_torch.ops.sampling import (
     RepPenWindow, SamplingArgs, sample_top_k_top_p, top_k_width)
 from fish_speech_tpu_torch.ops.slow_step import (
-    GEMV_SMEM, HEAD_DIM, check_stack, stack_dtypes_ok, stack_pointers, stack_shapes_bad,
+    HEAD_DIM, _grid, check_stack, stack_dtypes_ok, stack_pointers, stack_shapes_bad,
     stack_weight, stack_widths_ok)
 
-launches = 0  # kernel-sequence launches since the last reset (set to 0 to reset)
+launches = 0  # kernel launches since the last reset (set to 0 to reset)
 int8_launches = 0  # those of them on int8 stacks (the int8 kernel body)
 
 MAX_VOCAB = 4096  # codebook entries the sampler block takes
-MAX_WINDOW = 64  # rep-pen window length the sampler takes
+MAX_WINDOW = decode_stack.MAX_WINDOW  # rep-pen window length the sampler takes
 
 
 def fused_fast_frame_plain(params, cfg: DualARConfig, sampling: SamplingArgs, hidden,
@@ -66,7 +69,8 @@ def fused_fast_frame(params, cfg: DualARConfig, sampling: SamplingArgs, hidden,
                      rp_tokens, gumbel, is_eos, rope, *, rep_enabled: bool,
                      return_logits: bool = False):
     """Same contract as `fused_fast_frame_plain`. CPU tensors run the
-    plain version; CUDA tensors launch the kernel sequence or raise."""
+    plain version; CUDA tensors launch the kernel (a persistent launch and
+    a sampler launch a codebook step) or raise."""
     if hidden.device.type == "cpu":
         return fused_fast_frame_plain(params, cfg, sampling, hidden, rp_tokens, gumbel,
                                       is_eos, rope, rep_enabled=rep_enabled,
@@ -78,21 +82,19 @@ def fused_fast_frame(params, cfg: DualARConfig, sampling: SamplingArgs, hidden,
     n_cb, vocab = cfg.num_codebooks, cfg.codebook_size
     k_eff = top_k_width(sampling.top_k, vocab)
     _check(params, cfg, sampling, hidden, rp_tokens, gumbel, is_eos, cos_t, sin_t, k_eff)
-    lib = _cuda_build.load_library()
-    n_layer, d, qkv = stack_weight(stack["wqkv"]).shape
+    n_layer, d, _ = stack_weight(stack["wqkv"]).shape
     f = stack_weight(stack["w1"]).shape[2]
     kv = cfg.n_local_heads
     weights, scales = stack_pointers(stack)
+    plan = fast_plan(cfg, scales[0] is not None, decode_stack.grid_of(hidden.device))
+    lib = _cuda_build.load_library()
     dev = hidden.device
     dt = hidden.dtype
     tokens = torch.empty((n_cb,), dtype=torch.int32, device=dev)
-    x_buf = torch.empty((1, d), dtype=dt, device=dev)
-    qkv_buf = torch.empty((1, qkv), dtype=dt, device=dev)
-    attn_buf = torch.empty((1, d), dtype=dt, device=dev)
-    ffn_buf = torch.empty((1, f), dtype=dt, device=dev)
     logits_buf = torch.empty((n_cb, vocab), dtype=torch.float32, device=dev)
     k_hist = torch.empty((n_layer, 1, kv, n_cb, HEAD_DIM), dtype=dt, device=dev)
     v_hist = torch.empty_like(k_hist)
+    scratch = torch.empty((plan.scratch_bytes,), dtype=torch.uint8, device=dev)
     head = params["fast_output"]
     rc = lib.fs_fast_frame(
         hidden.data_ptr(), stack["attention_norm"].data_ptr(), stack["ffn_norm"].data_ptr(),
@@ -100,11 +102,11 @@ def fused_fast_frame(params, cfg: DualARConfig, sampling: SamplingArgs, hidden,
         head.data_ptr(), params["fast_embeddings"].data_ptr(),
         cos_t.data_ptr(), sin_t.data_ptr(), rp_tokens.data_ptr(),
         None if gumbel is None else gumbel.data_ptr(), is_eos.data_ptr(),
-        tokens.data_ptr(), x_buf.data_ptr(), qkv_buf.data_ptr(), attn_buf.data_ptr(),
-        ffn_buf.data_ptr(), logits_buf.data_ptr(), k_hist.data_ptr(), v_hist.data_ptr(),
+        tokens.data_ptr(), logits_buf.data_ptr(), k_hist.data_ptr(), v_hist.data_ptr(),
+        scratch.data_ptr(), decode_stack.sync_state(dev).data_ptr(),
         n_layer, d, cfg.n_head, kv, f, n_cb, vocab, head.shape[1],
         int(cfg.depthwise_output), int(cfg.depthwise_wte), rp_tokens.shape[1], k_eff,
-        int(rep_enabled), float(sampling.temp), float(sampling.top_p),
+        int(rep_enabled), plan.scratch_bytes, float(sampling.temp), float(sampling.top_p),
         float(sampling.repetition_penalty), float(cfg.norm_eps),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -115,23 +117,33 @@ def fused_fast_frame(params, cfg: DualARConfig, sampling: SamplingArgs, hidden,
     return (tokens, logits_buf) if return_logits else tokens
 
 
+def fast_plan(cfg: DualARConfig, int8: bool, grid: int):
+    """The persistent kernel's plan for this model's fast stack
+    (`ops/decode_stack.py::stack_plan`), or None when it does not take
+    the shapes."""
+    return decode_stack.stack_plan(
+        decode_stack.FAST, cfg.dim, cfg.n_head, cfg.n_local_heads, cfg.intermediate_size,
+        cfg.codebook_size, cfg.num_codebooks, int8, grid)
+
+
 def fused_fast_frame_supported(cfg: DualARConfig, params, batch: int) -> bool:
     """Whether `fused_fast_frame` takes these parameters: one row and an
-    even head dim; on CUDA also the kernels' limits (bf16 stacks or int8
-    ones with bf16 scales and out % 16 == 0, head dim 64, H * hd == D,
-    widths that are multiples of 8, a codebook of at most 4096 entries)."""
+    even head dim; on CUDA also the persistent kernel's limits: bf16
+    stacks or int8 ones with bf16 scales and out % 16 == 0, head dim 64,
+    H * hd == D with D one of `decode_stack.DIMS`, an ffn width that is a
+    multiple of 64, a codebook of at most 4096 entries, and a plan
+    (`decode_stack.stack_plan`) that fits one block on an SM."""
     if batch != 1 or cfg.head_dim % 2:
         return False
     stack = params["fast"]
-    if stack_weight(stack["wqkv"]).device.type != "cuda":
+    weight = stack_weight(stack["wqkv"])
+    if weight.device.type != "cuda":
         return True
     return (
         stack_dtypes_ok(stack) and stack_widths_ok(stack)
         and cfg.head_dim == HEAD_DIM
-        and cfg.n_head * cfg.head_dim == cfg.dim
-        and cfg.dim % 8 == 0 and cfg.intermediate_size % 8 == 0
-        and max(cfg.dim, cfg.intermediate_size) * 2 <= GEMV_SMEM
         and cfg.codebook_size <= MAX_VOCAB
+        and fast_plan(cfg, is_quantized(stack["wqkv"]), _grid(weight.device)) is not None
     )
 
 

@@ -1,5 +1,6 @@
-"""The whole slow-stack decode step: the CUDA kernel sequence
-(`csrc/slow_step.cu`) and its plain PyTorch version.
+"""The whole slow-stack decode step: the persistent CUDA kernel
+(`csrc/slow_step.cu`, one cooperative launch of `csrc/decode_stack.cuh`)
+and its plain PyTorch version.
 
 Counterpart of the TPU kernel `fish_speech_tpu/ops/slow_step_pallas.py::
 fused_slow_step`: from the embedded input x0 (B, D) at per-row positions
@@ -23,19 +24,17 @@ import torch
 
 from fish_speech_tpu_torch.config import DualARConfig
 from fish_speech_tpu_torch.models.dual_ar import _attn_out_ffn, _layer, _project_qkv
-from fish_speech_tpu_torch.ops import _cuda_build
+from fish_speech_tpu_torch.ops import _cuda_build, decode_stack
 from fish_speech_tpu_torch.ops.decode_attention import decode_attention_plain
 from fish_speech_tpu_torch.ops.norms import rms_norm
 from fish_speech_tpu_torch.ops.quant import is_quantized
 from fish_speech_tpu_torch.ops.rope import apply_rope_interleaved
 
-launches = 0  # kernel-sequence launches since the last reset (set to 0 to reset)
+launches = 0  # kernel launches since the last reset (set to 0 to reset)
 int8_launches = 0  # those of them on int8 stacks (the int8 kernel body)
 
-HEAD_DIM = 64  # the attention kernel's head dim
-MAX_BATCH = 4  # rows the kernel's GEMVs take
-GEMV_SMEM = 40960  # bytes of staged input rows a GEMV block may hold
-ATTN_SMEM = 232448  # bytes of shared memory one block may use on sm_90
+HEAD_DIM = decode_stack.HEAD_DIM  # the attention's head dim
+MAX_BATCH = decode_stack.MAX_ROWS  # rows the kernel takes
 MATMUL_KEYS = ("wqkv", "wo", "w1", "w3", "w2")  # order of the C entries' weights and scales
 NORM_KEYS = ("attention_norm", "ffn_norm")
 INT8_COLS = 16  # int8 weights are read 16 columns (16 bytes) at a time
@@ -134,7 +133,8 @@ def fused_slow_step_plain(params, cfg: DualARConfig, x0, pos, ck, cv, rope):
 
 def fused_slow_step(params, cfg: DualARConfig, x0, pos, ck, cv, rope):
     """Same contract as `fused_slow_step_plain`. CPU tensors run the
-    plain version; CUDA tensors launch the kernel sequence or raise."""
+    plain version; CUDA tensors launch the kernel (one cooperative
+    launch) or raise."""
     if x0.device.type == "cpu":
         return fused_slow_step_plain(params, cfg, x0, pos, ck, cv, rope)
     if x0.device.type != "cuda":
@@ -148,22 +148,20 @@ def fused_slow_step(params, cfg: DualARConfig, x0, pos, ck, cv, rope):
     w = head.shape[1]
     _check(cfg, x0, pos, ck, cv, stack, params["norm"], head, cos_t, sin_t)
     weights, scales = stack_pointers(stack)
+    plan = slow_plan(cfg, w, s, scales[0] is not None, decode_stack.grid_of(x0.device))
     lib = _cuda_build.load_library()
-    qkv = (cfg.n_head + 2 * kv) * HEAD_DIM
     dev = x0.device
     logits = torch.empty((bsz, w), dtype=torch.float32, device=dev)
     hidden = torch.empty_like(x0)
-    qkv_buf = torch.empty((bsz, qkv), dtype=x0.dtype, device=dev)
-    attn_buf = torch.empty((bsz, d), dtype=x0.dtype, device=dev)
-    ffn_buf = torch.empty((bsz, f), dtype=x0.dtype, device=dev)
+    scratch = torch.empty((plan.scratch_bytes,), dtype=torch.uint8, device=dev)
     rc = lib.fs_slow_step(
         x0.data_ptr(), pos.data_ptr(), stack["attention_norm"].data_ptr(),
         stack["ffn_norm"].data_ptr(), *weights, *scales,
         params["norm"].data_ptr(), head.data_ptr(),
         cos_t.data_ptr(), sin_t.data_ptr(), ck.data_ptr(), cv.data_ptr(),
-        logits.data_ptr(), hidden.data_ptr(),
-        qkv_buf.data_ptr(), attn_buf.data_ptr(), ffn_buf.data_ptr(),
-        bsz, n_layer, d, cfg.n_head, kv, f, w, s, float(cfg.norm_eps),
+        logits.data_ptr(), hidden.data_ptr(), scratch.data_ptr(),
+        decode_stack.sync_state(dev).data_ptr(),
+        bsz, n_layer, d, cfg.n_head, kv, f, w, s, plan.scratch_bytes, float(cfg.norm_eps),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda_build.check(rc, "fs_slow_step")
@@ -173,29 +171,49 @@ def fused_slow_step(params, cfg: DualARConfig, x0, pos, ck, cv, rope):
     return logits, hidden
 
 
+def slow_plan(cfg: DualARConfig, head_cols: int, cache_len: int, int8: bool, grid: int):
+    """The persistent kernel's plan for this model's slow stack
+    (`ops/decode_stack.py::stack_plan`), or None when it does not take
+    the shapes."""
+    return decode_stack.stack_plan(
+        decode_stack.SLOW, cfg.dim, cfg.n_head, cfg.n_local_heads, cfg.intermediate_size,
+        head_cols, cache_len, int8, grid)
+
+
 def fused_slow_step_supported(cfg: DualARConfig, params, batch: int,
                               cache_len: int = 0) -> bool:
     """Whether `fused_slow_step` takes these parameters at this batch and
-    cache length: an even head dim; on CUDA also the kernels' limits
-    (bf16 stacks or int8 ones with bf16 scales and out % 16 == 0, head
-    dim 64, H * hd == D, widths that are multiples of 8, batch <= 4, the
-    GEMV's staged rows and the attention scores within shared memory).
-    CPU tensors run the plain version, which takes any batch and dtype."""
+    cache length: an even head dim; on CUDA also the persistent kernel's
+    limits: bf16 stacks or int8 ones with bf16 scales and out % 16 == 0,
+    head dim 64, H * hd == D with D one of `decode_stack.DIMS`, an ffn
+    width that is a multiple of 64, 1 <= batch <= 4, and a plan
+    (`decode_stack.stack_plan`) whose shared memory, with the attention
+    scores of the whole cache, fits one block on an SM. CPU tensors run
+    the plain version, which takes any batch and dtype."""
     if cfg.head_dim % 2:
         return False
     stack = params["slow"]
-    if stack_weight(stack["wqkv"]).device.type != "cuda":
+    weight = stack_weight(stack["wqkv"])
+    if weight.device.type != "cuda":
         return True
     s = cache_len or cfg.max_seq_len
+    head_cols = params["output"].shape[1] if "output" in params else cfg.codebook_size + 1
     return (
         stack_dtypes_ok(stack) and stack_widths_ok(stack)
         and cfg.head_dim == HEAD_DIM
-        and cfg.n_head * cfg.head_dim == cfg.dim
-        and cfg.dim % 8 == 0 and cfg.intermediate_size % 8 == 0
         and 1 <= batch <= MAX_BATCH
-        and batch * max(cfg.dim, cfg.intermediate_size) * 2 <= GEMV_SMEM
-        and (s + 8 * HEAD_DIM) * 4 <= ATTN_SMEM
+        and slow_plan(cfg, head_cols, s, is_quantized(stack["wqkv"]),
+                      _grid(weight.device)) is not None
     )
+
+
+def _grid(device) -> int:
+    """The card's SM count; the H100's 132 for a tensor that only looks
+    like a CUDA one (the CPU tests)."""
+    try:
+        return decode_stack.grid_of(device)
+    except (AssertionError, RuntimeError):
+        return decode_stack.H100_SMS
 
 
 def _check(cfg, x0, pos, ck, cv, stack, norm, head, cos_t, sin_t):

@@ -1,0 +1,96 @@
+#!/usr/bin/env python3
+"""Device times of the fused slow step and the fused batch-1 fast frame
+on one NVIDIA GPU.
+
+    python3 scripts/time_decode_stack.py [--json build/times.json]
+
+Random Fish-1.5 weights from seed 0 (bf16, and their int8 quantization)
+with the gathered slow head (codebook + 1 columns). Times, each the mean
+of one call over a CUDA graph of back-to-back calls (`chip_smoke.py`'s
+`device_ms`, inputs warm in L2): the slow step at batch 1 at positions
+104, 255, 256, 512, 1024, 2048 and 4095 of a 4096-entry cache, and one
+sampled fast frame (temp 0.7, top_p 0.8, top_k 256, rep-pen 1.4 over a
+16-entry window); then the eager call of the fast frame. It calls only the
+wrappers' public functions, so it times whatever kernels sit behind
+them: to compare two commits on one card, unpack the other commit
+(`git archive`) into a git-ignored directory, copy this script into its
+`scripts/`, and run both in one call, in turns.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+POSITIONS = (104, 255, 256, 512, 1024, 2048, 4095)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--json", default=None, help="write the times here")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_decode_stack: CUDA is not available", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from fish_speech_tpu_torch.config import DualARConfig
+    from fish_speech_tpu_torch.models.dual_ar import init_dual_ar_params, rope_tables
+    from fish_speech_tpu_torch.ops import fast_frame as ff
+    from fish_speech_tpu_torch.ops import quant
+    from fish_speech_tpu_torch.ops import slow_step as ss
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs, gumbel_noise, top_k_width
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(f"{ROOT.name}: {smi}", flush=True)
+    cfg = DualARConfig.fish_speech_1_5()
+    dev = torch.device("cuda")
+    params = init_dual_ar_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    params["output"] = params["output"][:, :cfg.codebook_size + 1].contiguous()
+    rope = rope_tables(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    samp = SamplingArgs(temp=0.7, top_p=0.8, top_k=256, repetition_penalty=1.4)
+    n_cb, vocab = cfg.num_codebooks, cfg.codebook_size
+    out = {"device": smi}
+    with torch.inference_mode():
+        for kind in ("bf16", "int8"):
+            p = quant.quantize_lm_params(params) if kind == "int8" else params
+            x0 = torch.randn((1, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+            shape = (cfg.n_layer, 1, cfg.n_local_heads, cfg.max_seq_len, cfg.head_dim)
+            ck = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            cv = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            for pos_i in POSITIONS:
+                pos = torch.tensor([pos_i], dtype=torch.int32, device=dev)
+                ms = cs.device_ms(torch, lambda: ss.fused_slow_step(p, cfg, x0, pos, ck, cv, rope),
+                                  calls=20, replays=5)
+                out[f"slow_{kind}_pos{pos_i}"] = ms
+                print(f"{ROOT.name}: slow step {kind} B=1 pos={pos_i}: {ms:.4f} ms", flush=True)
+            window = torch.randint(-1, vocab, (n_cb, 16), generator=gen, device=dev,
+                                   dtype=torch.int32)
+            gumbel = gumbel_noise((n_cb, top_k_width(samp.top_k, vocab)), gen, dev)
+            eos = torch.tensor([False], device=dev)
+            frame = lambda: ff.fused_fast_frame(p, cfg, samp, x0, window, gumbel, eos, rope,  # noqa: E731
+                                                rep_enabled=True)
+            ms = cs.device_ms(torch, frame, calls=10, replays=5)
+            call_ms = cs.eager_ms(torch, frame, 20)
+            out[f"fast_{kind}"] = ms
+            out[f"fast_{kind}_eager"] = call_ms
+            print(f"{ROOT.name}: fast frame {kind} (sampled): {ms:.4f} ms (eager call "
+                  f"{call_ms:.4f} ms)", flush=True)
+    print(json.dumps(out), flush=True)
+    if args.json:
+        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.json).write_text(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

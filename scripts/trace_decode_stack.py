@@ -1,0 +1,196 @@
+#!/usr/bin/env python3
+"""Phase trace of the persistent decode kernel (csrc/decode_stack.cuh) on
+one NVIDIA GPU.
+
+    python3 scripts/trace_decode_stack.py [--json build/trace.json]
+
+Builds an instrumented copy of the port's kernels on the side (every
+csrc/*.cu with -DDS_TRACE, into build/trace_decode_stack/), in which
+thread 0 of each block writes %globaltimer at marks of each layer pass,
+and runs it in place of the normal library on Fish-1.5 weights (random
+bf16 from seed 0, and their int8 quantization): one fused slow step at
+pos 104 of a 4096 cache and one fused fast frame (sampled), each after
+warm-up calls. For every layer pass it prints, per mark, the earliest,
+median and latest block (us after the pass's first block started), and
+the pass time; then the medians over the middle passes. Marks:
+
+  0 pass start         1 QKV partials done      2 after sync 1
+  3 attention done     4 wo partials done       5 after sync 2, x += wo
+  6 norm done          7 w1+w3+w2 partials done 8 owners: all arrived
+  9 owners: x published 10 after reading x (the pass ends)
+  11 head partials done 12 head owners done (slow step); the fast
+     frame's sampler launch started (block 0's slot of the step's last
+     pass)              13 the sampler launch's end
+  16 w1+w3 taken       17 K-split group exchanged  18 w2 taken
+  20 draw: logits      21 softmax              22 token (block 0's
+     slots of the step's last pass)
+  24 attention: q/k/v  25 scores               26 weights
+  30, 31 the SM's clock64 at marks 0 and 10
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+PASSES, MARKS, MAX_BLOCKS = 32, 32, 1024
+
+
+def build_traced() -> ctypes.CDLL:
+    from fish_speech_tpu_torch.ops import _cuda_build
+
+    out = ROOT / "build" / "trace_decode_stack"
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _cuda_build.find_nvcc()
+    flags = [*_cuda_build.NVCC_FLAGS[:-2], "-DDS_TRACE"]
+    objs, procs = [], []
+    for src in sorted(_cuda_build.CSRC.glob("*.cu")):
+        obj = out / f"{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen([nvcc, *flags, "-c", "-o", str(obj), str(src)],
+                                      stderr=subprocess.PIPE, text=True))
+    for p in procs:
+        _, err = p.communicate()
+        if p.returncode:
+            raise RuntimeError(err)
+    lib_path = out / "libtrace.so"
+    subprocess.run([nvcc, *flags[:2], "-shared", "-o", str(lib_path), *map(str, objs)],
+                   check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in _cuda_build.SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    for name in ("fs_slow_step_trace", "fs_fast_frame_trace"):
+        getattr(lib, name).argtypes = [ctypes.c_void_p, ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_int
+    _cuda_build._lib = lib  # the wrappers launch the instrumented kernels
+    return lib
+
+
+def read_trace(lib, entry: str, grid: int):
+    n = MAX_BLOCKS * PASSES * MARKS
+    buf = (ctypes.c_ulonglong * n)()
+    rc = getattr(lib, entry)(ctypes.addressof(buf), n)
+    if rc:
+        raise RuntimeError(f"{entry}: cudaError {rc}")
+    return [[[buf[(b * PASSES + p) * MARKS + k] for k in range(MARKS)] for p in range(PASSES)]
+            for b in range(grid)]
+
+
+def summarize(trace, passes: int, label: str) -> dict:
+    """Per pass and mark: (earliest, median, latest) us after the pass's
+    first start, over the blocks that wrote the mark."""
+    out = {}
+    starts = [min(b[p][0] for b in trace) for p in range(passes)]
+    for p in range(passes):
+        row = {}
+        for k in range(MARKS):
+            vals = sorted((b[p][k] - starts[p]) / 1e3 for b in trace
+                          if b[p][k] >= starts[p] and (p + 1 >= passes or b[p][k] < starts[p + 1]
+                                                       or 11 <= k <= 15 or 20 <= k <= 22) and k < 30)
+            if vals:
+                row[k] = (vals[0], statistics.median(vals), vals[-1], len(vals))
+        row["pass_us"] = ((starts[p + 1] - starts[p]) / 1e3) if p + 1 < passes else None
+        out[p] = row
+    print(f"== {label}: us after the pass's first block started (earliest / median / "
+          f"latest block, blocks)")
+    mid = list(range(min(4, passes), max(passes - 4, min(4, passes) + 1)))
+    for k in range(MARKS):
+        vals = [out[p][k] for p in mid if k in out[p]]
+        if vals:
+            med = [statistics.median(v[i] for v in vals) for i in range(3)]
+            print(f"  mark {k:2d}: {med[0]:8.2f} {med[1]:8.2f} {med[2]:8.2f}  ({vals[0][3]} blocks)")
+    clk = [(b[p][31] - b[p][30]) / max(b[p][10] - b[p][0], 1) for p in mid for b in trace
+           if b[p][31] > b[p][30] and b[p][10] > b[p][0]]
+    if clk:
+        print(f"  SM clock over a pass (cycles / ns), median of blocks: "
+              f"{statistics.median(clk):.3f}")
+    last = out[passes - 1]
+    if 20 in last:
+        print("  the frame's last draw (us after its pass started): "
+              + ", ".join(f"mark {k} {last[k][1]:.2f}" for k in (11, 12, 20, 21, 22, 13)
+                          if k in last))
+    pts = [out[p]["pass_us"] for p in mid if out[p]["pass_us"]]
+    if pts:
+        print(f"  pass time, middle passes: median {statistics.median(pts):.2f} us "
+              f"(min {min(pts):.2f}, max {max(pts):.2f})")
+    return {str(p): {str(k): v for k, v in row.items()} for p, row in out.items()}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--json", default=None, help="write the summaries here")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("trace_decode_stack: CUDA is not available", file=sys.stderr)
+        return 2
+    from fish_speech_tpu_torch.config import DualARConfig
+    from fish_speech_tpu_torch.models.dual_ar import init_dual_ar_params, rope_tables
+    from fish_speech_tpu_torch.ops import fast_frame as ff
+    from fish_speech_tpu_torch.ops import quant
+    from fish_speech_tpu_torch.ops import slow_step as ss
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs, gumbel_noise, top_k_width
+
+    t0 = time.perf_counter()
+    lib = build_traced()
+    print(f"instrumented build {time.perf_counter() - t0:.1f}s", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(smi.strip())
+    cfg = DualARConfig.fish_speech_1_5()
+    dev = torch.device("cuda")
+    grid = torch.cuda.get_device_properties(dev).multi_processor_count
+    params = init_dual_ar_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    params["output"] = params["output"][:, :cfg.codebook_size + 1].contiguous()
+    rope = rope_tables(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = {"device": smi.strip()}
+    for kind in ("bf16", "int8"):
+        p = quant.quantize_lm_params(params) if kind == "int8" else params
+        with torch.inference_mode():
+            x0 = torch.randn((1, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+            pos = torch.tensor([104], dtype=torch.int32, device=dev)
+            shape = (cfg.n_layer, 1, cfg.n_local_heads, cfg.max_seq_len, cfg.head_dim)
+            ck = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            cv = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(3):
+                ss.fused_slow_step(p, cfg, x0, pos, ck, cv, rope)
+            torch.cuda.synchronize()
+            ss.fused_slow_step(p, cfg, x0, pos, ck, cv, rope)
+            torch.cuda.synchronize()
+            tr = read_trace(lib, "fs_slow_step_trace", grid)
+            results[f"slow_{kind}"] = summarize(tr, cfg.n_layer, f"slow step {kind}, pos 104")
+            samp = SamplingArgs(temp=0.7, top_p=0.8, top_k=256, repetition_penalty=1.4)
+            n_cb, vocab = cfg.num_codebooks, cfg.codebook_size
+            window = torch.randint(-1, vocab, (n_cb, 16), generator=gen, device=dev,
+                                   dtype=torch.int32)
+            gumbel = gumbel_noise((n_cb, top_k_width(samp.top_k, vocab)), gen, dev)
+            eos = torch.tensor([False], device=dev)
+            for _ in range(3):
+                ff.fused_fast_frame(p, cfg, samp, x0, window, gumbel, eos, rope, rep_enabled=True)
+            torch.cuda.synchronize()
+            ff.fused_fast_frame(p, cfg, samp, x0, window, gumbel, eos, rope, rep_enabled=True)
+            torch.cuda.synchronize()
+            tr = read_trace(lib, "fs_fast_frame_trace", grid)
+            results[f"fast_{kind}"] = summarize(tr, n_cb * cfg.n_fast_layer,
+                                                f"fast frame {kind} (sampled)")
+    if args.json:
+        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.json).write_text(json.dumps(results))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

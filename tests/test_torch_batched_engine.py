@@ -207,7 +207,10 @@ def test_decode_chunk_max_steps_and_all_done(models):
     state, out, valid, steps = engine.decode_chunk(state._replace(done=~state.done),
                                                    SamplingArgs(), 4)
     assert int(steps) == 0 and not valid.any()
-    state, _, _ = engine.prefill_rows(engine.init_state(0), _prompts(6), SamplingArgs(), 0)
+    # seeded rows: with fresh seeds (the default) a row may draw <|im_end|>
+    # in its first frames, and the capped chunk would hold fewer valid rows
+    state, _, _ = engine.prefill_rows(engine.init_state(0), _prompts(6), SamplingArgs(), 0,
+                                      per_row=[(SamplingArgs(), 100 + r) for r in range(4)])
     state, out, valid, steps = engine.decode_chunk(state, SamplingArgs(), 8, max_steps=3)
     assert int(steps) == 3 and valid[:3].all() and not valid[3:].any()
 

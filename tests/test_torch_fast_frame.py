@@ -202,11 +202,12 @@ def test_bf16_int8_plain_step_logits_match_jax_unfused():
     assert_within_half_bf16_ulp(logits.numpy(), ref[:, 0])
 
 
-def test_supported_is_batch_one():
+@pytest.mark.parametrize("batch,head_dim,ok", [(1, None, True), (2, None, False), (1, 15, False)])
+def test_supported_is_batch_one(batch, head_dim, ok):
     tc, params = _tiny()
-    assert ff.fused_fast_frame_supported(tc, params, 1)
-    assert not ff.fused_fast_frame_supported(tc, params, 2)
-    assert not ff.fused_fast_frame_supported(dataclasses.replace(tc, head_dim=15), params, 1)
+    if head_dim is not None:
+        tc = dataclasses.replace(tc, head_dim=head_dim)
+    assert ff.fused_fast_frame_supported(tc, params, batch) == ok
 
 
 class _CudaLooking(torch.Tensor):
@@ -218,14 +219,25 @@ class _CudaLooking(torch.Tensor):
         return torch.device("cuda", 0)
 
 
-def test_supported_on_cuda_takes_int8_with_bf16_scales():
-    tc = tcfg.DualARConfig(**{**KW, "n_head": 4, "dim": 256, "head_dim": 64})
+@pytest.mark.parametrize("limit", ["int8", "ffn_not_64", "dim_not_in_plan", "vocab_8192"])
+def test_supported_on_cuda_takes_int8_with_bf16_scales(limit):
+    """int8 q with bf16 s is taken, a bf16 q among int8 ones is not; the
+    persistent kernel's limits: an ffn width that is a multiple of 64, a
+    model width its plan takes and a codebook of at most 4096 entries."""
+    card = {**KW, "n_head": 4, "dim": 256, "head_dim": 64}
+    case = {"int8": {}, "ffn_not_64": {"intermediate_size": 96},
+            "dim_not_in_plan": {"n_head": 6, "dim": 384}, "vocab_8192": {"codebook_size": 8192}}
+    tc = tcfg.DualARConfig(**{**card, **case[limit]})
     params = tq.quantize_lm_params(torch_init(tc, seed=0, dtype=torch.bfloat16, device="cpu"))
 
     def looks_cuda(tree):
         if isinstance(tree, dict):
             return {k: looks_cuda(v) for k, v in tree.items()}
         return tree.as_subclass(_CudaLooking)
+
+    if limit != "int8":
+        assert not ff.fused_fast_frame_supported(tc, {"fast": looks_cuda(params["fast"])}, 1)
+        return
 
     assert ff.fused_fast_frame_supported(tc, {"fast": looks_cuda(params["fast"])}, 1)
     fast = dict(params["fast"], w3={"q": params["fast"]["w3"]["q"].to(torch.bfloat16),
@@ -362,3 +374,98 @@ def test_kernel_step_logits_as_accurate_as_plain_on_card(cuda_device, int8):
         err_k = max(err_k, float((lk[:n] - lr[:n]).abs().max()))
         err_p = max(err_p, float((lp[:n] - lr[:n]).abs().max()))
     assert err_k <= 2 * err_p + 1e-6, (err_k, err_p)
+
+
+def _frame_inputs(dev, int8=False, seed=5):
+    tc, params = _card_model(dev)
+    if int8:
+        params = tq.quantize_lm_params(params)
+    sampling = ts.SamplingArgs(temp=0.7, top_p=0.8, top_k=256, repetition_penalty=1.4)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hidden = torch.randn((1, tc.dim), generator=g, device=dev).to(torch.bfloat16)
+    window = torch.randint(-1, 512, (8, 16), generator=g, device=dev, dtype=torch.int32)
+    gumbel = ts.gumbel_noise((8, 256), g, dev)
+    is_eos = torch.tensor([False], device=dev)
+    return params, (tc, sampling, hidden, window, gumbel, is_eos, rope_tables(tc, dev))
+
+
+def _frame(params, args):
+    return ff.fused_fast_frame(params, *args, rep_enabled=True, return_logits=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_plan_on_card_equals_mirror(cuda_device, int8):
+    from fish_speech_tpu_torch.ops import decode_stack as ds
+
+    tc, _ = _card_model(cuda_device)
+    for cfg in (tc, tcfg.DualARConfig.fish_speech_1_5()):
+        mirror = ff.fast_plan(cfg, int8, ds.grid_of(cuda_device))
+        card = ds.plan_on_card(ds.FAST, cfg.dim, cfg.n_head, cfg.n_local_heads,
+                               cfg.intermediate_size, cfg.codebook_size, cfg.num_codebooks, int8)
+        assert card == mirror
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_repeated_calls_bit_identical_and_one_launch(cuda_device, int8):
+    """Five frames on the same inputs give the same tokens and logits; a
+    frame is one call of the kernel (`launches` counts calls)."""
+    params, args = _frame_inputs(cuda_device, int8)
+    before = ff.launches
+    outs = [_frame(params, args) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert ff.launches - before == 5
+    for t, lg in outs[1:]:
+        assert torch.equal(t, outs[0][0]) and torch.equal(lg, outs[0][1])
+
+
+@pytest.mark.cuda
+def test_graph_replay_equals_eager(cuda_device):
+    params, args = _frame_inputs(cuda_device)
+    eager = _frame(params, args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _frame(params, args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tokens, logits = _frame(params, args)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(tokens, eager[0]) and torch.equal(logits, eager[1])
+
+
+@pytest.mark.cuda
+def test_completes_beside_a_kernel_on_another_stream(cuda_device):
+    params, args = _frame_inputs(cuda_device)
+    eager = _frame(params, args)
+    torch.cuda.synchronize()
+    other = torch.cuda.Stream()
+    with torch.cuda.stream(other):
+        torch.cuda._sleep(200_000_000)
+    got = _frame(params, args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], eager[0]) and torch.equal(got[1], eager[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_frame_launches_and_syncs_counted_on_card(cuda_device, int8):
+    """One persistent launch and one sampler launch a codebook step, and
+    the grid syncs of a launch, as the kernels count them in the sync
+    state's last words, equal to the plan's; a fast frame's attention
+    never splits over keys."""
+    from fish_speech_tpu_torch.ops import decode_stack as ds
+
+    params, args = _frame_inputs(cuda_device, int8)
+    tc = args[0]
+    _frame(params, args)
+    before = ds.launch_counts(cuda_device)
+    _frame(params, args)
+    after = ds.launch_counts(cuda_device)
+    assert (after[0] - before[0], after[1] - before[1]) == (tc.num_codebooks, tc.num_codebooks)
+    plan = ff.fast_plan(tc, int8, ds.grid_of(cuda_device))
+    assert ds.last_call_counts(cuda_device) == (plan.syncs_per_launch(ds.FAST, tc.n_fast_layer), 0)

@@ -153,10 +153,10 @@ def test_bf16_int8_plain_matches_jax_unfused(seed):
     assert (np.abs(logits.numpy() - ref) <= half_ulp + 1e-7).all()
 
 
-def test_supported_on_cpu_takes_any_batch():
+@pytest.mark.parametrize("batch", [1, 4, 16])
+def test_supported_on_cpu_takes_any_batch(batch):
     tc, params = _tiny_params()
-    assert ss.fused_slow_step_supported(tc, params, 1)
-    assert ss.fused_slow_step_supported(tc, params, 16, cache_len=64)
+    assert ss.fused_slow_step_supported(tc, params, batch, cache_len=64)
 
 
 class _CudaLooking(torch.Tensor):
@@ -172,11 +172,24 @@ def _cuda_looking(stack):
     return {k: v.as_subclass(_CudaLooking) for k, v in stack.items()}
 
 
-def test_supported_on_cuda_takes_int8_with_bf16_scales():
+@pytest.mark.parametrize("limit", ["int8", "batch5", "ffn_not_64", "dim_not_in_plan"])
+def test_supported_on_cuda_takes_int8_with_bf16_scales(limit):
     """On CUDA the kernel takes int8 q with bf16 s and whole 16-byte
     rows; a float q, float32 scales or a width that is not a multiple of
-    16 are refused, by `supported` and by the wrapper."""
+    16 are refused, by `supported` and by the wrapper. The persistent
+    kernel's limits: at most 4 rows, an ffn width that is a multiple of
+    64 and a model width its plan takes (`decode_stack.DIMS`)."""
     card = {**KW, "n_head": 4, "dim": 256, "head_dim": 64}
+    if limit != "int8":
+        case = {"batch5": {}, "ffn_not_64": {"intermediate_size": 96},
+                "dim_not_in_plan": {"n_head": 6, "dim": 384}}[limit]
+        tc = tcfg.DualARConfig(**{**card, **case})
+        params = tq.quantize_lm_params(torch_init(tc, seed=0, dtype=torch.bfloat16, device="cpu"))
+        batch = 5 if limit == "batch5" else 1
+        assert ss.fused_slow_step_supported(tc, {"slow": _cuda_looking_tree(params["slow"])},
+                                            batch, CACHE) is False
+        assert ss.fused_slow_step_supported(tc, params, batch, CACHE)  # the plain version
+        return
     tc = tcfg.DualARConfig(**card)
     params = tq.quantize_lm_params(torch_init(tc, seed=0, dtype=torch.bfloat16, device="cpu"))
     stack = params["slow"]
@@ -301,3 +314,155 @@ def test_kernel_matches_plain_on_card(cuda_device, positions, int8):
     for c, cp in ((ck, ckp), (cv, cvp)):
         c[:, rows, :, p] = cp[:, rows, :, p]
         assert torch.equal(c, cp)
+
+
+def _card_inputs(dev, positions, int8=False, seed=0, cache=256):
+    tc = tcfg.DualARConfig(**{**KW, "n_head": 8, "dim": 512, "intermediate_size": 1024,
+                              "head_dim": 64, "max_seq_len": cache})
+    params = torch_init(tc, seed=0, dtype=torch.bfloat16, device=dev)
+    params["output"] = params["output"][:, :33].contiguous()
+    if int8:
+        params = tq.quantize_lm_params(params)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b = len(positions)
+    x0 = torch.randn((b, tc.dim), generator=g, device=dev).to(torch.bfloat16)
+    shape = (tc.n_layer, b, tc.n_local_heads, cache, 64)
+    ck, cv = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    return tc, params, x0, pos, ck, cv, rope_tables(tc, dev)
+
+
+def _step(params, tc, x0, pos, ck, cv, rope):
+    """One kernel call on copies of the caches: (logits, hidden, ck, cv)."""
+    k, v = ck.clone(), cv.clone()
+    logits, hidden = ss.fused_slow_step(params, tc, x0, pos, k, v, rope)
+    return logits, hidden, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_plan_on_card_equals_mirror(cuda_device, int8):
+    from fish_speech_tpu_torch.ops import decode_stack as ds
+
+    tc, params, *_ = _card_inputs(cuda_device, (0,), int8)
+    grid = ds.grid_of(cuda_device)
+    for cache in (256, 4096):
+        mirror = ss.slow_plan(tc, 33, cache, int8, grid)
+        card = ds.plan_on_card(ds.SLOW, tc.dim, tc.n_head, tc.n_local_heads,
+                               tc.intermediate_size, 33, cache, int8)
+        assert card == mirror
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_repeated_calls_bit_identical_and_one_launch(cuda_device, int8):
+    """Five calls on the same inputs give the same bits (a racy sync or
+    an arrival-ordered sum would not); each call is one launch."""
+    tc, params, x0, pos, ck, cv, rope = _card_inputs(cuda_device, (104, 7), int8)
+    before = ss.launches
+    outs = [_step(params, tc, x0, pos, ck, cv, rope) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert ss.launches - before == 5
+    for o in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))
+
+
+@pytest.mark.cuda
+def test_graph_replay_equals_eager(cuda_device):
+    tc, params, x0, pos, ck, cv, rope = _card_inputs(cuda_device, (104,))
+    eager = _step(params, tc, x0, pos, ck, cv, rope)
+    k, v = ck.clone(), cv.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ss.fused_slow_step(params, tc, x0, pos, k.clone(), v.clone(), rope)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        logits, hidden = ss.fused_slow_step(params, tc, x0, pos, k, v, rope)
+    for _ in range(3):
+        k.copy_(ck)
+        v.copy_(cv)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip((logits, hidden, k, v), eager))
+
+
+@pytest.mark.cuda
+def test_completes_beside_a_kernel_on_another_stream(cuda_device):
+    """The cooperative launch waits for room beside a long kernel on a
+    second stream instead of deadlocking its grid syncs."""
+    tc, params, x0, pos, ck, cv, rope = _card_inputs(cuda_device, (104,))
+    eager = _step(params, tc, x0, pos, ck, cv, rope)
+    torch.cuda.synchronize()
+    other = torch.cuda.Stream()
+    with torch.cuda.stream(other):
+        torch.cuda._sleep(200_000_000)  # ~0.1 s of one spinning block
+    got = _step(params, tc, x0, pos, ck, cv, rope)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, eager))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_row_alone_equals_row_among_four(cuda_device, int8):
+    """The plan does not depend on the batch, so a row's logits, hidden
+    and cache rows are bit-equal alone and among three co-tenants."""
+    positions = (104, 3, 255, 40)
+    tc, params, x0, pos, ck, cv, rope = _card_inputs(cuda_device, positions, int8)
+    logits, hidden, k, v = _step(params, tc, x0, pos, ck, cv, rope)
+    for r in range(len(positions)):
+        one = _step(params, tc, x0[r:r + 1].clone(), pos[r:r + 1].clone(),
+                    ck[:, r:r + 1].contiguous(), cv[:, r:r + 1].contiguous(), rope)
+        assert torch.equal(one[0][0], logits[r]) and torch.equal(one[1][0], hidden[r])
+        assert torch.equal(one[2][:, 0], k[:, r]) and torch.equal(one[3][:, 0], v[:, r])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("positions", [(255,), (256,), (1000,), (2047,), (5, 2047)])
+def test_key_split_matches_plain_on_card(cuda_device, positions, int8):
+    """Past decode_stack.SPLIT_TILES key tiles a head's attention is split
+    over its blocks, which exchange (max, sum) pairs and PV partials: the
+    same accuracy rule as below the threshold, every other cache row
+    bit-equal, and a row alone bit-equal to itself beside a short row."""
+    tc, params, x0, pos, ck, cv, rope = _card_inputs(cuda_device, positions, int8, cache=2048)
+    params32 = float32_reference(params)
+    got = _step(params, tc, x0, pos, ck, cv, rope)
+    ckp, cvp = ck.clone(), cv.clone()
+    plain = ss.fused_slow_step_plain(params, tc, x0, pos, ckp, cvp, rope)
+    ck32, cv32 = ck.float(), cv.float()
+    ref = ss.fused_slow_step_plain(params32, tc, x0.float(), pos, ck32, cv32, rope)
+    rows, p = torch.arange(len(positions), device=cuda_device), pos.long()
+    pairs = list(zip(got[:2], plain, ref)) + [
+        (c[:, rows, :, p], cp[:, rows, :, p], c32[:, rows, :, p])
+        for c, cp, c32 in ((got[2], ckp, ck32), (got[3], cvp, cv32))]
+    for k, pl, r in pairs:
+        err_k = float((k.float() - r.float()).abs().max())
+        err_p = float((pl.float() - r.float()).abs().max())
+        assert err_k <= 2 * err_p + 1e-6, (err_k, err_p)
+    for c, cp in ((got[2], ckp), (got[3], cvp)):
+        c = c.clone()
+        c[:, rows, :, p] = cp[:, rows, :, p]
+        assert torch.equal(c, cp)
+    r = len(positions) - 1
+    one = _step(params, tc, x0[r:r + 1].clone(), pos[r:r + 1].clone(),
+                ck[:, r:r + 1].contiguous(), cv[:, r:r + 1].contiguous(), rope)
+    assert torch.equal(one[0][0], got[0][r]) and torch.equal(one[1][0], got[1][r])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("positions", [(104,), (1024,), (104, 2047, 3)])
+def test_kernel_counts_its_syncs_and_exchanges(cuda_device, positions):
+    """The kernel's own count of its grid syncs and of head 0's key-split
+    exchanges (the sync state's last two words) equals the plan's, and
+    five calls stay bit-identical when attention is split."""
+    from fish_speech_tpu_torch.ops import decode_stack as ds
+
+    tc, params, x0, pos, ck, cv, rope = _card_inputs(cuda_device, positions, cache=2048)
+    outs = [_step(params, tc, x0, pos, ck, cv, rope) for _ in range(5)]
+    plan = ss.slow_plan(tc, 33, 2048, False, ds.grid_of(cuda_device))
+    assert ds.last_call_counts(cuda_device) == (
+        plan.syncs_per_call(ds.SLOW, tc.n_layer), plan.kv_exchanges(tc.n_layer, positions))
+    for o in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))
