@@ -10,7 +10,9 @@ per phase, each with the seconds since start:
 
   1. device   torch version, card name and power limit (nvidia-smi);
   2. build    the kernels, one nvcc per source started together and one
-              link, its time, and ptxas's register and spill lines;
+              link, its time, ptxas's register and spill lines, and the
+              tensor-core instructions (HGMMA/HMMA) in the prefill
+              kernel's SASS by cuobjdump, which must be more than none;
   3. kernels  each CUDA kernel against its plain PyTorch version on the
               card at the main path's shapes (bf16), with the tolerance
               stated, then timed beside the plain version and, where one
@@ -18,7 +20,19 @@ per phase, each with the seconds since start:
               decode attention (pos 0, 1, 63, 1024, 4095 at cache 4096,
               and 16 rows at cache 512 with ragged pos, one row also
               alone; timed at pos 104 and 4095 and at the serving shape
-              beside SDPA), prefill attention, the fused slow step
+              beside SDPA), prefill attention (S_pad 64, 100 and 512 at
+              offsets 0 and 37, 2048 and 4096 at offset 0, the
+              prefix-reuse shape S_pad 128 at offset 1920 over 2048 keys,
+              rows of length 1 and 0 beside a full one, a window of 300
+              at S_pad 512, each also row by row as close to a float32
+              evaluation as the plain version; its contract: five calls
+              bit-identical, a CUDA graph's replay, a row alone
+              bit-equal to itself among two, two launches counted for a
+              key-split call and one otherwise, the plan and every
+              CTA's work as built equal to ops/prefill_attention.py's
+              mirrors; timed at S_pad 64 with a 40-token prompt, 512,
+              1024, 2048 and 4096 and the prefix-reuse shape beside the
+              faster of two SDPA calls, with the plan), the fused slow step
               (pos 0, 1, 104, 4095; batch 1 and 2; timed at pos 104,
               255, 256 and 4095), the fused fast frame (32 frames
               sampled, argmax, no rep-pen, EOS), each of these two
@@ -52,6 +66,10 @@ per phase, each with the seconds since start:
               on the `auto` path, 128 frames, with its int8 launch
               counts, and the bf16/int8 A/B in turns (bf16, int8, int8,
               bf16);
+     prefill  LMEngine.prefill of a 2000-token prompt (bucket 2048,
+              cache 4096): median seconds of 5 after a warm-up, and the
+              attention kernel's share of device time under
+              torch.profiler over one prefill;
   5. profile  torch.profiler over 8 decode frames of each path;
   6. serving  continuous batching at the serving configuration (16 rows,
               cache 512, horizon 16, rep-pen window 12, dynamic
@@ -110,6 +128,12 @@ DECODE_ATOL = DECODE_RTOL = 1e-2
 # Prefill: the kernel rounds the unnormalised online-softmax weights to
 # bf16 (as the TPU kernel does), the plain version the normalised ones.
 PREFILL_ATOL = PREFILL_RTOL = 2e-2
+# That absolute bound is loose where a query sees thousands of keys: its
+# outputs are then a few hundredths. So each (head, query) row's relative
+# distance ||out - ref|| / ||ref|| to a float32 evaluation of the same
+# function (the plain version on float32 copies of q, k and v) is also
+# held, at its largest, within ACCURACY_FACTOR (below) of the plain
+# version's own.
 # One full decode step, kernels vs plain versions: attention outputs one
 # bf16 ulp apart feed 24 bf16 layers; logits are ~N(0, 0.6).
 STEP_LOGITS_ATOL = 5e-2
@@ -338,13 +362,36 @@ def time_decode(torch, da, cfg, args, layer: int) -> dict:
             "blocks": plan.blocks(b, kv)}
 
 
-def check_prefill_kernel(torch, cfg, cache_len: int, main_s_pad: int, main_len: int):
+# Prefill attention, timed at the main path's 40-token prompt, at full
+# prompts of 512-4096 tokens (a voice-cloning prompt carries 215-645
+# frames of reference audio before its text) and at the prefix-reuse
+# shape (a later text chunk at offset 1920 after a kept conditioning
+# prefix): (label, S_pad, extent E, offset, length).
+PREFILL_TIMED = (
+    ("S_pad=64 len=40", 64, 64, 0, PROMPT_LEN),
+    ("S_pad=512", 512, 512, 0, 512),
+    ("S_pad=1024", 1024, 1024, 0, 1024),
+    ("S_pad=2048", 2048, 2048, 0, 2048),
+    ("S_pad=4096", 4096, 4096, 0, 4096),
+    ("prefix S_pad=128 offset=1920 len=100 E=2048", 128, 2048, 1920, 100),
+)
+
+
+def visible_pairs(offset: int, n: int, e: int, window: int) -> int:
+    """(query, key) pairs the prefill rule lets the n valid queries see."""
+    lim = min(e, offset + n)
+    return sum(max(0, min(offset + i, lim - 1) - max(0, offset + i - window + 1) + 1)
+               for i in range(n))
+
+
+def check_prefill_kernel(torch, cfg, cache_len: int, sass_tensor_ops: int):
     from fish_speech_tpu_torch.ops import prefill_attention as pa
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(4321)
     h, kv, hd, window = cfg.n_head, cfg.n_local_heads, cfg.head_dim, cfg.max_seq_len
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def inputs(b, s_pad, e, lens):
         rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)  # noqa: E731
@@ -353,52 +400,165 @@ def check_prefill_kernel(torch, cfg, cache_len: int, main_s_pad: int, main_len: 
         return (rnd(b, h, s_pad, hd), ck[:, :, :e], cv[:, :, :e],
                 torch.tensor(lens, dtype=torch.int32, device=dev))
 
-    max_err = 0.0
+    max_err, rel_errs = 0.0, {}
+
+    def row_rel_err(got, ref32):
+        """Largest ||got - ref|| / ||ref|| over the (head, query) rows."""
+        return float(((got.float() - ref32).norm(dim=-1) / ref32.norm(dim=-1)).max())
+
+    def against_plain(s_pad, e, offset, lens, win=window):
+        nonlocal max_err
+        q, k, v, sl = args = inputs(len(lens), s_pad, e, lens)
+        got = pa.prefill_attention(q, k, v, offset, sl, win)
+        ref = pa.prefill_attention_plain(q, k, v, offset, sl, win)
+        ref32 = pa.prefill_attention_plain(q.float(), k.float(), v.float(), offset, sl, win)
+        torch.cuda.synchronize()
+        what = f"prefill_attention S_pad={s_pad} E={e} offset={offset} seq_lens={lens} window={win}"
+        check(bool(torch.isfinite(got.float()).all()), f"{what}: non-finite output")
+        err, rel_k, rel_p = 0.0, 0.0, 0.0
+        for b, n in enumerate(lens):
+            if n == 0:
+                continue
+            e_b, ok = within(torch, got[b, :, :n], ref[b, :, :n], PREFILL_ATOL, PREFILL_RTOL)
+            check(ok, f"{what} row {b}: max abs err {e_b}")
+            err = max(err, e_b)
+            rk, rp = row_rel_err(got[b, :, :n], ref32[b, :, :n]), row_rel_err(ref[b, :, :n],
+                                                                              ref32[b, :, :n])
+            check(rk <= ACCURACY_FACTOR * rp + 1e-6, f"{what} row {b}: relative distance to the "
+                  f"float32 evaluation {rk:.3e}, plain version {rp:.3e}")
+            rel_k, rel_p = max(rel_k, rk), max(rel_p, rp)
+        max_err = max(max_err, err)
+        rel_errs[what] = (rel_k, rel_p)
+        log("kernels", f"{what}: all finite, valid rows max_abs_err={err:.3e} "
+            f"(atol={PREFILL_ATOL}, rtol={PREFILL_RTOL}); largest row relative distance to "
+            f"float32 {rel_k:.3e}, plain version {rel_p:.3e} (factor {ACCURACY_FACTOR})")
+        return got, args
+
     for s_pad in (64, 100, 512):
         for offset in (0, 37):
-            lens = [s_pad, max(1, (2 * s_pad) // 3)]
-            e = offset + s_pad
-            q, k, v, sl = inputs(2, s_pad, e, lens)
-            got = pa.prefill_attention(q, k, v, offset, sl, window)
-            ref = pa.prefill_attention_plain(q, k, v, offset, sl, window)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got.float()).all()),
-                  f"prefill_attention S_pad={s_pad} offset={offset}: non-finite output")
-            for b, n in enumerate(lens):
-                err, ok = within(torch, got[b, :, :n], ref[b, :, :n], PREFILL_ATOL, PREFILL_RTOL)
-                check(ok, f"prefill_attention S_pad={s_pad} offset={offset} row {b}: "
-                      f"max abs err {err}")
-                max_err = max(max_err, err)
-            log("kernels", f"prefill_attention S_pad={s_pad} E={e} offset={offset} "
-                f"seq_lens={lens}: all finite, valid rows max_abs_err={max_err:.3e} "
-                f"(atol={PREFILL_ATOL}, rtol={PREFILL_RTOL})")
+            against_plain(s_pad, offset + s_pad, offset, [s_pad, max(1, (2 * s_pad) // 3)])
+    against_plain(2048, 2048, 0, [2048, 2000])
+    against_plain(4096, 4096, 0, [4096])
+    against_plain(128, 2048, 1920, [100])
+    against_plain(128, 2048, 1920, [128, 1, 0])  # rows of length 1 and 0 beside a full one
+    against_plain(64, 64, 0, [64, 1, 0])
+    against_plain(512, 512, 0, [512, 341], win=300)  # the window edge inside the extent
 
-    # timing at the main path's shape: a 40-token prompt in a 64 bucket
-    q, k, v, sl = inputs(1, main_s_pad, main_s_pad, [main_len])
-    kernel = lambda: pa.prefill_attention(q, k, v, 0, sl, window)  # noqa: E731
-    ms = device_ms(torch, kernel)
-    call_ms = eager_ms(torch, kernel, 200)
-    plain_ms = device_ms(torch, lambda: pa.prefill_attention_plain(q, k, v, 0, sl, window))
-    allowed = pa.prefill_mask(main_s_pad, main_s_pad, 0, sl, window) == 0
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = device_ms(torch, lambda: sdpa(q, k, v, attn_mask=allowed, enable_gqa=True))
-    # flops of the visible (query, key) pairs of the valid rows
-    pairs = main_len * (main_len + 1) // 2
-    flops = 4 * h * pairs * hd
-    nbytes = 2 * (h * main_s_pad * hd) * 2 + 2 * (2 * kv * main_s_pad * hd) + 4
-    bound_ms, bound_by = bound(nbytes, flops)
-    log("kernels", f"prefill_attention S_pad={main_s_pad} len={main_len}: kernel {ms:.4f} ms "
-        f"(eager call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-        f"bound {bound_ms:.6f} ms ({bound_by})")
+    # the contract, at the prefix-reuse shape (split keys and a combine)
+    got, (q, k, v, sl) = against_plain(128, 2048, 1920, [100, 77])
+    call = lambda: pa.prefill_attention(q, k, v, 1920, sl, window)  # noqa: E731
+    check(all(torch.equal(call(), got) for _ in range(5)),
+          "prefill_attention: five calls are not bit-identical")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(captured, got), "prefill_attention: CUDA graph replay differs from eager")
+    alone = pa.prefill_attention(q[1:].clone(), k[1:].clone(), v[1:].clone(), 1920,
+                                 sl[1:].clone(), window)
+    check(torch.equal(alone, got[1:]), "prefill_attention: row 1 alone differs from row 1 of 2")
+    # the count: the blocks and the combine where keys are split, else one
+    counted = {}
+    for s_pad, e, offset, lens in ((128, 2048, 1920, [100, 77]), (2048, 2048, 0, [2048])):
+        q, k, v, sl = inputs(len(lens), s_pad, e, lens)
+        pa.launches = 0
+        pa.prefill_attention(q, k, v, offset, sl, window)
+        want = 2 if pa.prefill_plan(s_pad, e, h, kv, sms).splits > 1 else 1
+        check(pa.launches == want, f"prefill_attention S_pad={s_pad} E={e}: counted "
+              f"{pa.launches} launches, the call makes {want}")
+        counted[f"S_pad={s_pad} E={e}"] = pa.launches
+    check(counted["S_pad=128 E=2048"] == 2, f"prefix-reuse shape counted {counted}, expected 2")
+    for _, s_pad, e, offset, n in PREFILL_TIMED:
+        card, mirror = pa.plan_on_card(s_pad, e, h, kv, sms), pa.prefill_plan(s_pad, e, h, kv, sms)
+        check(card == mirror, f"prefill plan S_pad={s_pad} E={e}: card {card}, mirror {mirror}")
+        for lens, win in (([n, max(1, n // 3), 0], window), ([n, 1], 300)):
+            card = pa.cta_work_on_card(s_pad, e, h, kv, sms, offset, lens, win)
+            check(card == pa.cta_work(mirror, len(lens), kv, s_pad, e, offset, lens, win),
+                  f"prefill CTA work S_pad={s_pad} E={e} offset={offset} seq_lens={lens} "
+                  f"window={win}: the kernel's differs from ops/prefill_attention.py::cta_work")
+    log("kernels", f"prefill_attention contract: 5 calls bit-identical, CUDA graph replay equal "
+        f"to eager, row 1 alone bit-equal to row 1 of 2 (S_pad=128 offset=1920 E=2048, key "
+        f"split and combine); launches counted a call {json.dumps(counted)}; plan and every "
+        f"CTA's work as built equal to ops/prefill_attention.py::prefill_plan and cta_work at "
+        f"the {len(PREFILL_TIMED)} timed shapes; {sass_tensor_ops} tensor-core instructions "
+        f"in the kernel's SASS")
+
+    timed = {}
+    for label, s_pad, e, offset, n in PREFILL_TIMED:
+        timed[label] = t = time_prefill(torch, pa, h, kv, sms, inputs(1, s_pad, e, [n]), offset,
+                                        window)
+        log("kernels", f"prefill_attention {label}: kernel {t['ms']:.4f} ms (eager call "
+            f"{t['eager_call_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, library "
+            f"{t['library_ms']:.4f} ms ({t['library']}), bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']}), {100 * t['share_of_bound']:.1f}% of it; plan: {t['plan']}")
+    main = timed[PREFILL_TIMED[0][0]]
     return {
         "name": "prefill_attention", "route": "cuda",
         "source": "fish_speech_tpu_torch/csrc/prefill_attention.cu",
         "replaces": "fish_speech_tpu/ops/prefill_pallas.py:214",
-        "max_abs_err": max_err, "ms": ms, "kernel_ms": ms, "eager_call_ms": call_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms,
-        "shape": f"q (1,{h},{main_s_pad},{hd}), k/v (1,{kv},{main_s_pad},{hd}) bf16, len {main_len}",
+        "max_abs_err": max_err, "rel_vs_float32": rel_errs,
+        **{k: v for k, v in main.items() if k != "plan"},
+        "kernel_ms": main["ms"], "plan": main["plan"], "sass_tensor_ops": sass_tensor_ops,
+        "shape": f"q (1,{h},64,{hd}), k/v (1,{kv},64,{hd}) bf16, len {PROMPT_LEN}",
+        "timings": timed,
     }
+
+
+def time_prefill(torch, pa, h, kv, sms, args, offset: int, window: int) -> dict:
+    """Kernel (CUDA graph and eager), plain version and the faster of two
+    SDPA calls on one input set (B = 1), with the bound of this input's
+    work: bytes of q, k, v (the extent), seq_lens and the output once;
+    operations 4 * H * (visible pairs of the valid queries) * hd."""
+    q, k, v, sl = args
+    _, _, s_pad, hd = q.shape
+    e, n = k.shape[2], int(sl[0])
+    big = s_pad * e >= 1024 * 1024  # the plain version's score tensor is large
+    kernel = lambda: pa.prefill_attention(q, k, v, offset, sl, window)  # noqa: E731
+    ms = device_ms(torch, kernel)
+    call_ms = eager_ms(torch, kernel, 50)
+    plain_ms = device_ms(torch, lambda: pa.prefill_attention_plain(q, k, v, offset, sl, window),
+                         calls=5 if big else 50, replays=2 if big else 10)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    allowed = pa.prefill_mask(s_pad, e, offset, sl, window) == 0
+    libs = {"SDPA, boolean mask, enable_gqa": device_ms(
+        torch, lambda: sdpa(q, k, v, attn_mask=allowed, enable_gqa=True),
+        calls=10 if big else 50, replays=5 if big else 10)}
+    if offset == 0 and n == s_pad == e and window >= e:
+        libs["SDPA is_causal, enable_gqa"] = device_ms(
+            torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    library = min(libs, key=libs.get)
+    nbytes = 2 * (h * s_pad * hd) * 2 + 2 * (2 * kv * e * hd) + 4
+    bound_ms, bound_by = bound(nbytes, 4 * h * visible_pairs(offset, n, e, window) * hd)
+    plan = pa.prefill_plan(s_pad, e, h, kv, sms)
+    return {"ms": ms, "eager_call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": libs[library], "library": library, "bound_ms": bound_ms,
+            "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+            "plan": (f"{plan.ctas} CTAs of {plan.rows} rows ({plan.queries} queries x "
+                     f"{h // kv} q heads), key split {plan.splits} (chunks of {plan.chunk} "
+                     f"tiles of {plan.block_n} keys), {plan.stages} ring stages")}
+
+
+def sass_tensor_ops(nvcc: str, lib_path) -> int:
+    """Tensor-core instructions (HGMMA, HMMA) in the prefill kernel's SASS
+    of the built library, by cuobjdump."""
+    from pathlib import Path
+
+    tool = Path(nvcc).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    count, inside = 0, False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = "prefill_attention_kernel" in line
+        elif inside and re.search(r"\bH(G)?MMA\b", line):
+            count += 1
+    return count
 
 
 def bound(nbytes: int, flops: int):
@@ -1332,6 +1492,70 @@ def run_int8_main_path(torch, np, engine, fused, bf16_first, codec, tok, codec_c
             "fused_fast_frame_int8": l8["fused_fast_frame"]}
 
 
+LONG_PROMPT = 2000  # a voice-cloning prompt: reference-audio frames and text
+
+
+def run_long_prefill(torch, np, params, cfg, tok) -> dict:
+    """LMEngine.prefill of a 2000-token prompt (bucket 2048, cache 4096,
+    batch 1, bf16, default buckets): median seconds of 5 after a warm-up,
+    the prefill kernel's launches, and under torch.profiler over one
+    prefill the device time, the attention kernel's share of it and the
+    top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fish_speech_tpu_torch.config import WhichLM
+    from fish_speech_tpu_torch.generate.engine import LMEngine
+    from fish_speech_tpu_torch.ops import prefill_attention as pa
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs
+
+    engine = LMEngine(params, cfg, tok, WhichLM.FISH_1_5, max_frames=8)
+    rng = np.random.default_rng(2)
+    prompt = np.concatenate([rng.integers(1000, 90000, size=(1, LONG_PROMPT)),
+                             np.zeros((cfg.num_codebooks, LONG_PROMPT), np.int64)]).astype(np.int32)
+    sampling = SamplingArgs(**SAMPLING)
+    state = engine.init_state(0)
+    engine.prefill(state, prompt, sampling)  # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        pa.launches = 0
+        t0 = time.perf_counter()
+        _, frame, _ = engine.prefill(state, prompt, sampling)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(pa.launches == cfg.n_layer, f"long prefill: {pa.launches} prefill_attention "
+              f"launches, expected {cfg.n_layer}")
+    check(bool(((frame[0, 1:] >= 0) & (frame[0, 1:] < cfg.codebook_size)).all()),
+          "long prefill: first frame's codes out of range")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        engine.prefill(state, prompt, sampling)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) is not None
+               and str(e.device_type).endswith("CUDA")
+               and getattr(e, "self_device_time_total", 0) > 0]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    attn_ms = sum(e.self_device_time_total for e in kernels if "prefill_" in e.key
+                  and ("attention_kernel" in e.key or "combine_kernel" in e.key)) / 1e3
+    median = float(np.median(times))
+    if dev_ms > 0:
+        share = f"{100 * attn_ms / dev_ms:.1f}% of it"
+    else:
+        share = "share not measured (the profiler saw no device time)"
+    log("prefill", f"LMEngine.prefill, {LONG_PROMPT}-token prompt (bucket 2048, cache "
+        f"{engine.cache_len}, batch 1, bf16): median {median:.4f}s of 5 "
+        f"({', '.join(f'{t:.4f}' for t in times)}), {cfg.n_layer} prefill_attention launches "
+        f"each; under torch.profiler: device kernels {dev_ms:.3f} ms in "
+        f"{sum(e.count for e in kernels)} launches, prefill attention {attn_ms:.3f} ms, {share}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log("prefill", f"  {e.self_device_time_total / 1e3:8.4f} ms {e.count:5d}x  {e.key[:90]}")
+    del engine, state
+    return {"prompt_tokens": LONG_PROMPT, "median_s": median, "runs_s": times,
+            "device_ms": dev_ms, "attention_ms": attn_ms,
+            "attention_share": attn_ms / dev_ms if dev_ms > 0 else None}
+
+
 def profile_decode(torch, engine, state, sampling, label: str, frames: int = 8) -> None:
     """Where a decode frame's time goes: torch.profiler over a few
     frames; device time summed over CUDA kernels, against the wall."""
@@ -1694,13 +1918,16 @@ def main() -> int:
         + (f"built in {built:.1f}s" if built is not None else "found built")
         + f" (load {time.perf_counter() - t0:.1f}s)")
     log_ptxas(_cuda_build.nvcc_log)
+    n_tensor = sass_tensor_ops(_cuda_build.find_nvcc(), _cuda_build.build())
+    log("build", f"cuobjdump -sass: {n_tensor} HGMMA/HMMA instructions in prefill_attention_kernel")
+    check(n_tensor > 0, "prefill_attention_kernel has no tensor-core instruction")
 
     cfg = DualARConfig.fish_speech_1_5()
     cache_len = cfg.max_seq_len
     main_pos = PROMPT_LEN + N_FRAMES // 2
     kernels = [
         check_decode_kernel(torch, cfg, cache_len, main_pos=main_pos),
-        check_prefill_kernel(torch, cfg, cache_len, main_s_pad=64, main_len=PROMPT_LEN),
+        check_prefill_kernel(torch, cfg, cache_len, n_tensor),
     ]
     fused, unfused, serving, int8, codec, tok, codec_cfg, params = build_models(torch)
     with torch.inference_mode():
@@ -1711,6 +1938,9 @@ def main() -> int:
                         check_fast_frame_batched(torch, rows, params32)]
             del params32
     launches, bf16_stats = run_main_path(torch, np, fused, unfused, codec, tok, codec_cfg)
+    with torch.inference_mode():
+        long_prefill = run_long_prefill(torch, np, params, fused.cfg, tok)
+    next(k for k in kernels if k["name"] == "prefill_attention")["long_prefill"] = long_prefill
     launches.update(run_int8_main_path(torch, np, int8["batch1"], fused, bf16_stats, codec, tok,
                                        codec_cfg))
     served = run_serving(torch, np, dict(serving, int8=int8["serving"]), codec, tok, codec_cfg)

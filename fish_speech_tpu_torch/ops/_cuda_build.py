@@ -44,10 +44,14 @@ SIGNATURES = {
     # q, k_new, v_new, pos, ck, cv, out,
     # B, H, KV, S, L, layer, cluster, scale, stream
     "fs_decode_attention": [_P] * 7 + [_I] * 7 + [_F, _P],
-    # q, k, v, seq_lens, out, B, H, KV, S_pad, E, k_sb, k_skv, offset,
-    # window, scale,
-    # stream
-    "fs_prefill_attention": [_P] * 5 + [_I] * 9 + [_F, _P],
+    # q, k, v, seq_lens, out, scratch, B, H, KV, S_pad, E, k_sb, k_skv,
+    # offset, window, scale, sms, stream, launched (1 int out)
+    "fs_prefill_attention": [_P] * 6 + [_I] * 9 + [_F, _I, _P, _P],
+    # S_pad, E, H, KV, sms, plan (11 ints out)
+    "fs_prefill_plan": [_I] * 5 + [_P],
+    # S_pad, E, H, KV, sms, B, offset, window, seq_lens (B ints in),
+    # work (8 ints a CTA out)
+    "fs_prefill_cta_work": [_I] * 8 + [_P, _P],
     # The three stack entries take the layer stacks as attn_norm,
     # ffn_norm, then the five weights wqkv, wo, w1, w3, w2 (bf16, or int8
     # q) and their five scales (bf16 s; all null for a bf16 stack).
