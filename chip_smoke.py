@@ -49,7 +49,16 @@ per phase, each with the seconds since start:
               sampled and mixed rows), with each of its five GEMMs on its own
               (fs_rows_gemm at B = 16 against rows_gemm_plain, a row
               alone bit-equal, timed beside cuBLAS and the byte bound,
-              one line a GEMM); then the same three on int8 stacks (the
+              one line a GEMM), and the fused slow step's row sequence
+              for 5 rows and more (csrc/slow_step_rows.cu: B = 16 at
+              cache 512 and serving positions 39-167, B = 32 and 64 at
+              cache 256, each held to the plain version's distance to a
+              float32 evaluation, other cache rows bit-equal, the C
+              entry's launches equal to 5 L + 1 a group of 32 rows, each
+              of 16 rows alone bit-equal to itself among 16, the
+              engine's padded head; timed in a CUDA graph beside the
+              plain version, the unfused step it replaces and the byte
+              bound); then the same four on int8 stacks (the
               kernels' int8 bodies) at the same positions and batches,
               held to the plain version's distance to a float32
               evaluation of the dequantized weights;
@@ -76,14 +85,20 @@ per phase, each with the seconds since start:
               sampling): 20 requests of 40 tokens, 128 frames each, all
               submitted at once (four wait for a free row), two argmax
               and two seeded, each client vocoding its own codes; run on
-              the batched fast-frame kernel (`auto`) and on the unfused
-              codebook loop (`fast_frame_impl="xla"`) in turns, with
-              frames/s, per-request RTF p50/p95 and a profile of 4 decode
-              frames of each; each seeded request is run again alone on a
-              fresh batcher and must give the same codes; the int8
-              serving engine (the batched frame's int8 body) takes part
-              in the turns (auto, xla, int8, int8, xla, auto), with its
-              own launch counts, profile and seeded requests alone;
+              the slow step's row sequence and the batched fast-frame
+              kernel (`auto`), on the unfused slow step and the batched
+              kernel (`slow_impl="xla"`: the A/B that decides whether
+              `auto` picks the row sequence) and on the unfused codebook
+              loop (`fast_frame_impl="xla"`) in turns, with frames/s,
+              per-request RTF p50/p95 and a profile of 4 decode frames
+              of each; launch counts (the row sequence's 5 L + 1 a
+              decode step, no decode attention on `auto`); each seeded
+              request is run again alone on a fresh batcher and must give
+              the same codes; the int8 serving engine (the int8 bodies of
+              the row sequence and the batched frame) takes part in the
+              turns (auto, slow_xla, xla, int8, int8, xla, slow_xla,
+              auto), with its own launch counts, profile and seeded
+              requests alone;
   7. int8     the int8 proxy of bench.py --int8-proxy at full size on the
               same weights: teacher-forced and free-running agreement of
               the int8 and bf16 engines, mel-L1 and SNR of the two
@@ -219,7 +234,7 @@ def device_ms(torch, fn, calls: int = 50, replays: int = 10) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):  # the warm-up's stream, whose sync state exists
         for _ in range(calls):
             fn()
     graph.replay()
@@ -838,7 +853,7 @@ def check_stack_contract(torch, engine, fast: bool, name: str, ms: float, bound_
         call()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         captured = call() if fast else call(caches=(ck, cv))
     for _ in range(3):
         if not fast:
@@ -887,6 +902,188 @@ def check_stack_contract(torch, engine, fast: bool, name: str, ms: float, bound_
             "kv_exchanges_per_call": card_exchanges * (launched // 5),
             "launches_per_call": (launched + sampled) // 5,
             "share_of_bound": bound_ms / ms}
+
+
+def rows_bound(cfg, int8: bool, head_cols: int, positions):
+    """(ms, "bytes" or "operations", bytes) of one slow step of len(positions)
+    rows: the weights (int8 ones with their scales), the final norm and
+    the head read once; each row's x0, pos, RoPE rows and K/V rows 0..p-1
+    read once; its new K/V rows, logits and hidden written once."""
+    n_layer, d, kv, hd = cfg.n_layer, cfg.dim, cfg.n_local_heads, cfg.head_dim
+    weights = n_layer * layer_elems(cfg) + d + d * head_cols
+    nbytes = n_layer * layer_bytes(cfg, int8) + 2 * (d + d * head_cols)
+    flops = 0
+    for p in positions:
+        nbytes += (2 * d + 4 + 4 * hd + 2 * n_layer * 2 * kv * p * hd + 2 * n_layer * 2 * kv * hd
+                   + 4 * head_cols + 2 * d)
+        flops += 2 * (weights - (2 * n_layer + 1) * d) + n_layer * 4 * cfg.n_head * (p + 1) * hd
+    return (*bound(nbytes, flops), nbytes)
+
+
+def device_kernels(prof) -> list:
+    """The CUDA kernels of a torch.profiler run, with their device time."""
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")
+            and getattr(e, "self_device_time_total", 0) > 0]
+
+
+def log_top_kernels(phase: str, kernels, n: int, unit: str, top: int = 8) -> None:
+    """The `top` kernels by device time, per `unit` of the n profiled."""
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        log(phase, f"  {e.self_device_time_total / 1e3 / n:8.4f} ms/{unit} "
+            f"{e.count / n:6.1f}x  {e.key[:90]}")
+
+
+def check_slow_step_rows(torch, engine, params32) -> dict:
+    """The fused slow step's row sequence (csrc/slow_step_rows.cu), which
+    the serving engine's `auto` runs at 16 rows: at B = 16, cache 512 and
+    serving positions 39-167, and at B = 32 and 64 (two groups of 32) on
+    cache 256, each held to the plain version's distance to a float32
+    evaluation (as the persistent kernel is) with the other cache rows
+    bit-equal; the launches its C entry counts (5 L + 1 a group) against
+    the mirror; each of 16 rows alone (`rows_step`, one row) bit-equal to
+    itself among 16; then timed in a CUDA graph against the byte bound,
+    beside the plain version and the unfused step
+    (`models/dual_ar.py::slow_decode_step`, the path it replaces)."""
+    from fish_speech_tpu_torch.models.dual_ar import KVCache, slow_decode_step
+    from fish_speech_tpu_torch.ops import slow_step as ss
+
+    cfg, params, rope = engine.cfg, engine.params, engine.rope
+    int8 = is_int8(engine)
+    name = "slow_step_rows_int8" if int8 else "slow_step_rows"
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(77)
+    n_layer, kv, hd = cfg.n_layer, cfg.n_local_heads, cfg.head_dim
+    head_cols = params["output"].shape[1]
+    head_rows = engine.rows_head
+    check(head_rows is not None and tuple(head_rows.shape) == (cfg.dim, ss.head_stride(head_cols))
+          and torch.equal(head_rows[:, :head_cols], params["output"])
+          and not bool(head_rows[:, head_cols:].any()),
+          f"{name}: the engine's padded head {None if head_rows is None else head_rows.shape}")
+
+    def inputs(b, s, positions=None):
+        if positions is None:  # the serving positions: 39 (a 40-token prompt) to 167
+            positions = torch.randperm(129, generator=gen, device=dev)[:b] + 39
+        ids = torch.randint(0, cfg.vocab_size, (b,), generator=gen, device=dev)
+        shape = (n_layer, b, kv, s, hd)
+        rnd = lambda: (torch.randn(shape, generator=gen, device=dev) * 0.5).to(torch.bfloat16)  # noqa: E731
+        return (params["embeddings"][ids].contiguous(),
+                torch.as_tensor(positions, device=dev).to(torch.int32), rnd(), rnd())
+
+    worst = {}
+    # serving; one group of 32; two groups; and 8 rows of a cache whose
+    # keys past 1024 lie beyond the first 4 steps of a rank's tiles
+    cases = ((16, SERVE_CACHE, None), (32, 256, [(37 * i + 5) % 256 for i in range(31)] + [255]),
+             (64, 256, [(53 * i + 11) % 256 for i in range(63)] + [255]),
+             (8, 2048, [0, 255, 256, 1023, 1024, 1500, 2000, 2047]))
+    for b, s, positions in cases:
+        x0, pos, ck, cv = inputs(b, s, positions)
+        ckp, cvp, ck32, cv32 = ck.clone(), cv.clone(), ck.float(), cv.float()
+        before, before8 = ss.rows_launches, ss.rows_int8_launches
+        got_l, got_h = ss.fused_slow_step(params, cfg, x0, pos, ck, cv, rope, head_rows=head_rows)
+        launched = ss.rows_launches - before
+        launched8 = ss.rows_int8_launches - before8
+        pl_l, pl_h = ss.fused_slow_step_plain(params, cfg, x0, pos, ckp, cvp, rope)
+        ref_l, ref_h = ss.fused_slow_step_plain(params32, cfg, x0.float(), pos, ck32, cv32, rope)
+        torch.cuda.synchronize()
+        what = f"{name} B={b} cache {s}"
+        want = ss.rows_launches_per_step(n_layer, b)
+        check(launched == want and launched8 == (want if int8 else 0),
+              f"{what}: the C entry counted {launched} launches ({launched8} int8), the mirror "
+              f"{want}")
+        check(tuple(got_l.shape) == (b, head_cols) and bool(torch.isfinite(got_l).all()),
+              f"{what}: logits {tuple(got_l.shape)} not finite or misshaped")
+        rows, p = torch.arange(b, device=dev), pos.long()
+        errs = {
+            "logits": as_accurate(f"{what} logits", got_l, pl_l, ref_l),
+            "hidden": as_accurate(f"{what} hidden", got_h, pl_h, ref_h),
+            "new k rows": as_accurate(f"{what} new k rows", ck[:, rows, :, p], ckp[:, rows, :, p],
+                                      ck32[:, rows, :, p]),
+            "new v rows": as_accurate(f"{what} new v rows", cv[:, rows, :, p], cvp[:, rows, :, p],
+                                      cv32[:, rows, :, p]),
+        }
+        for kv_name, got_c, pl_c in (("k", ck, ckp), ("v", cv, cvp)):
+            rest = got_c.clone()
+            rest[:, rows, :, p] = pl_c[:, rows, :, p]
+            check(torch.equal(rest, pl_c), f"{what}: {kv_name} cache rows other than pos changed")
+        vs_plain = float((got_l - pl_l).abs().max())
+        for k, v in errs.items():
+            worst[k] = max(worst.get(k, (0.0, 0.0)), v)
+        worst["vs_plain"] = max(worst.get("vs_plain", 0.0), vs_plain)
+        log("kernels", f"{what}: {launched} launches ({want // -(-b // ss.ROWS_GROUP)} a group of "
+            f"<= {ss.ROWS_GROUP} rows, counted by the C entry); max abs distance to the float32 "
+            "evaluation, kernel | plain: "
+            + ", ".join(f"{k} {a:.4f} | {c:.4f}" for k, (a, c) in errs.items())
+            + f"; other cache rows bit-equal; kernel vs plain: logits {vs_plain:.4f}")
+
+    # a row alone through the same sequence, bit-equal to itself among 16
+    x0, pos, ck, cv = inputs(SERVE_ROWS, SERVE_CACHE)
+    k16, v16 = ck.clone(), cv.clone()
+    l16, h16 = ss.fused_slow_step(params, cfg, x0, pos, k16, v16, rope, head_rows=head_rows)
+    for r in range(SERVE_ROWS):
+        k1, v1 = ck[:, r:r + 1].contiguous(), cv[:, r:r + 1].contiguous()
+        l1, h1 = ss.rows_step(params, cfg, x0[r:r + 1].clone(), pos[r:r + 1].clone(), k1, v1,
+                              rope, head_rows=head_rows)
+        check(torch.equal(l1[0], l16[r]) and torch.equal(h1[0], h16[r])
+              and torch.equal(k1[:, 0], k16[:, r]) and torch.equal(v1[:, 0], v16[:, r]),
+              f"{name}: row {r} (pos {int(pos[r])}) alone differs from the same row among 16")
+    log("kernels", f"{name}: each of {SERVE_ROWS} rows alone bit-equal to itself among "
+        f"{SERVE_ROWS} (logits, hidden, its cache rows)")
+
+    kernel = lambda: ss.fused_slow_step(params, cfg, x0, pos, ck, cv, rope,  # noqa: E731
+                                        head_rows=head_rows)
+    ms = device_ms(torch, kernel, calls=10, replays=5)
+    call_ms = eager_ms(torch, kernel, 10)
+    plain_ms = device_ms(
+        torch, lambda: ss.fused_slow_step_plain(params, cfg, x0, pos, ck, cv, rope),
+        calls=2, replays=3)
+    prev = torch.randint(0, cfg.codebook_size, (SERVE_ROWS, cfg.num_codebooks + 1),
+                         generator=gen, device=dev, dtype=torch.int32)
+    cache = KVCache(k=ck, v=cv)
+    unfused_ms = device_ms(
+        torch, lambda: slow_decode_step(params, cfg, engine.token_cfg, prev, cache, pos, rope),
+        calls=3, replays=3)
+    bound_ms, bound_by, nbytes = rows_bound(cfg, int8, head_cols, pos.tolist())
+    times = {}
+    for b, s, positions in cases[1:3]:
+        xb, posb, ckb, cvb = inputs(b, s, positions)
+        times[b] = device_ms(torch, lambda: ss.fused_slow_step(
+            params, cfg, xb, posb, ckb, cvb, rope, head_rows=head_rows), calls=5, replays=3)
+        b_ms = rows_bound(cfg, int8, head_cols, posb.tolist())[0]
+        log("kernels", f"{name} B={b} cache {s}: kernel {times[b]:.4f} ms, bound {b_ms:.6f} ms "
+            f"({100 * b_ms / times[b]:.1f}% of it)")
+    # where a step's device time goes, by kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            kernel()
+        torch.cuda.synchronize()
+    log("kernels", f"{name} B={SERVE_ROWS}: a step's kernels under torch.profiler (3 steps):")
+    log_top_kernels("kernels", device_kernels(prof), 3, "step", top=6)
+    per_step = ss.rows_launches_per_step(n_layer, SERVE_ROWS)
+    log("kernels", f"{name} B={SERVE_ROWS} cache {SERVE_CACHE} pos 39-167 ({n_layer} layers, "
+        f"{'int8' if int8 else 'bf16'}, {per_step} launches a step): kernel {ms:.4f} ms (eager "
+        f"call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, unfused step "
+        f"(slow_decode_step) {unfused_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, "
+        f"{nbytes / 1e6:.1f} MB): {100 * bound_ms / ms:.1f}% of the bound")
+    return {
+        "name": name, "route": "cuda",
+        "source": "fish_speech_tpu_torch/csrc/slow_step_rows.cu",
+        "replaces": "fish_speech_tpu/ops/slow_step_pallas.py:" + ("152" if int8 else "447"),
+        "max_abs_err": worst["vs_plain"],
+        "err_vs_float32": {k: list(v) for k, v in worst.items() if k != "vs_plain"},
+        "ms": ms, "kernel_ms": ms, "eager_call_ms": call_ms,
+        "kernel_ms_at_batch": {str(k): v for k, v in times.items()},
+        "plain_ms": plain_ms, "unfused_step_ms": unfused_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "share_of_bound": bound_ms / ms, "library_ms": None,
+        "launches_per_step": per_step,
+        "shape": f"x0 ({SERVE_ROWS},{cfg.dim}), {n_layer} layers ({'int8' if int8 else 'bf16'}), "
+                 f"head ({cfg.dim},{head_cols}) padded to {ss.head_stride(head_cols)}, cache "
+                 f"({n_layer},{SERVE_ROWS},{kv},{SERVE_CACHE},{hd}) bf16, pos 39-167",
+    }
 
 
 def exact_fast_params(torch, params, cfg):
@@ -1325,6 +1522,10 @@ def build_models(torch):
     serving = {impl: LMEngine(params, cfg, tok, WhichLM.FISH_1_5, fast_frame_impl=impl,
                               **serve_kw)
                for impl in ("auto", "xla")}
+    # the unfused slow step beside the batched fast frame: the serving
+    # path before the row sequence, against which the A/B sets `auto`
+    serving["slow_xla"] = LMEngine(params, cfg, tok, WhichLM.FISH_1_5, slow_impl="xla",
+                                   **serve_kw)
     t1 = time.perf_counter()
     int8 = {"batch1": LMEngine(params, cfg, tok, WhichLM.FISH_1_5, max_frames=N_FRAMES,
                                prompt_buckets=(64,), quantize_int8=True),
@@ -1335,20 +1536,25 @@ def build_models(torch):
     check(fused.use_fused_slow and fused.use_fused_fast,
           "the default engine on CUDA at batch 1 is not on the fused path")
     check(not (unfused.use_fused_slow or unfused.use_fused_fast), "the xla engine is fused")
-    check(serving["auto"].use_fused_fast and not serving["auto"].use_fused_slow,
-          "the serving engine's auto path is not the batched fast frame + unfused slow step")
-    check(not serving["xla"].use_fused_fast, "the xla serving engine is fused")
+    check(serving["auto"].use_fused_fast and serving["auto"].use_fused_slow,
+          "the serving engine's auto path is not the batched fast frame + the slow step's "
+          "row sequence")
+    check(serving["slow_xla"].use_fused_fast and not serving["slow_xla"].use_fused_slow,
+          "the slow_xla serving engine is not the batched fast frame + unfused slow step")
+    check(not serving["xla"].use_fused_fast, "the xla serving engine's codebook loop is fused")
     check(int8["batch1"].use_fused_slow and int8["batch1"].use_fused_fast,
           "the int8 engine on CUDA at batch 1 is not on the fused path")
-    check(int8["serving"].use_fused_fast and not int8["serving"].use_fused_slow,
-          "the int8 serving engine's auto path is not the batched fast frame")
+    check(int8["serving"].use_fused_fast and int8["serving"].use_fused_slow,
+          "the int8 serving engine's auto path is not the batched fast frame + row sequence")
     codec = FireflyCodec(codec_params, codec_cfg)
     torch.cuda.synchronize()
     log("main", f"Fish-1.5 bf16 params (seed 0) + Firefly-1.5 bf16 codec (seed 1) on the card "
         f"in {time.perf_counter() - t0:.1f}s; cache_len {fused.cache_len}; engines: auto "
         f"(fused slow step + fused fast frame), xla (unfused), and {SERVE_ROWS}-row serving "
-        f"engines (cache {SERVE_CACHE}) auto (batched fast frame) and xla; int8 batch-1 and "
-        f"serving auto engines, {quant_s:.2f}s each to quantize on the card")
+        f"engines (cache {SERVE_CACHE}) auto (the slow step's row sequence + batched fast "
+        f"frame), slow_xla (unfused slow step + batched fast frame) and xla (unfused codebook "
+        f"loop); int8 batch-1 and serving auto engines, {quant_s:.2f}s each to quantize on the "
+        f"card")
     check_card_quantization(torch, params, int8["batch1"])
     return fused, unfused, serving, int8, codec, tok, codec_cfg, params
 
@@ -1531,10 +1737,7 @@ def run_long_prefill(torch, np, params, cfg, tok) -> dict:
                  acc_events=True) as prof:
         engine.prefill(state, prompt, sampling)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) is not None
-               and str(e.device_type).endswith("CUDA")
-               and getattr(e, "self_device_time_total", 0) > 0]
+    kernels = device_kernels(prof)
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     attn_ms = sum(e.self_device_time_total for e in kernels if "prefill_" in e.key
                   and ("attention_kernel" in e.key or "combine_kernel" in e.key)) / 1e3
@@ -1568,18 +1771,13 @@ def profile_decode(torch, engine, state, sampling, label: str, frames: int = 8) 
             state, _ = engine.decode_step(state, sampling)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / frames
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) is not None
-               and str(e.device_type).endswith("CUDA")
-               and getattr(e, "self_device_time_total", 0) > 0]
+    kernels = device_kernels(prof)
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / frames
     launches = sum(e.count for e in kernels) / frames
     log("profile", f"{label}: decode frame under torch.profiler: wall {wall_ms:.2f} ms, device "
         f"kernels {dev_ms:.3f} ms ({launches:.0f} launches), device busy "
         f"{100 * dev_ms / wall_ms:.1f}%")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log("profile", f"  {e.self_device_time_total / 1e3 / frames:8.4f} ms/frame "
-            f"{e.count / frames:6.1f}x  {e.key[:90]}")
+    log_top_kernels("profile", kernels, frames, "frame")
 
 
 def compare_decode_step(torch, engine, state) -> None:
@@ -1718,28 +1916,26 @@ def profile_serving(torch, np, engine, label: str, frames: int = 4) -> None:
         engine.decode_chunk(state, sampling, frames)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / frames
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) is not None
-               and str(e.device_type).endswith("CUDA")
-               and getattr(e, "self_device_time_total", 0) > 0]
+    kernels = device_kernels(prof)
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / frames
     launches = sum(e.count for e in kernels) / frames
     log("profile", f"serving {label}: {engine.batch_size}-row decode frame under "
         f"torch.profiler: wall {wall_ms:.2f} ms, device kernels {dev_ms:.3f} ms "
         f"({launches:.0f} launches), device busy {100 * dev_ms / wall_ms:.1f}%")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log("profile", f"  {e.self_device_time_total / 1e3 / frames:8.4f} ms/frame "
-            f"{e.count / frames:6.1f}x  {e.key[:90]}")
+    log_top_kernels("profile", kernels, frames, "frame")
 
 
 def run_serving(torch, np, serving, codec, tok, codec_cfg):
-    """The serving phase: serving["auto"] (bf16, the batched kernel),
-    serving["xla"] (bf16, the unfused codebook loop) and serving["int8"]
-    (the batched kernel's int8 body) in turns: auto, xla, int8, int8, xla,
-    auto; the launch counts of the first auto run and of the first int8
-    run; each seeded request alone on a fresh batcher of auto and of
-    int8; profiles. Returns {kernel: launches}: the bf16 kernels' on the
-    first auto run, the int8 body's on the first int8 run."""
+    """The serving phase, in turns: auto, slow_xla, xla, int8, int8, xla,
+    slow_xla, auto. serving["auto"] (bf16): the slow step's row sequence
+    and the batched fast frame; serving["slow_xla"]: the unfused slow step
+    and the batched fast frame (the A/B that decides `auto`);
+    serving["xla"]: the unfused codebook loop; serving["int8"]: the int8
+    bodies of the row sequence and the batched frame. The launch counts of
+    the first run of each but xla; each seeded request alone on a fresh
+    batcher of auto and of int8; profiles. Returns {kernel: launches}:
+    the bf16 kernels' on the first auto run, the int8 bodies' on the first
+    int8 run."""
     from fish_speech_tpu_torch.generate.continuous import ContinuousBatcher
     from fish_speech_tpu_torch.ops import decode_attention as da
     from fish_speech_tpu_torch.ops import fast_frame as ff
@@ -1749,38 +1945,56 @@ def run_serving(torch, np, serving, codec, tok, codec_cfg):
     from fish_speech_tpu_torch.ops.sampling import SamplingArgs
 
     reqs = serving_requests(np, serving["auto"].cfg)
+    n_layer = serving["auto"].cfg.n_layer
     mods = {"decode_attention": da, "prefill_attention": pa, "fused_slow_step": ss,
             "fused_fast_frame": ff, "fused_fast_frame_batched": fb}
-    runs = {"auto": [], "xla": [], "int8": []}
+    runs = {"auto": [], "slow_xla": [], "xla": [], "int8": []}
     first, counted = {}, {}
-    for impl in ("auto", "xla", "int8", "int8", "xla", "auto"):
+    for impl in ("auto", "slow_xla", "xla", "int8", "int8", "xla", "slow_xla", "auto"):
         counting = impl != "xla" and impl not in counted
         if counting:
             for m in mods.values():
                 m.launches = 0
                 m.int8_launches = 0
+            ss.rows_launches = ss.rows_int8_launches = 0
         res, fps, p50 = serving_run(torch, np, serving[impl], codec, tok, codec_cfg, reqs,
                                     f"{impl} run {len(runs[impl]) + 1}")
         if counting:
             launches = {name: m.launches for name, m in mods.items()}
+            launches["slow_step_rows"] = ss.rows_launches
             int8 = {name: getattr(m, "int8_launches", 0) for name, m in mods.items()}
+            int8["slow_step_rows"] = ss.rows_int8_launches
             log("serving", f"{impl} run 1 launches (warm-up request included) "
-                f"{json.dumps(launches)}, of them int8 bodies {int8['fused_fast_frame_batched']}")
-            want_int8 = launches["fused_fast_frame_batched"] if impl == "int8" else 0
-            check(launches["fused_fast_frame_batched"] > 0 and launches["decode_attention"] > 0
+                f"{json.dumps(launches)}, of them int8 bodies "
+                f"{json.dumps({k: int8[k] for k in ('fused_fast_frame_batched', 'slow_step_rows')})}")
+            frames = launches["fused_fast_frame_batched"]  # one a decode step
+            rows = 0 if impl == "slow_xla" else ss.rows_launches_per_step(n_layer, SERVE_ROWS)
+            want_int8 = impl == "int8"
+            check(frames > 0 and launches["slow_step_rows"] == rows * frames
+                  and (launches["decode_attention"] > 0) == (impl == "slow_xla")
                   and launches["fused_fast_frame"] == 0 and launches["fused_slow_step"] == 0
-                  and int8["fused_fast_frame_batched"] == want_int8,
-                  f"the serving {impl} path launched {launches} (int8 bodies {int8})")
-            counted[impl] = launches if impl == "auto" else {
-                "fused_fast_frame_batched_int8": int8["fused_fast_frame_batched"]}
+                  and int8["fused_fast_frame_batched"] == (frames if want_int8 else 0)
+                  and int8["slow_step_rows"] == (rows * frames if want_int8 else 0),
+                  f"the serving {impl} path launched {launches} (int8 bodies {int8}) in "
+                  f"{frames} decode steps")
+            counted[impl] = {
+                "auto": lambda: launches,
+                "slow_xla": lambda: {},
+                "int8": lambda: {"fused_fast_frame_batched_int8": int8["fused_fast_frame_batched"],
+                                 "slow_step_rows_int8": int8["slow_step_rows"]},
+            }[impl]()
             first[impl] = res
         runs[impl].append((fps, p50))
     mean = {k: (sum(f for f, _ in v) / len(v), sum(p for _, p in v) / len(v))
             for k, v in runs.items()}
-    log("serving", f"A/B (two runs each, in turns): auto (batched kernel) {mean['auto'][0]:.1f} "
-        f"frames/s, RTF p50 {mean['auto'][1]:.4f}; xla (unfused codebook loop) "
-        f"{mean['xla'][0]:.1f} frames/s, RTF p50 {mean['xla'][1]:.4f}; int8 auto "
-        f"{mean['int8'][0]:.1f} frames/s, RTF p50 {mean['int8'][1]:.4f}")
+    verdict = "holds" if mean["auto"][0] >= mean["slow_xla"][0] else "FAILS"
+    log("serving", f"A/B (two runs each, in turns): auto (row sequence + batched kernel) "
+        f"{mean['auto'][0]:.1f} frames/s, RTF p50 {mean['auto'][1]:.4f}; slow_xla (unfused "
+        f"slow step + batched kernel) {mean['slow_xla'][0]:.1f} frames/s, RTF p50 "
+        f"{mean['slow_xla'][1]:.4f}; xla (unfused codebook loop) {mean['xla'][0]:.1f} "
+        f"frames/s, RTF p50 {mean['xla'][1]:.4f}; int8 auto {mean['int8'][0]:.1f} frames/s, "
+        f"RTF p50 {mean['int8'][1]:.4f}. auto's pick of the fused slow step at "
+        f"{SERVE_ROWS} rows (at least slow_xla's aggregate frames/s): {verdict}")
 
     for impl in ("auto", "int8"):
         batcher = ContinuousBatcher(serving[impl], SamplingArgs(**SAMPLING),
@@ -1794,8 +2008,9 @@ def run_serving(torch, np, serving, codec, tok, codec_cfg):
         finally:
             batcher.shutdown()
         log("serving", f"{impl}: seeded requests {list(SERVE_SEEDED)}: the same codes alone on "
-            f"a fresh batcher as among {SERVE_REQUESTS - 1} co-tenants")
-    for impl in ("auto", "xla", "int8"):
+            f"a fresh batcher as among {SERVE_REQUESTS - 1} co-tenants (the row sequence and "
+            f"the batched frame)")
+    for impl in ("auto", "slow_xla", "xla", "int8"):
         profile_serving(torch, np, serving[impl], impl)
     return {**counted["auto"], **counted["int8"]}
 
@@ -1864,16 +2079,16 @@ def log_ptxas(nvcc_log: str) -> None:
     once, with the sources that compile it."""
     units, lines = {}, {}
     unit, kernel = "?", "?"
-    types = {"a": "int8", "13__nv_bfloat16": "bf16"}
+    types = {"a": "int8", "13__nv_bfloat16": "bf16", "Lb0E": "false", "Lb1E": "true"}
     for line in nvcc_log.splitlines():
         if line.startswith("== "):
             unit = line[3:].strip()
             continue
         entry = re.search(
-            r"Compiling entry function '.*?([a-z_]+_kernel)(I(?:Li-?\d+E|13__nv_bfloat16|a)+E)?",
+            r"Compiling entry function '.*?([a-z_]+_kernel)(I(?:Li-?\d+E|Lb[01]E|13__nv_bfloat16|a)+E)?",
             line)
         if entry:
-            args = re.findall(r"Li(-?\d+)E|(13__nv_bfloat16|a)", entry.group(2) or "")
+            args = re.findall(r"Li(-?\d+)E|(13__nv_bfloat16|a|Lb[01]E)", entry.group(2) or "")
             args = [n or types[t] for n, t in args]
             kernel = entry.group(1) + (f"<{','.join(args)}>" if args else "")
             units.setdefault(kernel, []).append(unit)
@@ -1935,7 +2150,8 @@ def main() -> int:
             params32 = float32_copy(batch1.params)
             kernels += [check_slow_step(torch, batch1, params32, main_pos),
                         check_fast_frame(torch, batch1, params32),
-                        check_fast_frame_batched(torch, rows, params32)]
+                        check_fast_frame_batched(torch, rows, params32),
+                        check_slow_step_rows(torch, rows, params32)]
             del params32
     launches, bf16_stats = run_main_path(torch, np, fused, unfused, codec, tok, codec_cfg)
     with torch.inference_mode():
@@ -1944,7 +2160,8 @@ def main() -> int:
     launches.update(run_int8_main_path(torch, np, int8["batch1"], fused, bf16_stats, codec, tok,
                                        codec_cfg))
     served = run_serving(torch, np, dict(serving, int8=int8["serving"]), codec, tok, codec_cfg)
-    for name in ("fused_fast_frame_batched", "fused_fast_frame_batched_int8"):
+    for name in ("fused_fast_frame_batched", "fused_fast_frame_batched_int8", "slow_step_rows",
+                 "slow_step_rows_int8"):
         launches[name] = served[name]
     run_int8_proxy(torch, np, fused, int8["batch1"], params, codec, codec_cfg)
     for k in kernels:

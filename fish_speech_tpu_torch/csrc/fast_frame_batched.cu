@@ -85,6 +85,7 @@
 
 #include <cooperative_groups.h>
 
+#include "c_entries.cuh"
 #include "codebook_sampler.cuh"
 #include "dual_ar_layer.cuh"
 
@@ -575,7 +576,10 @@ cudaError_t launch_rows_gemm(int nb, const bf16* in, const bf16* norm_w, const W
                              cudaStream_t st) {
   constexpr int ELEMS = 16 / (int)sizeof(W);
   const RowsPlan p = rows_plan(K, N, MODE, std::is_same<W, int8_t>::value);
-  if (K < 1 || K % 8 || N % ELEMS || ldw % ELEMS || p.smem > RG_MAX_SMEM ||
+  // a row is read in 16-byte pieces up to N rounded up to a whole piece:
+  // a ragged N (the slow head's 1025 columns) needs a stride padded past it
+  if (K < 1 || K % 8 || N < 1 || ldw % ELEMS || ldw < (N + ELEMS - 1) / ELEMS * ELEMS ||
+      p.smem > RG_MAX_SMEM ||
       reinterpret_cast<uintptr_t>(in) % 16 ||
       (norm_w != nullptr && reinterpret_cast<uintptr_t>(norm_w) % 16) ||
       reinterpret_cast<uintptr_t>(w) % 16 || (w_b != nullptr && reinterpret_cast<uintptr_t>(w_b) % 16))
@@ -795,13 +799,15 @@ int rows_gemm_entry(int mode, const void* in, const void* norm_w, const void* w,
 
 }  // namespace
 
-// One rows_gemm launch, as the frame makes it (for the card's checks and
-// timings): mode 0..3 = kQkv, kResidual, kSwiglu, kHead. in (nb, K) bf16;
+// One rows_gemm launch, as the frame and the slow step's row sequence
+// (slow_step_rows.cu) make it, and for the card's checks and timings:
+// mode 0..3 = kQkv, kResidual, kSwiglu, kHead. in (nb, K) bf16;
 // norm_w (K,) bf16 in the norm modes (all but kResidual); w (K rows of
-// stride ldw) and, for kSwiglu, w_b: bf16, or int8 when scale (and, for
-// kSwiglu, scale_b) (N,) bf16 is given; kHead takes bf16 only. out (nb, N)
-// bf16, updated in place for kResidual; out_f32 (nb, N) f32 for kHead.
-// Returns the launch's CUDA error (0 on success).
+// stride ldw >= N rounded up to 16 bytes) and, for kSwiglu, w_b: bf16, or
+// int8 when scale (and, for kSwiglu, scale_b) (N,) bf16 is given; kHead
+// takes bf16 only. out (nb, N) bf16, updated in place for kResidual;
+// out_f32 (nb, N) f32 for kHead. Returns the launch's CUDA error (0 on
+// success).
 extern "C" int fs_rows_gemm(int mode, const void* in, const void* norm_w, const void* w,
                             const void* w_b, const void* scale, const void* scale_b, int nb,
                             int K, int N, int ldw, float eps, void* out, void* out_f32,

@@ -15,10 +15,15 @@ engines of continuous serving:
 
 The decode path follows the JAX engine's choice:
 
-* `slow_impl` "fused": `ops/slow_step.py::fused_slow_step` (B <= 4 on
-  CUDA); "xla", the JAX engine's name for the unfused path:
-  `models/dual_ar.py::slow_decode_step` with `ops/decode_attention.py`;
-  "auto" (default): fused on CUDA at batch 1, unfused otherwise.
+* `slow_impl` "fused": `ops/slow_step.py::fused_slow_step` (on CUDA the
+  persistent kernel at 1-4 rows, the row sequence at 5 and more, within
+  the JAX kernel's bounds); "xla", the JAX engine's name for the unfused
+  path: `models/dual_ar.py::slow_decode_step` with
+  `ops/decode_attention.py`; "auto" (default): fused on CUDA at batch 1
+  and at 5 rows and more, unfused otherwise. The JAX `auto` leaves the
+  batched kernel off for a TPU reason (its per-row flat-lane attention
+  expansion); on the H100 the fused 16-row step served more frames a
+  second than the unfused one (`chip_smoke.py`'s serving A/B, PERF.md).
 * `fast_frame_impl` "fused": one call for the codebook loop,
   `ops/fast_frame.py::fused_fast_frame` (static, batch 1) or
   `ops/fast_frame_batched.py::fused_fast_frame_batched` (dynamic, B <=
@@ -75,6 +80,7 @@ from fish_speech_tpu_torch.models.dual_ar import (
     slow_decode_step,
     slow_prefill,
 )
+from fish_speech_tpu_torch.ops import decode_stack
 from fish_speech_tpu_torch.ops.fast_frame import fused_fast_frame_supported
 from fish_speech_tpu_torch.ops.fast_frame_batched import fused_fast_frame_batched_supported
 from fish_speech_tpu_torch.ops.quant import is_quantized, quantize_lm_params
@@ -84,7 +90,8 @@ from fish_speech_tpu_torch.ops.sampling import (
     RowSampling,
     SamplingArgs,
 )
-from fish_speech_tpu_torch.ops.slow_step import fused_slow_step, fused_slow_step_supported
+from fish_speech_tpu_torch.ops.slow_step import (
+    MAX_BATCH as PERSISTENT_ROWS, fused_slow_step, fused_slow_step_supported, padded_head)
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
 
@@ -216,7 +223,13 @@ class LMEngine:
         self.use_fused_slow = self._pick(
             "slow_impl", slow_impl,
             fused_slow_step_supported(cfg, self.params, batch_size, self.cache_len),
-            on_cuda and batch_size == 1)
+            on_cuda and (batch_size == 1 or batch_size > PERSISTENT_ROWS))
+        # the row sequence's head, padded to whole 16-byte pieces once here
+        self.rows_head = (padded_head(self.params["output"])
+                          if on_cuda and self.use_fused_slow and batch_size > PERSISTENT_ROWS
+                          else None)
+        # the persistent kernels' grid sync state, this engine's own
+        self.sync_state = decode_stack.new_sync_state(self.device)
         if dynamic_sampling:
             fast_ok = fused_fast_frame_batched_supported(cfg, self.params, batch_size,
                                                          self.dyn_top_k_cap)
@@ -406,7 +419,7 @@ class LMEngine:
                               state.prev[:, :, None])[:, 0, :]
             logits, hidden = fused_slow_step(
                 self.params, self.cfg, x0, state.pos, state.cache.k, state.cache.v,
-                self.rope)
+                self.rope, head_rows=self.rows_head, sync=self.sync_state)
         else:
             logits, hidden = slow_decode_step(
                 self.params, self.cfg, self.token_cfg, state.prev, state.cache,
@@ -415,7 +428,7 @@ class LMEngine:
             self.params, self.cfg, self.token_cfg, self.lm, sampling, logits, hidden,
             state.rep_pen, state.prev, noise, self.rope, use_fused_fast=self.use_fused_fast,
             samp=state.samp if self.dynamic_sampling else None,
-            dyn_top_k_cap=self.dyn_top_k_cap)
+            dyn_top_k_cap=self.dyn_top_k_cap, sync_state=self.sync_state)
         eos_frame = torch.zeros_like(state.prev)
         eos_frame[:, 0] = self.token_cfg.im_end_id
         frame = torch.where(state.done[:, None], eos_frame, res.tokens)

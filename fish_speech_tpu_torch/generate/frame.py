@@ -184,7 +184,8 @@ def generate_frame(params, cfg: DualARConfig, token_cfg: TokenConfig, lm: WhichL
                    rep_pen: RepPenWindow, prev_tokens: Optional[torch.Tensor],
                    noise: Optional[FrameNoise], rope,
                    use_fused_fast: bool = False, samp: Optional[RowSampling] = None,
-                   dyn_top_k_cap: int = 256) -> FrameResult:
+                   dyn_top_k_cap: int = 256,
+                   sync_state: Optional[torch.Tensor] = None) -> FrameResult:
     """Sample the semantic token, then run the fast transformer over the
     codebook axis. prev_tokens: the previous frame (B, C+1), or None on
     the prefill frame; noise: None only in static argmax mode (Fish 1.5 /
@@ -195,7 +196,8 @@ def generate_frame(params, cfg: DualARConfig, token_cfg: TokenConfig, lm: WhichL
     by 1.0) unless depthwise_wte, and noise has the dynamic layout.
     use_fused_fast: the whole codebook loop is one call fed the same
     draws, `ops.fast_frame` (static, batch 1) or `ops.fast_frame_batched`
-    (dynamic)."""
+    (dynamic). sync_state: the batch-1 kernel's grid sync state (the
+    engine's own)."""
     dynamic = samp is not None
     if noise is None and (dynamic or not sampling.is_argmax or is_legacy(lm)):
         raise ValueError("generate_frame: this frame needs noise")
@@ -219,7 +221,7 @@ def generate_frame(params, cfg: DualARConfig, token_cfg: TokenConfig, lm: WhichL
     if use_fused_fast:
         gumbel = None if sampling.is_argmax else torch.cat(noise.codebooks)  # (C, k_eff)
         toks = fused_fast_frame(params, cfg, sampling, hidden, rep_pen.tokens[0], gumbel,
-                                is_eos, rope, rep_enabled=rep_pen_enabled)
+                                is_eos, rope, rep_enabled=rep_pen_enabled, sync=sync_state)
         frame = torch.cat([semantic[:, None], toks[None, :]], dim=1)
         return FrameResult(tokens=frame, is_eos=is_eos, rep_pen=rep_pen)
 

@@ -59,6 +59,11 @@ SIGNATURES = {
     # cos, sin, ck, cv, logits, hidden, scratch, state,
     # B, L, D, H, KV, F, W, S, scratch_bytes, eps, stream
     "fs_slow_step": [_P] * 24 + [_I] * 9 + [_F, _P],
+    # x0, pos, attn_norm, ffn_norm, 5 weights, 5 scales, norm, head (padded),
+    # cos, sin, ck, cv, logits, hidden, qkv, attn, ffn (scratch),
+    # B, L, D, H, KV, F, W, head_ld, S, cluster, eps, stream,
+    # launched (1 int out)
+    "fs_slow_step_rows": [_P] * 25 + [_I] * 10 + [_F, _P, _P],
     # hidden, attn_norm, ffn_norm, 5 weights, 5 scales, fast_norm, head,
     # emb, cos, sin, window, gumbel, is_eos, tokens, logits, k_hist,
     # v_hist, scratch, state,

@@ -1,7 +1,8 @@
 """The plan of the persistent decode kernel (`csrc/decode_stack.cuh`) that
 runs the fused slow step (`ops/slow_step.py`) and the fused batch-1 fast
 frame (`ops/fast_frame.py`), mirrored from `ds_make_plan`, and the grid
-sync state the kernel keeps on each card.
+sync states the kernel counts in: one per engine, and one per (card,
+stream) for calls made outside an engine.
 
 One cooperative launch puts one block on every SM. The plan cuts each
 layer's GEMVs into work units from the shapes, the weight type and the
@@ -248,38 +249,51 @@ def plan_on_card(kind: int, d: int, n_head: int, kv: int, f: int, head_n: int, c
     return StackPlan(*list(out))
 
 
-_state = {}  # device index -> the kernel's grid sync state
+_state = {}  # (device index, stream) -> the sync state of calls made outside an engine
+
+
+def new_sync_state(device) -> torch.Tensor:
+    """A grid sync state of its own (STATE_WORDS int32, zero), as each
+    engine holds one, so that persistent launches in flight on two
+    streams never count into the same words. Made outside any CUDA graph
+    capture, so that it lies outside the graph's pool. Every call leaves
+    its counters zeroed (the last block of a launch sets them back), so a
+    captured graph can replay the kernel without clearing them; that block
+    also counts the launch and writes its counts into the last words
+    (`launch_counts`, `last_call_counts`). On the CPU (an engine's plain
+    path) it is a tensor no kernel reads."""
+    device = torch.device(device)
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("decode_stack: call the fused kernels once before capturing a "
+                           "CUDA graph, so their sync state exists outside the graph's pool")
+    return torch.zeros(STATE_WORDS, dtype=torch.int32, device=device)
 
 
 def sync_state(device) -> torch.Tensor:
-    """The card's grid sync state (STATE_WORDS int32, zero): made once per
-    device, outside any CUDA graph capture. Every call leaves its counters
-    zeroed (the last block of a launch sets them back), so a captured
-    graph can replay the kernel without clearing them; that block also
-    counts the launch and writes its counts into the last words
-    (`launch_counts`, `last_call_counts`)."""
+    """The sync state of calls made outside an engine on this device and
+    its current stream: made at the first such call, so call once on the
+    capturing stream before capturing a CUDA graph."""
     idx = torch.device(device).index
     idx = torch.cuda.current_device() if idx is None else idx
-    state = _state.get(idx)
+    key = (idx, torch.cuda.current_stream(idx).cuda_stream)
+    state = _state.get(key)
     if state is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("decode_stack: call the fused kernels once before capturing a "
-                               "CUDA graph, so their sync state exists outside the graph's pool")
-        state = torch.zeros(STATE_WORDS, dtype=torch.int32, device=torch.device("cuda", idx))
-        _state[idx] = state
+        state = new_sync_state(torch.device("cuda", idx))
+        _state[key] = state
     return state
 
 
-def last_call_counts(device) -> tuple:
+def last_call_counts(device, state=None) -> tuple:
     """(grid syncs, key-split exchanges of head 0) of the last finished
-    persistent launch on this card, as its last block counted them
-    (synchronizes the device)."""
-    words = sync_state(device)[-2:].tolist()
+    persistent launch on `state` (by default that of the device's current
+    stream), as its last block counted them (synchronizes the device)."""
+    words = (sync_state(device) if state is None else state)[-2:].tolist()
     return words[0], words[1]
 
 
-def launch_counts(device) -> tuple:
-    """(persistent launches, sampler launches) finished on this card so
-    far, each counted by the launch itself (synchronizes the device)."""
-    sampler, persistent = sync_state(device)[-4:-2].tolist()
+def launch_counts(device, state=None) -> tuple:
+    """(persistent launches, sampler launches) finished on `state` (by
+    default that of the device's current stream) so far, each counted by
+    the launch itself (synchronizes the device)."""
+    sampler, persistent = (sync_state(device) if state is None else state)[-4:-2].tolist()
     return persistent, sampler

@@ -67,10 +67,12 @@ def fused_fast_frame_plain(params, cfg: DualARConfig, sampling: SamplingArgs, hi
 
 def fused_fast_frame(params, cfg: DualARConfig, sampling: SamplingArgs, hidden,
                      rp_tokens, gumbel, is_eos, rope, *, rep_enabled: bool,
-                     return_logits: bool = False):
+                     return_logits: bool = False, sync=None):
     """Same contract as `fused_fast_frame_plain`. CPU tensors run the
     plain version; CUDA tensors launch the kernel (a persistent launch and
-    a sampler launch a codebook step) or raise."""
+    a sampler launch a codebook step) or raise. sync: the persistent
+    kernel's grid sync state (an engine's own); by default that of the
+    current (device, stream)."""
     if hidden.device.type == "cpu":
         return fused_fast_frame_plain(params, cfg, sampling, hidden, rp_tokens, gumbel,
                                       is_eos, rope, rep_enabled=rep_enabled,
@@ -103,7 +105,7 @@ def fused_fast_frame(params, cfg: DualARConfig, sampling: SamplingArgs, hidden,
         cos_t.data_ptr(), sin_t.data_ptr(), rp_tokens.data_ptr(),
         None if gumbel is None else gumbel.data_ptr(), is_eos.data_ptr(),
         tokens.data_ptr(), logits_buf.data_ptr(), k_hist.data_ptr(), v_hist.data_ptr(),
-        scratch.data_ptr(), decode_stack.sync_state(dev).data_ptr(),
+        scratch.data_ptr(), (decode_stack.sync_state(dev) if sync is None else sync).data_ptr(),
         n_layer, d, cfg.n_head, kv, f, n_cb, vocab, head.shape[1],
         int(cfg.depthwise_output), int(cfg.depthwise_wte), rp_tokens.shape[1], k_eff,
         int(rep_enabled), plan.scratch_bytes, float(sampling.temp), float(sampling.top_p),

@@ -1,6 +1,13 @@
-"""The whole slow-stack decode step: the persistent CUDA kernel
-(`csrc/slow_step.cu`, one cooperative launch of `csrc/decode_stack.cuh`)
-and its plain PyTorch version.
+"""The whole slow-stack decode step: two CUDA routes and their one plain
+PyTorch version.
+
+* 1-4 rows: the persistent kernel (`csrc/slow_step.cu`, one cooperative
+  launch of `csrc/decode_stack.cuh`).
+* 5 rows and more: the row sequence (`csrc/slow_step_rows.cu`), five
+  launches a layer and one for the head, for each group of at most 32
+  rows: the batched fast frame's tensor-core GEMMs (`rows_gemm`) and
+  decode attention reading the packed QKV rows with RoPE folded in.
+The route is chosen by the row count alone, so an engine keeps one.
 
 Counterpart of the TPU kernel `fish_speech_tpu/ops/slow_step_pallas.py::
 fused_slow_step`: from the embedded input x0 (B, D) at per-row positions
@@ -16,25 +23,38 @@ An int8-quantized stack (`ops/quant.py`) takes the TPU kernel's int8
 body (slow_step_pallas.py:152-174, 198-207, 313-323): each stack product
 is bf16(bf16(x @ q) * s), and silu sees that rescaled bf16 w1 product.
 The head stays bf16 and its product float32.
+
+The domain is the JAX kernel's (`fused_slow_step_supported` there): any
+batch whose cache windows fit 48 MiB with B * S <= 16384, batch 1 always.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from fish_speech_tpu_torch.config import DualARConfig
 from fish_speech_tpu_torch.models.dual_ar import _attn_out_ffn, _layer, _project_qkv
 from fish_speech_tpu_torch.ops import _cuda_build, decode_stack
-from fish_speech_tpu_torch.ops.decode_attention import decode_attention_plain
+from fish_speech_tpu_torch.ops.decode_attention import (
+    decode_attention_plain, decode_plan, decode_supported)
 from fish_speech_tpu_torch.ops.norms import rms_norm
 from fish_speech_tpu_torch.ops.quant import is_quantized
 from fish_speech_tpu_torch.ops.rope import apply_rope_interleaved
 
-launches = 0  # kernel launches since the last reset (set to 0 to reset)
+launches = 0  # persistent kernel launches since the last reset (set to 0 to reset)
 int8_launches = 0  # those of them on int8 stacks (the int8 kernel body)
+rows_launches = 0  # the row sequence's kernel launches, as its C entry counts them
+rows_int8_launches = 0  # those of them on int8 stacks
 
 HEAD_DIM = decode_stack.HEAD_DIM  # the attention's head dim
-MAX_BATCH = decode_stack.MAX_ROWS  # rows the kernel takes
+MAX_BATCH = decode_stack.MAX_ROWS  # rows the persistent kernel takes; more take the row sequence
+ROWS_GROUP = 32  # rows one pass of the row sequence takes (rows_gemm's most)
+HEAD_PIECE = 8  # bf16 head columns one 16-byte load reads
+# the JAX kernel's batched bounds (slow_step_pallas.py:488-497)
+JAX_WINDOW_BYTES = 48 * 1024 * 1024
+JAX_MAX_ROWS_X_CACHE = 16384
 MATMUL_KEYS = ("wqkv", "wo", "w1", "w3", "w2")  # order of the C entries' weights and scales
 NORM_KEYS = ("attention_norm", "ffn_norm")
 INT8_COLS = 16  # int8 weights are read 16 columns (16 bytes) at a time
@@ -131,10 +151,40 @@ def fused_slow_step_plain(params, cfg: DualARConfig, x0, pos, ck, cv, rope):
     return normed.float() @ params["output"].float(), hidden
 
 
-def fused_slow_step(params, cfg: DualARConfig, x0, pos, ck, cv, rope):
+def rows_launches_per_step(n_layer: int, batch: int) -> int:
+    """Kernels the row sequence launches for one step of `batch` rows:
+    five a layer and the head's, for each group of at most 32 rows."""
+    return (5 * n_layer + 1) * -(-batch // ROWS_GROUP)
+
+
+def head_stride(width: int) -> int:
+    """Columns of the row sequence's head copy: the gathered width (1025
+    at Fish-1.5, 2 at Fish <= 1.4) padded to whole 16-byte pieces."""
+    return -(-width // HEAD_PIECE) * HEAD_PIECE
+
+
+def padded_head(head: torch.Tensor) -> torch.Tensor:
+    """The (D, W) head with zero columns up to `head_stride(W)`, for the
+    row sequence (whose head GEMM reads 16-byte pieces and writes only the
+    W real columns); the head itself when W is a whole number of pieces.
+    The engine makes it once; `params["output"]` stays as it is."""
+    d, w = head.shape
+    if head_stride(w) == w:
+        return head
+    out = head.new_zeros((d, head_stride(w)))
+    out[:, :w] = head
+    return out
+
+
+def fused_slow_step(params, cfg: DualARConfig, x0, pos, ck, cv, rope, *, head_rows=None,
+                    sync=None):
     """Same contract as `fused_slow_step_plain`. CPU tensors run the
-    plain version; CUDA tensors launch the kernel (one cooperative
-    launch) or raise."""
+    plain version; CUDA tensors launch the persistent kernel (1-4 rows,
+    one cooperative launch) or the row sequence (5 rows and more), or
+    raise. head_rows: the row sequence's padded head (`padded_head` of
+    params["output"]), made here when not given. sync: the persistent
+    kernel's grid sync state (an engine's own); by default that of the
+    current (device, stream)."""
     if x0.device.type == "cpu":
         return fused_slow_step_plain(params, cfg, x0, pos, ck, cv, rope)
     if x0.device.type != "cuda":
@@ -148,6 +198,9 @@ def fused_slow_step(params, cfg: DualARConfig, x0, pos, ck, cv, rope):
     w = head.shape[1]
     _check(cfg, x0, pos, ck, cv, stack, params["norm"], head, cos_t, sin_t)
     weights, scales = stack_pointers(stack)
+    if bsz > MAX_BATCH:
+        return _rows_step(params, cfg, x0, pos, ck, cv, cos_t, sin_t, weights, scales,
+                          padded_head(head) if head_rows is None else head_rows)
     plan = slow_plan(cfg, w, s, scales[0] is not None, decode_stack.grid_of(x0.device))
     lib = _cuda_build.load_library()
     dev = x0.device
@@ -160,7 +213,7 @@ def fused_slow_step(params, cfg: DualARConfig, x0, pos, ck, cv, rope):
         params["norm"].data_ptr(), head.data_ptr(),
         cos_t.data_ptr(), sin_t.data_ptr(), ck.data_ptr(), cv.data_ptr(),
         logits.data_ptr(), hidden.data_ptr(), scratch.data_ptr(),
-        decode_stack.sync_state(dev).data_ptr(),
+        (decode_stack.sync_state(dev) if sync is None else sync).data_ptr(),
         bsz, n_layer, d, cfg.n_head, kv, f, w, s, plan.scratch_bytes, float(cfg.norm_eps),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -168,6 +221,59 @@ def fused_slow_step(params, cfg: DualARConfig, x0, pos, ck, cv, rope):
     global launches, int8_launches
     launches += 1
     int8_launches += int(scales[0] is not None)
+    return logits, hidden
+
+
+def rows_step(params, cfg: DualARConfig, x0, pos, ck, cv, rope, *, head_rows=None):
+    """The row sequence alone, at any batch of at most the JAX bounds
+    (`fused_slow_step` takes it from 5 rows): the same contract and plain
+    version; for the card's checks of a row alone against the same row
+    among its co-tenants."""
+    if x0.device.type == "cpu":
+        return fused_slow_step_plain(params, cfg, x0, pos, ck, cv, rope)
+    cos_t, sin_t = rope
+    head = params["output"]
+    _check(cfg, x0, pos, ck, cv, params["slow"], params["norm"], head, cos_t, sin_t,
+           route_rows=True)
+    weights, scales = stack_pointers(params["slow"])
+    return _rows_step(params, cfg, x0, pos, ck, cv, cos_t, sin_t, weights, scales,
+                      padded_head(head) if head_rows is None else head_rows)
+
+
+def _rows_step(params, cfg, x0, pos, ck, cv, cos_t, sin_t, weights, scales, head_rows):
+    """The row sequence (csrc/slow_step_rows.cu) on checked inputs."""
+    stack = params["slow"]
+    bsz, d = x0.shape
+    n_layer, _, kv, s, hd = ck.shape
+    f = stack_weight(stack["w1"]).shape[2]
+    w = params["output"].shape[1]
+    dev = x0.device
+    if (head_rows.dtype != torch.bfloat16 or head_rows.device != dev
+            or tuple(head_rows.shape) != (d, head_stride(w)) or not head_rows.is_contiguous()
+            or head_rows.data_ptr() % 16):
+        raise ValueError(f"fused_slow_step: head_rows must be a contiguous bfloat16 "
+                         f"({d}, {head_stride(w)}) on {dev}, the padded head; got "
+                         f"{tuple(head_rows.shape)} {head_rows.dtype} on {head_rows.device}")
+    rows = min(bsz, ROWS_GROUP)
+    qkv = torch.empty((rows, (cfg.n_head + 2 * kv) * hd), dtype=x0.dtype, device=dev)
+    attn = torch.empty((rows, d), dtype=x0.dtype, device=dev)
+    ffn = torch.empty((rows, f), dtype=x0.dtype, device=dev)
+    logits = torch.empty((bsz, w), dtype=torch.float32, device=dev)
+    hidden = torch.empty_like(x0)
+    launched = ctypes.c_int(0)
+    rc = _cuda_build.load_library().fs_slow_step_rows(
+        x0.data_ptr(), pos.data_ptr(), stack["attention_norm"].data_ptr(),
+        stack["ffn_norm"].data_ptr(), *weights, *scales,
+        params["norm"].data_ptr(), head_rows.data_ptr(),
+        cos_t.data_ptr(), sin_t.data_ptr(), ck.data_ptr(), cv.data_ptr(),
+        logits.data_ptr(), hidden.data_ptr(), qkv.data_ptr(), attn.data_ptr(), ffn.data_ptr(),
+        bsz, n_layer, d, cfg.n_head, kv, f, w, head_rows.shape[1], s, decode_plan(s).cluster,
+        float(cfg.norm_eps), torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched),
+    )
+    global rows_launches, rows_int8_launches
+    rows_launches += launched.value
+    rows_int8_launches += launched.value if scales[0] is not None else 0
+    _cuda_build.check(rc, "fs_slow_step_rows")
     return logits, hidden
 
 
@@ -180,31 +286,80 @@ def slow_plan(cfg: DualARConfig, head_cols: int, cache_len: int, int8: bool, gri
         head_cols, cache_len, int8, grid)
 
 
+def jax_bounds_ok(cfg: DualARConfig, batch: int, cache_len: int) -> bool:
+    """The JAX kernel's domain (slow_step_pallas.py::
+    fused_slow_step_supported): batch 1 always; more rows when their cache
+    windows, 4 B KV S hd x 2 bytes, fit 48 MiB and B * S <= 16384."""
+    if batch <= 1:
+        return batch == 1
+    window = 4 * batch * cfg.n_local_heads * cache_len * cfg.head_dim * 2
+    return window <= JAX_WINDOW_BYTES and batch * cache_len <= JAX_MAX_ROWS_X_CACHE
+
+
 def fused_slow_step_supported(cfg: DualARConfig, params, batch: int,
                               cache_len: int = 0) -> bool:
     """Whether `fused_slow_step` takes these parameters at this batch and
-    cache length: an even head dim; on CUDA also the persistent kernel's
-    limits: bf16 stacks or int8 ones with bf16 scales and out % 16 == 0,
-    head dim 64, H * hd == D with D one of `decode_stack.DIMS`, an ffn
-    width that is a multiple of 64, 1 <= batch <= 4, and a plan
+    cache length: the JAX kernel's domain (an even head dim and
+    `jax_bounds_ok`); on CUDA also bf16 stacks or int8 ones with bf16
+    scales and out % 16 == 0, head dim 64 with H * hd == D and D one of
+    `decode_stack.DIMS`, and each route's limits. The persistent kernel
+    (1-4 rows): an ffn width that is a multiple of 64 and a plan
     (`decode_stack.stack_plan`) whose shared memory, with the attention
-    scores of the whole cache, fits one block on an SM. CPU tensors run
-    the plain version, which takes any batch and dtype."""
-    if cfg.head_dim % 2:
+    scores of the whole cache, fits one block on an SM. The row sequence
+    (5 rows and more): a group of 1, 2, 4 or 8 query heads a KV head and
+    a cache decode attention takes, widths that are multiples of 8 and
+    GEMM plans that fit shared memory. CPU tensors run the plain version,
+    which takes any dtype."""
+    if batch > MAX_BATCH:
+        return rows_supported(cfg, params, batch, cache_len)
+    s = cache_len or cfg.max_seq_len
+    if not _card_ok(cfg, params, batch, s):
+        return False
+    weight = stack_weight(params["slow"]["wqkv"])
+    return weight.device.type != "cuda" or slow_plan(
+        cfg, _head_cols(cfg, params), s, is_quantized(params["slow"]["wqkv"]),
+        _grid(weight.device)) is not None
+
+
+def rows_supported(cfg: DualARConfig, params, batch: int, cache_len: int = 0) -> bool:
+    """Whether the row sequence (`rows_step`) takes these parameters at
+    this batch: as `fused_slow_step_supported` at 5 rows and more."""
+    s = cache_len or cfg.max_seq_len
+    if not _card_ok(cfg, params, batch, s):
         return False
     stack = params["slow"]
-    weight = stack_weight(stack["wqkv"])
-    if weight.device.type != "cuda":
+    return (stack_weight(stack["wqkv"]).device.type != "cuda"
+            or _rows_fit(cfg, _head_cols(cfg, params), s, is_quantized(stack["wqkv"])))
+
+
+def _card_ok(cfg: DualARConfig, params, batch: int, cache_len: int) -> bool:
+    """The JAX domain, and on CUDA the limits both routes share."""
+    if cfg.head_dim % 2 or not jax_bounds_ok(cfg, batch, cache_len):
+        return False
+    stack = params["slow"]
+    if stack_weight(stack["wqkv"]).device.type != "cuda":
         return True
-    s = cache_len or cfg.max_seq_len
-    head_cols = params["output"].shape[1] if "output" in params else cfg.codebook_size + 1
-    return (
-        stack_dtypes_ok(stack) and stack_widths_ok(stack)
-        and cfg.head_dim == HEAD_DIM
-        and 1 <= batch <= MAX_BATCH
-        and slow_plan(cfg, head_cols, s, is_quantized(stack["wqkv"]),
-                      _grid(weight.device)) is not None
-    )
+    return (stack_dtypes_ok(stack) and stack_widths_ok(stack) and cfg.head_dim == HEAD_DIM
+            and cfg.n_head * HEAD_DIM == cfg.dim and cfg.dim in decode_stack.DIMS)
+
+
+def _head_cols(cfg: DualARConfig, params) -> int:
+    return params["output"].shape[1] if "output" in params else cfg.codebook_size + 1
+
+
+def _rows_fit(cfg: DualARConfig, head_cols: int, cache_len: int, int8: bool) -> bool:
+    """The row sequence's limits on these shapes."""
+    from fish_speech_tpu_torch.ops import fast_frame_batched as fb  # it imports this module
+
+    d, f = cfg.dim, cfg.intermediate_size
+    kv = cfg.n_local_heads
+    if kv < 1 or cfg.n_head % kv or f % 8 or not decode_supported(cache_len, cfg.n_head // kv):
+        return False
+    gemms = (((cfg.n_head + 2 * kv) * HEAD_DIM, d, "qkv"), (d, d, "residual"),
+             (f, d, "swiglu"), (d, f, "residual"))
+    plans = [fb.rows_plan(k, n, mode, int8) for n, k, mode in gemms]
+    plans.append(fb.rows_plan(d, head_cols, "head", False))
+    return all(p.smem <= fb._RG_SMEM_BUDGET for p in plans)
 
 
 def _grid(device) -> int:
@@ -216,7 +371,7 @@ def _grid(device) -> int:
         return decode_stack.H100_SMS
 
 
-def _check(cfg, x0, pos, ck, cv, stack, norm, head, cos_t, sin_t):
+def _check(cfg, x0, pos, ck, cv, stack, norm, head, cos_t, sin_t, route_rows=False):
     check_stack(stack, "fused_slow_step", "slow", x0.device)
     bf16 = {"x0": x0, "ck": ck, "cv": cv, "norm": norm, "output": head}
     for name, t in bf16.items():
@@ -233,9 +388,10 @@ def _check(cfg, x0, pos, ck, cv, stack, norm, head, cos_t, sin_t):
         raise TypeError("fused_slow_step: rope tables must be float32")
     bsz, d = x0.shape
     n_layer, cb, kv, s, hd = ck.shape
-    if not fused_slow_step_supported(cfg, {"slow": stack}, bsz, s):
+    supported = rows_supported if route_rows else fused_slow_step_supported
+    if not supported(cfg, {"slow": stack, "output": head}, bsz, s):
         raise ValueError(
-            f"fused_slow_step: the kernel does not take batch {bsz}, cache {s}, "
+            f"fused_slow_step: the kernels do not take batch {bsz}, cache {s}, "
             f"dim {cfg.dim}, heads {cfg.n_head}/{cfg.n_local_heads}x{cfg.head_dim}, "
             f"ffn {cfg.intermediate_size}")
     qkv = (cfg.n_head + 2 * kv) * hd

@@ -19,6 +19,14 @@ passing run on real weights turns the default to int8; a failing one on
 real weights turns it back; runs on random weights add evidence only. A
 missing file means bf16. The JAX package's decision file holds TPU runs
 and is never read here.
+
+The record carries `CRITERIA_VERSION`, as does each run it holds. A
+default set under other criteria is not carried over: a file of another
+version, or of none (written before the version existed), reads as bf16,
+and the next run recorded starts its default afresh. The 99% bar is a
+teacher-forced one (the JAX package moved it there from free-running
+agreement without re-deriving it); changing a criterion means a new
+version.
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ from pathlib import Path
 from typing import Dict, Optional
 
 DECISION_FILE = Path(__file__).resolve().parents[1] / "int8_decision.json"
+
+CRITERIA_VERSION = 1  # of the criteria below; records of another version are not compared
 
 MIN_TOKEN_AGREEMENT = 0.99
 MAX_MEL_L1_VS_FLOOR = 3.0
@@ -60,19 +70,31 @@ def read_decision(path: Optional[Path] = None) -> Optional[dict]:
         return None
 
 
+def current_version(decision: Optional[dict]) -> bool:
+    """Whether a record was written under these criteria."""
+    return bool(decision) and decision.get("criteria_version") == CRITERIA_VERSION
+
+
 def record_decision(metrics: Dict[str, float], passed: bool, *, real_weights: bool,
                     evidence: str, path: Optional[Path] = None) -> dict:
-    """Append a proxy run (the last 8 are kept) and, on real weights
-    only, set the default: int8 if it passed, bf16 if not."""
+    """Append a proxy run (the last 8 are kept, each with its criteria
+    version) and, on real weights only, set the default: int8 if it
+    passed, bf16 if not. A record of another criteria version keeps its
+    runs as history but not its default, which starts again at bf16."""
     path = path or DECISION_FILE
     decision = dict(read_decision(path) or {"default": "bf16"})
+    if not current_version(decision):
+        decision["default"] = "bf16"
+        decision.pop("decided_on_real_weights", None)
     decision["criteria"] = criteria_dict()
+    decision["criteria_version"] = CRITERIA_VERSION
     runs = list(decision.get("runs", []))
     runs.append({
         "metrics": {k: round(float(v), 5) for k, v in metrics.items()},
         "passed": bool(passed),
         "real_weights": bool(real_weights),
         "evidence": evidence,
+        "criteria_version": CRITERIA_VERSION,
     })
     decision["runs"] = runs[-8:]
     if real_weights:
@@ -86,9 +108,10 @@ def record_decision(metrics: Dict[str, float], passed: bool, *, real_weights: bo
 
 def serving_default_int8(path: Optional[Path] = None) -> bool:
     """The serving default when the operator forces neither dtype;
-    FISH_TPU_INT8 = 0/1 (or false/no) overrides the file."""
+    FISH_TPU_INT8 = 0/1 (or false/no) overrides the file, whose default
+    counts only under the current criteria version."""
     env = os.environ.get("FISH_TPU_INT8")
     if env is not None and env != "":
         return env not in ("0", "false", "no")
     d = read_decision(path)
-    return bool(d and d.get("default") == "int8")
+    return current_version(d) and d.get("default") == "int8"

@@ -5,7 +5,8 @@ tiny float32 config on the CPU: `generate_batch` on ragged prompts,
 per-row sampling. Sampled runs feed the port the JAX engine's own
 per-row draws (`JaxRowNoise`), so codes must be exactly equal. The
 port's fused decode path ("fused": the plain versions of the fused slow
-step and of the batched fast frame) must give the same codes."""
+step and of the batched fast frame) must give the same codes, also at 16
+rows against the JAX engine's own fused slow step (in interpret mode)."""
 
 import jax
 import jax.numpy as jnp
@@ -103,6 +104,36 @@ def test_generate_batch_matches_jax(models, impl, mode, weights):
         assert (g.frames, g.hit_max, g.prompt_tokens) == (r.frames, r.hit_max, r.prompt_tokens)
     if weights == "eos":
         assert min(r.frames for r in ref) < 12  # some row stopped early
+
+
+ROWS16 = dict(COMMON, batch_size=16)
+
+
+@pytest.mark.parametrize("mode", ["argmax", "sampled"])
+def test_sixteen_rows_fused_slow_step_matches_jax_fused(models, mode):
+    """16 rows, the serving batch, where CUDA runs the fused slow step's
+    row sequence: the port's dynamic engine with slow_impl="fused" (the
+    plain version on the CPU, beside the batched fast frame's) against the
+    JAX 16-row engine with slow_impl="fused" (its Pallas kernel in
+    interpret mode), on ragged prompts and the JAX engine's own per-row
+    draws: the codes are equal."""
+    jc, tc, sets = models
+    params, tparams = sets["eos"]
+    knobs = ARGMAX if mode == "argmax" else SAMPLED
+    prompts = _prompts(9, (7, 12, 5, 16, 9, 3, 14, 8, 11, 6, 16, 4, 10, 13, 2, 15))
+    jengine = JaxEngine(params, jc, jcfg.TokenConfig(**TOK), jcfg.WhichLM.FISH_1_5,
+                        attention_impl="xla", prefill_impl="xla", slow_impl="fused",
+                        fast_frame_impl="xla", dtype=jnp.float32, **ROWS16)
+    assert jengine.use_fused_slow
+    ref = jengine.generate_batch(prompts, max_new_tokens=6, sampling=JaxSampling(**knobs), seed=4)
+    engine = _inject(LMEngine(tparams, tc, tcfg.TokenConfig(**TOK), tcfg.WhichLM.FISH_1_5,
+                              dtype=torch.float32, device="cpu", slow_impl="fused",
+                              fast_frame_impl="fused", **ROWS16))
+    assert engine.use_fused_slow and engine.use_fused_fast
+    got = engine.generate_batch(prompts, max_new_tokens=6, sampling=SamplingArgs(**knobs), seed=4)
+    for r, g in zip(ref, got):
+        np.testing.assert_array_equal(_codes(g), _codes(r))
+        assert (g.frames, g.hit_max) == (r.frames, r.hit_max)
 
 
 def test_generate_batch_rows_equal_batch1_generation(models):

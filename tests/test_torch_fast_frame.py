@@ -430,7 +430,7 @@ def test_graph_replay_equals_eager(cuda_device):
         _frame(params, args)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):  # the warm-up's stream and state
         tokens, logits = _frame(params, args)
     for _ in range(3):
         graph.replay()

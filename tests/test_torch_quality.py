@@ -153,7 +153,11 @@ def test_int8_policy_decision_file(tmp_path, monkeypatch):
     assert not tpolicy.serving_default_int8(path)
     ref_path = tmp_path / "jax_decision.json"
     jpolicy.record_decision(metrics, True, real_weights=False, evidence="random", path=ref_path)
-    assert json.loads(path.read_text()) == json.loads(ref_path.read_text())
+    # the same record as the JAX package's, with the port's criteria version
+    mine = json.loads(path.read_text())
+    assert mine.pop("criteria_version") == tpolicy.CRITERIA_VERSION
+    assert [r.pop("criteria_version") for r in mine["runs"]] == [tpolicy.CRITERIA_VERSION]
+    assert mine == json.loads(ref_path.read_text())
     tpolicy.record_decision(metrics, True, real_weights=True, evidence="real", path=path)
     assert tpolicy.serving_default_int8(path)
     for env, want in (("0", False), ("false", False), ("1", True), ("", True)):
@@ -167,3 +171,30 @@ def test_int8_policy_decision_file(tmp_path, monkeypatch):
     for _ in range(9):
         tpolicy.record_decision(metrics, False, real_weights=False, evidence="x", path=path)
     assert len(tpolicy.read_decision(path)["runs"]) == 8
+
+
+@pytest.mark.parametrize("version", [None, 0, "next"])
+def test_int8_policy_ignores_other_criteria_versions(tmp_path, monkeypatch, version):
+    """A record whose default was set under other criteria, or before the
+    record had a version, reads as bf16; the next run keeps the old runs
+    as history, starts the default afresh at bf16 and writes the current
+    version into the record and the run; a real-weight pass then flips it."""
+    monkeypatch.delenv("FISH_TPU_INT8", raising=False)
+    path = tmp_path / "int8_decision.json"
+    old_run = {"metrics": {"token_agreement": 0.999}, "passed": True, "real_weights": True,
+               "evidence": "older criteria"}
+    record = {"default": "int8", "decided_on_real_weights": True, "runs": [old_run],
+              "criteria": tpolicy.criteria_dict()}
+    if version is not None:
+        record["criteria_version"] = tpolicy.CRITERIA_VERSION + 1 if version == "next" else version
+    path.write_text(json.dumps(record))
+    assert not tpolicy.serving_default_int8(path)
+    metrics = {"token_agreement": 0.995, "mel_l1": 0.01}
+    got = tpolicy.record_decision(metrics, True, real_weights=False, evidence="random", path=path)
+    assert got["default"] == "bf16" and "decided_on_real_weights" not in got
+    assert got["criteria_version"] == tpolicy.CRITERIA_VERSION
+    assert got["runs"][0] == old_run
+    assert got["runs"][1]["criteria_version"] == tpolicy.CRITERIA_VERSION
+    assert not tpolicy.serving_default_int8(path)
+    tpolicy.record_decision(metrics, True, real_weights=True, evidence="real", path=path)
+    assert tpolicy.serving_default_int8(path)

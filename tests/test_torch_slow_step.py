@@ -32,6 +32,7 @@ from fish_speech_tpu_torch.models.dual_ar import rope_tables
 from fish_speech_tpu_torch.ops import _cuda_build
 from fish_speech_tpu_torch.ops import quant as tq
 from fish_speech_tpu_torch.ops import slow_step as ss
+from fish_speech_tpu_torch.ops.sampling import SamplingArgs
 
 torch.set_num_threads(1)
 
@@ -42,6 +43,8 @@ TOK = dict(im_end_id=9, pad_id=5, semantic_start_id=10, semantic_end_id=41)
 CACHE = 32
 LOGITS_TOL = 1e-4
 CACHE_TOL = 1e-5
+ROWS5 = (0, 3, 17, 29, 31)
+ROWS16 = tuple((7 * i + 4) % CACHE for i in range(16))  # 16 distinct positions
 
 
 def _t(a):
@@ -83,6 +86,12 @@ def models():
     ((31,), "FISH_1_5_int8"),
     ((3, 29), "FISH_1_5_int8"),
     ((7,), "FISH_1_2_int8"),
+    # the batched domain, where CUDA runs the row sequence: 5 and 16 rows,
+    # each at its own position
+    (ROWS5, "FISH_1_5"),
+    (ROWS16, "FISH_1_5"),
+    (ROWS5, "FISH_1_5_int8"),
+    (ROWS16, "FISH_1_5_int8"),
 ])
 def test_plain_matches_pallas_interpret(models, positions, lm):
     jc, tc, by_lm = models
@@ -174,21 +183,30 @@ def _cuda_looking(stack):
 
 @pytest.mark.parametrize("limit", ["int8", "batch5", "ffn_not_64", "dim_not_in_plan"])
 def test_supported_on_cuda_takes_int8_with_bf16_scales(limit):
-    """On CUDA the kernel takes int8 q with bf16 s and whole 16-byte
+    """On CUDA the kernels take int8 q with bf16 s and whole 16-byte
     rows; a float q, float32 scales or a width that is not a multiple of
     16 are refused, by `supported` and by the wrapper. The persistent
-    kernel's limits: at most 4 rows, an ffn width that is a multiple of
-    64 and a model width its plan takes (`decode_stack.DIMS`)."""
+    kernel's limits: an ffn width that is a multiple of 64 and a model
+    width its plan takes (`decode_stack.DIMS`). Five rows go to the row
+    sequence, within the JAX kernel's bounds: 5 x 32 is taken, 5 x 4096
+    (B * S > 16384) refused, on the card and by the plain version."""
     card = {**KW, "n_head": 4, "dim": 256, "head_dim": 64}
+    if limit == "batch5":
+        tc = tcfg.DualARConfig(**card)
+        params = tq.quantize_lm_params(torch_init(tc, seed=0, dtype=torch.bfloat16, device="cpu"))
+        on_card = {"slow": _cuda_looking_tree(params["slow"])}
+        assert ss.fused_slow_step_supported(tc, on_card, 5, CACHE)
+        assert not ss.fused_slow_step_supported(tc, on_card, 5, 4096)
+        assert not ss.fused_slow_step_supported(tc, params, 5, 4096)
+        return
     if limit != "int8":
-        case = {"batch5": {}, "ffn_not_64": {"intermediate_size": 96},
+        case = {"ffn_not_64": {"intermediate_size": 96},
                 "dim_not_in_plan": {"n_head": 6, "dim": 384}}[limit]
         tc = tcfg.DualARConfig(**{**card, **case})
         params = tq.quantize_lm_params(torch_init(tc, seed=0, dtype=torch.bfloat16, device="cpu"))
-        batch = 5 if limit == "batch5" else 1
         assert ss.fused_slow_step_supported(tc, {"slow": _cuda_looking_tree(params["slow"])},
-                                            batch, CACHE) is False
-        assert ss.fused_slow_step_supported(tc, params, batch, CACHE)  # the plain version
+                                            1, CACHE) is False
+        assert ss.fused_slow_step_supported(tc, params, 1, CACHE)  # the plain version
         return
     tc = tcfg.DualARConfig(**card)
     params = tq.quantize_lm_params(torch_init(tc, seed=0, dtype=torch.bfloat16, device="cpu"))
@@ -207,6 +225,83 @@ def test_supported_on_cuda_takes_int8_with_bf16_scales(limit):
                                             CACHE)
     with pytest.raises(ValueError, match="multiple of 16"):
         ss.check_stack(narrow, "fused_slow_step", "slow", torch.device("cpu"))
+
+
+# (batch, cache, KV heads): the JAX bounds at the Fish-1.5 head layout
+# (KV 2: B * S <= 16384 binds) and with 8 KV heads (the 48 MiB window
+# binds first); 16 x 1024 is exactly 16384 and taken, as in JAX
+DOMAIN = [(1, 4096, 2), (4, 4096, 2), (4, 4097, 2), (5, 3276, 2), (5, 3277, 2),
+          (16, 512, 2), (16, 1024, 2), (16, 1025, 2), (16, 2048, 2), (32, 512, 2),
+          (64, 256, 2), (64, 257, 2), (16, 1024, 8), (12, 1024, 8)]
+
+
+@pytest.mark.parametrize("batch,cache,kv", DOMAIN)
+def test_supported_on_cuda_is_the_jax_domain(batch, cache, kv):
+    """On CUDA `supported` takes exactly what the JAX kernel's
+    `fused_slow_step_supported` takes at these shapes (head dim 64, a width
+    the kernels take): the persistent kernel below 5 rows, the row
+    sequence from 5 rows up to 64 x 256."""
+    from fish_speech_tpu.ops.slow_step_pallas import (
+        fused_slow_step_supported as jax_supported)
+
+    shape = {**KW, "n_head": 8, "dim": 512, "head_dim": 64, "n_local_heads": kv,
+             "max_seq_len": 8192}
+    tc = tcfg.DualARConfig(**shape)
+    params = torch_init(tc, seed=0, dtype=torch.bfloat16, device="cpu")
+    on_card = {"slow": _cuda_looking_tree(params["slow"])}
+    want = jax_supported(jcfg.DualARConfig(**shape), None, batch, cache)
+    assert ss.fused_slow_step_supported(tc, on_card, batch, cache) == want
+    assert ss.fused_slow_step_supported(tc, params, batch, cache) == want  # the plain version
+
+
+@pytest.mark.parametrize("n_layer,batch,launches", [(24, 5, 121), (24, 16, 121), (24, 32, 121),
+                                                    (24, 33, 242), (24, 64, 242), (3, 16, 16)])
+def test_rows_launches_per_step(n_layer, batch, launches):
+    """The row sequence's launches a step: five a layer and the head's,
+    for each group of at most 32 rows (the card tests hold the C entry's
+    own count to this)."""
+    assert ss.rows_launches_per_step(n_layer, batch) == launches
+
+
+@pytest.mark.parametrize("width,stride", [(1025, 1032), (2, 8), (33, 40), (1024, 1024)])
+def test_padded_head_stride(width, stride):
+    """The row sequence's head copy: the gathered columns, then zeros up
+    to whole 16-byte pieces (1025 at Fish-1.5, 2 at Fish <= 1.4); a head
+    whose width is whole pieces is used as it is."""
+    head = torch.randn(16, width).to(torch.bfloat16)
+    padded = ss.padded_head(head)
+    assert ss.head_stride(width) == stride and tuple(padded.shape) == (16, stride)
+    assert torch.equal(padded[:, :width], head) and not padded[:, width:].any()
+    assert (padded is head) == (width == stride)
+
+
+def test_engines_hold_their_own_sync_state(monkeypatch):
+    """Each engine makes its own grid sync state and hands it to the
+    fused slow step (and the batch-1 fast frame), so two engines on two
+    streams never count into the same words."""
+    from fish_speech_tpu_torch.generate import engine as engine_mod
+
+    tc, params = _tiny_params()
+    tok = tcfg.TokenConfig(**TOK)
+    engines = [engine_mod.LMEngine(params, tc, tok, tcfg.WhichLM.FISH_1_5, dtype=torch.float32,
+                                   device="cpu", slow_impl="fused", fast_frame_impl="fused",
+                                   cache_len=CACHE, prompt_buckets=(16,)) for _ in range(2)]
+    states = [e.sync_state for e in engines]
+    assert states[0] is not states[1] and states[0].data_ptr() != states[1].data_ptr()
+    seen = []
+    real = engine_mod.fused_slow_step
+
+    def spy(*args, sync=None, **kwargs):
+        seen.append(sync)
+        return real(*args, sync=sync, **kwargs)
+
+    monkeypatch.setattr(engine_mod, "fused_slow_step", spy)
+    prompt = np.zeros((tc.num_codebooks + 1, 4), np.int32)
+    argmax = SamplingArgs(temp=0.0)
+    for e in engines:
+        state, _, _ = e.prefill(e.init_state(0), prompt, argmax)
+        e.decode_step(state, argmax)
+    assert len(seen) == 2 and all(a is b for a, b in zip(seen, states))
 
 
 def _cuda_looking_tree(tree):
@@ -378,7 +473,7 @@ def test_graph_replay_equals_eager(cuda_device):
         ss.fused_slow_step(params, tc, x0, pos, k.clone(), v.clone(), rope)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):  # the warm-up's stream and state
         logits, hidden = ss.fused_slow_step(params, tc, x0, pos, k, v, rope)
     for _ in range(3):
         k.copy_(ck)
@@ -466,3 +561,178 @@ def test_kernel_counts_its_syncs_and_exchanges(cuda_device, positions):
         plan.syncs_per_call(ds.SLOW, tc.n_layer), plan.kv_exchanges(tc.n_layer, positions))
     for o in outs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))
+
+
+# -- the row sequence (5 rows and more), on the card ------------------------------
+
+
+def _rows_inputs(dev, batch, cache, int8=False, seed=0, head_cols=33):
+    """The card config above with `batch` rows at distinct positions
+    spread over the cache (the last at its end) and a head of head_cols
+    columns."""
+    positions = [(37 * i + 5) % cache for i in range(batch - 1)] + [cache - 1]
+    tc, params, x0, pos, ck, cv, rope = _card_inputs(dev, positions, int8, seed, cache)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    params["output"] = (torch.randn((tc.dim, head_cols), generator=g, device=dev) * 0.05
+                        ).to(torch.bfloat16)
+    return tc, params, x0, pos, ck, cv, rope
+
+
+def _held_to_plain(params, tc, x0, pos, ck, cv, rope, got):
+    """`got` (logits, hidden, ck, cv) as close to the float32 evaluation
+    as the plain version, within 2x; other cache rows bit-equal."""
+    ckp, cvp = ck.clone(), cv.clone()
+    plain = ss.fused_slow_step_plain(params, tc, x0, pos, ckp, cvp, rope)
+    ck32, cv32 = ck.float(), cv.float()
+    ref = ss.fused_slow_step_plain(float32_reference(params), tc, x0.float(), pos, ck32, cv32,
+                                   rope)
+    rows, p = torch.arange(x0.shape[0], device=x0.device), pos.long()
+    pairs = list(zip(got[:2], plain, ref)) + [
+        (c[:, rows, :, p], cp[:, rows, :, p], c32[:, rows, :, p])
+        for c, cp, c32 in ((got[2], ckp, ck32), (got[3], cvp, cv32))]
+    for k, pl, r in pairs:
+        err_k = float((k.float() - r.float()).abs().max())
+        err_p = float((pl.float() - r.float()).abs().max())
+        assert err_k <= 2 * err_p + 1e-6, (err_k, err_p)
+    for c, cp in ((got[2], ckp), (got[3], cvp)):
+        c = c.clone()
+        c[:, rows, :, p] = cp[:, rows, :, p]
+        assert torch.equal(c, cp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("batch,cache", [(5, 256), (16, 512), (32, 256), (64, 256), (5, 3276)])
+def test_rows_match_plain_on_card(cuda_device, batch, cache, int8):
+    """The row sequence at 5, 16 and 32 rows, at 64 rows (two groups of
+    32) of cache 256, and at 5 rows of the longest cache the JAX bounds
+    give them (keys of a row past the first 4 steps of its rank's tiles):
+    the plain version's accuracy rule, every other cache row bit-equal,
+    and 5 L + 1 launches a group, as its C entry counts them."""
+    tc, params, x0, pos, ck, cv, rope = _rows_inputs(cuda_device, batch, cache, int8)
+    before, before8 = ss.rows_launches, ss.rows_int8_launches
+    got = _step(params, tc, x0, pos, ck, cv, rope)
+    torch.cuda.synchronize()
+    want = ss.rows_launches_per_step(tc.n_layer, batch)
+    assert ss.rows_launches - before == want
+    assert ss.rows_int8_launches - before8 == (want if int8 else 0)
+    assert got[0].shape == (batch, 33) and bool(torch.isfinite(got[0]).all())
+    _held_to_plain(params, tc, x0, pos, ck, cv, rope, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_rows_row_alone_equals_row_among_sixteen(cuda_device, int8):
+    """Every plan of the sequence is a function of the shapes alone, so a
+    row's logits, hidden and cache rows are bit-equal through the row
+    sequence alone (`rows_step`, one row) and among 15 co-tenants."""
+    tc, params, x0, pos, ck, cv, rope = _rows_inputs(cuda_device, 16, 512, int8)
+    logits, hidden, k, v = _step(params, tc, x0, pos, ck, cv, rope)
+    for r in (0, 7, 15):
+        k1, v1 = ck[:, r:r + 1].contiguous(), cv[:, r:r + 1].contiguous()
+        l1, h1 = ss.rows_step(params, tc, x0[r:r + 1].clone(), pos[r:r + 1].clone(), k1, v1, rope)
+        assert torch.equal(l1[0], logits[r]) and torch.equal(h1[0], hidden[r])
+        assert torch.equal(k1[:, 0], k[:, r]) and torch.equal(v1[:, 0], v[:, r])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_rows_repeat_and_graph_replay_bit_identical(cuda_device, int8):
+    """Five calls give the same bits, and a CUDA graph of the sequence
+    replays them (the padded head made before the capture, as the engine
+    makes it once)."""
+    tc, params, x0, pos, ck, cv, rope = _rows_inputs(cuda_device, 16, 512, int8)
+    head_rows = ss.padded_head(params["output"])
+
+    def call(k, v):
+        return ss.fused_slow_step(params, tc, x0, pos, k, v, rope, head_rows=head_rows)
+
+    outs = []
+    for _ in range(5):
+        k, v = ck.clone(), cv.clone()
+        outs.append((*call(k, v), k, v))
+    for o in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))
+    k, v = ck.clone(), cv.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call(k.clone(), v.clone())
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        logits, hidden = call(k, v)
+    for _ in range(3):
+        k.copy_(ck)
+        v.copy_(cv)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip((logits, hidden, k, v), outs[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1025, 2])
+def test_rows_head_widths(cuda_device, width):
+    """The gathered heads of Fish-1.5 (1025 columns) and Fish <= 1.4 (2):
+    logits of exactly (B, W), held to the plain version's accuracy."""
+    tc, params, x0, pos, ck, cv, rope = _rows_inputs(cuda_device, 16, 512, head_cols=width)
+    assert ss.head_stride(width) > width  # a ragged last tile
+    got = _step(params, tc, x0, pos, ck, cv, rope)
+    assert tuple(got[0].shape) == (16, width) and got[0].dtype == torch.float32
+    _held_to_plain(params, tc, x0, pos, ck, cv, rope, got)
+
+
+@pytest.mark.cuda
+def test_two_engines_on_two_streams(cuda_device):
+    """Two batch-1 engines (the persistent slow step and fast frame),
+    each with its own grid sync state, decode from two threads on two
+    streams at once: each engine's codes, and the logits of its slow
+    steps, are bit-equal to its run alone on one stream."""
+    import threading
+
+    from fish_speech_tpu_torch.generate.engine import LMEngine
+
+    tc = tcfg.DualARConfig(**{**KW, "n_head": 8, "dim": 512, "intermediate_size": 1024,
+                              "head_dim": 64, "max_seq_len": 256})
+    params = torch_init(tc, seed=0, dtype=torch.bfloat16, device=cuda_device)
+    tok = tcfg.TokenConfig(**TOK)
+    engines = [LMEngine(params, tc, tok, tcfg.WhichLM.FISH_1_5, cache_len=256,
+                        prompt_buckets=(16,), max_frames=48) for _ in range(2)]
+    assert all(e.use_fused_slow and e.use_fused_fast for e in engines)
+    assert engines[0].sync_state.data_ptr() != engines[1].sync_state.data_ptr()
+    sampling = SamplingArgs(temp=0.7, top_p=0.8, top_k=16, repetition_penalty=1.3)
+    rng = np.random.default_rng(0)
+    prompts = [np.concatenate([rng.integers(10, 42, (1, 12)), rng.integers(0, 32, (4, 12))]
+                              ).astype(np.int32) for _ in range(2)]
+    e0 = engines[0]
+    x0 = e0.params["embeddings"][torch.arange(3, 4, device=cuda_device)].contiguous()
+    posb = torch.tensor([77], dtype=torch.int32, device=cuda_device)
+    shape = (tc.n_layer, 1, tc.n_local_heads, 256, 64)
+
+    def run(i):
+        e = engines[i]
+        res, _ = e.generate(prompts[i], max_new_tokens=40, sampling=sampling, seed=i)
+        logits = []
+        for _ in range(20):
+            k = torch.zeros(shape, dtype=torch.bfloat16, device=cuda_device)
+            logits.append(ss.fused_slow_step(e.params, tc, x0, posb, k, k.clone(), e.rope,
+                                             sync=e.sync_state)[0])
+        torch.cuda.current_stream().synchronize()
+        return np.concatenate([res.semantic[None], res.tokens]), torch.stack(logits)
+
+    alone = [run(i) for i in range(2)]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    got = [None, None]
+
+    def thread(i):
+        with torch.cuda.stream(streams[i]):
+            got[i] = run(i)
+
+    threads = [threading.Thread(target=thread, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    for (codes, logits), (codes_a, logits_a) in zip(got, alone):
+        np.testing.assert_array_equal(codes, codes_a)
+        assert torch.equal(logits, logits_a)
