@@ -49,15 +49,19 @@ per phase, each with the seconds since start:
               sampled and mixed rows), with each of its five GEMMs on its own
               (fs_rows_gemm at B = 16 against rows_gemm_plain, a row
               alone bit-equal, timed beside cuBLAS and the byte bound,
-              one line a GEMM), and the fused slow step's row sequence
-              for 5 rows and more (csrc/slow_step_rows.cu: B = 16 at
-              cache 512 and serving positions 39-167, B = 32 and 64 at
-              cache 256, each held to the plain version's distance to a
-              float32 evaluation, other cache rows bit-equal, the C
-              entry's launches equal to 5 L + 1 a group of 32 rows, each
-              of 16 rows alone bit-equal to itself among 16, the
-              engine's padded head; timed in a CUDA graph beside the
-              plain version, the unfused step it replaces and the byte
+              one line a GEMM), and the fused slow step's row kernel
+              for 5 rows and more (csrc/slow_step_rows.cu, one
+              persistent launch a group of 32 rows: B = 16 at cache 512
+              and serving positions 39-167, B = 32 and 64 at cache 256,
+              8 at cache 2048 past 1024 keys, each held to the plain
+              version's distance to a float32 evaluation, other cache
+              rows bit-equal, one launch a group counted by the C entry
+              and by the kernel, its grid syncs and head exchanges as
+              the kernel counts them equal to the plan's, its plan as
+              built equal to ops/decode_stack.py's mirror, each of 16
+              rows alone bit-equal to itself among 16, the engine's
+              padded head; timed in a CUDA graph beside the plain
+              version, the unfused step it replaces and the byte
               bound); then the same four on int8 stacks (the
               kernels' int8 bodies) at the same positions and batches,
               held to the plain version's distance to a float32
@@ -85,17 +89,18 @@ per phase, each with the seconds since start:
               sampling): 20 requests of 40 tokens, 128 frames each, all
               submitted at once (four wait for a free row), two argmax
               and two seeded, each client vocoding its own codes; run on
-              the slow step's row sequence and the batched fast-frame
+              the slow step's row kernel and the batched fast-frame
               kernel (`auto`), on the unfused slow step and the batched
               kernel (`slow_impl="xla"`: the A/B that decides whether
-              `auto` picks the row sequence) and on the unfused codebook
+              `auto` picks the row kernel) and on the unfused codebook
               loop (`fast_frame_impl="xla"`) in turns, with frames/s,
               per-request RTF p50/p95 and a profile of 4 decode frames
-              of each; launch counts (the row sequence's 5 L + 1 a
-              decode step, no decode attention on `auto`); each seeded
+              of each; launch counts (the row kernel's one launch a
+              decode step, counted by the wrapper and by the kernel, no
+              decode attention on `auto`); each seeded
               request is run again alone on a fresh batcher and must give
               the same codes; the int8 serving engine (the int8 bodies of
-              the row sequence and the batched frame) takes part in the
+              the row kernel and the batched frame) takes part in the
               turns (auto, slow_xla, xla, int8, int8, xla, slow_xla,
               auto), with its own launch counts, profile and seeded
               requests alone;
@@ -936,17 +941,22 @@ def log_top_kernels(phase: str, kernels, n: int, unit: str, top: int = 8) -> Non
 
 
 def check_slow_step_rows(torch, engine, params32) -> dict:
-    """The fused slow step's row sequence (csrc/slow_step_rows.cu), which
-    the serving engine's `auto` runs at 16 rows: at B = 16, cache 512 and
-    serving positions 39-167, and at B = 32 and 64 (two groups of 32) on
-    cache 256, each held to the plain version's distance to a float32
-    evaluation (as the persistent kernel is) with the other cache rows
-    bit-equal; the launches its C entry counts (5 L + 1 a group) against
-    the mirror; each of 16 rows alone (`rows_step`, one row) bit-equal to
-    itself among 16; then timed in a CUDA graph against the byte bound,
-    beside the plain version and the unfused step
-    (`models/dual_ar.py::slow_decode_step`, the path it replaces)."""
+    """The fused slow step's row kernel (csrc/slow_step_rows.cu, one
+    persistent launch a group of 32 rows), which the serving engine's
+    `auto` runs at 16 rows: its plan as built against the mirror
+    (`ops/decode_stack.py::rows_plan`); at B = 16, cache 512 and serving
+    positions 39-167, at B = 32 and 64 (two launches) on cache 256 and at
+    8 rows of cache 2048 past 1024 keys, each held to the plain version's
+    distance to a float32 evaluation (as the persistent kernel is) with the
+    other cache rows bit-equal, one launch a group as the C entry and the
+    kernel count them, and the kernel's own count of its grid syncs and
+    head 0's exchanges equal to the plan's; each of 16 rows alone
+    (`rows_step`, one row) bit-equal to itself among 16; then timed in a
+    CUDA graph against the byte bound, beside the plain version and the
+    unfused step (`models/dual_ar.py::slow_decode_step`, the path it
+    replaces)."""
     from fish_speech_tpu_torch.models.dual_ar import KVCache, slow_decode_step
+    from fish_speech_tpu_torch.ops import decode_stack as ds
     from fish_speech_tpu_torch.ops import slow_step as ss
 
     cfg, params, rope = engine.cfg, engine.params, engine.rope
@@ -962,6 +972,17 @@ def check_slow_step_rows(torch, engine, params32) -> dict:
           and torch.equal(head_rows[:, :head_cols], params["output"])
           and not bool(head_rows[:, head_cols:].any()),
           f"{name}: the engine's padded head {None if head_rows is None else head_rows.shape}")
+    plans = {}
+    for s_len in (SERVE_CACHE, 256, 2048):
+        mirror = ss.rows_plan(cfg, head_cols, s_len, int8, ds.grid_of(dev))
+        card = ds.rows_plan_on_card(cfg.dim, cfg.n_head, kv, cfg.intermediate_size, head_cols,
+                                    s_len, int8)
+        check(mirror is not None and card == mirror,
+              f"{name}: the plan on the card {card} differs from the mirror {mirror} at cache "
+              f"{s_len}")
+        plans[s_len] = mirror
+    plan = plans[SERVE_CACHE]
+    syncs, exchanges = plan.syncs_per_launch(n_layer), plan.head_exchanges(n_layer)
 
     def inputs(b, s, positions=None):
         if positions is None:  # the serving positions: 39 (a 40-token prompt) to 167
@@ -982,17 +1003,24 @@ def check_slow_step_rows(torch, engine, params32) -> dict:
         x0, pos, ck, cv = inputs(b, s, positions)
         ckp, cvp, ck32, cv32 = ck.clone(), cv.clone(), ck.float(), cv.float()
         before, before8 = ss.rows_launches, ss.rows_int8_launches
+        on_card = ds.rows_launch_count(dev)
         got_l, got_h = ss.fused_slow_step(params, cfg, x0, pos, ck, cv, rope, head_rows=head_rows)
         launched = ss.rows_launches - before
         launched8 = ss.rows_int8_launches - before8
+        counted = ds.rows_launch_count(dev) - on_card
+        card_syncs, card_exchanges = ds.last_call_counts(dev)
         pl_l, pl_h = ss.fused_slow_step_plain(params, cfg, x0, pos, ckp, cvp, rope)
         ref_l, ref_h = ss.fused_slow_step_plain(params32, cfg, x0.float(), pos, ck32, cv32, rope)
         torch.cuda.synchronize()
         what = f"{name} B={b} cache {s}"
         want = ss.rows_launches_per_step(n_layer, b)
-        check(launched == want and launched8 == (want if int8 else 0),
-              f"{what}: the C entry counted {launched} launches ({launched8} int8), the mirror "
-              f"{want}")
+        check(launched == want and launched8 == (want if int8 else 0) and counted == want,
+              f"{what}: the C entry counted {launched} launches ({launched8} int8), the kernel "
+              f"{counted}, the mirror {want}")
+        want_syncs = plans[s].syncs_per_launch(n_layer), plans[s].head_exchanges(n_layer)
+        check((card_syncs, card_exchanges) == want_syncs,
+              f"{what}: the kernel counted {card_syncs} grid syncs and {card_exchanges} head "
+              f"exchanges a launch, the plan {want_syncs}")
         check(tuple(got_l.shape) == (b, head_cols) and bool(torch.isfinite(got_l).all()),
               f"{what}: logits {tuple(got_l.shape)} not finite or misshaped")
         rows, p = torch.arange(b, device=dev), pos.long()
@@ -1012,13 +1040,14 @@ def check_slow_step_rows(torch, engine, params32) -> dict:
         for k, v in errs.items():
             worst[k] = max(worst.get(k, (0.0, 0.0)), v)
         worst["vs_plain"] = max(worst.get("vs_plain", 0.0), vs_plain)
-        log("kernels", f"{what}: {launched} launches ({want // -(-b // ss.ROWS_GROUP)} a group of "
-            f"<= {ss.ROWS_GROUP} rows, counted by the C entry); max abs distance to the float32 "
-            "evaluation, kernel | plain: "
+        log("kernels", f"{what}: {launched} launches (one a group of <= {ss.ROWS_GROUP} rows, "
+            f"counted by the C entry and by the kernel), {card_syncs} grid syncs and "
+            f"{card_exchanges} head exchanges a launch (counted by the kernel); max abs distance "
+            "to the float32 evaluation, kernel | plain: "
             + ", ".join(f"{k} {a:.4f} | {c:.4f}" for k, (a, c) in errs.items())
             + f"; other cache rows bit-equal; kernel vs plain: logits {vs_plain:.4f}")
 
-    # a row alone through the same sequence, bit-equal to itself among 16
+    # a row alone through the same kernel, bit-equal to itself among 16
     x0, pos, ck, cv = inputs(SERVE_ROWS, SERVE_CACHE)
     k16, v16 = ck.clone(), cv.clone()
     l16, h16 = ss.fused_slow_step(params, cfg, x0, pos, k16, v16, rope, head_rows=head_rows)
@@ -1064,9 +1093,15 @@ def check_slow_step_rows(torch, engine, params32) -> dict:
     log("kernels", f"{name} B={SERVE_ROWS}: a step's kernels under torch.profiler (3 steps):")
     log_top_kernels("kernels", device_kernels(prof), 3, "step", top=6)
     per_step = ss.rows_launches_per_step(n_layer, SERVE_ROWS)
+    log("kernels", f"{name} row kernel: plan on the card equal to the mirror at caches "
+        f"{sorted(plans)} (grid {plan.grid} x {ds.BLOCK_THREADS} threads, {plan.smem} B of shared "
+        f"memory a block, ring of {plan.stages} stages x {plan.stage_bytes} B, QKV "
+        f"{plan.qkv_tiles}x{plan.qkv_splits} units, attention+wo {plan.attn_units} "
+        f"({plan.attn_ranks} ranks a row), w1/w3+w2 {plan.sw_units} ({plan.sw_split}-way "
+        f"K-split), {plan.owners} owners of x)")
     log("kernels", f"{name} B={SERVE_ROWS} cache {SERVE_CACHE} pos 39-167 ({n_layer} layers, "
-        f"{'int8' if int8 else 'bf16'}, {per_step} launches a step): kernel {ms:.4f} ms (eager "
-        f"call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, unfused step "
+        f"{'int8' if int8 else 'bf16'}, {per_step} launch a step, {syncs} grid syncs): kernel "
+        f"{ms:.4f} ms (eager call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, unfused step "
         f"(slow_decode_step) {unfused_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, "
         f"{nbytes / 1e6:.1f} MB): {100 * bound_ms / ms:.1f}% of the bound")
     return {
@@ -1079,7 +1114,8 @@ def check_slow_step_rows(torch, engine, params32) -> dict:
         "kernel_ms_at_batch": {str(k): v for k, v in times.items()},
         "plain_ms": plain_ms, "unfused_step_ms": unfused_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "share_of_bound": bound_ms / ms, "library_ms": None,
-        "launches_per_step": per_step,
+        "launches_per_step": per_step, "grid": plan.grid, "smem": plan.smem,
+        "ring_stages": plan.stages, "syncs_per_call": syncs, "head_exchanges_per_call": exchanges,
         "shape": f"x0 ({SERVE_ROWS},{cfg.dim}), {n_layer} layers ({'int8' if int8 else 'bf16'}), "
                  f"head ({cfg.dim},{head_cols}) padded to {ss.head_stride(head_cols)}, cache "
                  f"({n_layer},{SERVE_ROWS},{kv},{SERVE_CACHE},{hd}) bf16, pos 39-167",
@@ -1523,7 +1559,7 @@ def build_models(torch):
                               **serve_kw)
                for impl in ("auto", "xla")}
     # the unfused slow step beside the batched fast frame: the serving
-    # path before the row sequence, against which the A/B sets `auto`
+    # path before the row kernel, against which the A/B sets `auto`
     serving["slow_xla"] = LMEngine(params, cfg, tok, WhichLM.FISH_1_5, slow_impl="xla",
                                    **serve_kw)
     t1 = time.perf_counter()
@@ -1538,20 +1574,20 @@ def build_models(torch):
     check(not (unfused.use_fused_slow or unfused.use_fused_fast), "the xla engine is fused")
     check(serving["auto"].use_fused_fast and serving["auto"].use_fused_slow,
           "the serving engine's auto path is not the batched fast frame + the slow step's "
-          "row sequence")
+          "row kernel")
     check(serving["slow_xla"].use_fused_fast and not serving["slow_xla"].use_fused_slow,
           "the slow_xla serving engine is not the batched fast frame + unfused slow step")
     check(not serving["xla"].use_fused_fast, "the xla serving engine's codebook loop is fused")
     check(int8["batch1"].use_fused_slow and int8["batch1"].use_fused_fast,
           "the int8 engine on CUDA at batch 1 is not on the fused path")
     check(int8["serving"].use_fused_fast and int8["serving"].use_fused_slow,
-          "the int8 serving engine's auto path is not the batched fast frame + row sequence")
+          "the int8 serving engine's auto path is not the batched fast frame + row kernel")
     codec = FireflyCodec(codec_params, codec_cfg)
     torch.cuda.synchronize()
     log("main", f"Fish-1.5 bf16 params (seed 0) + Firefly-1.5 bf16 codec (seed 1) on the card "
         f"in {time.perf_counter() - t0:.1f}s; cache_len {fused.cache_len}; engines: auto "
         f"(fused slow step + fused fast frame), xla (unfused), and {SERVE_ROWS}-row serving "
-        f"engines (cache {SERVE_CACHE}) auto (the slow step's row sequence + batched fast "
+        f"engines (cache {SERVE_CACHE}) auto (the slow step's row kernel + batched fast "
         f"frame), slow_xla (unfused slow step + batched fast frame) and xla (unfused codebook "
         f"loop); int8 batch-1 and serving auto engines, {quant_s:.2f}s each to quantize on the "
         f"card")
@@ -1927,17 +1963,18 @@ def profile_serving(torch, np, engine, label: str, frames: int = 4) -> None:
 
 def run_serving(torch, np, serving, codec, tok, codec_cfg):
     """The serving phase, in turns: auto, slow_xla, xla, int8, int8, xla,
-    slow_xla, auto. serving["auto"] (bf16): the slow step's row sequence
+    slow_xla, auto. serving["auto"] (bf16): the slow step's row kernel
     and the batched fast frame; serving["slow_xla"]: the unfused slow step
     and the batched fast frame (the A/B that decides `auto`);
     serving["xla"]: the unfused codebook loop; serving["int8"]: the int8
-    bodies of the row sequence and the batched frame. The launch counts of
+    bodies of the row kernel and the batched frame. The launch counts of
     the first run of each but xla; each seeded request alone on a fresh
     batcher of auto and of int8; profiles. Returns {kernel: launches}:
     the bf16 kernels' on the first auto run, the int8 bodies' on the first
     int8 run."""
     from fish_speech_tpu_torch.generate.continuous import ContinuousBatcher
     from fish_speech_tpu_torch.ops import decode_attention as da
+    from fish_speech_tpu_torch.ops import decode_stack as ds
     from fish_speech_tpu_torch.ops import fast_frame as ff
     from fish_speech_tpu_torch.ops import fast_frame_batched as fb
     from fish_speech_tpu_torch.ops import prefill_attention as pa
@@ -1957,11 +1994,13 @@ def run_serving(torch, np, serving, codec, tok, codec_cfg):
                 m.launches = 0
                 m.int8_launches = 0
             ss.rows_launches = ss.rows_int8_launches = 0
+            on_card = ds.rows_launch_count("cuda", serving[impl].sync_state)
         res, fps, p50 = serving_run(torch, np, serving[impl], codec, tok, codec_cfg, reqs,
                                     f"{impl} run {len(runs[impl]) + 1}")
         if counting:
             launches = {name: m.launches for name, m in mods.items()}
             launches["slow_step_rows"] = ss.rows_launches
+            by_kernel = ds.rows_launch_count("cuda", serving[impl].sync_state) - on_card
             int8 = {name: getattr(m, "int8_launches", 0) for name, m in mods.items()}
             int8["slow_step_rows"] = ss.rows_int8_launches
             log("serving", f"{impl} run 1 launches (warm-up request included) "
@@ -1970,13 +2009,13 @@ def run_serving(torch, np, serving, codec, tok, codec_cfg):
             frames = launches["fused_fast_frame_batched"]  # one a decode step
             rows = 0 if impl == "slow_xla" else ss.rows_launches_per_step(n_layer, SERVE_ROWS)
             want_int8 = impl == "int8"
-            check(frames > 0 and launches["slow_step_rows"] == rows * frames
+            check(frames > 0 and launches["slow_step_rows"] == rows * frames == by_kernel
                   and (launches["decode_attention"] > 0) == (impl == "slow_xla")
                   and launches["fused_fast_frame"] == 0 and launches["fused_slow_step"] == 0
                   and int8["fused_fast_frame_batched"] == (frames if want_int8 else 0)
                   and int8["slow_step_rows"] == (rows * frames if want_int8 else 0),
-                  f"the serving {impl} path launched {launches} (int8 bodies {int8}) in "
-                  f"{frames} decode steps")
+                  f"the serving {impl} path launched {launches} (int8 bodies {int8}; the row "
+                  f"kernel counted {by_kernel}) in {frames} decode steps")
             counted[impl] = {
                 "auto": lambda: launches,
                 "slow_xla": lambda: {},
@@ -1988,7 +2027,7 @@ def run_serving(torch, np, serving, codec, tok, codec_cfg):
     mean = {k: (sum(f for f, _ in v) / len(v), sum(p for _, p in v) / len(v))
             for k, v in runs.items()}
     verdict = "holds" if mean["auto"][0] >= mean["slow_xla"][0] else "FAILS"
-    log("serving", f"A/B (two runs each, in turns): auto (row sequence + batched kernel) "
+    log("serving", f"A/B (two runs each, in turns): auto (row kernel + batched kernel) "
         f"{mean['auto'][0]:.1f} frames/s, RTF p50 {mean['auto'][1]:.4f}; slow_xla (unfused "
         f"slow step + batched kernel) {mean['slow_xla'][0]:.1f} frames/s, RTF p50 "
         f"{mean['slow_xla'][1]:.4f}; xla (unfused codebook loop) {mean['xla'][0]:.1f} "
@@ -2008,7 +2047,7 @@ def run_serving(torch, np, serving, codec, tok, codec_cfg):
         finally:
             batcher.shutdown()
         log("serving", f"{impl}: seeded requests {list(SERVE_SEEDED)}: the same codes alone on "
-            f"a fresh batcher as among {SERVE_REQUESTS - 1} co-tenants (the row sequence and "
+            f"a fresh batcher as among {SERVE_REQUESTS - 1} co-tenants (the row kernel and "
             f"the batched frame)")
     for impl in ("auto", "slow_xla", "xla", "int8"):
         profile_serving(torch, np, serving[impl], impl)

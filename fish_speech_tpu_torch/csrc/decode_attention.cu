@@ -61,25 +61,12 @@
 //     whole window is a Mosaic workaround, and keys past pos take weight 0.
 // Sums run in another order than XLA's, so attn agrees to bf16 rounding;
 // the cache write is a plain copy and agrees bit for bit.
-//
-// The same kernel, instantiated with PACKED, is the attention launch of
-// the slow step's row sequence (slow_step_rows.cu, fs_rope_decode_attention):
-// it reads q, k and v from the packed QKV row (B, (H + 2 KV) * 64) that
-// the QKV GEMM wrote, rotates q and k by the interleaved RoPE at pos[b]
-// in f32 and rounds them to bf16 (ops/rope.py::apply_rope_interleaved;
-// each lane's 16 bytes are 4 whole pairs, so no lane needs another's),
-// and attends over a slice of rows of a larger cache (its layer stride
-// counts cache_b rows), so one launch serves a group of rows of a batch.
-// The RoPE costs nothing the unpacked kernel does not read: each lane
-// loads 4 cos and 4 sin words beside its 16 bytes of q, k and v.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include "c_entries.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -149,36 +136,13 @@ __device__ __forceinline__ void publish(float* buf, int n, int i, float v, int r
   for (int q = 0; q < P; ++q) cluster.map_shared_rank(buf, q)[rank * n + i] = v;
 }
 
-// 8 bf16 values (4 interleaved pairs) rotated by cos c and sin s in f32
-// and rounded to bf16, in the separate products of ops/rope.py.
-__device__ __forceinline__ uint4 rope8(const uint4& raw, const float4& c, const float4& s) {
-  float f[8];
-  unpack8(raw, f);
-  const float cs[4] = {c.x, c.y, c.z, c.w};
-  const float sn[4] = {s.x, s.y, s.z, s.w};
-  uint4 r;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float x0 = f[2 * e], x1 = f[2 * e + 1];
-    h[e] = __floats2bfloat162_rn(__fsub_rn(__fmul_rn(x0, cs[e]), __fmul_rn(x1, sn[e])),
-                                 __fadd_rn(__fmul_rn(x0, sn[e]), __fmul_rn(x1, cs[e])));
-  }
-  return r;
-}
-
 // grid: B * KV * P blocks in clusters of P (rank = blockIdx.x % P).
-// PACKED: q is the packed QKV rows (B, (H + 2 KV) * HD), k_new and v_new
-// are unused, cos_t / sin_t (positions, HD / 2) f32 tables; otherwise q
-// (B, H, HD), k_new / v_new (B, KV, HD) and no tables. The caches'
-// layer stride is cache_b rows (cache_b = B but for a group of rows).
-template <int G, bool PACKED>
+template <int G>
 __global__ void __launch_bounds__(THREADS, 2)
     decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
-                            const bf16* __restrict__ v_new, const float* __restrict__ cos_t,
-                            const float* __restrict__ sin_t, const int* __restrict__ pos_arr,
-                            bf16* ck, bf16* cv, bf16* __restrict__ out, int cache_b, int KV,
-                            int S, int layer, float scale) {
+                            const bf16* __restrict__ v_new, const int* __restrict__ pos_arr,
+                            bf16* ck, bf16* cv, bf16* __restrict__ out, int B, int KV, int S,
+                            int layer, float scale) {
   constexpr int DUP = LANES_PER_KEY / G;  // lanes of a key that hold one head
   __shared__ float wred[NWARPS][G];  // the warps' max of each head
   __shared__ float wsum[NWARPS][G];  // and their sums of exp(s - block max)
@@ -205,59 +169,40 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int p = pos_arr[b];
   if (p < 0 || p >= S) __trap();  // a position outside the cache
 
-  const size_t row = ((size_t)layer * cache_b * KV + bg) * (size_t)S * HD;
+  const size_t row = ((size_t)layer * B * KV + bg) * (size_t)S * HD;
   bf16* kc = ck + row;
   bf16* vc = cv + row;
-  // the row's q heads, new key and new value (packed: k and v follow the
-  // H q heads of the QKV row)
-  const bf16* qb = q + (size_t)b * (PACKED ? H + 2 * KV : H) * HD + (size_t)g * G * HD;
-  const bf16* kn = PACKED ? q + (size_t)b * (H + 2 * KV) * HD + (size_t)(H + g) * HD + sub * 8
-                          : k_new + (size_t)bg * HD + sub * 8;
-  const bf16* vn = PACKED ? q + (size_t)b * (H + 2 * KV) * HD + (size_t)(H + KV + g) * HD + sub * 8
-                          : v_new + (size_t)bg * HD + sub * 8;
-  // this lane's 4 cos and 4 sin of position p (packed: its 4 RoPE pairs)
-  auto rope_at = [&](const uint4& raw) {
-    return rope8(raw, reinterpret_cast<const float4*>(cos_t + (size_t)p * (HD / 2))[sub],
-                 reinterpret_cast<const float4*>(sin_t + (size_t)p * (HD / 2))[sub]);
-  };
-  // the new key (rotated when packed) or value: read where used, by the
-  // lanes of key p only, so no register holds it across the loops
-  auto fresh = [&](bool is_k) -> uint4 {
-    const uint4 raw = *reinterpret_cast<const uint4*>(is_k ? kn : vn);
-    if constexpr (PACKED) return is_k ? rope_at(raw) : raw;
-    return raw;
-  };
+  const bf16* kn = k_new + (size_t)bg * HD + sub * 8;
+  const bf16* vn = v_new + (size_t)bg * HD + sub * 8;
 
   // this lane's 16 bytes of key t * TILE + key0 (zero past pos; key pos
-  // from the new key / value, never from the cache)
-  auto load_at = [&](const bf16* cache, bool is_k, int t) {
+  // from k_new / v_new)
+  auto load_at = [&](const bf16* cache, const bf16* fresh, int t) {
     const int j = t * TILE + key0;
     uint4 r = make_uint4(0u, 0u, 0u, 0u);
     if (j < p)
       r = *reinterpret_cast<const uint4*>(cache + (size_t)j * HD + sub * 8);
     else if (j == p)
-      r = fresh(is_k);
+      r = *reinterpret_cast<const uint4*>(fresh);
     return r;
   };
 
   uint4 kbuf[DEPTH], vbuf[DEPTH];
 #pragma unroll
   for (int i = 0; i < DEPTH; ++i) {
-    kbuf[i] = load_at(kc, true, rank + P * i);
-    vbuf[i] = load_at(vc, false, rank + P * i);
+    kbuf[i] = load_at(kc, kn, rank + P * i);
+    vbuf[i] = load_at(vc, vn, rank + P * i);
   }
   uint4 qraw[G];  // this lane's 8 dims of each head, unpacked where used
 #pragma unroll
-  for (int h = 0; h < G; ++h) {
-    qraw[h] = *reinterpret_cast<const uint4*>(qb + (size_t)h * HD + sub * 8);
-    if constexpr (PACKED) qraw[h] = rope_at(qraw[h]);
-  }
+  for (int h = 0; h < G; ++h)
+    qraw[h] = *reinterpret_cast<const uint4*>(q + ((size_t)b * H + g * G + h) * HD + sub * 8);
 
   // in-place cache write of this step's key and value, by the lanes that
   // hold key pos
   if ((p / TILE) % P == rank && p % TILE == key0) {
-    *reinterpret_cast<uint4*>(kc + (size_t)p * HD + sub * 8) = fresh(true);
-    *reinterpret_cast<uint4*>(vc + (size_t)p * HD + sub * 8) = fresh(false);
+    *reinterpret_cast<uint4*>(kc + (size_t)p * HD + sub * 8) = *reinterpret_cast<const uint4*>(kn);
+    *reinterpret_cast<uint4*>(vc + (size_t)p * HD + sub * 8) = *reinterpret_cast<const uint4*>(vn);
   }
 
   // 1. scores of the rank's keys, one (key, head) per lane and step
@@ -269,7 +214,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     const int t = rank + P * i;
     if (t * TILE <= p) {  // the same for the whole block
       const uint4 cur = kbuf[i % DEPTH];
-      if (i + DEPTH < MAX_STEPS) kbuf[i % DEPTH] = load_at(kc, true, t + P * DEPTH);
+      if (i + DEPTH < MAX_STEPS) kbuf[i % DEPTH] = load_at(kc, kn, t + P * DEPTH);
       float kf[8];
       unpack8(cur, kf);
       float d[G];
@@ -341,7 +286,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     const int t = rank + P * i;
     if (t * TILE <= p) {
       const uint4 cur = vbuf[i % DEPTH];
-      if (i + DEPTH < MAX_STEPS) vbuf[i % DEPTH] = load_at(vc, false, t + P * DEPTH);
+      if (i + DEPTH < MAX_STEPS) vbuf[i % DEPTH] = load_at(vc, vn, t + P * DEPTH);
       const float w = __bfloat162float(__float2bfloat16(__fdiv_rn(expf(sc[i] - m), l)));
       float vf[8];
       unpack8(cur, vf);
@@ -389,10 +334,10 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-template <int G, bool PACKED>
-int launch(const void* q, const void* k_new, const void* v_new, const void* cos_t,
-           const void* sin_t, const void* pos, void* ck, void* cv, void* out, int B,
-           int cache_b, int KV, int S, int layer, int P, float scale, cudaStream_t stream) {
+template <int G>
+int launch(const void* q, const void* k_new, const void* v_new, const void* pos, void* ck,
+           void* cv, void* out, int B, int KV, int S, int layer, int P, float scale,
+           cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * KV * P);
   cfg.blockDim = dim3(THREADS);
@@ -406,32 +351,12 @@ int launch(const void* q, const void* k_new, const void* v_new, const void* cos_
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(
-      &cfg, decode_attention_kernel<G, PACKED>, static_cast<const bf16*>(q),
+      &cfg, decode_attention_kernel<G>, static_cast<const bf16*>(q),
       static_cast<const bf16*>(k_new), static_cast<const bf16*>(v_new),
-      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
       static_cast<const int*>(pos), static_cast<bf16*>(ck), static_cast<bf16*>(cv),
-      static_cast<bf16*>(out), cache_b, KV, S, layer, scale);
+      static_cast<bf16*>(out), B, KV, S, layer, scale);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
-}
-
-template <bool PACKED>
-int dispatch(int group, const void* q, const void* k_new, const void* v_new, const void* cos_t,
-             const void* sin_t, const void* pos, void* ck, void* cv, void* out, int B,
-             int cache_b, int KV, int S, int layer, int P, float scale, cudaStream_t st) {
-  switch (group) {
-    case 1: return launch<1, PACKED>(q, k_new, v_new, cos_t, sin_t, pos, ck, cv, out, B, cache_b, KV, S, layer, P, scale, st);
-    case 2: return launch<2, PACKED>(q, k_new, v_new, cos_t, sin_t, pos, ck, cv, out, B, cache_b, KV, S, layer, P, scale, st);
-    case 4: return launch<4, PACKED>(q, k_new, v_new, cos_t, sin_t, pos, ck, cv, out, B, cache_b, KV, S, layer, P, scale, st);
-    case 8: return launch<8, PACKED>(q, k_new, v_new, cos_t, sin_t, pos, ck, cv, out, B, cache_b, KV, S, layer, P, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-bool bad_shape(int B, int H, int KV, int S, int L, int layer, int cluster) {
-  return B <= 0 || KV <= 0 || H % KV != 0 || layer < 0 || layer >= L || S <= 0 || cluster < 1 ||
-         cluster > MAX_CLUSTER || (cluster & (cluster - 1)) != 0 ||
-         S > cluster * TILE * MAX_STEPS;
 }
 
 }  // namespace
@@ -446,25 +371,16 @@ extern "C" int fs_decode_attention(const void* q, const void* k_new, const void*
                                    const void* pos, void* ck, void* cv, void* out, int B,
                                    int H, int KV, int S, int L, int layer, int cluster,
                                    float scale, void* stream) {
-  if (bad_shape(B, H, KV, S, L, layer, cluster)) return (int)cudaErrorInvalidValue;
-  return dispatch<false>(H / KV, q, k_new, v_new, nullptr, nullptr, pos, ck, cv, out, B, B, KV,
-                         S, layer, cluster, scale, static_cast<cudaStream_t>(stream));
-}
-
-// The slow step's row sequence's attention launch (slow_step_rows.cu):
-// qkv (B, (H + 2 KV) * 64) bf16, the packed QKV rows of B rows; cos_t,
-// sin_t (positions, 32) f32 RoPE tables; pos (B,) int32; ck/cv: rows
-// [0, B) of (L, cache_b, KV, S, 64) bf16 caches (pointers at the group's
-// first row); out (B, H * 64) bf16. Rotates q and k at pos[b], writes k
-// and v at row pos[b] of layer `layer`, attends over rows 0..pos[b].
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int fs_rope_decode_attention(const void* qkv, const void* cos_t, const void* sin_t,
-                                        const void* pos, void* ck, void* cv, void* out, int B,
-                                        int H, int KV, int S, int cache_b, int L, int layer,
-                                        int cluster, float scale, void* stream) {
-  if (bad_shape(B, H, KV, S, L, layer, cluster) || cache_b < B || cos_t == nullptr ||
-      sin_t == nullptr)
+  if (B <= 0 || KV <= 0 || H % KV != 0 || layer < 0 || layer >= L || S <= 0 || cluster < 1 ||
+      cluster > MAX_CLUSTER || (cluster & (cluster - 1)) != 0 ||
+      S > cluster * TILE * MAX_STEPS)
     return (int)cudaErrorInvalidValue;
-  return dispatch<true>(H / KV, qkv, nullptr, nullptr, cos_t, sin_t, pos, ck, cv, out, B,
-                        cache_b, KV, S, layer, cluster, scale, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (H / KV) {
+    case 1: return launch<1>(q, k_new, v_new, pos, ck, cv, out, B, KV, S, layer, cluster, scale, st);
+    case 2: return launch<2>(q, k_new, v_new, pos, ck, cv, out, B, KV, S, layer, cluster, scale, st);
+    case 4: return launch<4>(q, k_new, v_new, pos, ck, cv, out, B, KV, S, layer, cluster, scale, st);
+    case 8: return launch<8>(q, k_new, v_new, pos, ck, cv, out, B, KV, S, layer, cluster, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -328,17 +328,18 @@ __device__ __forceinline__ void ds_prefetch_l2(const void* p) {
 }
 
 // sum_{i < n} src[i * stride] in index order (n >= 1), read past L1. The
-// loads of each group of 8 are issued together (clamped addresses, the
-// adds predicated), so a sum waits for one L2 round trip per 8 terms
+// loads of each group of NW are issued together (clamped addresses, the
+// adds predicated), so a sum waits for one L2 round trip per NW terms
 // instead of one per term.
+template <int NW = 8>
 __device__ __forceinline__ float ds_sum_strided(const float* src, size_t stride, int n) {
   float y = 0.f;
-  for (int base = 0; base < n; base += 8) {
-    float v[8];
+  for (int base = 0; base < n; base += NW) {
+    float v[NW];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = __ldcg(src + (size_t)min(base + i, n - 1) * stride);
+    for (int i = 0; i < NW; ++i) v[i] = __ldcg(src + (size_t)min(base + i, n - 1) * stride);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < NW; ++i)
       if (base + i < n) y = (base + i == 0) ? v[i] : y + v[i];
   }
   return y;
@@ -1752,33 +1753,33 @@ __global__ void __launch_bounds__(DS_BLOCK, 1)
   }
 }
 
-// One cooperative launch of decode_stack_kernel<W, NB, FAST>.
-template <typename W, int NB, bool FAST>
-cudaError_t ds_launch(const DsArgs<W>& a, cudaStream_t st) {
-  auto kernel = decode_stack_kernel<W, NB, FAST>;
-  // set once per size, never while a CUDA graph is captured after a
-  // warm-up call
-  static int smem_set = 0;
-  static int smem_checked = 0;
-  if (a.plan.smem > smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.plan.smem);
+// One cooperative launch of `kernel` (argument a) on `grid` blocks of
+// `threads` threads with `smem` bytes of dynamic shared memory: every
+// block resident, one an SM, so its grid syncs cannot deadlock. smem_set and
+// smem_checked are the kernel's own record of the size its limit was
+// raised to and its residency checked at: both happen once per size,
+// never while a CUDA graph is captured after a warm-up call.
+template <typename K, typename A>
+cudaError_t ds_coop_launch(K kernel, const A& a, int grid, int threads, int smem,
+                           cudaStream_t st, int& smem_set, int& smem_checked) {
+  if (smem > smem_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    smem_set = a.plan.smem;
+    smem_set = smem;
   }
-  if (a.plan.smem != smem_checked) {
-    // the cooperative launch needs every block resident: one an SM
+  if (smem != smem_checked) {
     int per_sm = 0;
-    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, DS_BLOCK, a.plan.smem);
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-    smem_checked = a.plan.smem;
+    smem_checked = smem;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.plan.grid);
-  cfg.blockDim = dim3(DS_BLOCK);
-  cfg.dynamicSmemBytes = a.plan.smem;
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
@@ -1788,6 +1789,15 @@ cudaError_t ds_launch(const DsArgs<W>& a, cudaStream_t st) {
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// One cooperative launch of decode_stack_kernel<W, NB, FAST>.
+template <typename W, int NB, bool FAST>
+cudaError_t ds_launch(const DsArgs<W>& a, cudaStream_t st) {
+  static int smem_set = 0;
+  static int smem_checked = 0;
+  return ds_coop_launch(decode_stack_kernel<W, NB, FAST>, a, a.plan.grid, DS_BLOCK, a.plan.smem,
+                        st, smem_set, smem_checked);
 }
 
 // One launch of ds_sampler_kernel<W, ITEMS> for step a.step.

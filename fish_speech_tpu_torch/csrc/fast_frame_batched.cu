@@ -85,9 +85,9 @@
 
 #include <cooperative_groups.h>
 
-#include "c_entries.cuh"
 #include "codebook_sampler.cuh"
 #include "dual_ar_layer.cuh"
+#include "tensor_core.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -173,22 +173,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* smem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void unpack8(const uint4& raw, float (&f)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
@@ -207,19 +191,6 @@ __device__ __forceinline__ void cluster_arrive_relaxed() {
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-// Bytes 0 and 2 (lo_hi = 0) or 1 and 3 (lo_hi = 1) of w, four int8 weights
-// offset by 128 (w ^ 0x80808080), as a bf16 pair (exact for -128..127):
-// each byte becomes the low mantissa bits of 2^23, from which 2^23 + 128
-// is subtracted, without an int-to-float conversion.
-__device__ __forceinline__ unsigned int8_pair(unsigned w, int lo_hi) {
-  const float lo = __fsub_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 + lo_hi)),
-                             8388736.f);
-  const float hi = __fsub_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7542 + lo_hi)),
-                             8388736.f);
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 // The A fragment (16 columns x 16 k) of weight tile rows k..k+15 at the
@@ -250,25 +221,9 @@ template <>
 struct Frag<int8_t> {
   __device__ __forceinline__ static void load(unsigned (&a)[4], const unsigned char* tile, int k,
                                               int c0, int lane) {
-    const int g = lane >> 2;
-    const int c = lane & 3;
-    const unsigned char* base = tile + (k + 2 * c) * rg_pitch<int8_t>() + c0 + 2 * g;
-    auto pair_rows = [&](int r) {  // rows k + r, k + r + 1: [g@r, g+8@r, g@r+1, g+8@r+1]
-      const unsigned lo = *reinterpret_cast<const unsigned short*>(base + r * rg_pitch<int8_t>());
-      const unsigned hi =
-          *reinterpret_cast<const unsigned short*>(base + (r + 1) * rg_pitch<int8_t>());
-      return __byte_perm(lo, hi, 0x5410) ^ 0x80808080u;
-    };
-    const unsigned w01 = pair_rows(0);
-    const unsigned w89 = pair_rows(8);
-    a[0] = int8_pair(w01, 0);
-    a[1] = int8_pair(w01, 1);
-    a[2] = int8_pair(w89, 0);
-    a[3] = int8_pair(w89, 1);
+    int8_a_frag<rg_pitch<int8_t>()>(a, tile, k, c0, lane);
   }
-  __device__ __forceinline__ static int column(int c0, int m) {
-    return c0 + (m < 8 ? 2 * m : 2 * (m - 8) + 1);
-  }
+  __device__ __forceinline__ static int column(int c0, int m) { return int8_a_column(c0, m); }
 };
 
 // out[b, n] = epilogue(p(sum_k in'[b, k] * w[k, n])) for b < nb, n < N:
@@ -799,9 +754,8 @@ int rows_gemm_entry(int mode, const void* in, const void* norm_w, const void* w,
 
 }  // namespace
 
-// One rows_gemm launch, as the frame and the slow step's row sequence
-// (slow_step_rows.cu) make it, and for the card's checks and timings:
-// mode 0..3 = kQkv, kResidual, kSwiglu, kHead. in (nb, K) bf16;
+// One rows_gemm launch, as the frame makes it (for the card's checks and
+// timings): mode 0..3 = kQkv, kResidual, kSwiglu, kHead. in (nb, K) bf16;
 // norm_w (K,) bf16 in the norm modes (all but kResidual); w (K rows of
 // stride ldw >= N rounded up to 16 bytes) and, for kSwiglu, w_b: bf16, or
 // int8 when scale (and, for kSwiglu, scale_b) (N,) bf16 is given; kHead

@@ -16,7 +16,7 @@ engines of continuous serving:
 The decode path follows the JAX engine's choice:
 
 * `slow_impl` "fused": `ops/slow_step.py::fused_slow_step` (on CUDA the
-  persistent kernel at 1-4 rows, the row sequence at 5 and more, within
+  persistent kernel at 1-4 rows, the row kernel at 5 and more, within
   the JAX kernel's bounds); "xla", the JAX engine's name for the unfused
   path: `models/dual_ar.py::slow_decode_step` with
   `ops/decode_attention.py`; "auto" (default): fused on CUDA at batch 1
@@ -224,7 +224,7 @@ class LMEngine:
             "slow_impl", slow_impl,
             fused_slow_step_supported(cfg, self.params, batch_size, self.cache_len),
             on_cuda and (batch_size == 1 or batch_size > PERSISTENT_ROWS))
-        # the row sequence's head, padded to whole 16-byte pieces once here
+        # the row kernel's head, padded to whole 16-byte pieces once here
         self.rows_head = (padded_head(self.params["output"])
                           if on_cuda and self.use_fused_slow and batch_size > PERSISTENT_ROWS
                           else None)

@@ -60,10 +60,12 @@ SIGNATURES = {
     # B, L, D, H, KV, F, W, S, scratch_bytes, eps, stream
     "fs_slow_step": [_P] * 24 + [_I] * 9 + [_F, _P],
     # x0, pos, attn_norm, ffn_norm, 5 weights, 5 scales, norm, head (padded),
-    # cos, sin, ck, cv, logits, hidden, qkv, attn, ffn (scratch),
-    # B, L, D, H, KV, F, W, head_ld, S, cluster, eps, stream,
+    # cos, sin, ck, cv, logits, hidden, scratch, state,
+    # B, L, D, H, KV, F, W, head_ld, S, scratch_bytes, eps, stream,
     # launched (1 int out)
-    "fs_slow_step_rows": [_P] * 25 + [_I] * 10 + [_F, _P, _P],
+    "fs_slow_step_rows": [_P] * 24 + [_I] * 10 + [_F, _P, _P],
+    # D, H, KV, F, W, S, int8, plan (25 ints out)
+    "fs_slow_step_rows_plan": [_I] * 7 + [_P],
     # hidden, attn_norm, ffn_norm, 5 weights, 5 scales, fast_norm, head,
     # emb, cos, sin, window, gumbel, is_eos, tokens, logits, k_hist,
     # v_hist, scratch, state,
@@ -173,6 +175,39 @@ def load_library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def load_variant(name: str, defines) -> ctypes.CDLL:
+    """The kernels built on the side with extra `-D` defines (an
+    instrumented or variant copy, for the timing and trace scripts) into
+    build/<name>/, loaded in place of the library: the wrappers launch
+    them from then on. Built anew on every call; not for the port's own
+    paths."""
+    global _lib
+    out = BUILD_ROOT.parent / name
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    flags = [*NVCC_FLAGS[:-2], *(f"-D{d}" for d in defines)]
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out / f"{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen([nvcc, *flags, "-c", "-o", str(obj), str(src)],
+                                      stderr=subprocess.PIPE, text=True))
+    for p in procs:
+        _, err = p.communicate()
+        if p.returncode:
+            raise RuntimeError(err)
+    lib_path = out / f"lib{name}.so"
+    subprocess.run([nvcc, *flags[:2], "-shared", "-o", str(lib_path), *map(str, objs)],
+                   check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    for fn_name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
 
 
 def check(rc: int, name: str) -> None:

@@ -1,8 +1,10 @@
 """The plan of the persistent decode kernel (`csrc/decode_stack.cuh`) that
 runs the fused slow step (`ops/slow_step.py`) and the fused batch-1 fast
-frame (`ops/fast_frame.py`), mirrored from `ds_make_plan`, and the grid
-sync states the kernel counts in: one per engine, and one per (card,
-stream) for calls made outside an engine.
+frame (`ops/fast_frame.py`), mirrored from `ds_make_plan`; the plan of the
+slow step's row kernel for 5 rows and more (`csrc/slow_step_rows.cu`),
+mirrored from `sr_make_plan` (`rows_plan`, at the end); and the grid sync
+states the kernels count in: one per engine, and one per (card, stream)
+for calls made outside an engine.
 
 One cooperative launch puts one block on every SM. The plan cuts each
 layer's GEMVs into work units from the shapes, the weight type and the
@@ -34,6 +36,8 @@ Each thread streams 8 weight columns of one row at a time (16 bytes bf16,
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Optional
 
 import torch
 
@@ -50,8 +54,9 @@ SMEM_LIMIT = 232448  # dynamic shared memory one block may use on sm_90
 MAX_STAGES = 128
 MAX_SEGS = 16  # weight segments a block streams each layer
 STATE_WORDS = 1024  # sync state: arrivals, finished blocks, publishes of x, F-slice groups,
-# heads' key-split exchanges; the last four words: launches of the sampler and of the
-# persistent kernel so far, the last launch's grid syncs and head 0's exchanges
+# heads' key-split exchanges; the last five words: launches of the row kernel, of the
+# sampler and of the persistent kernel so far, the last launch's grid syncs and head 0's
+# exchanges
 SPLIT_TILES = 8  # attention over more key tiles (256 keys) is split over a head's blocks
 MAX_WINDOW = 64  # rep-pen window entries the sampler takes
 DIMS = (256, 512, 1024, 2048)  # model widths the kernel takes
@@ -297,3 +302,192 @@ def launch_counts(device, state=None) -> tuple:
     the launch itself (synchronizes the device)."""
     sampler, persistent = (sync_state(device) if state is None else state)[-4:-2].tolist()
     return persistent, sampler
+
+
+def rows_launch_count(device, state=None) -> int:
+    """Launches of the row kernel (`csrc/slow_step_rows.cu`) finished on
+    `state` (by default that of the device's current stream) so far, as
+    the kernel counted them (synchronizes the device)."""
+    return int((sync_state(device) if state is None else state)[ROWS_LAUNCHES_WORD])
+
+
+# -- the slow step's row kernel (5 rows and more) ---------------------------------
+
+ROWS_GROUP = 32  # rows one launch takes (the group): 16 rows one launch, 64 two
+ROWS_TILE = 128  # columns of a weight tile, 16 a consumer warp
+ROWS_STAGE_ROWS = 32  # K-rows of a ring stage of the stack's weights (8 KB bf16, 4 KB int8)
+ROWS_MAX_SEGS = 16
+ROWS_MAX_STAGES = 64
+ROWS_MIN_STAGES = 4
+ROWS_MAX_STEPS = 16  # key tiles an attention rank takes
+ROWS_MAX_SPLITS = 16  # QKV K-splits the attention's gather adds at once
+ROWS_SEG_BYTES = 1024
+ROWS_LAUNCHES_WORD = STATE_WORDS - 5  # the row kernel's launches so far
+
+ROWS_PLAN_FIELDS = (
+    "grid", "stages", "stage_bytes", "smem", "scratch_bytes",
+    "qkv_tiles", "qkv_splits", "qkv_klen", "qkv_units",
+    "q_blocks", "wo_tiles", "attn_units", "attn_ranks", "attn_rows",
+    "sw_slices", "sw_split", "sw_units", "w2_tiles", "x_tiles", "owners",
+    "head_tiles", "head_splits", "head_klen", "head_units", "syncs_per_layer",
+)
+
+@dataclasses.dataclass(frozen=True)
+class RowsPlan:
+    """What `sr_make_plan` computes, in fs_slow_step_rows_plan's order.
+
+    Work units, each a weight segment a block streams through its ring
+    (unit u on block u mod grid): QKV `qkv_tiles` 128-column tiles x
+    `qkv_splits` K-splits of `qkv_klen` rows; attention + wo `q_blocks`
+    units a query head (the head's rows b = q, q + Q, ..., then wo's K-rows
+    of the head x `wo_tiles` tiles); w1 + w3 `sw_slices` 128-column slices
+    of F x `sw_split` K-splits, after which each split forms the slice's g
+    and takes those 128 K-rows of w2 for its `w2_tiles` of D's column tiles
+    (an element of x then has `sw_slices` w2 partials); the head
+    `head_tiles` x `head_splits`. A row's keys are dealt to `attn_ranks`
+    warps."""
+
+    grid: int
+    stages: int
+    stage_bytes: int
+    smem: int
+    scratch_bytes: int
+    qkv_tiles: int
+    qkv_splits: int
+    qkv_klen: int
+    qkv_units: int
+    q_blocks: int
+    wo_tiles: int
+    attn_units: int
+    attn_ranks: int
+    attn_rows: int
+    sw_slices: int
+    sw_split: int
+    sw_units: int
+    w2_tiles: int
+    x_tiles: int
+    owners: int
+    head_tiles: int
+    head_splits: int
+    head_klen: int
+    head_units: int
+    syncs_per_layer: int
+
+    def syncs_per_launch(self, n_layer: int) -> int:
+        """Grid syncs of one launch: three a layer and the head's."""
+        return self.syncs_per_layer * n_layer + 1
+
+    def head_exchanges(self, n_layer: int) -> int:
+        """Exchanges a launch makes on each query head's counter: one a
+        layer (its units' attention outputs)."""
+        return n_layer
+
+    def segments(self, block: int, kind: str = "layer") -> list:
+        """(matrix, row0, col0, K-rows, tiles of 128 columns) of each weight
+        segment block `block` streams, in the order it takes them: a
+        layer's ("layer") or the head's ("head"); matrix "w13" is w1 and w3
+        in turns."""
+        d = self.x_tiles * 8
+        if kind == "head":
+            return [("head", (u % self.head_splits) * self.head_klen,
+                     (u // self.head_splits) * ROWS_TILE,
+                     min(self.head_klen, d - (u % self.head_splits) * self.head_klen), 1)
+                    for u in range(block, self.head_units, self.grid)]
+        segs = []
+        for u in range(block, self.qkv_units, self.grid):
+            k0 = (u % self.qkv_splits) * self.qkv_klen
+            segs.append(("wqkv", k0, (u // self.qkv_splits) * ROWS_TILE,
+                         min(self.qkv_klen, d - k0), 1))
+        for u in range(block, self.attn_units, self.grid):
+            segs.append(("wo", (u // self.q_blocks) * HEAD_DIM,
+                         (u % self.q_blocks) * self.wo_tiles * ROWS_TILE, HEAD_DIM, self.wo_tiles))
+        kr = d // self.sw_split
+        for u in range(block, self.sw_units, self.grid):
+            t, h = divmod(u, self.sw_split)
+            segs.append(("w13", h * kr, t * ROWS_TILE, kr, 1))
+            segs.append(("w2", t * ROWS_TILE, h * self.w2_tiles * ROWS_TILE, ROWS_TILE,
+                         self.w2_tiles))
+        return segs
+
+
+@functools.lru_cache(maxsize=None)
+def rows_plan(d: int, n_head: int, kv: int, f: int, head_n: int, cache_len: int, int8: bool,
+              grid: int) -> Optional[RowsPlan]:
+    """The row kernel's plan for a stack of width d, n_head query and kv
+    KV heads of dim 64, ffn f, a head of head_n columns and a cache of
+    cache_len keys, on `grid` blocks: a function of the shapes alone (never
+    of the rows, so one object for every batch), or None when the kernel
+    does not take them."""
+    if (grid < 1 or n_head < 1 or kv < 1 or n_head % kv or n_head * HEAD_DIM != d
+            or f < ROWS_TILE or f % ROWS_TILE or head_n < 1 or cache_len < 1 or d not in DIMS):
+        return None
+    qkv = (n_head + 2 * kv) * HEAD_DIM
+    stage_bytes = ROWS_STAGE_ROWS * ROWS_TILE * (1 if int8 else 2)
+    qkv_tiles, qkv_splits, qkv_klen, qkv_units = _ksplit(d, qkv, ROWS_TILE, grid)
+    if qkv % ROWS_TILE or qkv_splits > ROWS_MAX_SPLITS:
+        return None
+    q = min(MAX_Q, _pow2_floor(max(grid // n_head, 1)))
+    while q > 1 and (d // q) % ROWS_TILE:
+        q //= 2
+    ranks = 2 if cache_len <= 1024 else THREADS // 32
+    if cache_len > ranks * KV_TILE * ROWS_MAX_STEPS:
+        return None
+    attn_rows = -(-ROWS_GROUP // q)
+    slices = f // ROWS_TILE
+    split = min(4, _pow2_floor(max(grid // slices, 1)))
+    while split > 1 and (d // split) % ROWS_TILE:
+        split //= 2
+    sw_units = slices * split
+    if sw_units > grid and split > 1:
+        return None
+    x_tiles = d // 8
+    head_tiles, head_splits, head_klen, head_units = _ksplit(d, head_n, ROWS_TILE, grid)
+    segs = (-(-qkv_units // grid) + -(-(n_head * q) // grid) + 2 * -(-sw_units // grid)
+            + -(-head_units // grid))
+    if segs > ROWS_MAX_SEGS or 3 + slices + n_head > ROWS_LAUNCHES_WORD:
+        return None
+    warps = THREADS // 32
+    off = _align(ROWS_GROUP * (d + 8) * 2, 128)  # the normalised rows
+    off += _align(ROWS_GROUP * (HEAD_DIM + 8) * 2, 16)  # a head's attention outputs
+    off += _align(ROWS_GROUP * (ROWS_TILE + 8) * 2, 16)  # a slice's g
+    off += 2 * d * 2  # a layer's ffn norm and the next norm
+    off += _align(4 * (attn_rows * 3 * HEAD_DIM + 2 * warps + warps * HEAD_DIM
+                       + warps * ROWS_MAX_STEPS * KV_TILE), 16)  # attention
+    off += ROWS_SEG_BYTES  # the segment and matrix tables, the positions
+    # the ring's stages at 1024-byte boundaries, the 128-byte swizzle's
+    stages = min(ROWS_MAX_STAGES, (SMEM_LIMIT - off - 1024) // (16 + stage_bytes))
+    if stages < ROWS_MIN_STAGES:
+        return None
+    smem = _align(off + 16 * stages, 1024) + stages * stage_bytes
+    if smem > SMEM_LIMIT:
+        return None
+    scratch = (_align(2 * ROWS_GROUP * d * 2, 256)
+               + _align(qkv_units * ROWS_GROUP * ROWS_TILE * 4, 256)
+               + _align(n_head * ROWS_GROUP * HEAD_DIM * 2, 256)
+               + _align(n_head * ROWS_GROUP * d * 4, 256)
+               + _align(sw_units * 2 * ROWS_GROUP * ROWS_TILE * 4, 256)
+               + _align(slices * ROWS_GROUP * d * 4, 256)
+               + _align(head_units * ROWS_GROUP * ROWS_TILE * 4, 256))
+    return RowsPlan(
+        grid=grid, stages=stages, stage_bytes=stage_bytes, smem=smem, scratch_bytes=scratch,
+        qkv_tiles=qkv_tiles, qkv_splits=qkv_splits, qkv_klen=qkv_klen, qkv_units=qkv_units,
+        q_blocks=q, wo_tiles=d // q // ROWS_TILE, attn_units=n_head * q, attn_ranks=ranks,
+        attn_rows=attn_rows, sw_slices=slices, sw_split=split, sw_units=sw_units,
+        w2_tiles=d // split // ROWS_TILE,
+        x_tiles=x_tiles, owners=min(x_tiles, grid), head_tiles=head_tiles,
+        head_splits=head_splits, head_klen=head_klen, head_units=head_units, syncs_per_layer=3)
+
+
+def rows_plan_on_card(d: int, n_head: int, kv: int, f: int, head_n: int, cache_len: int,
+                      int8: bool):
+    """The row kernel's plan as the built kernel computes it on the
+    current card (fs_slow_step_rows_plan), or None when it does not take
+    the shapes."""
+    import ctypes
+
+    out = (ctypes.c_int * len(ROWS_PLAN_FIELDS))()
+    rc = _cuda_build.load_library().fs_slow_step_rows_plan(
+        d, n_head, kv, f, head_n, cache_len, int(int8), ctypes.addressof(out))
+    if rc != 0:
+        return None
+    return RowsPlan(*list(out))

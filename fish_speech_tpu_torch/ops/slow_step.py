@@ -3,10 +3,10 @@ PyTorch version.
 
 * 1-4 rows: the persistent kernel (`csrc/slow_step.cu`, one cooperative
   launch of `csrc/decode_stack.cuh`).
-* 5 rows and more: the row sequence (`csrc/slow_step_rows.cu`), five
-  launches a layer and one for the head, for each group of at most 32
-  rows: the batched fast frame's tensor-core GEMMs (`rows_gemm`) and
-  decode attention reading the packed QKV rows with RoPE folded in.
+* 5 rows and more: the row kernel (`csrc/slow_step_rows.cu`), one
+  cooperative persistent launch for each group of at most 32 rows, every
+  layer and the head on the tensor cores, its weights streamed ahead
+  through a ring (plan `ops/decode_stack.py::rows_plan`).
 The route is chosen by the row count alone, so an engine keeps one.
 
 Counterpart of the TPU kernel `fish_speech_tpu/ops/slow_step_pallas.py::
@@ -37,21 +37,20 @@ import torch
 from fish_speech_tpu_torch.config import DualARConfig
 from fish_speech_tpu_torch.models.dual_ar import _attn_out_ffn, _layer, _project_qkv
 from fish_speech_tpu_torch.ops import _cuda_build, decode_stack
-from fish_speech_tpu_torch.ops.decode_attention import (
-    decode_attention_plain, decode_plan, decode_supported)
+from fish_speech_tpu_torch.ops.decode_attention import decode_attention_plain
 from fish_speech_tpu_torch.ops.norms import rms_norm
 from fish_speech_tpu_torch.ops.quant import is_quantized
 from fish_speech_tpu_torch.ops.rope import apply_rope_interleaved
 
 launches = 0  # persistent kernel launches since the last reset (set to 0 to reset)
 int8_launches = 0  # those of them on int8 stacks (the int8 kernel body)
-rows_launches = 0  # the row sequence's kernel launches, as its C entry counts them
+rows_launches = 0  # the row kernel's launches, as its C entry counts them
 rows_int8_launches = 0  # those of them on int8 stacks
 
 HEAD_DIM = decode_stack.HEAD_DIM  # the attention's head dim
-MAX_BATCH = decode_stack.MAX_ROWS  # rows the persistent kernel takes; more take the row sequence
-ROWS_GROUP = 32  # rows one pass of the row sequence takes (rows_gemm's most)
-HEAD_PIECE = 8  # bf16 head columns one 16-byte load reads
+MAX_BATCH = decode_stack.MAX_ROWS  # rows the persistent kernel takes; more take the row kernel
+ROWS_GROUP = decode_stack.ROWS_GROUP  # rows one launch of the row kernel takes
+HEAD_PIECE = 8  # bf16 head columns one 16-byte copy reads
 # the JAX kernel's batched bounds (slow_step_pallas.py:488-497)
 JAX_WINDOW_BYTES = 48 * 1024 * 1024
 JAX_MAX_ROWS_X_CACHE = 16384
@@ -152,22 +151,33 @@ def fused_slow_step_plain(params, cfg: DualARConfig, x0, pos, ck, cv, rope):
 
 
 def rows_launches_per_step(n_layer: int, batch: int) -> int:
-    """Kernels the row sequence launches for one step of `batch` rows:
-    five a layer and the head's, for each group of at most 32 rows."""
-    return (5 * n_layer + 1) * -(-batch // ROWS_GROUP)
+    """Launches of the row kernel for one step of `batch` rows: one for
+    each group of at most 32 rows, whatever the depth (every layer and
+    the head run inside the launch)."""
+    del n_layer  # the whole stack is one launch
+    return -(-batch // ROWS_GROUP)
+
+
+def rows_plan(cfg: DualARConfig, head_cols: int, cache_len: int, int8: bool, grid: int):
+    """The row kernel's plan for this model's slow stack
+    (`ops/decode_stack.py::rows_plan`, cached): a function of the shapes
+    alone, never of the batch, so a row's bits cannot depend on its
+    co-tenants; None when the kernel does not take the shapes."""
+    return decode_stack.rows_plan(cfg.dim, cfg.n_head, cfg.n_local_heads, cfg.intermediate_size,
+                                  head_cols, cache_len, int8, grid)
 
 
 def head_stride(width: int) -> int:
-    """Columns of the row sequence's head copy: the gathered width (1025
-    at Fish-1.5, 2 at Fish <= 1.4) padded to whole 16-byte pieces."""
+    """Columns of the row kernel's head copy: the gathered width (1025 at
+    Fish-1.5, 2 at Fish <= 1.4) padded to whole 16-byte pieces."""
     return -(-width // HEAD_PIECE) * HEAD_PIECE
 
 
 def padded_head(head: torch.Tensor) -> torch.Tensor:
     """The (D, W) head with zero columns up to `head_stride(W)`, for the
-    row sequence (whose head GEMM reads 16-byte pieces and writes only the
-    W real columns); the head itself when W is a whole number of pieces.
-    The engine makes it once; `params["output"]` stays as it is."""
+    row kernel (whose weight ring copies 16-byte pieces and which writes
+    only the W real columns); the head itself when W is a whole number of
+    pieces. The engine makes it once; `params["output"]` stays as it is."""
     d, w = head.shape
     if head_stride(w) == w:
         return head
@@ -180,11 +190,11 @@ def fused_slow_step(params, cfg: DualARConfig, x0, pos, ck, cv, rope, *, head_ro
                     sync=None):
     """Same contract as `fused_slow_step_plain`. CPU tensors run the
     plain version; CUDA tensors launch the persistent kernel (1-4 rows,
-    one cooperative launch) or the row sequence (5 rows and more), or
-    raise. head_rows: the row sequence's padded head (`padded_head` of
-    params["output"]), made here when not given. sync: the persistent
-    kernel's grid sync state (an engine's own); by default that of the
-    current (device, stream)."""
+    one cooperative launch) or the row kernel (5 rows and more, one
+    cooperative launch a group of 32 rows), or raise. head_rows: the row
+    kernel's padded head (`padded_head` of params["output"]), made here
+    when not given. sync: the kernels' grid sync state (an engine's own);
+    by default that of the current (device, stream)."""
     if x0.device.type == "cpu":
         return fused_slow_step_plain(params, cfg, x0, pos, ck, cv, rope)
     if x0.device.type != "cuda":
@@ -200,7 +210,7 @@ def fused_slow_step(params, cfg: DualARConfig, x0, pos, ck, cv, rope, *, head_ro
     weights, scales = stack_pointers(stack)
     if bsz > MAX_BATCH:
         return _rows_step(params, cfg, x0, pos, ck, cv, cos_t, sin_t, weights, scales,
-                          padded_head(head) if head_rows is None else head_rows)
+                          padded_head(head) if head_rows is None else head_rows, sync)
     plan = slow_plan(cfg, w, s, scales[0] is not None, decode_stack.grid_of(x0.device))
     lib = _cuda_build.load_library()
     dev = x0.device
@@ -224,8 +234,8 @@ def fused_slow_step(params, cfg: DualARConfig, x0, pos, ck, cv, rope, *, head_ro
     return logits, hidden
 
 
-def rows_step(params, cfg: DualARConfig, x0, pos, ck, cv, rope, *, head_rows=None):
-    """The row sequence alone, at any batch of at most the JAX bounds
+def rows_step(params, cfg: DualARConfig, x0, pos, ck, cv, rope, *, head_rows=None, sync=None):
+    """The row kernel alone, at any batch of at most the JAX bounds
     (`fused_slow_step` takes it from 5 rows): the same contract and plain
     version; for the card's checks of a row alone against the same row
     among its co-tenants."""
@@ -237,14 +247,14 @@ def rows_step(params, cfg: DualARConfig, x0, pos, ck, cv, rope, *, head_rows=Non
            route_rows=True)
     weights, scales = stack_pointers(params["slow"])
     return _rows_step(params, cfg, x0, pos, ck, cv, cos_t, sin_t, weights, scales,
-                      padded_head(head) if head_rows is None else head_rows)
+                      padded_head(head) if head_rows is None else head_rows, sync)
 
 
-def _rows_step(params, cfg, x0, pos, ck, cv, cos_t, sin_t, weights, scales, head_rows):
-    """The row sequence (csrc/slow_step_rows.cu) on checked inputs."""
+def _rows_step(params, cfg, x0, pos, ck, cv, cos_t, sin_t, weights, scales, head_rows, sync):
+    """The row kernel (csrc/slow_step_rows.cu) on checked inputs."""
     stack = params["slow"]
     bsz, d = x0.shape
-    n_layer, _, kv, s, hd = ck.shape
+    n_layer, _, kv, s, _ = ck.shape
     f = stack_weight(stack["w1"]).shape[2]
     w = params["output"].shape[1]
     dev = x0.device
@@ -254,20 +264,19 @@ def _rows_step(params, cfg, x0, pos, ck, cv, cos_t, sin_t, weights, scales, head
         raise ValueError(f"fused_slow_step: head_rows must be a contiguous bfloat16 "
                          f"({d}, {head_stride(w)}) on {dev}, the padded head; got "
                          f"{tuple(head_rows.shape)} {head_rows.dtype} on {head_rows.device}")
-    rows = min(bsz, ROWS_GROUP)
-    qkv = torch.empty((rows, (cfg.n_head + 2 * kv) * hd), dtype=x0.dtype, device=dev)
-    attn = torch.empty((rows, d), dtype=x0.dtype, device=dev)
-    ffn = torch.empty((rows, f), dtype=x0.dtype, device=dev)
+    plan = rows_plan(cfg, w, s, scales[0] is not None, decode_stack.grid_of(dev))
     logits = torch.empty((bsz, w), dtype=torch.float32, device=dev)
     hidden = torch.empty_like(x0)
+    scratch = torch.empty((plan.scratch_bytes,), dtype=torch.uint8, device=dev)
     launched = ctypes.c_int(0)
     rc = _cuda_build.load_library().fs_slow_step_rows(
         x0.data_ptr(), pos.data_ptr(), stack["attention_norm"].data_ptr(),
         stack["ffn_norm"].data_ptr(), *weights, *scales,
         params["norm"].data_ptr(), head_rows.data_ptr(),
         cos_t.data_ptr(), sin_t.data_ptr(), ck.data_ptr(), cv.data_ptr(),
-        logits.data_ptr(), hidden.data_ptr(), qkv.data_ptr(), attn.data_ptr(), ffn.data_ptr(),
-        bsz, n_layer, d, cfg.n_head, kv, f, w, head_rows.shape[1], s, decode_plan(s).cluster,
+        logits.data_ptr(), hidden.data_ptr(), scratch.data_ptr(),
+        (decode_stack.sync_state(dev) if sync is None else sync).data_ptr(),
+        bsz, n_layer, d, cfg.n_head, kv, f, w, head_rows.shape[1], s, plan.scratch_bytes,
         float(cfg.norm_eps), torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched),
     )
     global rows_launches, rows_int8_launches
@@ -305,11 +314,10 @@ def fused_slow_step_supported(cfg: DualARConfig, params, batch: int,
     `decode_stack.DIMS`, and each route's limits. The persistent kernel
     (1-4 rows): an ffn width that is a multiple of 64 and a plan
     (`decode_stack.stack_plan`) whose shared memory, with the attention
-    scores of the whole cache, fits one block on an SM. The row sequence
-    (5 rows and more): a group of 1, 2, 4 or 8 query heads a KV head and
-    a cache decode attention takes, widths that are multiples of 8 and
-    GEMM plans that fit shared memory. CPU tensors run the plain version,
-    which takes any dtype."""
+    scores of the whole cache, fits one block on an SM. The row kernel
+    (5 rows and more): an ffn width that is a multiple of 128, a cache of
+    at most 4096 and a plan (`decode_stack.rows_plan`) that fits shared
+    memory. CPU tensors run the plain version, which takes any dtype."""
     if batch > MAX_BATCH:
         return rows_supported(cfg, params, batch, cache_len)
     s = cache_len or cfg.max_seq_len
@@ -322,14 +330,15 @@ def fused_slow_step_supported(cfg: DualARConfig, params, batch: int,
 
 
 def rows_supported(cfg: DualARConfig, params, batch: int, cache_len: int = 0) -> bool:
-    """Whether the row sequence (`rows_step`) takes these parameters at
-    this batch: as `fused_slow_step_supported` at 5 rows and more."""
+    """Whether the row kernel (`rows_step`) takes these parameters at this
+    batch: as `fused_slow_step_supported` at 5 rows and more."""
     s = cache_len or cfg.max_seq_len
     if not _card_ok(cfg, params, batch, s):
         return False
     stack = params["slow"]
     return (stack_weight(stack["wqkv"]).device.type != "cuda"
-            or _rows_fit(cfg, _head_cols(cfg, params), s, is_quantized(stack["wqkv"])))
+            or rows_plan(cfg, _head_cols(cfg, params), s, is_quantized(stack["wqkv"]),
+                         _grid(stack_weight(stack["wqkv"]).device)) is not None)
 
 
 def _card_ok(cfg: DualARConfig, params, batch: int, cache_len: int) -> bool:
@@ -345,21 +354,6 @@ def _card_ok(cfg: DualARConfig, params, batch: int, cache_len: int) -> bool:
 
 def _head_cols(cfg: DualARConfig, params) -> int:
     return params["output"].shape[1] if "output" in params else cfg.codebook_size + 1
-
-
-def _rows_fit(cfg: DualARConfig, head_cols: int, cache_len: int, int8: bool) -> bool:
-    """The row sequence's limits on these shapes."""
-    from fish_speech_tpu_torch.ops import fast_frame_batched as fb  # it imports this module
-
-    d, f = cfg.dim, cfg.intermediate_size
-    kv = cfg.n_local_heads
-    if kv < 1 or cfg.n_head % kv or f % 8 or not decode_supported(cache_len, cfg.n_head // kv):
-        return False
-    gemms = (((cfg.n_head + 2 * kv) * HEAD_DIM, d, "qkv"), (d, d, "residual"),
-             (f, d, "swiglu"), (d, f, "residual"))
-    plans = [fb.rows_plan(k, n, mode, int8) for n, k, mode in gemms]
-    plans.append(fb.rows_plan(d, head_cols, "head", False))
-    return all(p.smem <= fb._RG_SMEM_BUDGET for p in plans)
 
 
 def _grid(device) -> int:

@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Device times of the fused slow step and the fused batch-1 fast frame
-on one NVIDIA GPU.
+"""Device times of the fused slow step (batch 1 and 5 rows and more) and
+the fused batch-1 fast frame on one NVIDIA GPU.
 
-    python3 scripts/time_decode_stack.py [--json build/times.json]
+    python3 scripts/time_decode_stack.py [--part all|batch1|rows] [--json build/times.json]
 
 Random Fish-1.5 weights from seed 0 (bf16, and their int8 quantization)
 with the gathered slow head (codebook + 1 columns). Times, each the mean
 of one call over a CUDA graph of back-to-back calls (`chip_smoke.py`'s
-`device_ms`, inputs warm in L2): the slow step at batch 1 at positions
-104, 255, 256, 512, 1024, 2048 and 4095 of a 4096-entry cache, and one
-sampled fast frame (temp 0.7, top_p 0.8, top_k 256, rep-pen 1.4 over a
-16-entry window); then the eager call of the fast frame. It calls only the
-wrappers' public functions, so it times whatever kernels sit behind
-them: to compare two commits on one card, unpack the other commit
-(`git archive`) into a git-ignored directory, copy this script into its
-`scripts/`, and run both in one call, in turns.
+`device_ms`, inputs warm in L2):
+  batch1: the slow step at batch 1 at positions 104, 255, 256, 512, 1024,
+          2048 and 4095 of a 4096-entry cache, and one sampled fast frame
+          (temp 0.7, top_p 0.8, top_k 256, rep-pen 1.4 over a 16-entry
+          window), then the eager call of the fast frame;
+  rows:   the slow step at 5 rows and more, with the engine's padded
+          head: 16 rows of a 512-entry cache at serving positions 39-167,
+          32 and 64 rows of a 256-entry cache, 8 rows of a 2048-entry
+          cache at positions 1024-2047, each beside its byte bound
+          (`chip_smoke.py`'s `rows_bound`).
+It calls only the wrappers' public functions, so it times whatever kernels sit behind them: to
+compare two commits on one card, unpack the other commit (`git archive`)
+into a git-ignored directory, copy this script into its `scripts/`, and
+run both in one call, in turns.
 """
 
 from __future__ import annotations
@@ -29,10 +35,73 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 POSITIONS = (104, 255, 256, 512, 1024, 2048, 4095)
+# (rows, cache, positions) of the steps at 5 rows and more
+ROWS = (
+    (16, 512, [39 + (37 * i) % 129 for i in range(16)]),
+    (32, 256, [(37 * i + 5) % 256 for i in range(31)] + [255]),
+    (64, 256, [(53 * i + 11) % 256 for i in range(63)] + [255]),
+    (8, 2048, [1024, 1031, 1200, 1500, 1777, 2000, 2046, 2047]),
+)
+
+
+def time_batch1(torch, cs, cfg, p, kind, rope, gen, samp, label) -> dict:
+    from fish_speech_tpu_torch.ops import fast_frame as ff
+    from fish_speech_tpu_torch.ops import slow_step as ss
+    from fish_speech_tpu_torch.ops.sampling import gumbel_noise, top_k_width
+
+    dev = torch.device("cuda")
+    n_cb, vocab = cfg.num_codebooks, cfg.codebook_size
+    out = {}
+    x0 = torch.randn((1, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+    shape = (cfg.n_layer, 1, cfg.n_local_heads, cfg.max_seq_len, cfg.head_dim)
+    ck = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    cv = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    for pos_i in POSITIONS:
+        pos = torch.tensor([pos_i], dtype=torch.int32, device=dev)
+        ms = cs.device_ms(torch, lambda: ss.fused_slow_step(p, cfg, x0, pos, ck, cv, rope),
+                          calls=20, replays=5)
+        out[f"slow_{kind}_pos{pos_i}"] = ms
+        print(f"{label}: slow step {kind} B=1 pos={pos_i}: {ms:.4f} ms", flush=True)
+    window = torch.randint(-1, vocab, (n_cb, 16), generator=gen, device=dev, dtype=torch.int32)
+    gumbel = gumbel_noise((n_cb, top_k_width(samp.top_k, vocab)), gen, dev)
+    eos = torch.tensor([False], device=dev)
+    frame = lambda: ff.fused_fast_frame(p, cfg, samp, x0, window, gumbel, eos, rope,  # noqa: E731
+                                        rep_enabled=True)
+    ms = cs.device_ms(torch, frame, calls=10, replays=5)
+    call_ms = cs.eager_ms(torch, frame, 20)
+    out[f"fast_{kind}"] = ms
+    out[f"fast_{kind}_eager"] = call_ms
+    print(f"{label}: fast frame {kind} (sampled): {ms:.4f} ms (eager call {call_ms:.4f} ms)",
+          flush=True)
+    return out
+
+
+def time_rows(torch, cs, cfg, p, kind, rope, gen, label) -> dict:
+    from fish_speech_tpu_torch.ops import slow_step as ss
+
+    dev = torch.device("cuda")
+    head_rows = ss.padded_head(p["output"])
+    out = {}
+    for b, cache, positions in ROWS:
+        x0 = torch.randn((b, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+        shape = (cfg.n_layer, b, cfg.n_local_heads, cache, cfg.head_dim)
+        ck = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        cv = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+        ms = cs.device_ms(torch, lambda: ss.fused_slow_step(p, cfg, x0, pos, ck, cv, rope,
+                                                            head_rows=head_rows),
+                          calls=5, replays=4)
+        bound_ms = cs.rows_bound(cfg, kind == "int8", p["output"].shape[1], positions)[0]
+        out[f"rows_{kind}_b{b}_cache{cache}"] = ms
+        print(f"{label}: slow step {kind} B={b} cache {cache} pos {min(positions)}-"
+              f"{max(positions)}: {ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({100 * bound_ms / ms:.1f}% of it)", flush=True)
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--part", default="all", choices=("all", "batch1", "rows"))
     ap.add_argument("--json", default=None, help="write the times here")
     args = ap.parse_args()
     import torch
@@ -43,14 +112,13 @@ def main() -> int:
     import chip_smoke as cs
     from fish_speech_tpu_torch.config import DualARConfig
     from fish_speech_tpu_torch.models.dual_ar import init_dual_ar_params, rope_tables
-    from fish_speech_tpu_torch.ops import fast_frame as ff
     from fish_speech_tpu_torch.ops import quant
-    from fish_speech_tpu_torch.ops import slow_step as ss
-    from fish_speech_tpu_torch.ops.sampling import SamplingArgs, gumbel_noise, top_k_width
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    print(f"{ROOT.name}: {smi}", flush=True)
+    label = ROOT.name
+    print(f"{label}: {smi}", flush=True)
     cfg = DualARConfig.fish_speech_1_5()
     dev = torch.device("cuda")
     params = init_dual_ar_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
@@ -58,33 +126,14 @@ def main() -> int:
     rope = rope_tables(cfg, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     samp = SamplingArgs(temp=0.7, top_p=0.8, top_k=256, repetition_penalty=1.4)
-    n_cb, vocab = cfg.num_codebooks, cfg.codebook_size
     out = {"device": smi}
     with torch.inference_mode():
         for kind in ("bf16", "int8"):
             p = quant.quantize_lm_params(params) if kind == "int8" else params
-            x0 = torch.randn((1, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
-            shape = (cfg.n_layer, 1, cfg.n_local_heads, cfg.max_seq_len, cfg.head_dim)
-            ck = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-            cv = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-            for pos_i in POSITIONS:
-                pos = torch.tensor([pos_i], dtype=torch.int32, device=dev)
-                ms = cs.device_ms(torch, lambda: ss.fused_slow_step(p, cfg, x0, pos, ck, cv, rope),
-                                  calls=20, replays=5)
-                out[f"slow_{kind}_pos{pos_i}"] = ms
-                print(f"{ROOT.name}: slow step {kind} B=1 pos={pos_i}: {ms:.4f} ms", flush=True)
-            window = torch.randint(-1, vocab, (n_cb, 16), generator=gen, device=dev,
-                                   dtype=torch.int32)
-            gumbel = gumbel_noise((n_cb, top_k_width(samp.top_k, vocab)), gen, dev)
-            eos = torch.tensor([False], device=dev)
-            frame = lambda: ff.fused_fast_frame(p, cfg, samp, x0, window, gumbel, eos, rope,  # noqa: E731
-                                                rep_enabled=True)
-            ms = cs.device_ms(torch, frame, calls=10, replays=5)
-            call_ms = cs.eager_ms(torch, frame, 20)
-            out[f"fast_{kind}"] = ms
-            out[f"fast_{kind}_eager"] = call_ms
-            print(f"{ROOT.name}: fast frame {kind} (sampled): {ms:.4f} ms (eager call "
-                  f"{call_ms:.4f} ms)", flush=True)
+            if args.part in ("all", "batch1"):
+                out.update(time_batch1(torch, cs, cfg, p, kind, rope, gen, samp, label))
+            if args.part in ("all", "rows"):
+                out.update(time_rows(torch, cs, cfg, p, kind, rope, gen, label))
     print(json.dumps(out), flush=True)
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

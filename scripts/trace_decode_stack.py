@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Phase trace of the persistent decode kernel (csrc/decode_stack.cuh) on
-one NVIDIA GPU.
+"""Phase trace of the persistent decode kernels (csrc/decode_stack.cuh,
+csrc/slow_step_rows.cu) on one NVIDIA GPU.
 
-    python3 scripts/trace_decode_stack.py [--json build/trace.json]
+    python3 scripts/trace_decode_stack.py [--part all|batch1|rows] [--json build/trace.json]
 
 Builds an instrumented copy of the port's kernels on the side (every
 csrc/*.cu with -DDS_TRACE, into build/trace_decode_stack/), in which
 thread 0 of each block writes %globaltimer at marks of each layer pass,
 and runs it in place of the normal library on Fish-1.5 weights (random
-bf16 from seed 0, and their int8 quantization): one fused slow step at
-pos 104 of a 4096 cache and one fused fast frame (sampled), each after
-warm-up calls. For every layer pass it prints, per mark, the earliest,
-median and latest block (us after the pass's first block started), and
-the pass time; then the medians over the middle passes. Marks:
+bf16 from seed 0, and their int8 quantization): batch1, one fused slow
+step at pos 104 of a 4096 cache and one fused fast frame (sampled); rows,
+one slow step of the row kernel at each of 16 rows at the serving
+positions 39-167 of a 512 cache, 32 rows of a 256 cache and 8 rows at
+positions 1024-2047 of a 2048 cache; each after warm-up calls. For every layer pass it
+prints, per mark, the earliest, median and latest block (us after the
+pass's first block started), and the pass time; then the medians over the
+middle passes. Marks of the batch-1 kernel:
 
   0 pass start         1 QKV partials done      2 after sync 1
   3 attention done     4 wo partials done       5 after sync 2, x += wo
@@ -26,6 +29,20 @@ the pass time; then the medians over the middle passes. Marks:
      slots of the step's last pass)
   24 attention: q/k/v  25 scores               26 weights
   30, 31 the SM's clock64 at marks 0 and 10
+Marks of the row kernel (a block's last unit of each phase):
+  0 pass start         1 QKV partials done      2 after sync 1
+  3 q/k/v gathered     4 attention done         5 head exchange done
+  6 wo partials done   7 owners: all arrived    8 owners: x published
+  9 the block saw x published                   19 the block read x
+  10 x read and normed (ends (b))               11 w1+w3 partials done
+  12 K-split group exchanged                    13 g done
+  14 w2 partials done  15 owners: all arrived   16 owners: x published
+  18 the block saw x published                  23 the block read x
+  17 the pass ends (x read and normed)
+  20 head partials done (last pass)  21 after the head's sync  22 logits
+  24 attention: the ranks' (max, sum) posted   25 the ranks' PV done
+  26, 27, 28, 29 the first ring stage of w1 + w3, w2, QKV, wo arrived
+  30, 31 the SM's clock64 at marks 0 and 17
 """
 
 from __future__ import annotations
@@ -48,32 +65,10 @@ PASSES, MARKS, MAX_BLOCKS = 32, 32, 1024
 def build_traced() -> ctypes.CDLL:
     from fish_speech_tpu_torch.ops import _cuda_build
 
-    out = ROOT / "build" / "trace_decode_stack"
-    out.mkdir(parents=True, exist_ok=True)
-    nvcc = _cuda_build.find_nvcc()
-    flags = [*_cuda_build.NVCC_FLAGS[:-2], "-DDS_TRACE"]
-    objs, procs = [], []
-    for src in sorted(_cuda_build.CSRC.glob("*.cu")):
-        obj = out / f"{src.stem}.o"
-        objs.append(obj)
-        procs.append(subprocess.Popen([nvcc, *flags, "-c", "-o", str(obj), str(src)],
-                                      stderr=subprocess.PIPE, text=True))
-    for p in procs:
-        _, err = p.communicate()
-        if p.returncode:
-            raise RuntimeError(err)
-    lib_path = out / "libtrace.so"
-    subprocess.run([nvcc, *flags[:2], "-shared", "-o", str(lib_path), *map(str, objs)],
-                   check=True)
-    lib = ctypes.CDLL(str(lib_path))
-    for name, argtypes in _cuda_build.SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    for name in ("fs_slow_step_trace", "fs_fast_frame_trace"):
+    lib = _cuda_build.load_variant("trace_decode_stack", ["DS_TRACE"])
+    for name in ("fs_slow_step_trace", "fs_fast_frame_trace", "fs_slow_step_rows_trace"):
         getattr(lib, name).argtypes = [ctypes.c_void_p, ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_int
-    _cuda_build._lib = lib  # the wrappers launch the instrumented kernels
     return lib
 
 
@@ -87,9 +82,10 @@ def read_trace(lib, entry: str, grid: int):
             for b in range(grid)]
 
 
-def summarize(trace, passes: int, label: str) -> dict:
+def summarize(trace, passes: int, label: str, end_mark: int = 10) -> dict:
     """Per pass and mark: (earliest, median, latest) us after the pass's
-    first start, over the blocks that wrote the mark."""
+    first start, over the blocks that wrote the mark; end_mark: the pass's
+    last mark (for the SM clock)."""
     out = {}
     starts = [min(b[p][0] for b in trace) for p in range(passes)]
     for p in range(passes):
@@ -110,8 +106,8 @@ def summarize(trace, passes: int, label: str) -> dict:
         if vals:
             med = [statistics.median(v[i] for v in vals) for i in range(3)]
             print(f"  mark {k:2d}: {med[0]:8.2f} {med[1]:8.2f} {med[2]:8.2f}  ({vals[0][3]} blocks)")
-    clk = [(b[p][31] - b[p][30]) / max(b[p][10] - b[p][0], 1) for p in mid for b in trace
-           if b[p][31] > b[p][30] and b[p][10] > b[p][0]]
+    clk = [(b[p][31] - b[p][30]) / max(b[p][end_mark] - b[p][0], 1) for p in mid for b in trace
+           if b[p][31] > b[p][30] and b[p][end_mark] > b[p][0]]
     if clk:
         print(f"  SM clock over a pass (cycles / ns), median of blocks: "
               f"{statistics.median(clk):.3f}")
@@ -127,8 +123,65 @@ def summarize(trace, passes: int, label: str) -> dict:
     return {str(p): {str(k): v for k, v in row.items()} for p, row in out.items()}
 
 
+def trace_batch1(torch, lib, cfg, p, kind, rope, gen, grid) -> dict:
+    from fish_speech_tpu_torch.ops import fast_frame as ff
+    from fish_speech_tpu_torch.ops import slow_step as ss
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs, gumbel_noise, top_k_width
+
+    dev = torch.device("cuda")
+    results = {}
+    x0 = torch.randn((1, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.tensor([104], dtype=torch.int32, device=dev)
+    shape = (cfg.n_layer, 1, cfg.n_local_heads, cfg.max_seq_len, cfg.head_dim)
+    ck = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    cv = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    for _ in range(3):
+        ss.fused_slow_step(p, cfg, x0, pos, ck, cv, rope)
+    torch.cuda.synchronize()
+    ss.fused_slow_step(p, cfg, x0, pos, ck, cv, rope)
+    torch.cuda.synchronize()
+    tr = read_trace(lib, "fs_slow_step_trace", grid)
+    results[f"slow_{kind}"] = summarize(tr, cfg.n_layer, f"slow step {kind}, pos 104")
+    samp = SamplingArgs(temp=0.7, top_p=0.8, top_k=256, repetition_penalty=1.4)
+    n_cb, vocab = cfg.num_codebooks, cfg.codebook_size
+    window = torch.randint(-1, vocab, (n_cb, 16), generator=gen, device=dev, dtype=torch.int32)
+    gumbel = gumbel_noise((n_cb, top_k_width(samp.top_k, vocab)), gen, dev)
+    eos = torch.tensor([False], device=dev)
+    for _ in range(3):
+        ff.fused_fast_frame(p, cfg, samp, x0, window, gumbel, eos, rope, rep_enabled=True)
+    torch.cuda.synchronize()
+    ff.fused_fast_frame(p, cfg, samp, x0, window, gumbel, eos, rope, rep_enabled=True)
+    torch.cuda.synchronize()
+    tr = read_trace(lib, "fs_fast_frame_trace", grid)
+    results[f"fast_{kind}"] = summarize(tr, n_cb * cfg.n_fast_layer, f"fast frame {kind} (sampled)")
+    return results
+
+
+def trace_rows(torch, lib, cfg, p, kind, rope, gen, grid) -> dict:
+    from fish_speech_tpu_torch.ops import slow_step as ss
+
+    dev = torch.device("cuda")
+    head_rows = ss.padded_head(p["output"])
+    out = {}
+    for b, cache, lo, hi in ((16, 512, 39, 168), (32, 256, 0, 256), (8, 2048, 1024, 2048)):
+        x0 = torch.randn((b, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+        pos = (torch.randperm(hi - lo, generator=gen, device=dev)[:b] + lo).to(torch.int32)
+        shape = (cfg.n_layer, b, cfg.n_local_heads, cache, cfg.head_dim)
+        ck = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        cv = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        for _ in range(4):
+            ss.fused_slow_step(p, cfg, x0, pos, ck, cv, rope, head_rows=head_rows)
+        torch.cuda.synchronize()
+        tr = read_trace(lib, "fs_slow_step_rows_trace", grid)
+        out[f"rows_{kind}_b{b}_cache{cache}"] = summarize(
+            tr, cfg.n_layer, f"slow step {kind}, {b} rows, cache {cache}, pos {lo}-{hi - 1} "
+            "(row kernel)", end_mark=17)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--part", default="all", choices=("all", "batch1", "rows"))
     ap.add_argument("--json", default=None, help="write the summaries here")
     args = ap.parse_args()
     import torch
@@ -138,10 +191,7 @@ def main() -> int:
         return 2
     from fish_speech_tpu_torch.config import DualARConfig
     from fish_speech_tpu_torch.models.dual_ar import init_dual_ar_params, rope_tables
-    from fish_speech_tpu_torch.ops import fast_frame as ff
     from fish_speech_tpu_torch.ops import quant
-    from fish_speech_tpu_torch.ops import slow_step as ss
-    from fish_speech_tpu_torch.ops.sampling import SamplingArgs, gumbel_noise, top_k_width
 
     t0 = time.perf_counter()
     lib = build_traced()
@@ -160,32 +210,10 @@ def main() -> int:
     for kind in ("bf16", "int8"):
         p = quant.quantize_lm_params(params) if kind == "int8" else params
         with torch.inference_mode():
-            x0 = torch.randn((1, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
-            pos = torch.tensor([104], dtype=torch.int32, device=dev)
-            shape = (cfg.n_layer, 1, cfg.n_local_heads, cfg.max_seq_len, cfg.head_dim)
-            ck = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-            cv = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-            for _ in range(3):
-                ss.fused_slow_step(p, cfg, x0, pos, ck, cv, rope)
-            torch.cuda.synchronize()
-            ss.fused_slow_step(p, cfg, x0, pos, ck, cv, rope)
-            torch.cuda.synchronize()
-            tr = read_trace(lib, "fs_slow_step_trace", grid)
-            results[f"slow_{kind}"] = summarize(tr, cfg.n_layer, f"slow step {kind}, pos 104")
-            samp = SamplingArgs(temp=0.7, top_p=0.8, top_k=256, repetition_penalty=1.4)
-            n_cb, vocab = cfg.num_codebooks, cfg.codebook_size
-            window = torch.randint(-1, vocab, (n_cb, 16), generator=gen, device=dev,
-                                   dtype=torch.int32)
-            gumbel = gumbel_noise((n_cb, top_k_width(samp.top_k, vocab)), gen, dev)
-            eos = torch.tensor([False], device=dev)
-            for _ in range(3):
-                ff.fused_fast_frame(p, cfg, samp, x0, window, gumbel, eos, rope, rep_enabled=True)
-            torch.cuda.synchronize()
-            ff.fused_fast_frame(p, cfg, samp, x0, window, gumbel, eos, rope, rep_enabled=True)
-            torch.cuda.synchronize()
-            tr = read_trace(lib, "fs_fast_frame_trace", grid)
-            results[f"fast_{kind}"] = summarize(tr, n_cb * cfg.n_fast_layer,
-                                                f"fast frame {kind} (sampled)")
+            if args.part in ("all", "batch1"):
+                results.update(trace_batch1(torch, lib, cfg, p, kind, rope, gen, grid))
+            if args.part in ("all", "rows"):
+                results.update(trace_rows(torch, lib, cfg, p, kind, rope, gen, grid))
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(results))

@@ -254,13 +254,94 @@ def test_supported_on_cuda_is_the_jax_domain(batch, cache, kv):
     assert ss.fused_slow_step_supported(tc, params, batch, cache) == want  # the plain version
 
 
-@pytest.mark.parametrize("n_layer,batch,launches", [(24, 5, 121), (24, 16, 121), (24, 32, 121),
-                                                    (24, 33, 242), (24, 64, 242), (3, 16, 16)])
+@pytest.mark.parametrize("n_layer,batch,launches", [(24, 5, 1), (24, 16, 1), (24, 32, 1),
+                                                    (24, 33, 2), (24, 64, 2), (3, 16, 1)])
 def test_rows_launches_per_step(n_layer, batch, launches):
-    """The row sequence's launches a step: five a layer and the head's,
-    for each group of at most 32 rows (the card tests hold the C entry's
-    own count to this)."""
+    """The row kernel's launches a step: one for each group of at most 32
+    rows, whatever the depth (the card tests hold the C entry's own count
+    and the kernel's to this)."""
     assert ss.rows_launches_per_step(n_layer, batch) == launches
+
+
+FISH15 = dict(dim=1024, n_head=16, n_local_heads=2, intermediate_size=4096)  # its slow stack
+
+
+def _fish15_rows_plan(int8, cache, head=1025, grid=132):
+    from fish_speech_tpu_torch.ops import decode_stack as ds
+
+    return ds.rows_plan(FISH15["dim"], FISH15["n_head"], FISH15["n_local_heads"],
+                        FISH15["intermediate_size"], head, cache, int8, grid)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_rows_plan_is_one_object_for_every_batch(int8):
+    """The row kernel's plan is a function of the shapes alone: the same
+    object for 5 to 32 rows (so a row's bits cannot depend on its
+    co-tenants), one launch a group of 32 rows."""
+    import inspect
+
+    tc = tcfg.DualARConfig(**{**KW, **FISH15, "head_dim": 64})
+    # the plan takes no batch: the wrapper asks for it with the shapes alone
+    assert list(inspect.signature(ss.rows_plan).parameters) == [
+        "cfg", "head_cols", "cache_len", "int8", "grid"]
+    plans = [ss.rows_plan(tc, 1025, 512, int8, 132) for _ in range(5, 65)]
+    assert all(p is plans[0] for p in plans) and plans[0] is not None
+    assert [ss.rows_launches_per_step(tc.n_layer, b) for b in range(5, 65)] == [1] * 28 + [2] * 32
+
+
+@pytest.mark.parametrize("cache", [512, 2048])
+@pytest.mark.parametrize("int8", [False, True])
+def test_rows_plan_fits_one_block_an_sm(int8, cache):
+    """At Fish-1.5 width on the H100's 132 SMs: the shared memory fits
+    one block (232,448 bytes), the ring keeps 120 KB of weights in flight
+    (15 stages bf16, 31 int8), every unit runs at once (no phase needs a
+    second pass of the grid), and a row's keys go to 2 ranks up to 1024
+    keys, to all 8 warps past that."""
+    from fish_speech_tpu_torch.ops import decode_stack as ds
+
+    plan = _fish15_rows_plan(int8, cache)
+    assert plan.smem <= 232448 and plan.stages * plan.stage_bytes >= 120 * 1024
+    assert max(plan.qkv_units, plan.attn_units, plan.sw_units, plan.head_units) <= plan.grid
+    assert plan.attn_ranks == (2 if cache <= 1024 else 8)
+    assert plan.syncs_per_launch(24) == 73 and plan.head_exchanges(24) == 24
+    assert ds.rows_plan(1024, 16, 2, 4096, 1025, 4097, int8, 132) is None  # past 4096 keys
+
+
+def _tiles_once(segments, shapes, stage_rows=32):
+    """Counts of every (32-row, 128-column) tile of each matrix over the
+    segments (w13 covers w1 and w3)."""
+    counts = {m: np.zeros((-(-k // stage_rows), -(-n // 128)), int) for m, (k, n) in shapes.items()}
+    for mat, row0, col0, krows, ntiles in segments:
+        assert row0 % stage_rows == 0 and krows % stage_rows == 0 and col0 % 128 == 0
+        for m in (("w1", "w3") if mat == "w13" else (mat,)):
+            counts[m][row0 // stage_rows:(row0 + krows) // stage_rows,
+                      col0 // 128:col0 // 128 + ntiles] += 1
+    return counts
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("shape", ["fish15", "card"])
+def test_rows_units_cover_every_tile_once(shape, int8):
+    """Every weight tile of every phase (QKV, wo, w1 + w3, w2 and the
+    head) is streamed by exactly one unit of one block, from the plan's
+    segments; each unit's w2 K-rows are its w1 + w3 slice's 128 g
+    columns."""
+    from fish_speech_tpu_torch.ops import decode_stack as ds
+
+    d, h, kv, f, w = ((1024, 16, 2, 4096, 1025) if shape == "fish15"
+                      else (512, 8, 2, 1024, 33))
+    plan = ds.rows_plan(d, h, kv, f, w, 512, int8, 132)
+    qkv = (h + 2 * kv) * 64
+    shapes = {"wqkv": (d, qkv), "wo": (d, d), "w1": (d, f), "w3": (d, f), "w2": (f, d),
+              "head": (d, -(-w // 128) * 128)}
+    segs = [sg for blk in range(plan.grid) for kind in ("layer", "head")
+            for sg in plan.segments(blk, kind)]
+    for mat, counts in _tiles_once(segs, shapes).items():
+        assert (counts == 1).all(), (mat, counts)
+    w13 = [sg for sg in segs if sg[0] == "w13"]
+    w2 = [sg for sg in segs if sg[0] == "w2"]
+    assert [sg[1] for sg in w2] == [sg[2] for sg in w13]  # the slice's rows of w2
+    assert all(sg[3] == 128 for sg in w2)
 
 
 @pytest.mark.parametrize("width,stride", [(1025, 1032), (2, 8), (33, 40), (1024, 1024)])
@@ -563,14 +644,15 @@ def test_kernel_counts_its_syncs_and_exchanges(cuda_device, positions):
         assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))
 
 
-# -- the row sequence (5 rows and more), on the card ------------------------------
+# -- the row kernel (5 rows and more), on the card --------------------------------
 
 
-def _rows_inputs(dev, batch, cache, int8=False, seed=0, head_cols=33):
+def _rows_inputs(dev, batch, cache, int8=False, seed=0, head_cols=33, positions=None):
     """The card config above with `batch` rows at distinct positions
-    spread over the cache (the last at its end) and a head of head_cols
-    columns."""
-    positions = [(37 * i + 5) % cache for i in range(batch - 1)] + [cache - 1]
+    spread over the cache (the last at its end), or at `positions`, and a
+    head of head_cols columns."""
+    if positions is None:
+        positions = [(37 * i + 5) % cache for i in range(batch - 1)] + [cache - 1]
     tc, params, x0, pos, ck, cv, rope = _card_inputs(dev, positions, int8, seed, cache)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     params["output"] = (torch.randn((tc.dim, head_cols), generator=g, device=dev) * 0.05
@@ -602,33 +684,62 @@ def _held_to_plain(params, tc, x0, pos, ck, cv, rope, got):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("batch,cache", [(5, 256), (16, 512), (32, 256), (64, 256), (5, 3276)])
-def test_rows_match_plain_on_card(cuda_device, batch, cache, int8):
-    """The row sequence at 5, 16 and 32 rows, at 64 rows (two groups of
-    32) of cache 256, and at 5 rows of the longest cache the JAX bounds
-    give them (keys of a row past the first 4 steps of its rank's tiles):
-    the plain version's accuracy rule, every other cache row bit-equal,
-    and 5 L + 1 launches a group, as its C entry counts them."""
-    tc, params, x0, pos, ck, cv, rope = _rows_inputs(cuda_device, batch, cache, int8)
+@pytest.mark.parametrize("batch,cache,positions", [
+    (5, 256, None), (16, 512, None), (32, 256, None), (64, 256, None), (5, 3276, None),
+    # keys past 1024, where a row's keys go to all 8 warps; the case that
+    # caught the first packed attention's swapped key and value
+    (8, 2048, (1024, 1025, 1500, 1777, 2000, 2046, 2047, 1031))])
+def test_rows_match_plain_on_card(cuda_device, batch, cache, positions, int8):
+    """The row kernel at 5, 16 and 32 rows, at 64 rows (two launches of
+    32) of cache 256, at 5 rows of the longest cache the JAX bounds give
+    them and at 8 rows of cache 2048 past 1024 keys: the plain version's
+    accuracy rule, every other cache row bit-equal; one launch a group of
+    32 rows, as the C entry and the kernel count them; the kernel's own
+    count of its grid syncs and head 0's exchanges equals the plan's."""
+    from fish_speech_tpu_torch.ops import decode_stack as ds
+
+    tc, params, x0, pos, ck, cv, rope = _rows_inputs(cuda_device, batch, cache, int8,
+                                                     positions=positions)
     before, before8 = ss.rows_launches, ss.rows_int8_launches
+    on_card = ds.rows_launch_count(cuda_device)
     got = _step(params, tc, x0, pos, ck, cv, rope)
     torch.cuda.synchronize()
     want = ss.rows_launches_per_step(tc.n_layer, batch)
     assert ss.rows_launches - before == want
     assert ss.rows_int8_launches - before8 == (want if int8 else 0)
+    assert ds.rows_launch_count(cuda_device) - on_card == want
+    plan = ss.rows_plan(tc, 33, cache, int8, ds.grid_of(cuda_device))
+    assert ds.last_call_counts(cuda_device) == (plan.syncs_per_launch(tc.n_layer),
+                                                plan.head_exchanges(tc.n_layer))
     assert got[0].shape == (batch, 33) and bool(torch.isfinite(got[0]).all())
     _held_to_plain(params, tc, x0, pos, ck, cv, rope, got)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True])
+def test_rows_plan_on_card_equals_mirror(cuda_device, int8):
+    """The plan the built kernel computes (fs_slow_step_rows_plan) equals
+    ops/decode_stack.py's mirror, at the card config and at Fish-1.5
+    width, caches 256 to 3276."""
+    from fish_speech_tpu_torch.ops import decode_stack as ds
+
+    grid = ds.grid_of(cuda_device)
+    for d, h, kv, f, w in ((512, 8, 2, 1024, 33), (1024, 16, 2, 4096, 1025)):
+        for cache in (256, 512, 2048, 3276):
+            mirror = ds.rows_plan(d, h, kv, f, w, cache, int8, grid)
+            assert mirror is not None
+            assert ds.rows_plan_on_card(d, h, kv, f, w, cache, int8) == mirror
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
 def test_rows_row_alone_equals_row_among_sixteen(cuda_device, int8):
-    """Every plan of the sequence is a function of the shapes alone, so a
-    row's logits, hidden and cache rows are bit-equal through the row
-    sequence alone (`rows_step`, one row) and among 15 co-tenants."""
+    """The plan is a function of the shapes alone, so each row's logits,
+    hidden and cache rows are bit-equal through the row kernel alone
+    (`rows_step`, one row) and among 15 co-tenants."""
     tc, params, x0, pos, ck, cv, rope = _rows_inputs(cuda_device, 16, 512, int8)
     logits, hidden, k, v = _step(params, tc, x0, pos, ck, cv, rope)
-    for r in (0, 7, 15):
+    for r in range(16):
         k1, v1 = ck[:, r:r + 1].contiguous(), cv[:, r:r + 1].contiguous()
         l1, h1 = ss.rows_step(params, tc, x0[r:r + 1].clone(), pos[r:r + 1].clone(), k1, v1, rope)
         assert torch.equal(l1[0], logits[r]) and torch.equal(h1[0], hidden[r])
@@ -638,9 +749,9 @@ def test_rows_row_alone_equals_row_among_sixteen(cuda_device, int8):
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True])
 def test_rows_repeat_and_graph_replay_bit_identical(cuda_device, int8):
-    """Five calls give the same bits, and a CUDA graph of the sequence
+    """Five calls give the same bits, and a CUDA graph of the launch
     replays them (the padded head made before the capture, as the engine
-    makes it once)."""
+    makes it once; the sync state left zeroed by every launch)."""
     tc, params, x0, pos, ck, cv, rope = _rows_inputs(cuda_device, 16, 512, int8)
     head_rows = ss.padded_head(params["output"])
 
@@ -735,4 +846,63 @@ def test_two_engines_on_two_streams(cuda_device):
         t.join(timeout=300)
     for (codes, logits), (codes_a, logits_a) in zip(got, alone):
         np.testing.assert_array_equal(codes, codes_a)
+        assert torch.equal(logits, logits_a)
+
+
+
+@pytest.mark.cuda
+def test_two_sixteen_row_engines_on_two_streams(cuda_device):
+    """Two 16-row engines (the row kernel and the batched fast frame),
+    each with its own grid sync state, decode from two threads on two
+    streams at once: each engine's codes, and the logits of its 16-row
+    slow steps, are bit-equal to its run alone on one stream."""
+    import threading
+
+    from fish_speech_tpu_torch.generate.engine import LMEngine
+
+    tc = tcfg.DualARConfig(**{**KW, "n_head": 8, "dim": 512, "intermediate_size": 1024,
+                              "head_dim": 64, "max_seq_len": 256})
+    params = torch_init(tc, seed=0, dtype=torch.bfloat16, device=cuda_device)
+    tok = tcfg.TokenConfig(**TOK)
+    engines = [LMEngine(params, tc, tok, tcfg.WhichLM.FISH_1_5, cache_len=256,
+                        prompt_buckets=(16,), max_frames=24, batch_size=16,
+                        dynamic_sampling=True) for _ in range(2)]
+    assert all(e.use_fused_slow and e.use_fused_fast for e in engines)
+    assert engines[0].sync_state.data_ptr() != engines[1].sync_state.data_ptr()
+    sampling = SamplingArgs(temp=0.7, top_p=0.8, top_k=16, repetition_penalty=1.3)
+    rng = np.random.default_rng(0)
+    prompts = [[np.concatenate([rng.integers(10, 42, (1, n)), rng.integers(0, 32, (4, n))]
+                               ).astype(np.int32) for n in rng.integers(3, 13, 16)]
+               for _ in range(2)]
+    x0 = engines[0].params["embeddings"][torch.arange(3, 19, device=cuda_device)].contiguous()
+    posb = torch.arange(40, 200, 10, dtype=torch.int32, device=cuda_device)
+    shape = (tc.n_layer, 16, tc.n_local_heads, 256, 64)
+
+    def run(i):
+        e = engines[i]
+        res = e.generate_batch(prompts[i], max_new_tokens=20, sampling=sampling, seed=i)
+        logits = []
+        for _ in range(10):
+            k = torch.zeros(shape, dtype=torch.bfloat16, device=cuda_device)
+            logits.append(ss.fused_slow_step(e.params, tc, x0, posb, k, k.clone(), e.rope,
+                                             head_rows=e.rows_head, sync=e.sync_state)[0])
+        torch.cuda.current_stream().synchronize()
+        return [np.concatenate([r.semantic[None], r.tokens]) for r in res], torch.stack(logits)
+
+    alone = [run(i) for i in range(2)]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    got = [None, None]
+
+    def thread(i):
+        with torch.cuda.stream(streams[i]):
+            got[i] = run(i)
+
+    threads = [threading.Thread(target=thread, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    for (codes, logits), (codes_a, logits_a) in zip(got, alone):
+        for c, ca in zip(codes, codes_a):
+            np.testing.assert_array_equal(c, ca)
         assert torch.equal(logits, logits_a)
