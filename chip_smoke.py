@@ -45,8 +45,13 @@ per phase, each with the seconds since start:
               beside a long kernel on a second stream, and for the
               slow step a row alone bit-equal to itself among four) with
               its grid, shared memory, ring stages and share of the
-              bound, and the batched fast frame (B = 4 and 16: argmax,
-              sampled and mixed rows), with each of its five GEMMs on its own
+              bound, and the batched fast frame's persistent kernel (one
+              launch a frame: tokens and step logits exact at B = 4 and
+              16, argmax, sampled and mixed rows; full-weight step
+              logits; its contract as above, with each of 16 rows alone
+              bit-equal to itself among 16; timed at B = 4, 16 and 32
+              beside the bound and the re-read floor), with each of the
+              five GEMMs of the launch sequence it replaced on its own
               (fs_rows_gemm at B = 16 against rows_gemm_plain, a row
               alone bit-equal, timed beside cuBLAS and the byte bound,
               one line a GEMM), and the fused slow step's row kernel
@@ -1374,34 +1379,45 @@ def check_fast_frame_batched(torch, engine, params32):
         f"{err_k:.4f} | plain {err_p:.4f}, kernel vs plain {vs_plain:.4f}; tokens equal to the "
         f"plain version {same} of {4 * b * n_cb}")
 
+    contract = check_frame_contract(torch, engine, name)
     gemms = check_rows_gemms(torch, engine)
-    samp, hidden, window, gumbel, is_eos = batched_inputs(torch, cfg, gen, b, k_dyn, "sampled",
-                                                          False)
-    args = (cfg, samp, hidden, window, gumbel, is_eos, rope)
-    kernel = lambda: fb.fused_fast_frame_batched(params, *args, rep_enabled=True)  # noqa: E731
-    ms = device_ms(torch, kernel, calls=10, replays=5)
-    call_ms = eager_ms(torch, kernel, 20)
-    plain_ms = device_ms(
-        torch, lambda: fb.fused_fast_frame_batched_plain(params, *args, rep_enabled=True),
-        calls=2, replays=3)
     n_layer, h, hd = cfg.n_fast_layer, cfg.n_head, cfg.head_dim
     weights = n_layer * layer_elems(cfg) + d + d * vocab
     wbytes = n_layer * layer_bytes(cfg, int8) + 2 * (d + d * vocab)
-    # read once: the weights (int8 ones with their scales) and head; per
-    # row the hidden, the C-1 embedding rows gathered, its windows, draws,
-    # knobs and EOS flag; written: the C tokens of each row. The re-read
-    # floor streams the weights and head at every step.
-    per_row = 2 * d + 2 * d * (n_cb - 1) + 4 * n_cb * 12 + 4 * n_cb * k_dyn + 4 * 4 + 1 + 4 * n_cb
-    once = wbytes + b * per_row
-    reread = once + (n_cb - 1) * wbytes
-    attn = 4 * h * hd * n_cb * (n_cb + 1) // 2 * n_layer
-    flops = b * (n_cb * 2 * (weights - (2 * n_layer + 1) * d) + attn)
-    bound_ms, bound_by = bound(once, flops)
-    reread_ms, _ = bound(reread, flops)
-    log("kernels", f"{name} B={b} ({n_cb} steps x {n_layer} layers): kernel "
-        f"{ms:.4f} ms (eager call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.6f} ms ({bound_by}, read once, {once / 1e6:.1f} MB), re-read floor "
-        f"{reread_ms:.6f} ms ({reread / 1e6:.1f} MB)")
+    timed = {}
+    for rows in (4, b, 32):
+        samp, hidden, window, gumbel, is_eos = batched_inputs(torch, cfg, gen, rows, k_dyn,
+                                                              "sampled", False)
+        args = (cfg, samp, hidden, window, gumbel, is_eos, rope)
+        kernel = lambda: fb.fused_fast_frame_batched(params, *args, rep_enabled=True)  # noqa: E731
+        ms = device_ms(torch, kernel, calls=10, replays=5)
+        # read once: the weights (int8 ones with their scales) and head; per
+        # row the hidden, the C-1 embedding rows gathered, its windows,
+        # draws, knobs and EOS flag; written: the C tokens of each row. The
+        # re-read floor streams the weights and head at every step.
+        per_row = (2 * d + 2 * d * (n_cb - 1) + 4 * n_cb * 12 + 4 * n_cb * k_dyn + 4 * 4 + 1
+                   + 4 * n_cb)
+        once = wbytes + rows * per_row
+        reread = once + (n_cb - 1) * wbytes
+        attn = 4 * h * hd * n_cb * (n_cb + 1) // 2 * n_layer
+        flops = rows * (n_cb * 2 * (weights - (2 * n_layer + 1) * d) + attn)
+        bound_ms, bound_by = bound(once, flops)
+        reread_ms, _ = bound(reread, flops)
+        timed[rows] = (ms, bound_ms, bound_by, reread_ms, once, reread)
+        line = (f"{name} B={rows} ({n_cb} steps x {n_layer} layers, one launch): kernel "
+                f"{ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, read once, "
+                f"{once / 1e6:.1f} MB), re-read floor {reread_ms:.6f} ms ({reread / 1e6:.1f} MB, "
+                f"{100 * reread_ms / ms:.1f}% of the kernel); grid {contract['grid']}, "
+                f"{contract['smem']} B of shared memory a block, {contract['ring_stages']} ring "
+                f"stages")
+        if rows == b:
+            call_ms = eager_ms(torch, kernel, 20)
+            plain_ms = device_ms(
+                torch, lambda: fb.fused_fast_frame_batched_plain(params, *args, rep_enabled=True),
+                calls=2, replays=3)
+            line += f"; eager call {call_ms:.4f} ms, plain {plain_ms:.4f} ms"
+        log("kernels", line)
+    ms, bound_ms, bound_by, reread_ms, _, _ = timed[b]
     return {
         "name": name, "route": "cuda",
         "source": "fish_speech_tpu_torch/csrc/fast_frame_batched.cu",
@@ -1410,16 +1426,112 @@ def check_fast_frame_batched(torch, engine, params32):
         "ms": ms, "kernel_ms": ms, "eager_call_ms": call_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "bound_reread_ms": reread_ms, "library_ms": None,
+        "kernel_ms_at_rows": {str(r): t[0] for r, t in timed.items()},
+        "share_of_reread_floor": {str(r): t[3] / t[0] for r, t in timed.items()},
+        **contract,
         "shape": f"hidden ({b},{d}), {n_cb} codebooks x {n_layer} layers "
                  f"({'int8' if int8 else 'bf16'}), vocab {vocab}, k_dyn {k_dyn}, window 12",
         "gemms": gemms,
     }
 
 
+def check_frame_contract(torch, engine, name: str) -> dict:
+    """The batched frame kernel's contract on the card
+    (csrc/fast_frame_batched.cu, one persistent launch a frame): its plan
+    as built equals ops/decode_stack.py's mirror; one launch a call,
+    counted by the wrapper and by the kernel in its sync state, and the
+    grid syncs and head 0's exchanges the kernel counts equal to the
+    plan's; five calls bit-identical; each of the engine's 16 rows alone
+    bit-equal to itself among 16 (tokens and step logits); a CUDA graph's
+    replay equal to the eager call; the call completes while a long kernel
+    holds an SM on a second stream. Returns the plan's and the counted
+    numbers for the kernels line."""
+    from fish_speech_tpu_torch.ops import decode_stack as ds
+    from fish_speech_tpu_torch.ops import fast_frame_batched as fb
+    from fish_speech_tpu_torch.ops.sampling import RowSampling
+
+    cfg, params, rope = engine.cfg, engine.params, engine.rope
+    int8 = is_int8(engine)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    b, n_layer, n_cb = engine.batch_size, cfg.n_fast_layer, cfg.num_codebooks
+    k_dyn = min(engine.dyn_top_k_cap, cfg.codebook_size)
+    mirror = fb.frame_plan(cfg, k_dyn, int8, ds.grid_of(dev))
+    card = ds.frame_plan_on_card(n_layer, cfg.dim, cfg.n_head, cfg.n_local_heads,
+                                 cfg.intermediate_size, n_cb, cfg.codebook_size, k_dyn, int8)
+    check(card == mirror, f"{name}: the plan on the card {card} differs from the mirror {mirror}")
+    inputs = batched_inputs(torch, cfg, gen, b, k_dyn, "mixed", False)
+    state = ds.new_sync_state(dev)
+
+    def call(rows=slice(None)):
+        samp = RowSampling(*(t[rows] for t in inputs[0]))
+        return fb.fused_fast_frame_batched(params, cfg, samp, *(t[rows] for t in inputs[1:]),
+                                           rope, rep_enabled=True, return_logits=True,
+                                           sync=state)
+
+    before, on_card = fb.launches, ds.frame_launch_count(dev, state)
+    outs = [call() for _ in range(5)]
+    torch.cuda.synchronize()
+    launched = ds.frame_launch_count(dev, state) - on_card
+    syncs, exchanges = ds.last_call_counts(dev, state)
+    want = (mirror.syncs_per_call(n_layer, n_cb), mirror.head_exchanges(n_layer, n_cb))
+    check(fb.launches - before == 5 and launched == 5,
+          f"{name}: 5 calls counted {fb.launches - before} by the wrapper, {launched} launches by "
+          "the kernel")
+    check((syncs, exchanges) == want, f"{name}: the kernel counted {syncs} grid syncs and "
+          f"{exchanges} head exchanges a call, the plan {want}")
+    check(all(torch.equal(x, y) for o in outs[1:] for x, y in zip(o, outs[0])),
+          f"{name}: five repeated calls are not bit-identical")
+    for r in range(b):
+        one = call(slice(r, r + 1))
+        check(torch.equal(one[0][0], outs[0][0][r]) and torch.equal(one[1][:, 0], outs[0][1][:, r]),
+              f"{name}: row {r} alone differs from the same row among {b}")
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = call()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(captured, outs[0])),
+              f"{name}: a CUDA graph's replay differs from the eager call")
+
+    other = torch.cuda.Stream()
+    with torch.cuda.stream(other):
+        torch.cuda._sleep(400_000_000)  # ~0.2 s of one spinning block
+    t0 = time.perf_counter()
+    got = call()
+    torch.cuda.synchronize()
+    beside_s = time.perf_counter() - t0
+    check(all(torch.equal(x, y) for x, y in zip(got, outs[0])),
+          f"{name}: the call beside a second stream's kernel differs")
+    rp = mirror.rows
+    log("kernels", f"{name} persistent kernel: plan on the card equal to the mirror (grid "
+        f"{rp.grid} x {ds.BLOCK_THREADS} threads, {rp.smem} B of shared memory a block, ring of "
+        f"{rp.stages} stages x {rp.stage_bytes} B, QKV {rp.qkv_tiles}x{rp.qkv_splits} units, "
+        f"attention+wo {rp.attn_units}, w1/w3+w2 {rp.sw_units} ({rp.sw_split}-way K-split), head "
+        f"{rp.head_tiles}x{rp.head_splits}; the draw's {mirror.draw_bytes} B of shared memory, a "
+        f"{mirror.sort_keys}-key sort at k_dyn {k_dyn}); counted on the card: {launched // 5} "
+        f"launch a call, {syncs} grid syncs and {exchanges} head exchanges a call; 5 calls "
+        f"bit-identical; each of {b} mixed rows alone bit-equal to itself among {b}; CUDA graph "
+        f"replay equal to eager; completes beside a kernel on a second stream ({beside_s:.3f} s "
+        f"including the wait)")
+    return {"grid": rp.grid, "smem": rp.smem, "ring_stages": rp.stages,
+            "syncs_per_call": syncs, "kv_exchanges_per_call": exchanges,
+            "launches_per_call": launched // 5}
+
+
 def check_rows_gemms(torch, engine) -> list:
-    """Each of the batched frame's five GEMMs on its own (fs_rows_gemm) at
-    the serving engine's B = 16, on layer 0 of its fast stack and its
-    head: the plan the kernel launches with equals rows_plan's; the kernel
+    """Each of the five GEMMs of the launch sequence the batched frame's
+    persistent kernel replaced, on its own (fs_rows_gemm; no path of the
+    port launches it) at the serving engine's B = 16, on layer 0 of its
+    fast stack and its head: the plan the kernel launches with equals rows_plan's; the kernel
     as close to a float32 evaluation (the plain version on float32 copies
     of the inputs, int8 weights dequantized) as the plain version is,
     within ACCURACY_FACTOR (tensor cores and cuBLAS add the products in
@@ -1504,7 +1616,8 @@ def check_rows_gemms(torch, engine) -> list:
                   + (2 * b * n if mode == "residual" else 0)
                   + (4 if mode == "head" else 2) * b * n)
         bound_ms, bound_by = bound(nbytes, n_w * 2 * b * k * n)
-        log("kernels", f"rows_gemm {name} ({mode}, {'int8' if q8 else 'bf16'}, B={b}, K={k}, "
+        log("kernels", f"rows_gemm (off the main path) {name} ({mode}, "
+            f"{'int8' if q8 else 'bf16'}, B={b}, K={k}, "
             f"N={n}; {plan.blocks} blocks = {plan.blocks // plan.splits} tiles x {plan.splits} "
             f"splits, {plan.stages} stages): kernel {ms:.4f} ms L2-warm, {cold_ms:.4f} ms "
             f"L2-cold; plain {plain_ms:.4f} ms; cuBLAS bf16 matmul {library_ms:.4f} ms warm, "
@@ -1995,12 +2108,14 @@ def run_serving(torch, np, serving, codec, tok, codec_cfg):
                 m.int8_launches = 0
             ss.rows_launches = ss.rows_int8_launches = 0
             on_card = ds.rows_launch_count("cuda", serving[impl].sync_state)
+            frames_on_card = ds.frame_launch_count("cuda", serving[impl].sync_state)
         res, fps, p50 = serving_run(torch, np, serving[impl], codec, tok, codec_cfg, reqs,
                                     f"{impl} run {len(runs[impl]) + 1}")
         if counting:
             launches = {name: m.launches for name, m in mods.items()}
             launches["slow_step_rows"] = ss.rows_launches
             by_kernel = ds.rows_launch_count("cuda", serving[impl].sync_state) - on_card
+            by_frame = ds.frame_launch_count("cuda", serving[impl].sync_state) - frames_on_card
             int8 = {name: getattr(m, "int8_launches", 0) for name, m in mods.items()}
             int8["slow_step_rows"] = ss.rows_int8_launches
             log("serving", f"{impl} run 1 launches (warm-up request included) "
@@ -2009,13 +2124,15 @@ def run_serving(torch, np, serving, codec, tok, codec_cfg):
             frames = launches["fused_fast_frame_batched"]  # one a decode step
             rows = 0 if impl == "slow_xla" else ss.rows_launches_per_step(n_layer, SERVE_ROWS)
             want_int8 = impl == "int8"
-            check(frames > 0 and launches["slow_step_rows"] == rows * frames == by_kernel
+            check(frames > 0 and frames == by_frame
+                  and launches["slow_step_rows"] == rows * frames == by_kernel
                   and (launches["decode_attention"] > 0) == (impl == "slow_xla")
                   and launches["fused_fast_frame"] == 0 and launches["fused_slow_step"] == 0
                   and int8["fused_fast_frame_batched"] == (frames if want_int8 else 0)
                   and int8["slow_step_rows"] == (rows * frames if want_int8 else 0),
                   f"the serving {impl} path launched {launches} (int8 bodies {int8}; the row "
-                  f"kernel counted {by_kernel}) in {frames} decode steps")
+                  f"kernel counted {by_kernel}, the frame kernel {by_frame}) in {frames} decode "
+                  "steps")
             counted[impl] = {
                 "auto": lambda: launches,
                 "slow_xla": lambda: {},

@@ -96,7 +96,7 @@
 // pass).
 #ifdef DS_TRACE
 namespace {
-constexpr int DS_TRACE_PASSES = 32;
+constexpr int DS_TRACE_PASSES = 48;  // the batched frame adds a pass a step for its draw
 constexpr int DS_TRACE_MARKS = 32;
 __device__ unsigned long long ds_trace_buf[1024 * DS_TRACE_PASSES * DS_TRACE_MARKS];
 __device__ __forceinline__ void ds_trace_at(int pass, int k, unsigned long long v) {

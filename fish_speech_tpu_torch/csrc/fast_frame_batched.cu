@@ -1,97 +1,270 @@
 // One whole fast (codebook) frame for B <= 32 rows with per-row sampling,
-// for Hopper (sm_90a).
+// for Hopper (sm_90a): one cooperative persistent launch a frame.
 //
 // Replaces the TPU kernel fish_speech_tpu/ops/fast_frame_pallas.py::
-// fused_fast_frame_batched. For codebook steps cb = 0..C-1 and every row
-// b: the fast layers run on x[b] (the row's slow hidden at cb = 0, then
-// the embedding of its previous token) with RoPE at position cb and
-// attention over the row's own K/V history 0..cb; the fast norm and head
-// (the step's column block when depthwise_output) give f32 logits; the
-// row's repetition penalty, its top-k/top-p draw with its own temp,
-// top_p, top_k and Gumbel draws (indexed by rank), and the EOS rule give
-// the token, and the token's embedding row (the step's row block when
-// depthwise_wte) is the row's next x. Tokens and embeddings stay on the
-// card: nothing is read by the host inside the frame. The stack may be
-// int8 with bf16 per-column scales (ops/quant.py): the TPU kernel's
-// quantized body (fast_frame_pallas.py:532, 569-573, 595-604, 706-712),
-// the same launches with rows_gemm reading int8 weights.
+// fused_fast_frame_batched (l.884, its pallas_call l.1007), bf16 body and
+// int8 body (_make_kernel_batched(quantized=True), l.532). For codebook
+// steps cb = 0..C-1 and every row b: the fast layers run on x[b] (the
+// row's slow hidden at cb = 0, then the embedding of its previous token)
+// with RoPE at position cb and attention over the row's own K/V history
+// 0..cb; the fast norm and head (the step's column block when
+// depthwise_output) give f32 logits, unrounded; the row's repetition
+// penalty, its top-k/top-p draw with its own temp, top_p, top_k and Gumbel
+// draws (indexed by rank), and the EOS rule give the token, and the
+// token's embedding row (the step's row block when depthwise_wte) is the
+// row's next x. Rounding points, int8 rescale and silu are
+// dual_ar_layer.cuh's (the TPU kernel's, fast_frame_pallas.py:569-573,
+// 595-604, 706-712).
 //
-// What bounds it on this card: bytes. The fast stack is ~120 MB at
-// Fish-1.5 width, more than the 50 MB L2, so each codebook step streams
-// it again (~0.97 GB a frame, the same bytes as the batch-1 frame). The
-// point of the TPU kernel is that all rows share that stream, and so do
-// they here: each block of a layer's GEMM reads its weight columns once
-// and computes every row from them. At B = 16 a weight element feeds 16
-// multiply-adds, far below the tensor cores' balance point, so a GEMM
-// is bound by its weight bytes plus the latency of its few steps (~1-3
-// us of byte bound each at Fish-1.5 width).
+// What bounds it on this card: bytes, and the chain of dependent phases.
+// The fast stack is ~120 MB at Fish-1.5 width, more than the 50 MB L2,
+// so each codebook step streams it again (~0.97 GB a frame); all rows
+// share that stream. At 16 rows a weight element feeds 16 multiply-adds,
+// far below the tensor cores' balance point. Each step also has three
+// cross-block reductions a layer, the head and the draw, which waits for
+// the head.
 //
-// Design: a fixed sequence of launches from this C entry on the caller's
-// stream, 22 per step at Fish-1.5 depth (176 a frame), as in the batch-1
-// frame:
-//   per layer: rows_gemm<kQkv> (RMSNorm + wqkv), rope_attention (one
-//   block per (row, query head) over the row's history, from
-//   dual_ar_layer.cuh), rows_gemm<kResidual> (wo), rows_gemm<kSwiglu>
-//   (RMSNorm + w1, w3), rows_gemm<kResidual> (w2);
-//   then rows_gemm<kHead> and one sampler block per row.
-// rows_gemm (redesigned for Hopper; the first version ran on the CUDA
-// cores with 64-80 blocks and one shared-memory load per two FMAs):
-// * Tensor cores, mma.sync.m16n8k16 bf16 with f32 accumulation, in the
-//   "swap-AB" form: a weight tile is the A operand (16 columns x 16 k,
-//   M = columns) and the batch rows are N (8 a tile, 8/16/32 rows), so no
-//   row is padded past the next multiple of 8. mma.sync was picked over
-//   wgmma: at N <= 32 rows a block's work is a few dozen 16x8x16 products
-//   per warp, wgmma's 64-row warpgroup tile would need four warps on 64
-//   columns of one K slice, and the bytes, not the issue rate, bound it.
-//   bf16 A fragments come from the weight ring by ldmatrix.trans; int8
-//   ones are read as 2-byte pairs of adjacent columns from the int8 ring
-//   (which stays int8, at half the bytes) and converted to bf16 as the
-//   fragment is formed (exact for -128..127). B fragments are 32-bit
-//   loads of the staged input rows.
-// * Weight stream: an 8-stage ring of 64-row chunks (4 where 8 would
-//   not fit, or would keep a cluster of 4-8 blocks from finding room for
-//   all its blocks at once) filled by 16-byte cp.async copies (columns past
-//   N and rows past K zero-filled), up to 7 chunks in flight, so
-//   every weight byte is read from HBM once per step in 16-byte requests.
-//   The block's slices of the input rows and norm weights come by
-//   cp.async too, with the first chunk, and the residuals the epilogue
-//   adds are loaded then, so the RMS pre-pass runs while all of them are
-//   in flight. Rows of
-//   the ring and of the staged input are padded by 16 bytes, so the
-//   fragment loads hit distinct banks.
-// * K-split: the grid is column tiles (64 columns) x K-splits; the split
-//   blocks of a tile form one cluster: each block pushes the f32 partials
-//   of every column to the rank that finishes it (distributed shared
-//   memory stores), one cluster.sync(), and each rank adds its columns'
-//   partials from its own shared memory in fixed rank order and applies
-//   the epilogue once to its 64 / splits columns. No global workspace, no
-//   second launch, no remote load on the way out. Every Fish-1.5 GEMM at
-//   B = 16 launches >= 128 blocks (wo, w2, head 16 x 8; QKV 20 x 8;
-//   w1 + w3 64 x 2).
-// * The plan (tile width, splits, rows of K a block, stages; rows_plan)
-//   is a function of (K, N, mode, weight type) only, never of the row
-//   count, and each output element's sum runs in one order (k ascending
-//   within a block, blocks in rank order) whatever the rows beside it:
-//   a row gives the same bits alone as among 31 co-tenants.
-// * Each block recomputes the RMS of the input rows over the whole of K
-//   (<= 256 KB, from L2, in 16-byte loads), then stages its slice of K
-//   normalised and rounded to bf16.
-// An int8 product is rounded and rescaled as dual_ar_layer.cuh's
-// stack_product does. The sampler reads each row's knobs from device
-// arrays and is codebook_sampler.cuh's sort, scan and draw. The TPU
-// kernel's row-block grid, flat-lane E/R matrices, lane rolls, one-hot
-// embedding matmul and sel_rows scatter are Mosaic workarounds and are
-// not ported.
+// Design: the layer pass of the slow step's row kernel (rows_stack.cuh:
+// the plan, the producer warp's cp.async weight ring, mma.sync on the
+// tensor cores, three grid syncs a layer) run C times in one launch, one
+// block an SM. The sequence this replaces (22 launches a codebook step,
+// 176 a frame at Fish-1.5 depth, from a host loop) paid each launch's
+// fixed cost, moved no weight byte while attention, the head and the draw
+// ran, and sorted all V logits of a row on 1024 threads. Here:
+// * A step: the L layers on the group's x, the history's K/V rows written
+//   at position cb of each row's (L, 32, KV, C, 64) history in the plan's
+//   scratch, attention over positions 0..cb (one key tile); the fast norm
+//   and the head's partials over the step's column block; one grid sync;
+//   block b < B adds row b's head splits in the plan's order into its
+//   logits and draws its token (codebook_sampler.cuh's rd_sample: a radix
+//   select of the k_eff largest keys, a sort of those alone, the scan and
+//   the Gumbel draw), writes it and publishes the token's embedding row as
+//   the row's next x; one grid sync, and the next step's first norm reads
+//   it. C (3 L + 2) - 1 grid syncs a frame.
+// * The producer warps stream the next step's weights in the same fixed
+//   order while the heads and the draws run: the ring runs ahead across
+//   layers and steps.
+// * The plan (fr_make_plan; mirrored by ops/decode_stack.py::frame_plan)
+//   is a function of L, D, H, KV, F, C, V, k_dyn, the weight type and the
+//   grid, never of the rows, their knobs or their data; every
+//   sum runs in an order it fixes, so a row's tokens and logits are the
+//   same bits alone as among 31 co-tenants.
+// * The sync state is the caller's (an engine's own): the kernel counts
+//   its launches (word FR_LAUNCHES_WORD), grid syncs and head 0's
+//   exchanges into it and leaves its counters zeroed; every wait traps
+//   after DS_TIMEOUT_NS.
+// * What holds it back (scripts/trace_decode_stack.py --part frame on an
+//   NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6): the layer pass's
+//   chain, as in the row kernel, ~46 us a pass at 16 rows (the two
+//   reduce-broadcasts; attention's chain of round trips, even over one key
+//   tile); a step's head, draw and two syncs add ~30 us (the draw ~20-22
+//   us of barriers and dependent loads); and the first layer after a draw
+//   runs ~10 us longer, with the drawing blocks' attention about twice as
+//   long as the other blocks' (their instruction cache refilled after the
+//   draw's code, by the trace's split of blocks).
+// rows_gemm below, the frame's GEMMs of the launch sequence this replaces,
+// stays as the C entry fs_rows_gemm for the card's per-GEMM checks; no
+// path of the port launches it. The TPU kernel's row-block grid, flat-lane
+// E/R matrices, lane rolls, one-hot embedding matmul and sel_rows scatter
+// are Mosaic workarounds and are not ported.
 
 #include <cooperative_groups.h>
 
-#include "codebook_sampler.cuh"
-#include "dual_ar_layer.cuh"
+#include "rows_stack.cuh"
 #include "tensor_core.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// The frame
+// ---------------------------------------------------------------------------
+
+constexpr int FR_MAX_VOCAB = 4096;  // codebook entries a draw takes
+constexpr int FR_LAUNCHES_WORD = DS_STATE_WORDS - 6;  // this kernel's launches so far
+
+// The frame's plan: the layer pass's (S = C, the head's V columns), the
+// draw's shared memory (over [sm_h, sm_seg), free after the head), the
+// keys its sort takes at k_dyn, and the rows' K/V history (at sc_extra).
+struct FrPlan {
+  SrPlan core;
+  int draw_bytes, sort_keys, hist_bytes;
+};
+
+inline bool fr_make_plan(int L, int D, int H, int KV, int F, int C, int V, int k_dyn,
+                         bool int8, int grid, FrPlan& p) {
+  p = FrPlan{};
+  if (L < 1 || C < 1 || V < 1 || V > FR_MAX_VOCAB || V % 8 != 0 || k_dyn < 1 || k_dyn > V ||
+      KV < 1)
+    return false;
+  p.draw_bytes = rd_smem_bytes(V, k_dyn);
+  p.sort_keys = rd_sort_width(k_dyn);
+  p.hist_bytes = 2 * L * SR_ROWS * KV * C * HDIM * 2;
+  if (!sr_make_plan(D, H, KV, F, V, C, int8, grid, p.core, p.draw_bytes, p.hist_bytes))
+    return false;
+  return 3 + p.core.sw_slices + H <= FR_LAUNCHES_WORD;  // the counters below the reports
+}
+
+template <typename W>
+struct FrArgs {
+  // the fast stack and fast_norm, the head (fast_output), x0 = the rows'
+  // slow hiddens, the history as the cache (cache_b = SR_ROWS, S = C),
+  // logits (C, nb, V)
+  SrArgs<W> s;
+  const bf16* emb;
+  const int* window;     // (nb, C, window_len)
+  const float* gumbel;   // (nb, C, k_dyn)
+  const float* temp;     // (nb,) each
+  const float* top_p;
+  const int* top_k;
+  const float* penalty;
+  const unsigned char* is_eos;
+  int* tokens;  // (nb, C)
+  int C, V, depthwise_output, depthwise_wte, window_len, k_dyn, rep_enabled;
+};
+
+// Row b's draw at step cb, on block b's consumers: the row's knobs,
+// window and first Gumbel draws loaded ahead; the head's splits added in
+// order into the f32 logits, four adjacent columns a thread (written to
+// logits[cb, b]), divided by the row's penalty where its window holds the
+// column and by max(temp, 1e-6); rd_sample; the EOS rule; tokens[b, cb];
+// unless this is the last step, the token's embedding row (step cb's
+// block when depthwise_wte) to x_next[b]. Trace marks in pass `pass`: 3
+// logits gathered and divided, rd_sample's (11, 12, 4, 13, 14, 5, 6), 7
+// token published.
+template <typename W>
+__device__ __noinline__ void fr_draw(const FrArgs<W>& f, const SrMem& m, unsigned char* smem,
+                                     int b, int cb, bf16* x_next, int pass) {
+  const SrArgs<W>& a = f.s;
+  const SrPlan& P = a.plan;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int V = f.V, D = a.D, C = f.C;
+  const RdSmem s = RdSmem::at(smem + P.sm_h, V, f.k_dyn);
+  const bool eos = f.is_eos[b] != 0;
+  const float temp = f.temp[b], top_p = f.top_p[b], penalty = f.penalty[b];
+  const int top_k = f.top_k[b];
+  const int wl = f.rep_enabled ? f.window_len : 0;
+  const int* win = f.window + ((size_t)b * C + cb) * f.window_len;
+  const int w_lo = lane < wl ? win[lane] : -1;
+  const int w_hi = lane + 32 < wl ? win[lane + 32] : -1;
+  const float* gumbel = f.gumbel + ((size_t)b * C + cb) * f.k_dyn;
+  const float g0 = tid < f.k_dyn ? gumbel[tid] : 0.f;
+  s.hist[tid] = 0u;  // rd_sample's first two histograms
+  s.hist[RD_THREADS + tid] = 0u;
+  if (tid == 0) *s.slots = 0;
+  const float t = fmaxf(temp, 1e-6f);
+  float* out = a.logits + ((size_t)cb * a.nb + b) * V;
+  float mx = -INFINITY;
+  for (int base = 0; base < V; base += RD_ITEMS * RD_THREADS) {
+    const int c4 = base + RD_ITEMS * tid;
+    const bool ok = c4 < V;  // V % 8 == 0: a thread's four columns all or none
+    const float4 y = ok ? sr_sum4<16>(m.part_head +
+                                          ((size_t)(c4 / SR_TILE) * P.head_splits * SR_ROWS + b) *
+                                              SR_TILE +
+                                          c4 % SR_TILE,
+                                      (size_t)SR_ROWS * SR_TILE, P.head_splits)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+    bool member[RD_ITEMS] = {false, false, false, false};
+    for (int w = 0; w < wl; ++w) {
+      const int e = __shfl_sync(FULL, w < 32 ? w_lo : w_hi, w & 31);
+#pragma unroll
+      for (int k = 0; k < RD_ITEMS; ++k) member[k] |= e == c4 + k;
+    }
+    if (ok) {
+      *reinterpret_cast<float4*>(out + c4) = y;
+      const float yv[RD_ITEMS] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int k = 0; k < RD_ITEMS; ++k) {
+        const float x = __fdiv_rn(member[k] ? __fdiv_rn(yv[k], penalty) : yv[k], t);
+        s.p[c4 + k] = x;
+        mx = fmaxf(mx, x);
+      }
+    }
+  }
+  DS_MARK(pass, 3);
+  const int tok = eos ? 0 : rd_sample(s, V, mx, temp, top_p, top_k, f.k_dyn, gumbel, g0, pass);
+  if (tid == 0) f.tokens[(size_t)b * C + cb] = tok;
+  if (cb + 1 < C) {
+    const uint4* row = reinterpret_cast<const uint4*>(
+        f.emb + ((f.depthwise_wte ? (size_t)cb * V : 0) + tok) * (size_t)D);
+    for (int i = tid; i < D / 8; i += RD_THREADS)
+      reinterpret_cast<uint4*>(x_next + (size_t)b * D)[i] = __ldg(row + i);
+  }
+  DS_MARK(pass, 7);
+}
+
+// The whole frame for nb <= 32 rows: one block per SM, cooperative
+// launch. Trace: pass cb * L + l holds step cb's layer l (rows_stack.cuh's
+// marks), pass C * L + cb its head and draw (0 the last layer done, 1 the
+// head's partials done, 2 after their sync, 3-7 and 11-14 the draw's
+// (fr_draw, rd_sample), 8 after the draw's sync, 9 the next x read).
+template <typename W>
+__global__ void __launch_bounds__(DS_BLOCK, 1)
+    fast_frame_rows_kernel(const __grid_constant__ FrArgs<W> f) {
+  extern __shared__ __align__(128) unsigned char sr_smem[];
+  const SrArgs<W>& a = f.s;
+  const SrPlan& P = a.plan;
+  const int tid = threadIdx.x;
+  const int blk = blockIdx.x;
+  const int D = a.D, L = a.L, nb = a.nb, C = f.C;
+  const SrMem m = SrMem::of(sr_smem, a.scratch, P);
+
+  // 1. the tables (the head's steps V columns apart when depthwise_output)
+  sr_setup(a, m, sr_smem, f.depthwise_output ? 2ll * f.V : 0ll);
+  if (tid < SR_ROWS) m.pos_s[tid] = 0;
+  __syncthreads();  // the whole block, producer warp included: the last time
+  const uint32_t full = ds_smem_addr(sr_smem + P.sm_bar);
+  const uint32_t empty = full + 8 * P.stages;
+  if (tid >= DS_THREADS) {
+    sr_produce<W>(m.segs, m.mats, L, C, sr_smem + P.sm_ring, full, empty, P.stages,
+                  P.stage_bytes);
+    return;
+  }
+  SrRing rg{sr_smem + P.sm_ring, full, empty, P.stages, P.stage_bytes, 0, 0u};
+  sr_norm(a.x0, nb, D, a.stack.attn_norm, m.h_s, P.h_pitch, a.eps);
+  ds_sync();
+
+  // 2. the steps
+  SrFlow fl{0u, 0u, 0, a.x0};
+  for (int cb = 0;; ++cb) {
+    const int dpass = C * L + cb;
+    if (tid < SR_ROWS) m.pos_s[tid] = cb;  // read after the first layer's QKV sync
+    for (int l = 0; l < L; ++l) sr_layer<W>(a, m, rg, fl, l, cb * L + l, nullptr, [] {});
+    DS_MARK(dpass, 0);
+    sr_head_partials<W>(a, m, rg);
+    DS_MARK(dpass, 1);
+    sr_grid_sync(a.state, fl.si);
+    DS_MARK(dpass, 2);
+    bf16* x_next = m.xg + fl.buf * SR_ROWS * D;  // the buffer x_prev is not
+    if (blk < nb) fr_draw<W>(f, m, sr_smem, blk, cb, x_next, dpass);
+    if (cb + 1 == C) break;
+    sr_grid_sync(a.state, fl.si);
+    DS_MARK(dpass, 8);
+    fl.x_prev = x_next;
+    fl.buf ^= 1;
+    sr_norm(x_next, nb, D, a.stack.attn_norm, m.h_s, P.h_pitch, a.eps, dpass, 9);
+    ds_sync();
+  }
+
+  // 3. the last block to finish counts the launch and resets the counters
+  sr_finish(a, FR_LAUNCHES_WORD);
+}
+
+template <typename W>
+cudaError_t fr_launch(const FrArgs<W>& f, cudaStream_t st) {
+  static int smem_set = 0;
+  static int smem_checked = 0;
+  return ds_coop_launch(fast_frame_rows_kernel<W>, f, f.s.plan.grid, DS_BLOCK, f.s.plan.smem, st,
+                        smem_set, smem_checked);
+}
+
+// ---------------------------------------------------------------------------
+// rows_gemm: out[b, n] = epilogue(p(sum_k in'[b, k] * w[k, n])), b < nb <= 32
+// (the GEMMs of the launch sequence the frame kernel replaced; the C entry
+// fs_rows_gemm only)
+// ---------------------------------------------------------------------------
 
 constexpr int MAX_BATCH_ROWS = 32;
 
@@ -548,145 +721,22 @@ cudaError_t launch_rows_gemm(int nb, const bf16* in, const bf16* norm_w, const W
   return cudaErrorInvalidValue;
 }
 
-// One codebook step's draw for row b = blockIdx.x, the semantics of
-// fast_frame_pallas.py:735-848 and of ops/sampling.py::
-// sample_top_k_top_p_dynamic in the port: logits of the row's window
-// members are divided by the row's penalty; p = softmax(logits /
-// max(temp, 1e-6)); k_eff = top_k if 0 < top_k <= k_dyn, else k_dyn;
-// p_eff = top_p if 0 < top_p < 1, else 1; rank r is kept when r < k_eff
-// and its exclusive mass < p_eff, and the token maximises log p +
-// gumbel[b, cb, r]; rows with temp <= 1e-7 take the rank-0 token; EOS
-// rows take 0. Writes tokens[b, cb] and, when emb is not null, the
-// token's embedding row to x_next[b].
-template <int ITEMS>
-__global__ void __launch_bounds__(SAMPLER_THREADS)
-    rows_sample_kernel(const float* __restrict__ logits, int V, const int* __restrict__ window,
-                       int window_len, int C, int cb, const float* __restrict__ temp,
-                       const float* __restrict__ top_p, const int* __restrict__ top_k,
-                       const float* __restrict__ penalty,
-                       const unsigned char* __restrict__ is_eos,
-                       const float* __restrict__ gumbel, int k_dyn,
-                       const bf16* __restrict__ emb, int D, int* __restrict__ tokens,
-                       bf16* __restrict__ x_next) {
-  __shared__ unsigned long long keys[SAMPLER_THREADS * ITEMS];
-  __shared__ float red[SAMPLER_WARPS];
-  __shared__ unsigned long long best_red[SAMPLER_WARPS];
-  __shared__ int win_s[MAX_WINDOW];
-  __shared__ int top_s;
-  __shared__ int tok_s;
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x;
-  const int* win = window != nullptr ? window + ((size_t)b * C + cb) * window_len : nullptr;
-  if (win != nullptr && tid < window_len) win_s[tid] = win[tid];
-  __syncthreads();
-
-  float lg[ITEMS];
-#pragma unroll
-  for (int it = 0; it < ITEMS; ++it) {
-    const int i = tid + it * SAMPLER_THREADS;
-    lg[it] = i < V ? logits[(size_t)b * V + i] : -INFINITY;
-  }
-  if (win != nullptr) apply_penalty(lg, V, win_s, window_len, penalty[b]);
-  const float t = temp[b];
-  const float sum = softmax_exp(lg, V, fmaxf(t, 1e-6f), red);
-  const int tk = top_k[b];
-  const float tp = top_p[b];
-  const int k_eff = (tk <= 0 || tk > k_dyn) ? k_dyn : tk;
-  const float p_eff = (tp <= 0.f || tp >= 1.f) ? 1.f : tp;
-  const int drawn = sorted_draw(lg, sum, V, k_eff, true, p_eff,
-                                gumbel + ((size_t)b * C + cb) * k_dyn, keys, red, best_red,
-                                &top_s);
-  if (tid == 0) {
-    tok_s = is_eos[b] ? 0 : (t <= 1e-7f ? top_s : drawn);
-    tokens[(size_t)b * C + cb] = tok_s;
-  }
-  __syncthreads();
-  if (emb != nullptr) {
-    const bf16* row = emb + (size_t)tok_s * D;
-    for (int d = tid; d < D; d += SAMPLER_THREADS) x_next[(size_t)b * D + d] = row[d];
-  }
-}
-
-// One decode layer for B rows (the five launches above) on x (B, D),
-// updated in place, with layer lw of a stack; attention over the history
-// rows 0..cb of each row.
-template <typename W>
-cudaError_t run_rows_layer(bf16* x, const Stack<W>& lw, const float* cos_t, const float* sin_t,
-                           int cb, bf16* k_hist, bf16* v_hist, int layer, bf16* qkv, bf16* attn,
-                           bf16* ffn, int B, int D, int H, int KV, int F, int C, float eps,
-                           cudaStream_t st) {
-  const int QKV = (H + 2 * KV) * HDIM;
-  cudaError_t err;
-  err = launch_rows_gemm<kQkv, W>(B, x, lw.attn_norm, lw.wqkv, nullptr, lw.s_qkv, nullptr, D, QKV, QKV, eps, qkv, nullptr, st);
-  if (err != cudaSuccess) return err;
-  err = launch_rope_attention(qkv, cos_t, sin_t, nullptr, cb, k_hist, v_hist, attn, B, H, KV, C,
-                              layer, st);
-  if (err != cudaSuccess) return err;
-  err = launch_rows_gemm<kResidual, W>(B, attn, nullptr, lw.wo, nullptr, lw.s_o, nullptr, H * HDIM, D, D, eps, x, nullptr, st);
-  if (err != cudaSuccess) return err;
-  err = launch_rows_gemm<kSwiglu, W>(B, x, lw.ffn_norm, lw.w1, lw.w3, lw.s_1, lw.s_3, D, F, F, eps, ffn, nullptr, st);
-  if (err != cudaSuccess) return err;
-  return launch_rows_gemm<kResidual, W>(B, ffn, nullptr, lw.w2, nullptr, lw.s_2, nullptr, F, D, D, eps, x, nullptr, st);
-}
-
-// The C steps of one frame for B rows with the layer stack of type W.
-template <typename W>
-int fast_frame_batched(const bf16* hidden, const Stack<W>& stack, const bf16* fast_norm,
-                       const bf16* head, const bf16* emb, const float* cos_t,
-                       const float* sin_t, const int* window, const float* gumbel,
-                       const float* temp, const float* top_p, const int* top_k,
-                       const float* penalty, const unsigned char* eos, int* tokens, bf16* x,
-                       bf16* qkv_buf, bf16* attn_buf, bf16* ffn_buf, float* logits_buf,
-                       bf16* k_hist, bf16* v_hist, int B, int L, int D, int H, int KV, int F,
-                       int C, int V, int head_ld, int depthwise_output, int depthwise_wte,
-                       int window_len, int k_dyn, int rep_enabled, float eps,
-                       cudaStream_t st) {
-  const int QKV = (H + 2 * KV) * HDIM;
-  cudaError_t err = cudaMemcpyAsync(x, hidden, (size_t)B * D * sizeof(bf16),
-                                    cudaMemcpyDeviceToDevice, st);
-  if (err != cudaSuccess) return (int)err;
-  const int items = (V + SAMPLER_THREADS - 1) / SAMPLER_THREADS;
-  const int* win = rep_enabled ? window : nullptr;
-  for (int cb = 0; cb < C; ++cb) {
-    float* logits = logits_buf + (size_t)cb * B * V;
-    for (int l = 0; l < L; ++l) {
-      err = run_rows_layer<W>(x, stack.layer(l, D, QKV, F), cos_t, sin_t, cb, k_hist, v_hist, l,
-                              qkv_buf, attn_buf, ffn_buf, B, D, H, KV, F, C, eps, st);
-      if (err != cudaSuccess) return (int)err;
-    }
-    const bf16* head_cb = head + (depthwise_output ? (size_t)cb * V : 0);
-    err = launch_rows_gemm<kHead, bf16>(B, x, fast_norm, head_cb, nullptr, nullptr, nullptr, D,
-                                        V, head_ld, eps, nullptr, logits, st);
-    if (err != cudaSuccess) return (int)err;
-    // the last step's tokens need no embedding
-    const bf16* emb_cb = cb + 1 < C ? emb + (depthwise_wte ? (size_t)cb * V * D : 0) : nullptr;
-    if (items <= 1)
-      rows_sample_kernel<1><<<B, SAMPLER_THREADS, 0, st>>>(logits, V, win, window_len, C, cb, temp, top_p, top_k, penalty, eos, gumbel, k_dyn, emb_cb, D, tokens, x);
-    else if (items <= 2)
-      rows_sample_kernel<2><<<B, SAMPLER_THREADS, 0, st>>>(logits, V, win, window_len, C, cb, temp, top_p, top_k, penalty, eos, gumbel, k_dyn, emb_cb, D, tokens, x);
-    else
-      rows_sample_kernel<4><<<B, SAMPLER_THREADS, 0, st>>>(logits, V, win, window_len, C, cb, temp, top_p, top_k, penalty, eos, gumbel, k_dyn, emb_cb, D, tokens, x);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
-}
-
 }  // namespace
 
-// hidden (B, D) bf16, the rows' slow hiddens. The fast-layer stack as in
-// fs_slow_step (norms, five weights bf16 or int8, five scales or nulls);
-// fast_norm (D,); head: the fast output (D, head_ld),
-// whose columns [cb*V, cb*V + V) serve step cb when depthwise_output, else
+// hidden (B, D) bf16, the rows' slow hiddens, B <= 32. The fast-layer
+// stack as in fs_slow_step (norms, five weights bf16 or int8, five scales
+// or nulls); fast_norm (D,); head: the fast output (D, head_ld), whose
+// columns [cb*V, cb*V + V) serve step cb when depthwise_output, else
 // columns [0, V); emb: the fast embeddings, rows [cb*V, cb*V + V) for step
 // cb's token when depthwise_wte, else rows [0, V). window (B, C,
 // window_len) int32 rep-pen windows (read when rep_enabled); gumbel (B, C,
 // k_dyn) f32; temp, top_p, penalty (B,) f32; top_k (B,) int32; is_eos (B,)
-// bool. Out: tokens (B, C) int32; logits, (C, B, V) f32, holds each step's
-// penalty-free head logits. Scratch: x (B, D), qkv (B, QKV), attn (B, D),
-// ffn (B, F) bf16, k_hist and v_hist (L, B, KV, C, 64) bf16. Returns the
-// first CUDA error of the launches (0 on success).
+// bool. Out: tokens (B, C) int32; logits, (C, B, V) f32, each step's
+// penalty-free head logits. scratch: scratch_bytes of device memory (at
+// least the plan's); state: DS_STATE_WORDS words, its counters zero, left
+// zero (the last two words: the launch's grid syncs and head 0's
+// exchanges; word DS_STATE_WORDS - 6 counts this kernel's launches). One
+// launch. Returns its CUDA error (0 on success).
 extern "C" int fs_fast_frame_batched(
     const void* hidden, const void* attn_norm, const void* ffn_norm, const void* wqkv,
     const void* wo, const void* w1, const void* w3, const void* w2, const void* s_qkv,
@@ -694,38 +744,100 @@ extern "C" int fs_fast_frame_batched(
     const void* fast_norm, const void* head, const void* emb, const void* cos_t,
     const void* sin_t, const void* window, const void* gumbel, const void* temp,
     const void* top_p, const void* top_k, const void* penalty, const void* is_eos,
-    void* tokens, void* x_buf, void* qkv_buf, void* attn_buf, void* ffn_buf,
-    void* logits_buf, void* k_hist, void* v_hist, int B, int L, int D, int H, int KV,
-    int F, int C, int V, int head_ld, int depthwise_output, int depthwise_wte,
-    int window_len, int k_dyn, int rep_enabled, float eps, void* stream) {
-  if (B < 1 || B > MAX_BATCH_ROWS || KV <= 0 || H % KV != 0 || H * HDIM != D ||
-      D % 8 != 0 || F % 8 != 0 || L < 1 || C < 1 || V < 1 || V > 4 * SAMPLER_THREADS ||
-      window_len > MAX_WINDOW || (rep_enabled && window_len < 1) || k_dyn < 1 ||
-      k_dyn > V)
-    return (int)cudaErrorInvalidValue;
+    void* tokens, void* logits, void* scratch, void* state, int B, int L, int D, int H,
+    int KV, int F, int C, int V, int head_ld, int depthwise_output, int depthwise_wte,
+    int window_len, int k_dyn, int rep_enabled, int scratch_bytes, float eps, void* stream) {
   const void* wts[5] = {wqkv, wo, w1, w3, w2};
   const void* scales[5] = {s_qkv, s_o, s_1, s_3, s_2};
-  const bool int8 = s_qkv != nullptr;
-  for (const void* s : scales)
-    if ((s != nullptr) != int8) return (int)cudaErrorInvalidValue;
-  auto run = [&](auto stack) {
-    return fast_frame_batched(
-        static_cast<const bf16*>(hidden), stack, static_cast<const bf16*>(fast_norm),
-        static_cast<const bf16*>(head), static_cast<const bf16*>(emb),
-        static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-        static_cast<const int*>(window), static_cast<const float*>(gumbel),
-        static_cast<const float*>(temp), static_cast<const float*>(top_p),
-        static_cast<const int*>(top_k), static_cast<const float*>(penalty),
-        static_cast<const unsigned char*>(is_eos), static_cast<int*>(tokens),
-        static_cast<bf16*>(x_buf), static_cast<bf16*>(qkv_buf), static_cast<bf16*>(attn_buf),
-        static_cast<bf16*>(ffn_buf), static_cast<float*>(logits_buf),
-        static_cast<bf16*>(k_hist), static_cast<bf16*>(v_hist), B, L, D, H, KV, F, C, V,
-        head_ld, depthwise_output, depthwise_wte, window_len, k_dyn, rep_enabled, eps,
-        static_cast<cudaStream_t>(stream));
+  bool int8 = false;
+  if (B < 1 || B > SR_ROWS || !ds_int8(scales, int8) || head_ld % 8 != 0 ||
+      head_ld < (depthwise_output ? C : 1) * V || window_len < 1 || window_len > MAX_WINDOW)
+    return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  const cudaError_t err = ds_grid(grid);
+  if (err != cudaSuccess) return (int)err;
+  FrPlan plan;
+  if (!fr_make_plan(L, D, H, KV, F, C, V, k_dyn, int8, grid, plan) ||
+      scratch_bytes < plan.core.scratch_bytes)
+    return (int)cudaErrorInvalidValue;
+  auto run = [&](auto stack) -> int {
+    using Wt = typename std::remove_cv<
+        typename std::remove_pointer<decltype(stack.wqkv)>::type>::type;
+    FrArgs<Wt> f = {};
+    SrArgs<Wt>& a = f.s;
+    bf16* hist = reinterpret_cast<bf16*>(static_cast<unsigned char*>(scratch) + plan.core.sc_extra);
+    a.stack = stack;
+    a.final_norm = static_cast<const bf16*>(fast_norm);
+    a.head = static_cast<const bf16*>(head);
+    a.head_ld = head_ld;
+    a.head_n = V;
+    a.cos_t = static_cast<const float*>(cos_t);
+    a.sin_t = static_cast<const float*>(sin_t);
+    a.ck = hist;
+    a.cv = hist + (size_t)L * SR_ROWS * KV * C * HDIM;
+    a.cache_b = SR_ROWS;
+    a.S = C;
+    a.x0 = static_cast<const bf16*>(hidden);
+    a.logits = static_cast<float*>(logits);
+    a.nb = B;
+    a.L = L;
+    a.D = D;
+    a.H = H;
+    a.KV = KV;
+    a.F = F;
+    a.eps = eps;
+    a.scratch = static_cast<unsigned char*>(scratch);
+    a.state = static_cast<unsigned*>(state);
+    a.plan = plan.core;
+    f.emb = static_cast<const bf16*>(emb);
+    f.window = static_cast<const int*>(window);
+    f.gumbel = static_cast<const float*>(gumbel);
+    f.temp = static_cast<const float*>(temp);
+    f.top_p = static_cast<const float*>(top_p);
+    f.top_k = static_cast<const int*>(top_k);
+    f.penalty = static_cast<const float*>(penalty);
+    f.is_eos = static_cast<const unsigned char*>(is_eos);
+    f.tokens = static_cast<int*>(tokens);
+    f.C = C;
+    f.V = V;
+    f.depthwise_output = depthwise_output;
+    f.depthwise_wte = depthwise_wte;
+    f.window_len = window_len;
+    f.k_dyn = k_dyn;
+    f.rep_enabled = rep_enabled;
+    return (int)fr_launch<Wt>(f, static_cast<cudaStream_t>(stream));
   };
   if (int8) return run(make_stack<int8_t>(attn_norm, ffn_norm, wts, scales));
   return run(make_stack<bf16>(attn_norm, ffn_norm, wts, scales));
 }
+
+// The plan fast_frame_rows_kernel runs for these shapes on the current
+// device, as SR_PLAN_INTS + 3 ints into out: SrPlan's, then the draw's
+// shared memory bytes, its sort's keys and the history's bytes. Returns
+// cudaErrorInvalidValue for shapes the kernel does not take.
+extern "C" int fs_fast_frame_batched_plan(int L, int D, int H, int KV, int F, int C, int V,
+                                          int k_dyn, int int8, void* out) {
+  int grid = 0;
+  const cudaError_t err = ds_grid(grid);
+  if (err != cudaSuccess) return (int)err;
+  FrPlan plan;
+  if (!fr_make_plan(L, D, H, KV, F, C, V, k_dyn, int8 != 0, grid, plan))
+    return (int)cudaErrorInvalidValue;
+  int* o = static_cast<int*>(out);
+  sr_plan_ints(plan.core, o);
+  o[SR_PLAN_INTS] = plan.draw_bytes;
+  o[SR_PLAN_INTS + 1] = plan.sort_keys;
+  o[SR_PLAN_INTS + 2] = plan.hist_bytes;
+  return 0;
+}
+
+#ifdef DS_TRACE
+// The instrumented copy's phase trace (this file's kernel): n words of
+// ds_trace_buf into out.
+extern "C" int fs_fast_frame_batched_trace(void* out, int n) {
+  return (int)cudaMemcpyFromSymbol(out, ds_trace_buf, (size_t)n * sizeof(unsigned long long));
+}
+#endif
 
 namespace {
 
@@ -794,3 +906,4 @@ extern "C" int fs_rows_gemm_plan(int K, int N, int mode, int int8, int* plan) {
   plan[5] = p.tiles * p.splits;
   return 0;
 }
+

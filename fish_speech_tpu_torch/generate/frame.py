@@ -196,7 +196,7 @@ def generate_frame(params, cfg: DualARConfig, token_cfg: TokenConfig, lm: WhichL
     by 1.0) unless depthwise_wte, and noise has the dynamic layout.
     use_fused_fast: the whole codebook loop is one call fed the same
     draws, `ops.fast_frame` (static, batch 1) or `ops.fast_frame_batched`
-    (dynamic). sync_state: the batch-1 kernel's grid sync state (the
+    (dynamic). sync_state: the fused frames' grid sync state (the
     engine's own)."""
     dynamic = samp is not None
     if noise is None and (dynamic or not sampling.is_argmax or is_legacy(lm)):
@@ -215,7 +215,7 @@ def generate_frame(params, cfg: DualARConfig, token_cfg: TokenConfig, lm: WhichL
     if use_fused_fast and dynamic:
         toks = fused_fast_frame_batched(params, cfg, samp, hidden, rep_pen.tokens,
                                         noise.codebooks, is_eos, rope,
-                                        rep_enabled=rep_pen_enabled)
+                                        rep_enabled=rep_pen_enabled, sync=sync_state)
         frame = torch.cat([semantic[:, None], toks], dim=1)
         return FrameResult(tokens=frame, is_eos=is_eos, rep_pen=rep_pen)
     if use_fused_fast:

@@ -77,10 +77,12 @@ SIGNATURES = {
     "fs_decode_stack_plan": [_I] * 8 + [_P],
     # hidden, attn_norm, ffn_norm, 5 weights, 5 scales, fast_norm, head,
     # emb, cos, sin, window, gumbel, temp, top_p, top_k, penalty, is_eos,
-    # tokens, x, qkv, attn, ffn, logits, k_hist, v_hist,
+    # tokens, logits, scratch, state,
     # B, L, D, H, KV, F, C, V, head_ld, depthwise_output, depthwise_wte,
-    # window_len, k_dyn, rep_enabled, eps, stream
-    "fs_fast_frame_batched": [_P] * 33 + [_I] * 14 + [_F, _P],
+    # window_len, k_dyn, rep_enabled, scratch_bytes, eps, stream
+    "fs_fast_frame_batched": [_P] * 29 + [_I] * 15 + [_F, _P],
+    # L, D, H, KV, F, C, V, k_dyn, int8, plan (28 ints out)
+    "fs_fast_frame_batched_plan": [_I] * 9 + [_P],
     # mode, in, norm_w, w, w_b, scale, scale_b, nb, K, N, ldw, eps, out,
     # out_f32, stream
     "fs_rows_gemm": [_I] + [_P] * 6 + [_I] * 4 + [_F] + [_P] * 3,

@@ -1,10 +1,12 @@
 """The plan of the persistent decode kernel (`csrc/decode_stack.cuh`) that
 runs the fused slow step (`ops/slow_step.py`) and the fused batch-1 fast
 frame (`ops/fast_frame.py`), mirrored from `ds_make_plan`; the plan of the
-slow step's row kernel for 5 rows and more (`csrc/slow_step_rows.cu`),
-mirrored from `sr_make_plan` (`rows_plan`, at the end); and the grid sync
-states the kernels count in: one per engine, and one per (card, stream)
-for calls made outside an engine.
+group layer pass (`csrc/rows_stack.cuh`) of the slow step's row kernel for
+5 rows and more (`csrc/slow_step_rows.cu`), mirrored from `sr_make_plan`
+(`rows_plan`), and of the batched fast frame's kernel
+(`csrc/fast_frame_batched.cu`), mirrored from `fr_make_plan`
+(`frame_plan`); and the grid sync states the kernels count in: one per
+engine, and one per (card, stream) for calls made outside an engine.
 
 One cooperative launch puts one block on every SM. The plan cuts each
 layer's GEMVs into work units from the shapes, the weight type and the
@@ -37,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import weakref
 from typing import Optional
 
 import torch
@@ -54,9 +57,9 @@ SMEM_LIMIT = 232448  # dynamic shared memory one block may use on sm_90
 MAX_STAGES = 128
 MAX_SEGS = 16  # weight segments a block streams each layer
 STATE_WORDS = 1024  # sync state: arrivals, finished blocks, publishes of x, F-slice groups,
-# heads' key-split exchanges; the last five words: launches of the row kernel, of the
-# sampler and of the persistent kernel so far, the last launch's grid syncs and head 0's
-# exchanges
+# heads' key-split exchanges; the last six words: launches of the batched frame's kernel,
+# of the row kernel, of the sampler and of the persistent kernel so far, the last launch's
+# grid syncs and head 0's exchanges
 SPLIT_TILES = 8  # attention over more key tiles (256 keys) is split over a head's blocks
 MAX_WINDOW = 64  # rep-pen window entries the sampler takes
 DIMS = (256, 512, 1024, 2048)  # model widths the kernel takes
@@ -412,12 +415,15 @@ class RowsPlan:
 
 @functools.lru_cache(maxsize=None)
 def rows_plan(d: int, n_head: int, kv: int, f: int, head_n: int, cache_len: int, int8: bool,
-              grid: int) -> Optional[RowsPlan]:
+              grid: int, work_bytes: int = 0, extra_scratch: int = 0) -> Optional[RowsPlan]:
     """The row kernel's plan for a stack of width d, n_head query and kv
     KV heads of dim 64, ffn f, a head of head_n columns and a cache of
     cache_len keys, on `grid` blocks: a function of the shapes alone (never
     of the rows, so one object for every batch), or None when the kernel
-    does not take them."""
+    does not take them. work_bytes: shared memory the caller uses between
+    passes over the normalised rows and the attention's scratch (the batched
+    frame's draw); extra_scratch: global scratch of the caller's own, after
+    the plan's (the batched frame's K/V history)."""
     if (grid < 1 or n_head < 1 or kv < 1 or n_head % kv or n_head * HEAD_DIM != d
             or f < ROWS_TILE or f % ROWS_TILE or head_n < 1 or cache_len < 1 or d not in DIMS):
         return None
@@ -451,8 +457,11 @@ def rows_plan(d: int, n_head: int, kv: int, f: int, head_n: int, cache_len: int,
     off += _align(ROWS_GROUP * (HEAD_DIM + 8) * 2, 16)  # a head's attention outputs
     off += _align(ROWS_GROUP * (ROWS_TILE + 8) * 2, 16)  # a slice's g
     off += 2 * d * 2  # a layer's ffn norm and the next norm
-    off += _align(4 * (attn_rows * 3 * HEAD_DIM + 2 * warps + warps * HEAD_DIM
-                       + warps * ROWS_MAX_STEPS * KV_TILE), 16)  # attention
+    att = _align(4 * (attn_rows * 3 * HEAD_DIM + 2 * warps + warps * HEAD_DIM
+                      + warps * ROWS_MAX_STEPS * KV_TILE), 16)  # attention
+    if work_bytes > off + att:  # the caller's work over the rows and the attention's scratch
+        att = _align(work_bytes - off, 16)
+    off += att
     off += ROWS_SEG_BYTES  # the segment and matrix tables, the positions
     # the ring's stages at 1024-byte boundaries, the 128-byte swizzle's
     stages = min(ROWS_MAX_STAGES, (SMEM_LIMIT - off - 1024) // (16 + stage_bytes))
@@ -467,7 +476,8 @@ def rows_plan(d: int, n_head: int, kv: int, f: int, head_n: int, cache_len: int,
                + _align(n_head * ROWS_GROUP * d * 4, 256)
                + _align(sw_units * 2 * ROWS_GROUP * ROWS_TILE * 4, 256)
                + _align(slices * ROWS_GROUP * d * 4, 256)
-               + _align(head_units * ROWS_GROUP * ROWS_TILE * 4, 256))
+               + _align(head_units * ROWS_GROUP * ROWS_TILE * 4, 256)
+               + _align(extra_scratch, 256))
     return RowsPlan(
         grid=grid, stages=stages, stage_bytes=stage_bytes, smem=smem, scratch_bytes=scratch,
         qkv_tiles=qkv_tiles, qkv_splits=qkv_splits, qkv_klen=qkv_klen, qkv_units=qkv_units,
@@ -491,3 +501,119 @@ def rows_plan_on_card(d: int, n_head: int, kv: int, f: int, head_n: int, cache_l
     if rc != 0:
         return None
     return RowsPlan(*list(out))
+
+
+# -- the batched fast frame's kernel -----------------------------------------------
+
+FRAME_LAUNCHES_WORD = STATE_WORDS - 6  # the batched frame kernel's launches so far
+FRAME_MAX_VOCAB = 4096  # codebook entries its draw takes
+DRAW_WARPS = THREADS // 32  # the draw runs on a block's consumer threads
+
+
+def draw_sort_width(k: int) -> int:
+    """Keys the draw sorts for a top-k of k: a power of two, at least 32."""
+    n = 32
+    while n < k:
+        n *= 2
+    return n
+
+
+def draw_smem_bytes(vocab: int, k_dyn: int) -> int:
+    """Shared memory of the draw (codebook_sampler.cuh::rd_smem_bytes): the
+    selected keys, the logits, three 256-bin histograms, the three
+    reductions, the best key and the compaction's slot count."""
+    return 8 * draw_sort_width(k_dyn) + 4 * vocab + 3 * 256 * 4 + 3 * 4 * DRAW_WARPS \
+        + 8 * DRAW_WARPS + 16
+
+
+@dataclasses.dataclass(frozen=True)
+class FramePlan:
+    """What `fr_make_plan` computes, in fs_fast_frame_batched_plan's order:
+    the layer pass's plan (`rows`: S = C keys, a head of V columns), the
+    draw's shared memory (over the normalised rows and the attention's
+    scratch, free after the head), the keys its sort takes at k_dyn, and
+    the bytes of the rows' K/V history (L, 32, KV, C, 64) x 2 in the
+    scratch."""
+
+    rows: RowsPlan
+    draw_bytes: int
+    sort_keys: int
+    hist_bytes: int
+
+    @staticmethod
+    def syncs_per_call(n_layer: int, n_cb: int) -> int:
+        """Grid syncs of one frame: each step three a layer and one after
+        the head's partials, and one after each draw but the last."""
+        return n_cb * (3 * n_layer + 2) - 1
+
+    @staticmethod
+    def head_exchanges(n_layer: int, n_cb: int) -> int:
+        """Exchanges a frame makes on each query head's counter: one a
+        layer of each step."""
+        return n_layer * n_cb
+
+
+@functools.lru_cache(maxsize=None)
+def frame_plan(n_layer: int, d: int, n_head: int, kv: int, f: int, n_cb: int, vocab: int,
+               k_dyn: int, int8: bool, grid: int) -> Optional[FramePlan]:
+    """The batched frame kernel's plan for a fast stack of n_layer layers
+    (width d, n_head query and kv KV heads of dim 64, ffn f), n_cb codebook
+    steps of vocab entries and a top-k cap k_dyn, on `grid` blocks: a
+    function of the shapes alone (one object for every batch), or None
+    when the kernel does not take them."""
+    if (n_layer < 1 or n_cb < 1 or not 1 <= vocab <= FRAME_MAX_VOCAB or vocab % 8
+            or not 1 <= k_dyn <= vocab or kv < 1):
+        return None
+    draw = draw_smem_bytes(vocab, k_dyn)
+    hist = 2 * n_layer * ROWS_GROUP * kv * n_cb * HEAD_DIM * 2
+    rows = rows_plan(d, n_head, kv, f, vocab, n_cb, int8, grid, draw, hist)
+    if rows is None or 3 + rows.sw_slices + n_head > FRAME_LAUNCHES_WORD:
+        return None
+    return FramePlan(rows=rows, draw_bytes=draw, sort_keys=draw_sort_width(k_dyn),
+                     hist_bytes=hist)
+
+
+def frame_plan_on_card(n_layer: int, d: int, n_head: int, kv: int, f: int, n_cb: int,
+                       vocab: int, k_dyn: int, int8: bool) -> Optional[FramePlan]:
+    """The batched frame kernel's plan as the built kernel computes it on
+    the current card (fs_fast_frame_batched_plan), or None when it does
+    not take the shapes."""
+    import ctypes
+
+    n = len(ROWS_PLAN_FIELDS)
+    out = (ctypes.c_int * (n + 3))()
+    rc = _cuda_build.load_library().fs_fast_frame_batched_plan(
+        n_layer, d, n_head, kv, f, n_cb, vocab, k_dyn, int(int8), ctypes.addressof(out))
+    if rc != 0:
+        return None
+    vals = list(out)
+    return FramePlan(RowsPlan(*vals[:n]), *vals[n:])
+
+
+def frame_launch_count(device, state=None) -> int:
+    """Launches of the batched frame's kernel (`csrc/fast_frame_batched.cu`)
+    finished on `state` (by default that of the device's current stream)
+    so far, as the kernel counted them (synchronizes the device)."""
+    return int((sync_state(device) if state is None else state)[FRAME_LAUNCHES_WORD])
+
+
+_frame_scratch = {}  # id(sync state) -> the batched frame's scratch that goes with it
+
+
+def frame_scratch(sync: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """The batched frame kernel's scratch (partials, the published x, the
+    rows' K/V history) that goes with a sync state: made at the first call
+    on that state, kept with it and freed with it, so frames reuse it and
+    a CUDA graph's replay finds it. Like the state, it must exist before a
+    graph that uses it is captured."""
+    key = id(sync)
+    scratch = _frame_scratch.get(key)
+    if scratch is None or scratch.numel() < nbytes:
+        if sync.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("fused_fast_frame_batched: call it once before capturing a CUDA "
+                               "graph, so its scratch exists outside the graph's pool")
+        if scratch is None:
+            weakref.finalize(sync, _frame_scratch.pop, key, None)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=sync.device)
+        _frame_scratch[key] = scratch
+    return scratch

@@ -1,6 +1,6 @@
 """One whole fast (codebook) frame for B <= 32 rows with per-row sampling:
-the CUDA kernel sequence (`csrc/fast_frame_batched.cu`) and its plain
-PyTorch version.
+the persistent CUDA kernel (`csrc/fast_frame_batched.cu`, one cooperative
+launch a frame) and its plain PyTorch version.
 
 Counterpart of the TPU kernel `fish_speech_tpu/ops/fast_frame_pallas.py::
 fused_fast_frame_batched`: C codebook steps of the fast layers for all
@@ -14,9 +14,10 @@ stack takes the TPU kernel's int8 body (fast_frame_pallas.py:532,
 569-573, 595-604, 706-712): each stack product is bf16(bf16(x @ q) * s),
 and silu sees that rescaled bf16 w1 product.
 
-`rows_gemm` is one GEMM of the kernel sequence on its own (the C entry
-`fs_rows_gemm`), with its plain version `rows_gemm_plain` and its launch
-plan `rows_plan`, for the card's checks and timings of each GEMM.
+`rows_gemm` is one GEMM of the launch sequence that kernel replaced, on
+its own (the C entry `fs_rows_gemm`), with its plain version
+`rows_gemm_plain` and its launch plan `rows_plan`, for the card's checks
+and timings of each GEMM; no path of the port calls it.
 """
 
 from __future__ import annotations
@@ -30,17 +31,17 @@ import torch.nn.functional as F
 
 from fish_speech_tpu_torch.config import DualARConfig
 from fish_speech_tpu_torch.models.dual_ar import fast_embed, fast_hist_init, fast_step
-from fish_speech_tpu_torch.ops import _cuda_build
-from fish_speech_tpu_torch.ops.fast_frame import MAX_VOCAB, MAX_WINDOW
+from fish_speech_tpu_torch.ops import _cuda_build, decode_stack
+from fish_speech_tpu_torch.ops.fast_frame import MAX_WINDOW
 from fish_speech_tpu_torch.ops.norms import rms_norm
 from fish_speech_tpu_torch.ops.quant import is_quantized
 from fish_speech_tpu_torch.ops.sampling import (
     RepPenWindow, RowSampling, sample_top_k_top_p_dynamic)
 from fish_speech_tpu_torch.ops.slow_step import (
-    HEAD_DIM, check_stack, stack_dtypes_ok, stack_pointers, stack_shapes_bad, stack_weight,
-    stack_widths_ok)
+    HEAD_DIM, _grid, check_stack, stack_dtypes_ok, stack_pointers, stack_shapes_bad,
+    stack_weight, stack_widths_ok)
 
-launches = 0  # kernel-sequence launches since the last reset (set to 0 to reset)
+launches = 0  # kernel launches since the last reset (set to 0 to reset)
 int8_launches = 0  # those of them on int8 stacks (the int8 kernel body)
 
 rows_gemm_launches = 0  # fs_rows_gemm launches (set to 0 to reset)
@@ -221,9 +222,12 @@ def fused_fast_frame_batched_plain(params, cfg: DualARConfig, samp: RowSampling,
 
 def fused_fast_frame_batched(params, cfg: DualARConfig, samp: RowSampling, hidden,
                              rp_tokens, gumbel, is_eos, rope, *, rep_enabled: bool,
-                             return_logits: bool = False):
+                             return_logits: bool = False, sync=None):
     """Same contract as `fused_fast_frame_batched_plain`. CPU tensors run
-    the plain version; CUDA tensors launch the kernel sequence or raise."""
+    the plain version; CUDA tensors launch the kernel (one launch a frame)
+    or raise. sync: the kernel's grid sync state (an engine's own), with
+    which its scratch is kept (`decode_stack.frame_scratch`); by default
+    that of the current (device, stream)."""
     if hidden.device.type == "cpu":
         return fused_fast_frame_batched_plain(params, cfg, samp, hidden, rp_tokens, gumbel,
                                               is_eos, rope, rep_enabled=rep_enabled,
@@ -232,21 +236,19 @@ def fused_fast_frame_batched(params, cfg: DualARConfig, samp: RowSampling, hidde
         raise ValueError(f"fused_fast_frame_batched: unsupported device {hidden.device}")
     cos_t, sin_t = rope
     _check(params, cfg, samp, hidden, rp_tokens, gumbel, is_eos, cos_t, sin_t)
-    lib = _cuda_build.load_library()
     stack = params["fast"]
-    n_layer, d, qkv = stack_weight(stack["wqkv"]).shape
+    n_layer, d, _ = stack_weight(stack["wqkv"]).shape
     f = stack_weight(stack["w1"]).shape[2]
     weights, scales = stack_pointers(stack)
     b, n_cb, vocab, kv = hidden.shape[0], cfg.num_codebooks, cfg.codebook_size, cfg.n_local_heads
-    dev, dt = hidden.device, hidden.dtype
+    k_dyn = gumbel.shape[2]
+    dev = hidden.device
+    plan = frame_plan(cfg, k_dyn, scales[0] is not None, decode_stack.grid_of(dev))
+    lib = _cuda_build.load_library()
+    state = decode_stack.sync_state(dev) if sync is None else sync
+    scratch = decode_stack.frame_scratch(state, plan.rows.scratch_bytes)
     tokens = torch.empty((b, n_cb), dtype=torch.int32, device=dev)
-    x_buf = torch.empty((b, d), dtype=dt, device=dev)
-    qkv_buf = torch.empty((b, qkv), dtype=dt, device=dev)
-    attn_buf = torch.empty((b, d), dtype=dt, device=dev)
-    ffn_buf = torch.empty((b, f), dtype=dt, device=dev)
     logits_buf = torch.empty((n_cb, b, vocab), dtype=torch.float32, device=dev)
-    k_hist = torch.empty((n_layer, b, kv, n_cb, HEAD_DIM), dtype=dt, device=dev)
-    v_hist = torch.empty_like(k_hist)
     head = params["fast_output"]
     rc = lib.fs_fast_frame_batched(
         hidden.data_ptr(), stack["attention_norm"].data_ptr(), stack["ffn_norm"].data_ptr(),
@@ -254,12 +256,11 @@ def fused_fast_frame_batched(params, cfg: DualARConfig, samp: RowSampling, hidde
         head.data_ptr(), params["fast_embeddings"].data_ptr(),
         cos_t.data_ptr(), sin_t.data_ptr(), rp_tokens.data_ptr(), gumbel.data_ptr(),
         samp.temp.data_ptr(), samp.top_p.data_ptr(), samp.top_k.data_ptr(),
-        samp.rep_pen.data_ptr(), is_eos.data_ptr(),
-        tokens.data_ptr(), x_buf.data_ptr(), qkv_buf.data_ptr(), attn_buf.data_ptr(),
-        ffn_buf.data_ptr(), logits_buf.data_ptr(), k_hist.data_ptr(), v_hist.data_ptr(),
+        samp.rep_pen.data_ptr(), is_eos.data_ptr(), tokens.data_ptr(), logits_buf.data_ptr(),
+        scratch.data_ptr(), state.data_ptr(),
         b, n_layer, d, cfg.n_head, kv, f, n_cb, vocab, head.shape[1],
-        int(cfg.depthwise_output), int(cfg.depthwise_wte), rp_tokens.shape[2],
-        gumbel.shape[2], int(rep_enabled), float(cfg.norm_eps),
+        int(cfg.depthwise_output), int(cfg.depthwise_wte), rp_tokens.shape[2], k_dyn,
+        int(rep_enabled), scratch.numel(), float(cfg.norm_eps),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda_build.check(rc, "fs_fast_frame_batched")
@@ -269,15 +270,26 @@ def fused_fast_frame_batched(params, cfg: DualARConfig, samp: RowSampling, hidde
     return (tokens, logits_buf) if return_logits else tokens
 
 
+def frame_plan(cfg: DualARConfig, k_dyn: int, int8: bool, grid: int):
+    """The kernel's plan for this model's fast stack and a top-k cap of
+    k_dyn (`ops/decode_stack.py::frame_plan`, cached): a function of the
+    shapes alone, never of the batch; None when the kernel does not take
+    them."""
+    return decode_stack.frame_plan(cfg.n_fast_layer, cfg.dim, cfg.n_head, cfg.n_local_heads,
+                                   cfg.intermediate_size, cfg.num_codebooks, cfg.codebook_size,
+                                   k_dyn, int8, grid)
+
+
 def fused_fast_frame_batched_supported(cfg: DualARConfig, params, batch: int,
                                        dyn_top_k_cap: int = 256) -> bool:
     """Whether `fused_fast_frame_batched` takes these parameters: the JAX
     kernel's bounds (1 <= batch <= 32, an even head dim, codebook tiles
     and depthwise blocks that divide, a top-k cap that is a multiple of
-    128 or covers the codebook); on CUDA also the kernels' limits (bf16
+    128 or covers the codebook); on CUDA also the kernel's limits (bf16
     stacks or int8 ones with bf16 scales and out % 16 == 0, head dim 64,
-    H * hd == D, widths that are multiples of 8, a codebook of at most
-    4096 entries, a multiple of 8)."""
+    and a plan (`frame_plan`: H * hd == D with D one of
+    `decode_stack.DIMS`, whole 128-column slices of F, a codebook of at
+    most 4096 entries, a multiple of 8) that fits one block on an SM)."""
     vocab = cfg.codebook_size
     if (not 1 <= batch <= MAX_ROWS or cfg.head_dim % 2 or vocab % min(128, vocab)
             or (dyn_top_k_cap % 128 and dyn_top_k_cap < vocab)):
@@ -286,14 +298,14 @@ def fused_fast_frame_batched_supported(cfg: DualARConfig, params, batch: int,
                                   or (cfg.depthwise_wte and vocab % 8)):
         return False
     stack = params["fast"]
-    if stack_weight(stack["wqkv"]).device.type != "cuda":
+    weight = stack_weight(stack["wqkv"])
+    if weight.device.type != "cuda":
         return True
     return (
         stack_dtypes_ok(stack) and stack_widths_ok(stack)
         and cfg.head_dim == HEAD_DIM
-        and cfg.n_head * cfg.head_dim == cfg.dim
-        and cfg.dim % 8 == 0 and cfg.intermediate_size % 8 == 0
-        and vocab % 8 == 0 and vocab <= MAX_VOCAB
+        and frame_plan(cfg, min(dyn_top_k_cap, vocab), is_quantized(stack["wqkv"]),
+                       _grid(weight.device)) is not None
     )
 
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Phase trace of the persistent decode kernels (csrc/decode_stack.cuh,
-csrc/slow_step_rows.cu) on one NVIDIA GPU.
+csrc/slow_step_rows.cu, csrc/fast_frame_batched.cu) on one NVIDIA GPU.
 
-    python3 scripts/trace_decode_stack.py [--part all|batch1|rows] [--json build/trace.json]
+    python3 scripts/trace_decode_stack.py [--part all|batch1|rows|frame] [--json build/trace.json]
 
 Builds an instrumented copy of the port's kernels on the side (every
 csrc/*.cu with -DDS_TRACE, into build/trace_decode_stack/), in which
@@ -12,7 +12,9 @@ bf16 from seed 0, and their int8 quantization): batch1, one fused slow
 step at pos 104 of a 4096 cache and one fused fast frame (sampled); rows,
 one slow step of the row kernel at each of 16 rows at the serving
 positions 39-167 of a 512 cache, 32 rows of a 256 cache and 8 rows at
-positions 1024-2047 of a 2048 cache; each after warm-up calls. For every layer pass it
+positions 1024-2047 of a 2048 cache; frame, one batched fast frame (the
+persistent kernel of csrc/fast_frame_batched.cu) at 16 and 32 rows with
+the serving knobs; each after warm-up calls. For every layer pass it
 prints, per mark, the earliest, median and latest block (us after the
 pass's first block started), and the pass time; then the medians over the
 middle passes. Marks of the batch-1 kernel:
@@ -43,6 +45,17 @@ Marks of the row kernel (a block's last unit of each phase):
   24 attention: the ranks' (max, sum) posted   25 the ranks' PV done
   26, 27, 28, 29 the first ring stage of w1 + w3, w2, QKV, wo arrived
   30, 31 the SM's clock64 at marks 0 and 17
+The batched frame's passes cb * L + l are the row kernel's layer marks
+(its step cb, layer l); pass C * L + cb holds step cb's head and draw:
+  0 the last layer done  1 head partials done   2 after the head's sync
+  3 draw: logits gathered and penalised (blocks b < B)
+  11 max                 12 sum                  4 probabilities
+  13 first radix pass    14 last radix pass      5 top-k compacted
+  6 sorted               7 token published       8 after the draw's sync
+  9 the next x read
+For the frame it also prints each step's phases and the wait at the step
+boundary for the first ring stage of the next step's QKV (mark 28 of
+pass (cb + 1) * L against mark 0 of it).
 """
 
 from __future__ import annotations
@@ -59,14 +72,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-PASSES, MARKS, MAX_BLOCKS = 32, 32, 1024
+PASSES, MARKS, MAX_BLOCKS = 48, 32, 1024
 
 
 def build_traced() -> ctypes.CDLL:
     from fish_speech_tpu_torch.ops import _cuda_build
 
     lib = _cuda_build.load_variant("trace_decode_stack", ["DS_TRACE"])
-    for name in ("fs_slow_step_trace", "fs_fast_frame_trace", "fs_slow_step_rows_trace"):
+    for name in ("fs_slow_step_trace", "fs_fast_frame_trace", "fs_slow_step_rows_trace",
+                 "fs_fast_frame_batched_trace"):
         getattr(lib, name).argtypes = [ctypes.c_void_p, ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_int
     return lib
@@ -179,9 +193,92 @@ def trace_rows(torch, lib, cfg, p, kind, rope, gen, grid) -> dict:
     return out
 
 
+def trace_frame(torch, lib, cfg, p, kind, rope, gen, grid) -> dict:
+    """The batched frame at 16 and 32 rows: the layer passes as the row
+    kernel's, then each step's head and draw (pass C * L + cb) and the
+    wait for the next step's first weights."""
+    from fish_speech_tpu_torch.ops import fast_frame_batched as fb
+    from fish_speech_tpu_torch.ops.sampling import RowSampling, gumbel_noise
+
+    dev = torch.device("cuda")
+    n_cb, n_layer, vocab = cfg.num_codebooks, cfg.n_fast_layer, cfg.codebook_size
+    out = {}
+    for b in (16, 32):
+        hidden = torch.randn((b, cfg.dim), generator=gen, device=dev).to(torch.bfloat16)
+        window = torch.randint(-1, vocab, (b, n_cb, 12), generator=gen, device=dev,
+                               dtype=torch.int32)
+        gumbel = gumbel_noise((b, n_cb, 256), gen, dev)
+        samp = RowSampling.from_vectors(torch.tensor([[0.7, 0.8, 256.0, 1.4]] * b,
+                                                     dtype=torch.float32, device=dev))
+        eos = torch.zeros((b,), dtype=torch.bool, device=dev)
+        for _ in range(4):
+            fb.fused_fast_frame_batched(p, cfg, samp, hidden, window, gumbel, eos, rope,
+                                        rep_enabled=True)
+        torch.cuda.synchronize()
+        tr = read_trace(lib, "fs_fast_frame_batched_trace", grid)
+        label = f"batched fast frame {kind}, {b} rows"
+        layers = n_cb * n_layer
+        res = summarize(tr, layers, f"{label}: layer passes", end_mark=17)
+        start = min(blk[0][0] for blk in tr)
+        steps = []
+        for cb in range(n_cb):
+            t0 = statistics.median((blk[cb * n_layer][0] - start) / 1e3 for blk in tr)
+            row = {}
+            for k in range(16):
+                vals = sorted((blk[layers + cb][k] - start) / 1e3 - t0 for blk in tr
+                              if blk[layers + cb][k] >= start)
+                if vals:
+                    row[k] = (vals[0], statistics.median(vals), vals[-1], len(vals))
+            if cb + 1 < n_cb:
+                nxt = (cb + 1) * n_layer
+                waits = [(blk[nxt][28] - blk[nxt][0]) / 1e3 for blk in tr
+                         if blk[nxt][28] >= blk[nxt][0] > 0]
+                if waits:
+                    row["ring_wait_us"] = (min(waits), statistics.median(waits), max(waits))
+            steps.append(row)
+        print(f"== {label}: each step's head and draw, us after the step's first layer "
+              "started (median block; the draw's marks over its B blocks)")
+        for cb, row in enumerate(steps):
+            marks = ", ".join(f"{k} {row[k][1]:.2f}" for k in range(16) if k in row)
+            wait = row.get("ring_wait_us")
+            print(f"  step {cb}: {marks}" + (f"; the next step's first QKV stage waited "
+                                              f"{wait[1]:.2f} us (max {wait[2]:.2f})"
+                                              if wait else ""))
+        mid = steps[1:-1] or steps
+        for a_, b_, what in ((0, 1, "head partials"), (1, 2, "head sync"),
+                             (2, 3, "draw: knobs, logits, penalty"), (3, 11, "draw: max"),
+                             (11, 12, "draw: sum"),
+                             (12, 4, "draw: probabilities"), (4, 13, "draw: first radix pass"),
+                             (13, 14, "draw: other radix passes"), (14, 5, "draw: compaction"),
+                             (5, 6, "draw: sort"), (6, 7, "draw: scan, token, embedding"),
+                             (7, 8, "draw sync"), (8, 9, "next x read")):
+            d = [r[b_][1] - r[a_][1] for r in mid if a_ in r and b_ in r]
+            if d:
+                print(f"  {what}: median {statistics.median(d):.2f} us a step")
+        # the first layer after a draw against the next: the drawing blocks
+        # (b < B) against the others, per phase (median over steps 1..C-1)
+        for lay in (0, 1):
+            for what, a_, b_ in (("QKV", 0, 1), ("q/k/v", 2, 3), ("scores", 3, 24),
+                                 ("PV", 24, 25), ("wo", 5, 29)):
+                grp = {True: [], False: []}
+                for cb in range(1, n_cb):
+                    pp = cb * n_layer + lay
+                    for blk_i, blk in enumerate(tr):
+                        if blk[pp][a_] and blk[pp][b_] >= blk[pp][a_]:
+                            grp[blk_i < b].append((blk[pp][b_] - blk[pp][a_]) / 1e3)
+                if grp[True] and grp[False]:
+                    print(f"  layer {lay} {what}: drawing blocks median "
+                          f"{statistics.median(grp[True]):.2f} (max {max(grp[True]):.2f}) us, "
+                          f"the others {statistics.median(grp[False]):.2f} (max "
+                          f"{max(grp[False]):.2f})")
+        out[f"frame_{kind}_b{b}"] = {"passes": res, "steps": [
+            {str(k): v for k, v in r.items()} for r in steps]}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--part", default="all", choices=("all", "batch1", "rows"))
+    ap.add_argument("--part", default="all", choices=("all", "batch1", "rows", "frame"))
     ap.add_argument("--json", default=None, help="write the summaries here")
     args = ap.parse_args()
     import torch
@@ -214,6 +311,8 @@ def main() -> int:
                 results.update(trace_batch1(torch, lib, cfg, p, kind, rope, gen, grid))
             if args.part in ("all", "rows"):
                 results.update(trace_rows(torch, lib, cfg, p, kind, rope, gen, grid))
+            if args.part in ("all", "frame"):
+                results.update(trace_frame(torch, lib, cfg, p, kind, rope, gen, grid))
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(results))

@@ -5,8 +5,9 @@ frame (`generate_frame(samp=...)`, the XLA path) and its TPU kernel
 tests/test_fast_frame.py in float32, on the JAX package's own per-row
 draws, with bf16 and with int8 stacks (the kernel's quantized body);
 tokens must be exactly equal. The bf16 int8 plain version's step logits
-against the JAX unfused int8 steps. On a card only: the CUDA kernel
-sequence against its plain version."""
+against the JAX unfused int8 steps. On a card only: the persistent CUDA
+kernel (one launch a frame) against its plain version; its contract is
+tests/test_torch_frame_plan.py's."""
 
 import dataclasses
 
@@ -268,12 +269,12 @@ def _card_inputs(tc, b, g, dev, one_hot: bool, argmax_rows=(), eos_rows=()):
     vec = lambda vals: torch.tensor([vals[i % len(vals)] for i in range(b)],  # noqa: E731
                                     dtype=torch.float32, device=dev)
     temp = vec([0.7, 1.2, 0.5, 0.9])
-    temp[list(argmax_rows)] = 0.0
+    temp[[r for r in argmax_rows if r < b]] = 0.0
     samp = ts.RowSampling(temp=temp, top_p=vec([0.8, 1.0, 0.6, 0.95]),
                           top_k=vec([256, 0, 16, 64]).to(torch.int32),
                           rep_pen=vec([1.4, 1.0, 1.5, 1.1]))
     is_eos = torch.zeros((b,), dtype=torch.bool, device=dev)
-    is_eos[list(eos_rows)] = True
+    is_eos[[r for r in eos_rows if r < b]] = True
     return samp, hidden, window, gumbel, is_eos
 
 
@@ -297,7 +298,7 @@ def float32_reference(tree):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["sampled", "argmax", "mixed", "depthwise", "int8_sampled",
                                   "int8_mixed"])
-@pytest.mark.parametrize("batch", [4, 16])
+@pytest.mark.parametrize("batch", [1, 4, 16, 32])
 def test_kernel_tokens_equal_plain_on_exact_inputs(cuda_device, case, batch):
     """Zero fast-layer weights, one-hot hidden and one-hot embedding rows
     make every sum exact, so step logits and tokens must equal the plain
@@ -326,7 +327,7 @@ def test_kernel_tokens_equal_plain_on_exact_inputs(cuda_device, case, batch):
                                                        return_logits=True)
         assert torch.equal(got_l, ref_l)
         assert torch.equal(got, ref)
-        if case == "mixed":
+        if case == "mixed" and batch > 2:
             assert not got[2].any()
 
 
