@@ -88,6 +88,32 @@ per phase, each with the seconds since start:
               cache 4096): median seconds of 5 after a warm-up, and the
               attention kernel's share of device time under
               torch.profiler over one prefill;
+     stream   the streaming Firefly-1.5 decode at full width on 128
+              frames of seeded codes fed as [128], [5,16,16,...],
+              [1]*32+[96] and powers of two, on a copy of the codec
+              whose conv_post weight is scaled by a power of two so the
+              PCM peaks near 0.3 (the random codec's peaks near 6e-7,
+              below int16's step; the later phases use this copy too): a
+              float32 copy of the weights streams its batch decode
+              within 1e-4 (TF32 off), the bf16 stream is as close to the
+              float32 batch decode as the bf16 batch decode is
+              (ACCURACY_FACTOR); decode_step timed at 16 and 64 frames,
+              batch 1 and 16;
+     overlap  generate_vocode_overlapped on the batch-1 `auto` engine
+              (40-token prompt, 128 frames, chunk 64): tokens equal
+              generate's on the same seed, PCM within the bf16 bound of
+              codec.decode and as close to the float32 decode as
+              codec.decode is, the prefill, slow-step and fast-frame
+              kernels launched; a decode chunk, a feed of host codes and
+              a 16-lane central-vocoder tick queue without waiting for
+              the card (PyTorch's sync debug mode set to raise); RTF
+              best and median of 5 trials after a warm-up, overlapped,
+              chunked (the same chunks read one by one, then one batch
+              decode) and serial (generate + decode) in turns, and the
+              host time of one feed;
+     ttfa     bench.py::bench_ttfa's path (cache 512, bucket 64,
+              prefill, one 16-frame decode_chunk, one streaming feed):
+              p50 and p90 of 11 trials after a warm-up;
   5. profile  torch.profiler over 8 decode frames of each path;
   6. serving  continuous batching at the serving configuration (16 rows,
               cache 512, horizon 16, rep-pen window 12, dynamic
@@ -106,9 +132,18 @@ per phase, each with the seconds since start:
               request is run again alone on a fresh batcher and must give
               the same codes; the int8 serving engine (the int8 bodies of
               the row kernel and the batched frame) takes part in the
-              turns (auto, slow_xla, xla, int8, int8, xla, slow_xla,
-              auto), with its own launch counts, profile and seeded
-              requests alone;
+              turns, with its own launch counts, profile and seeded
+              requests alone; and the central vocoder (the `auto` engine
+              under a batcher with codec= the bf16 codec: 20 deliver_pcm
+              requests, each one's PCM events before its result and
+              within the bf16 bound + 5e-5 of codec.decode of its
+              tokens, as close to the float32 decode as codec.decode is,
+              its reference peaking at 100 int16 steps or more;
+              frames/s, RTF p50/p95 to the last PCM, TTFA
+              p50/p95 to the first) takes two turns (auto, central,
+              slow_xla, xla, int8, int8, xla, slow_xla, central, auto),
+              and a profile of 4 central-vocoding ticks gives the
+              vocoder's share of device time;
   7. int8     the int8 proxy of bench.py --int8-proxy at full size on the
               same weights: teacher-forced and free-running agreement of
               the int8 and bf16 engines, mel-L1 and SNR of the two
@@ -635,6 +670,8 @@ def float32_copy(tree):
         return dequantize_weight(tree)
     if isinstance(tree, dict):
         return {k: float32_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(float32_copy(v) for v in tree)
     return tree.float()
 
 
@@ -1957,6 +1994,372 @@ def compare_decode_step(torch, engine, state) -> None:
 
 
 # --------------------------------------------------------------------------
+# Phase 4b: streaming vocode, the overlapped batch-1 driver, TTFA
+# --------------------------------------------------------------------------
+
+STREAM_FRAMES = 128
+STREAM_CHUNKINGS = {
+    "[128]": [128],
+    "[5,16,16,...]": [5] + [16] * 7 + [11],
+    "[1]*32+[96]": [1] * 32 + [96],
+    "powers of two": [64, 32, 16, 8, 4, 2, 1, 1],
+}
+# A float32 stream against the float32 batch decode (TF32 off for the
+# whole run): the same ops on other lengths, where cuDNN may pick other
+# algorithms, so not bit-equal.
+STREAM_F32_ATOL = 1e-4
+STREAM_F32_RTOL = 1e-3  # of the largest |PCM|
+# Central-vocoder PCM crosses to the host as int16: 0.5 / 32767 of
+# rounding, held at 5e-5 on top of the bf16 bound.
+PCM_I16_ATOL = 5e-5
+# The random codec's PCM peaks near 6e-7, below int16's step (1/32767),
+# where the central vocoder would deliver zeros and any PCM check would
+# hold. So the phases from here on run a copy of the codec whose conv_post
+# weight is scaled by a power of two (exact in bf16) to bring the stream
+# phase's PCM peak near STREAM_PEAK (tanh keeps it below 1), and every
+# PCM check also requires its reference to peak at PCM_MIN_STEPS int16
+# steps or more.
+STREAM_PEAK = 0.3
+PCM_MIN_STEPS = 100
+OVERLAP_CHUNK = 64  # bench.py's RTF mode
+OVERLAP_TRIALS = 5
+TTFA_TRIALS = 11
+TTFA_FRAMES = 16  # bench.py::bench_ttfa's one decode chunk
+
+
+def stream_decode(np, codec, codes, chunking):
+    """codes (C, T) fed to a fresh session in the given pieces -> (T * spf,)."""
+    sess = codec.start_stream(max_step_frames=max(chunking))
+    parts, s = [], 0
+    for n in chunking:
+        parts.append(sess.feed(codes[:, s:s + n])[0])
+        s += n
+    return np.concatenate(parts)
+
+
+def loud_codec(np, codec, codec_cfg, codes):
+    """A copy of the bf16 codec whose conv_post weight is scaled by a
+    power of two (exact in bf16) so that its decode of `codes` peaks near
+    STREAM_PEAK. Returns (codec, scale)."""
+    from fish_speech_tpu_torch.models.codec.firefly import FireflyCodec
+
+    peak = float(np.abs(codec.decode(codes)).max())
+    check(np.isfinite(peak) and peak > 0, f"stream: the codec's PCM peak is {peak}")
+    scale = 2.0 ** round(float(np.log2(STREAM_PEAK / peak)))
+    head = codec.params["head"]
+    post = {**head["conv_post"], "w": head["conv_post"]["w"] * scale}
+    return FireflyCodec({**codec.params, "head": {**head, "conv_post": post}}, codec_cfg), scale
+
+
+def run_stream(torch, np, codec, codec_cfg, smi):
+    """The full-width Firefly-1.5 codec (seed 1, made loud by
+    `loud_codec`) on 128 frames of seeded codes, fed in four chunkings: a
+    float32 copy of the weights streams what its batch decode gives
+    (STREAM_F32_ATOL, and STREAM_F32_RTOL of the largest |PCM|), and the
+    bf16 codec's stream is as close to the float32 batch decode as the
+    bf16 batch decode is, within ACCURACY_FACTOR. Times decode_step (host
+    codes in, host PCM out) at 16 and 64 frames, batch 1 and 16. Returns
+    the loud bf16 codec and its float32 copy for the later phases, and the
+    bf16 bound (ACCURACY_FACTOR x the bf16 batch decode's largest distance
+    to the float32 one)."""
+    from fish_speech_tpu_torch.models.codec.firefly import FireflyCodec
+
+    t0 = time.perf_counter()
+    n_codes = codec_cfg.quantizer.n_groups * codec_cfg.quantizer.n_codebooks
+    codes = np.random.default_rng(1).integers(0, 1000, size=(n_codes, STREAM_FRAMES))
+    codes = codes.astype(np.int32)
+    codec, scale = loud_codec(np, codec, codec_cfg, codes)
+    codec32 = FireflyCodec(float32_copy(codec.params), codec_cfg)
+    ref32, ref16 = codec32.decode(codes)[0], codec.decode(codes)[0]
+    peak = float(np.abs(ref32).max())
+    batch_err = float(np.abs(ref16 - ref32).max())
+    check(np.isfinite(ref16).all() and peak * 32767 >= PCM_MIN_STEPS and batch_err > 0,
+          f"stream: batch decodes not finite, below {PCM_MIN_STEPS} int16 steps or equal "
+          f"(peak {peak}, bf16 {batch_err})")
+    log("stream", f"conv_post weight x {scale:g} (a power of two): |pcm|max {peak:.4f} = "
+        f"{peak * 32767:.0f} int16 steps")
+    for name, chunking in STREAM_CHUNKINGS.items():
+        err32 = float(np.abs(stream_decode(np, codec32, codes, chunking) - ref32).max())
+        got16 = stream_decode(np, codec, codes, chunking)
+        err16 = float(np.abs(got16 - ref32).max())
+        check(err32 <= STREAM_F32_ATOL and err32 <= STREAM_F32_RTOL * peak,
+              f"stream {name}: float32 stream {err32:.3e} from the float32 batch decode "
+              f"(atol {STREAM_F32_ATOL}, rtol {STREAM_F32_RTOL} of |pcm|max {peak:.3e})")
+        check(np.isfinite(got16).all() and err16 <= ACCURACY_FACTOR * batch_err,
+              f"stream {name}: bf16 stream {err16:.3e} from the float32 batch decode, the bf16 "
+              f"batch decode {batch_err:.3e} (factor {ACCURACY_FACTOR})")
+        log("stream", f"Firefly-1.5, {STREAM_FRAMES} frames fed as {name} ({len(chunking)} "
+            f"feeds): float32 stream vs float32 batch max_abs_err {err32:.3e} "
+            f"({err32 / peak:.2e} of |pcm|max {peak:.3e}; TF32 off); bf16 stream vs float32 "
+            f"batch {err16:.3e}, bf16 batch vs float32 batch {batch_err:.3e} "
+            f"(ratio {err16 / batch_err:.3f}, limit {ACCURACY_FACTOR})")
+    for b in (1, 16):
+        state = codec.stream_template(b)
+        for t in (16, 64):
+            c = np.tile(codes[None, :, :t], (b, 1, 1))
+            ms = eager_ms(torch, lambda: codec.decode_step(c, state), 10)
+            audio_ms = 1e3 * b * t / codec_cfg.frame_rate
+            log("stream", f"decode_step bf16 (host codes in, host PCM out), batch {b} x {t} "
+                f"frames: {ms:.3f} ms ({audio_ms / ms:.1f}x real time for {audio_ms:.0f} ms "
+                f"of audio) on {smi}")
+    log("stream", f"phase {time.perf_counter() - t0:.1f}s; the bf16 bound of the later "
+        f"phases: {ACCURACY_FACTOR * batch_err:.3e}")
+    return codec, codec32, ACCURACY_FACTOR * batch_err
+
+
+def pcm_accuracy(np, codec, codec32, codes, pcm, what: str):
+    """pcm (T * spf,) of codes (C, T) against the bf16 codec's and its
+    float32 copy's batch decodes: checks the shape, finiteness and that
+    the float32 decode peaks at PCM_MIN_STEPS int16 steps or more. Returns
+    (distance to the bf16 decode, distance to the float32 decode, the bf16
+    decode's own distance to the float32 one, the peak)."""
+    ref16, ref32 = codec.decode(codes)[0], codec32.decode(codes)[0]
+    check(pcm.shape == ref16.shape and bool(np.isfinite(pcm).all()),
+          f"{what}: pcm {pcm.shape}, expected {ref16.shape}, finite")
+    peak = float(np.abs(ref32).max())
+    check(peak * 32767 >= PCM_MIN_STEPS, f"{what}: the reference PCM peaks at "
+          f"{peak * 32767:.1f} int16 steps, fewer than {PCM_MIN_STEPS}")
+    return (float(np.abs(pcm - ref16).max()), float(np.abs(pcm - ref32).max()),
+            float(np.abs(ref16 - ref32).max()), peak)
+
+
+def waits_at(torch, fn) -> list:
+    """The file:line of every call of fn that waits for the card, as
+    PyTorch's sync debug mode ("warn") reports them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in seen
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def check_no_wait(torch, np, engine, codec, sampling, prompt) -> None:
+    """What the overlapped driver and the central vocoder launch between
+    two reads queues behind the card's work without waiting for it: a
+    64-frame decode chunk, a 64-frame feed of host codes, and a 16-lane
+    central-vocoder tick (a lane reset, lanes that sit the tick out, the
+    int16 conversion, the copy to the host) make no call that PyTorch's
+    sync debug mode reports, and it does report a copy from pageable
+    memory."""
+    import types
+
+    from fish_speech_tpu_torch.generate.continuous import (
+        BatchedRequest, _CentralVocoder, _PartialPCM, _RowState)
+
+    n_codes = codec.cfg.quantizer.n_groups * codec.cfg.quantizer.n_codebooks
+    codes = np.random.default_rng(2).integers(0, 1000, size=(n_codes + 1, OVERLAP_CHUNK))
+    codes = codes.astype(np.int32)  # (C+1, t): a semantic row, then the codes
+    fake = types.SimpleNamespace(horizon=SERVE_HORIZON, engine=types.SimpleNamespace(
+        batch_size=SERVE_ROWS, cfg=types.SimpleNamespace(num_codebooks=n_codes)))
+    vocoder = _CentralVocoder(fake, codec, None)
+    slots = [_RowState(BatchedRequest([None], 0, N_FRAMES, deliver_pcm=True), r)
+             for r in range(SERVE_ROWS)]
+    held = []
+    try:
+        state, _, _ = engine.prefill(engine.init_state(0), prompt, sampling)
+        session = codec.start_stream(max_step_frames=OVERLAP_CHUNK)
+        for slot in slots:  # the first tick, outside the check: warm
+            vocoder.enable_row(slot)
+            vocoder.push(slot, codes[:, :SERVE_HORIZON])
+        vocoder.tick()
+        engine.decode_chunk(state, sampling, OVERLAP_CHUNK)
+        session.feed_async(codes[1:], pad_to=OVERLAP_CHUNK)
+        vocoder.enable_row(slots[0])  # reset lane 0 at the next tick
+        for slot in slots[:1] + slots[3:]:  # lanes 1 and 2 sit it out
+            vocoder.push(slot, codes[:, SERVE_HORIZON:2 * SERVE_HORIZON])
+        # the delivery thread's own waits are its job: hold the tick's
+        # copy until the check is over
+        vocoder._put = lambda fetch, meta: held.append((fetch, meta))
+        sees = waits_at(torch, lambda: torch.from_numpy(codes).to("cuda"))
+        found = waits_at(torch, lambda: (
+            engine.decode_chunk(state, sampling, OVERLAP_CHUNK),
+            session.feed_async(codes[1:], pad_to=OVERLAP_CHUNK), vocoder.tick()))
+        del vocoder._put
+        check(bool(sees), "no-wait: the sync debug mode does not report a pageable copy")
+        check(not found, f"no-wait: launches between two reads wait for the card at {found}")
+        for fetch, meta in held:
+            vocoder._put(fetch, meta)
+        vocoder.drain(timeout=WAIT_S)
+    finally:
+        vocoder.shutdown()
+    got = []
+    for slot in slots:
+        events = []
+        while not slot.req.results.empty():
+            events.append(slot.req.results.get_nowait())
+        got.append([ev.frames for ev in events if isinstance(ev, _PartialPCM)])
+    want = [[SERVE_HORIZON, SERVE_HORIZON]] + [[SERVE_HORIZON]] * 2 + \
+        [[SERVE_HORIZON, SERVE_HORIZON]] * (SERVE_ROWS - 3)
+    check(got == want, f"no-wait: the central vocoder's PCM events (frames) {got}")
+    log("overlap", f"no wait: a {OVERLAP_CHUNK}-frame decode_chunk, a {OVERLAP_CHUNK}-frame "
+        f"feed_async of host codes and a {SERVE_ROWS}-lane central-vocoder tick (a reset lane, "
+        f"two lanes sitting out) make no call that torch.cuda.set_sync_debug_mode reports (it "
+        f"reports a pageable copy at {sees[0]}); the tick's PCM events arrive")
+
+
+def run_overlap(torch, np, engine, codec, codec32, codec_cfg, bound16, smi) -> None:
+    """The batch-1 `auto` engine on the 40-token prompt, 128 frames,
+    chunk 64, SAMPLING: generate_vocode_overlapped against generate +
+    decode on the same seed (tokens equal; PCM within the bf16 bound of
+    codec.decode of the tokens, and as close to the float32 decode as
+    codec.decode is, within ACCURACY_FACTOR), its kernels' launches
+    counted around the run; that its launches between two reads do not
+    wait (`check_no_wait`); then RTF of one warm-up and OVERLAP_TRIALS
+    timed trials of each of three drivers, in turns: overlapped, chunked
+    (decode_chunk, each chunk read before the next is launched, then one
+    batch decode: the overlapped driver without the overlap) and serial
+    (generate, then one batch decode); and the host time of one feed."""
+    from fish_speech_tpu_torch.generate.overlap import generate_vocode_overlapped, output_shift
+    from fish_speech_tpu_torch.ops import fast_frame as ff
+    from fish_speech_tpu_torch.ops import prefill_attention as pa
+    from fish_speech_tpu_torch.ops import slow_step as ss
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs
+
+    prompt = main_prompt(np, engine.cfg)
+    sampling = SamplingArgs(**SAMPLING)
+    shift = output_shift(engine.lm)
+    kw = dict(sampling=sampling, max_new_tokens=N_FRAMES, chunk=OVERLAP_CHUNK, shift_fn=shift)
+    generate_vocode_overlapped(engine, codec, prompt, seed=4, **kw)  # warm-up
+    mods = {"prefill_attention": pa, "fused_slow_step": ss, "fused_fast_frame": ff}
+    for m in mods.values():
+        m.launches = 0
+    pcm, res, _ = generate_vocode_overlapped(engine, codec, prompt, seed=5, **kw)
+    torch.cuda.synchronize()
+    launches = {name: m.launches for name, m in mods.items()}
+    check(all(launches.values()), f"overlap: launches {launches}, expected all non-zero")
+    ref, _ = engine.generate(prompt, max_new_tokens=N_FRAMES, sampling=sampling, seed=5)
+    check(np.array_equal(res.tokens, ref.tokens) and np.array_equal(res.semantic, ref.semantic),
+          "overlap: tokens differ from generate's on the same seed")
+    err16, err32, own, peak = pcm_accuracy(np, codec, codec32, shift(ref.tokens), pcm, "overlap")
+    check(err16 <= bound16, f"overlap: PCM {err16:.3e} from codec.decode of the tokens, bound "
+          f"{bound16:.3e}")
+    check(err32 <= ACCURACY_FACTOR * own, f"overlap: PCM {err32:.3e} from the float32 decode, "
+          f"codec.decode {own:.3e} (factor {ACCURACY_FACTOR})")
+    log("overlap", f"auto engine, {PROMPT_LEN}-token prompt, {res.frames} frames, chunk "
+        f"{OVERLAP_CHUNK}: tokens equal generate's (seed 5); PCM (|pcm|max {peak:.4f}) "
+        f"max_abs_err {err16:.3e} from codec.decode (bf16 bound {bound16:.3e}), {err32:.3e} "
+        f"from the float32 decode (codec.decode {own:.3e}, ratio {err32 / own:.3f}); launches "
+        f"{json.dumps(launches)}")
+    check_no_wait(torch, np, engine, codec, sampling, prompt)
+
+    budget = max(min(N_FRAMES - 1, engine.max_frames, engine.cache_len - PROMPT_LEN - 1), 0)
+
+    def overlapped(seed):
+        t0 = time.perf_counter()
+        _, r, _ = generate_vocode_overlapped(engine, codec, prompt, seed=seed, **kw)
+        wall = time.perf_counter() - t0
+        return wall, r.prefill_s + r.decode_s, r.tokens
+
+    def chunked(seed):
+        t0 = time.perf_counter()
+        state, first, eos, _ = engine._prefill_raw(engine.init_state(seed), prompt, sampling)
+        frames, done, produced = [first.cpu().numpy()[0]], bool(eos.cpu()[0]), 0
+        while not done and produced < budget:
+            n = min(OVERLAP_CHUNK, budget - produced)
+            state, out, valid, steps = engine.decode_chunk(state, sampling, OVERLAP_CHUNK,
+                                                           max_steps=n)
+            out, valid, steps, d = (t.cpu().numpy() for t in (out, valid, steps, state.done))
+            produced += n
+            for i in range(int(steps)):
+                if not valid[i, 0]:
+                    done = True
+                    break
+                frames.append(out[i, 0])
+            else:
+                done = bool(d[0])
+        tokens = np.stack(frames, axis=1)[1:]
+        lm = time.perf_counter() - t0
+        codec.decode(shift(tokens))
+        return time.perf_counter() - t0, lm, tokens
+
+    def serial(seed):
+        t0 = time.perf_counter()
+        r, _ = engine.generate(prompt, max_new_tokens=N_FRAMES, sampling=sampling, seed=seed)
+        lm = time.perf_counter() - t0
+        codec.decode(shift(r.tokens))
+        wall = time.perf_counter() - t0
+        return wall, lm, r.tokens
+
+    drivers = (("overlapped", overlapped), ("chunked", chunked), ("serial", serial))
+    runs = {name: [] for name, _ in drivers}
+    for trial in range(OVERLAP_TRIALS + 1):  # the first is the warm-up
+        for name, fn in drivers:
+            runs[name].append(fn(100 + trial))
+    for trial in range(OVERLAP_TRIALS + 1):
+        check(all(np.array_equal(runs[name][trial][2], runs["serial"][trial][2])
+                  for name in runs), f"overlap: the three drivers' tokens differ (seed "
+              f"{100 + trial})")
+    for name, trials in runs.items():
+        rtf = [wall / (tokens.shape[1] / codec_cfg.frame_rate) for wall, _, tokens in trials]
+        timed = rtf[1:]
+        lm = [t[1] for t in trials[1:]]
+        voc = [t[0] - t[1] for t in trials[1:]]
+        log("overlap", f"{name}: RTF best {min(timed):.4f} median {float(np.median(timed)):.4f} "
+            f"of {OVERLAP_TRIALS} ({', '.join(f'{x:.4f}' for x in timed)}; warm-up "
+            f"{rtf[0]:.4f}); LM s median {float(np.median(lm)):.4f}"
+            f"{' (the in-loop feeds issued included)' if name == 'overlapped' else ''}, vocode s "
+            f"{'(the tail after the LM) ' if name == 'overlapped' else ''}median "
+            f"{float(np.median(voc)):.4f}; {trials[1][2].shape[1]} frames; on {smi}")
+    session = codec.start_stream(max_step_frames=OVERLAP_CHUNK)
+    piece = shift(runs["serial"][1][2][:, :OVERLAP_CHUNK])
+    host = []
+    for _ in range(OVERLAP_TRIALS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.feed_async(piece, pad_to=OVERLAP_CHUNK)
+        host.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    log("overlap", f"one {OVERLAP_CHUNK}-frame feed_async takes {1e3 * float(np.median(host[1:])):.2f} "
+        f"ms of host time to issue (median of {OVERLAP_TRIALS}); the overlapped driver issues "
+        f"{-(-N_FRAMES // OVERLAP_CHUNK)} inside its LM s; on {smi}")
+
+
+def run_ttfa(torch, np, params, cfg, tok, codec, smi) -> None:
+    """bench.py::bench_ttfa's path on the port: cache 512, max_frames 16,
+    bucket 64; prefill, one 16-frame decode_chunk, one streaming feed,
+    timed to the first PCM on the host; TTFA_TRIALS after a warm-up."""
+    from fish_speech_tpu_torch.config import WhichLM
+    from fish_speech_tpu_torch.generate.engine import LMEngine
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs
+
+    engine = LMEngine(params, cfg, tok, WhichLM.FISH_1_5, cache_len=SERVE_CACHE,
+                      max_frames=TTFA_FRAMES, prompt_buckets=(64,))
+    sampling = SamplingArgs(**SAMPLING)
+    prompt = main_prompt(np, cfg)
+
+    def first_audio():
+        t0 = time.perf_counter()
+        state = engine.init_state(0)
+        stream = codec.start_stream(max_step_frames=TTFA_FRAMES)
+        state, first, _, _ = engine._prefill_raw(state, prompt, sampling)
+        frames = [first.cpu().numpy()[0]]
+        state, out, valid, steps = engine.decode_chunk(state, sampling, TTFA_FRAMES)
+        out, valid, steps = (t.cpu().numpy() for t in (out, valid, steps))
+        frames += [out[i, 0] for i in range(int(steps)) if valid[i, 0]]
+        pcm = stream.feed(np.stack(frames, axis=1)[1:])[0]
+        return time.perf_counter() - t0, pcm
+
+    first_audio()  # warm-up
+    ts = []
+    for _ in range(TTFA_TRIALS):
+        t, pcm = first_audio()
+        check(pcm.shape[0] > 0 and bool(np.isfinite(pcm).all()), "ttfa: first audio empty or "
+              "not finite")
+        ts.append(t)
+    log("ttfa", f"prefill + one {TTFA_FRAMES}-frame decode_chunk + one feed, {TTFA_TRIALS} "
+        f"trials: p50 {float(np.percentile(ts, 50)):.4f}s p90 "
+        f"{float(np.percentile(ts, 90)):.4f}s (min {min(ts):.4f}, max {max(ts):.4f}; "
+        f"{pcm.shape[0]} samples of first audio) on {smi}")
+
+
+# --------------------------------------------------------------------------
 # Phase 6: continuous-batching serving
 # --------------------------------------------------------------------------
 
@@ -2043,6 +2446,155 @@ def serving_run(torch, np, engine, codec, tok, codec_cfg, reqs, label: str):
     return res, frames / lm_s, p50
 
 
+def serve_pcm(torch, np, batcher, reqs):
+    """Submit every request at once with deliver_pcm, one client thread
+    each, collecting its PCM events and final result. Returns, per
+    request, (codes (C+1, T), PCM, seconds to the first PCM event, to the
+    last, whether every PCM event came before the result, hit_max)."""
+    import threading
+
+    from fish_speech_tpu_torch.generate.continuous import _ChunkResult, _PartialPCM
+
+    out = [None] * len(reqs)
+    t0 = time.perf_counter()
+
+    def client(i):
+        parts, first, last, final, ordered = [], None, None, None, True
+        for ev in batcher.submit(**reqs[i], deliver_pcm=True).iter_events(timeout=WAIT_S):
+            if isinstance(ev, _PartialPCM):
+                last = time.perf_counter() - t0
+                first = last if first is None else first
+                ordered = ordered and final is None
+                parts.append(ev.pcm)
+            elif isinstance(ev, _ChunkResult):
+                final = ev
+        codes = np.concatenate([final.semantic[None], final.tokens])
+        out[i] = (codes, np.concatenate(parts) if parts else np.zeros((0,), np.float32),
+                  first, last, ordered and final is not None, final.hit_max)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=WAIT_S)
+    check(all(o is not None for o in out) and not any(t.is_alive() for t in threads),
+          "central serving: a client did not get its PCM and result")
+    return out
+
+
+def central_run(torch, np, engine, codec, codec32, tok, codec_cfg, reqs, bound16, label: str):
+    """One timed central-vocoder serving run on a warm batcher (codec= the
+    loud bf16 codec, shift_fn the Fish-1.5 shift): each request's PCM
+    events precede its result and concatenate to codec.decode of its
+    tokens within the bf16 bound + PCM_I16_ATOL, and are as close to the
+    float32 decode as codec.decode is, within ACCURACY_FACTOR (+
+    PCM_I16_ATOL), its reference peaking at PCM_MIN_STEPS int16 steps or
+    more; logs frames/s, RTF p50/p95 (submit to the last PCM) and TTFA
+    p50/p95 (to the first PCM event). Returns (frames/s, RTF p50)."""
+    from fish_speech_tpu_torch.generate.continuous import ContinuousBatcher
+    from fish_speech_tpu_torch.generate.overlap import output_shift
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs
+
+    shift = output_shift(engine.lm)
+    batcher = ContinuousBatcher(engine, SamplingArgs(**SAMPLING), horizon=SERVE_HORIZON,
+                                codec=codec, shift_fn=shift)
+    try:
+        check(batcher._central is not None, "central serving: the central vocoder is off")
+        batcher.warmup()
+        torch.cuda.synchronize()
+        res = serve_pcm(torch, np, batcher, reqs)
+    finally:
+        batcher.shutdown()
+    cfg, worst, ratio, low = engine.cfg, 0.0, 0.0, None
+    for i, (codes, pcm, first, last, ordered, hit_max) in enumerate(res):
+        t = codes.shape[1]
+        check(codes.shape[0] == cfg.num_codebooks + 1 and 1 <= t <= N_FRAMES
+              and (t == N_FRAMES or not hit_max)
+              and bool(((codes[1:] >= 0) & (codes[1:] < cfg.codebook_size)).all()),
+              f"central {label} request {i}: codes {codes.shape} out of range, hit_max {hit_max}")
+        check(ordered and first is not None, f"central {label} request {i}: a PCM event after "
+              "the final result, or none")
+        err, err32, own, peak = pcm_accuracy(np, codec, codec32, shift(codes[1:]), pcm,
+                                             f"central {label} request {i}")
+        worst, ratio = max(worst, err), max(ratio, err32 / own)
+        low = peak if low is None else min(low, peak)
+        check(err <= bound16 + PCM_I16_ATOL, f"central {label} request {i}: PCM {err:.3e} from "
+              f"codec.decode, bound {bound16:.3e} + {PCM_I16_ATOL}")
+        check(err32 <= ACCURACY_FACTOR * own + PCM_I16_ATOL, f"central {label} request {i}: "
+              f"PCM {err32:.3e} from the float32 decode, codec.decode {own:.3e} (factor "
+              f"{ACCURACY_FACTOR}, + {PCM_I16_ATOL})")
+    frames = sum(r[0].shape[1] for r in res)
+    span = max(r[3] for r in res)
+    rtf = np.array([r[3] / (r[0].shape[1] / codec_cfg.frame_rate) for r in res])
+    ttfa = np.array([r[2] for r in res])
+    p50 = float(np.percentile(rtf, 50))
+    log("serving", f"{label}: {len(res)} deliver_pcm requests of up to {N_FRAMES} frames through "
+        f"the central vocoder: PCM events before each result, PCM within {worst:.3e} of "
+        f"codec.decode (bound {bound16:.3e} + {PCM_I16_ATOL}), at most {ratio:.3f} x "
+        f"codec.decode's distance to the float32 decode (limit {ACCURACY_FACTOR}); the "
+        f"references peak at {low * 32767:.0f} int16 steps or more; {frames} frames of PCM in "
+        f"{span:.3f}s = {frames / span:.1f} frames/s aggregate; per-request RTF (submit to last "
+        f"PCM) p50 {p50:.4f} p95 {float(np.percentile(rtf, 95)):.4f}; TTFA (submit to first "
+        f"PCM) p50 {float(np.percentile(ttfa, 50)):.4f}s p95 "
+        f"{float(np.percentile(ttfa, 95)):.4f}s")
+    return frames / span, p50
+
+
+def profile_central(torch, np, engine, codec, ticks: int = 4) -> None:
+    """The vocoder's share of a central-vocoding tick's device time: 16
+    live rows, `ticks` ticks of one horizon-16 decode chunk and one
+    16-row x 16-frame feed of those codes with the int16 conversion, under
+    torch.profiler; then the feeds alone on the same codes. Share = the
+    feeds' device time over the ticks'."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fish_speech_tpu_torch.generate.continuous import _CentralVocoder
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs
+
+    prompts = [main_prompt(np, engine.cfg)] * engine.batch_size
+    sampling = SamplingArgs(**SAMPLING)
+    with torch.inference_mode():
+        state, _, _ = engine.prefill_rows(engine.init_state(0), prompts, sampling, 0)
+        stream = codec.stream_template(engine.batch_size)
+
+        def tick(state, st, codes=None):
+            if codes is None:
+                state, out, _, _ = engine.decode_chunk(state, sampling, SERVE_HORIZON)
+                codes = out[:, :, 1:].permute(1, 2, 0)  # (B, C, horizon)
+            audio, st = codec.decode_step_async(codes, st)
+            _CentralVocoder._to_i16(audio)
+            return state, st, codes
+
+        tick(state, stream)  # warm
+        torch.cuda.synchronize()
+        feeds = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            st = stream
+            for _ in range(ticks):
+                state, st, codes = tick(state, st)
+                feeds.append(codes)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof_voc:
+            st = stream
+            for codes in feeds:
+                _, st, _ = tick(None, st, codes)
+            torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / ticks
+    voc_ms = sum(e.self_device_time_total for e in device_kernels(prof_voc)) / 1e3 / ticks
+    share = f"{100 * voc_ms / dev_ms:.1f}%" if dev_ms > 0 else "not measured"
+    log("profile", f"central vocoding, {engine.batch_size} rows: a tick (decode chunk of "
+        f"{SERVE_HORIZON} frames + one {engine.batch_size} x {SERVE_HORIZON}-frame feed) under "
+        f"torch.profiler: wall {wall_ms:.2f} ms, device kernels {dev_ms:.3f} ms "
+        f"({sum(e.count for e in kernels) / ticks:.0f} launches), of them the vocoder feed "
+        f"{voc_ms:.3f} ms = {share} of device time")
+    log_top_kernels("profile", kernels, ticks, "tick")
+
+
 def profile_serving(torch, np, engine, label: str, frames: int = 4) -> None:
     """Where a 16-row decode frame's time goes: torch.profiler over one
     decode chunk of `frames` frames with every row live."""
@@ -2074,9 +2626,11 @@ def profile_serving(torch, np, engine, label: str, frames: int = 4) -> None:
     log_top_kernels("profile", kernels, frames, "frame")
 
 
-def run_serving(torch, np, serving, codec, tok, codec_cfg):
-    """The serving phase, in turns: auto, slow_xla, xla, int8, int8, xla,
-    slow_xla, auto. serving["auto"] (bf16): the slow step's row kernel
+def run_serving(torch, np, serving, codec, codec32, tok, codec_cfg, bound16):
+    """The serving phase, in turns: auto, central, slow_xla, xla, int8,
+    int8, xla, slow_xla, central, auto. central: serving["auto"] under a
+    batcher whose central vocoder vocodes deliver_pcm requests (the
+    others vocode on the client). serving["auto"] (bf16): the slow step's row kernel
     and the batched fast frame; serving["slow_xla"]: the unfused slow step
     and the batched fast frame (the A/B that decides `auto`);
     serving["xla"]: the unfused codebook loop; serving["int8"]: the int8
@@ -2098,9 +2652,15 @@ def run_serving(torch, np, serving, codec, tok, codec_cfg):
     n_layer = serving["auto"].cfg.n_layer
     mods = {"decode_attention": da, "prefill_attention": pa, "fused_slow_step": ss,
             "fused_fast_frame": ff, "fused_fast_frame_batched": fb}
-    runs = {"auto": [], "slow_xla": [], "xla": [], "int8": []}
+    runs = {"auto": [], "central": [], "slow_xla": [], "xla": [], "int8": []}
     first, counted = {}, {}
-    for impl in ("auto", "slow_xla", "xla", "int8", "int8", "xla", "slow_xla", "auto"):
+    for impl in ("auto", "central", "slow_xla", "xla", "int8", "int8", "xla", "slow_xla",
+                 "central", "auto"):
+        if impl == "central":
+            runs[impl].append(central_run(torch, np, serving["auto"], codec, codec32, tok,
+                                          codec_cfg, reqs, bound16,
+                                          f"central run {len(runs[impl]) + 1}"))
+            continue
         counting = impl != "xla" and impl not in counted
         if counting:
             for m in mods.values():
@@ -2149,7 +2709,9 @@ def run_serving(torch, np, serving, codec, tok, codec_cfg):
         f"slow step + batched kernel) {mean['slow_xla'][0]:.1f} frames/s, RTF p50 "
         f"{mean['slow_xla'][1]:.4f}; xla (unfused codebook loop) {mean['xla'][0]:.1f} "
         f"frames/s, RTF p50 {mean['xla'][1]:.4f}; int8 auto {mean['int8'][0]:.1f} frames/s, "
-        f"RTF p50 {mean['int8'][1]:.4f}. auto's pick of the fused slow step at "
+        f"RTF p50 {mean['int8'][1]:.4f}; central vocoder (auto engine, PCM frames/s to the "
+        f"last PCM) {mean['central'][0]:.1f} frames/s, RTF p50 {mean['central'][1]:.4f}. "
+        f"auto's pick of the fused slow step at "
         f"{SERVE_ROWS} rows (at least slow_xla's aggregate frames/s): {verdict}")
 
     for impl in ("auto", "int8"):
@@ -2168,6 +2730,7 @@ def run_serving(torch, np, serving, codec, tok, codec_cfg):
             f"the batched frame)")
     for impl in ("auto", "slow_xla", "xla", "int8"):
         profile_serving(torch, np, serving[impl], impl)
+    profile_central(torch, np, serving["auto"], codec)
     return {**counted["auto"], **counted["int8"]}
 
 
@@ -2315,7 +2878,13 @@ def main() -> int:
     next(k for k in kernels if k["name"] == "prefill_attention")["long_prefill"] = long_prefill
     launches.update(run_int8_main_path(torch, np, int8["batch1"], fused, bf16_stats, codec, tok,
                                        codec_cfg))
-    served = run_serving(torch, np, dict(serving, int8=int8["serving"]), codec, tok, codec_cfg)
+    # from here on the codec is loud enough for int16 (`loud_codec`)
+    loud, loud32, bound16 = run_stream(torch, np, codec, codec_cfg, smi)
+    run_overlap(torch, np, fused, loud, loud32, codec_cfg, bound16, smi)
+    run_ttfa(torch, np, params, fused.cfg, tok, loud, smi)
+    served = run_serving(torch, np, dict(serving, int8=int8["serving"]), loud, loud32, tok,
+                         codec_cfg, bound16)
+    del loud, loud32
     for name in ("fused_fast_frame_batched", "fused_fast_frame_batched_int8", "slow_step_rows",
                  "slow_step_rows_int8"):
         launches[name] = served[name]

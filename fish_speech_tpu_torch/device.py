@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -22,3 +24,27 @@ def tree_to(tree, device):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_to(v, device) for v in tree)
     return tree.to(device)
+
+
+def host_to_device(array, device, dtype=None) -> torch.Tensor:
+    """A host array (numpy or CPU tensor) on `device`, queued behind the
+    current stream's work without waiting for it. A copy from pageable
+    memory waits for the stream to drain; this one stages the data in
+    pinned memory, whose block PyTorch's host allocator does not reuse
+    before the copy has run. Device tensors are only cast."""
+    t = torch.as_tensor(array)
+    if dtype is not None:
+        t = t.to(dtype)
+    device = torch.device(device)
+    if device.type != "cuda" or t.device.type == "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A small constant tensor on `device`, made once per device and
+    shared (callers never write it): made from host values at every call,
+    it would be a copy that waits for the work queued on the card."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)

@@ -1,8 +1,7 @@
 """Continuous cross-request decode batching.
 
-Counterpart of `fish_speech_tpu/generate/continuous.py` without its
-central batched vocoder. B decode rows share one GenState of a batched
-engine; a scheduler thread interleaves:
+Counterpart of `fish_speech_tpu/generate/continuous.py`. B decode rows
+share one GenState of a batched engine; a scheduler thread interleaves:
 
     admit queued requests into free rows (a prefill at the row's own
     offset; fresh requests on contiguous free rows in power-of-two
@@ -25,24 +24,28 @@ temp/top_p/top_k/rep-pen and seed are installed into its row at
 admission, and a seeded request's codes depend only on its own seed; on
 a static engine the batcher's one SamplingArgs serves every request.
 
-Not ported yet: the central batched vocoder (`codec=` / `shift_fn=`, and
-`deliver_pcm` requests), which needs the streaming codec. Clients vocode
-their own codes.
+With a streaming codec (`codec=`, `shift_fn=`), requests submitted with
+`deliver_pcm=True` receive PCM from the batcher's central vocoder: one
+batched carried-state feed a tick for every such row (`_CentralVocoder`).
+Other clients vocode their own codes.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import queue
 import threading
 import time
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from fish_speech_tpu_torch.device import host_to_device
 from fish_speech_tpu_torch.generate.engine import GenState, LMEngine
+from fish_speech_tpu_torch.models.codec.stream_conv import tree_where
 from fish_speech_tpu_torch.ops.sampling import SamplingArgs
 
 logger = logging.getLogger(__name__)
@@ -63,20 +66,33 @@ class _PartialFrames:
     frames: np.ndarray  # (C+1, t): semantic row + codebook rows
 
 
+@dataclasses.dataclass
+class _PartialPCM:
+    """Streaming event of a deliver_pcm request: the PCM of `frames` code
+    frames from the central vocoder. A chunk's events concatenate to the
+    codec's whole-sequence decode of that chunk."""
+
+    pcm: np.ndarray  # (frames * samples_per_frame,) float32
+    frames: int
+
+
 class BatchedRequest:
     """Handle returned by ContinuousBatcher.submit: iterate to receive one
     _ChunkResult per text chunk, in order."""
 
     def __init__(self, prompts: List[np.ndarray], cond_len: int, max_new: int,
                  stream: bool = False, sampling: Optional[SamplingArgs] = None,
-                 seed: Optional[int] = None, low_latency: Optional[bool] = None):
+                 seed: Optional[int] = None, low_latency: Optional[bool] = None,
+                 deliver_pcm: bool = False):
         self.prompts = prompts
         self.cond_len = cond_len
         self.max_new = max_new
-        # stream controls delivery (per-tick _PartialFrames events);
-        # low_latency controls scheduling (a short admission tick and
-        # cooldown ticks so first frames beat a full horizon)
-        self.stream = stream
+        # stream controls delivery (per-tick _PartialFrames events, or
+        # _PartialPCM ones with deliver_pcm); low_latency controls
+        # scheduling (a short admission tick and cooldown ticks so first
+        # frames beat a full horizon)
+        self.stream = stream or deliver_pcm
+        self.deliver_pcm = deliver_pcm
         self.low_latency = stream if low_latency is None else low_latency
         self.sampling = sampling  # None -> the batcher's default
         self.seed = seed
@@ -107,8 +123,9 @@ class BatchedRequest:
             yield r
 
     def iter_events(self, timeout: Optional[float] = None):
-        """Yield _PartialFrames and _ChunkResult events in decode order;
-        requires stream=True at submit."""
+        """Yield _PartialFrames (or, with deliver_pcm, _PartialPCM) and
+        _ChunkResult events in decode order; requires stream=True or
+        deliver_pcm=True at submit."""
         ended = 0
         while ended < len(self.prompts):
             r = self._next(timeout)
@@ -130,6 +147,11 @@ class _RowState:
         self.sent_segs = 0  # segments already sent as _PartialFrames
         self.budget = 0
         self.active = False  # row currently decoding a chunk
+        # central vocoder (deliver_pcm) bookkeeping
+        self.pcm = False  # PCM delivery through the central vocoder
+        self.ending = False  # chunk decoded; its PCM not all delivered yet
+        self.held_final: Optional[_ChunkResult] = None
+        self.release_row = False  # free the row once the PCM is delivered
 
 
 @dataclasses.dataclass
@@ -172,6 +194,207 @@ class _Inflight:
     fetch: _Fetch  # admissions' frames/eoses, then out, valid, done, steps
 
 
+class _CentralVocoder:
+    """The batcher's batched carried-state vocoder, driven by the
+    scheduler thread.
+
+    Every row of a deliver_pcm request is a lane of one B-row streaming
+    session; each tick feeds every lane that has frames in one batched
+    `decode_step_async`, converts the PCM to int16 on the card, and
+    queues one event-fenced copy of it (`_Fetch`) to a delivery thread,
+    which emits each lane's `_PartialPCM` (int16 / 32767 as float32) in
+    tick order, then a finished chunk's held `_ChunkResult`.
+
+    A feed advances every lane by t frames, so lanes are reconciled by
+    host-side pending queues: t is the fewest frames any mid-stream lane
+    with frames holds (at most max_step). A mid-stream lane takes exactly
+    t real frames (zero padding would corrupt its carried state) or, when
+    it holds fewer, sits the tick out, and a masked select keeps its
+    state. An ending lane (chunk decoded) takes what it has up to t,
+    right-padded: the decode is causal, and its lane is reset before its
+    next chunk. Resets (a fresh stream a text chunk) are one masked
+    select of the state with the zero template.
+
+    Departures from the JAX batcher (continuous.py), both faults there:
+    JAX takes t = min(pending) over all mid-stream lanes (l.336), so one
+    lane with nothing pending stops every lane's PCM for that tick; and
+    when delivery raises it unblocks the clients but never releases the
+    finished rows (l.461-465), so they are lost to admission. Here lanes
+    with frames are fed, and finished rows are released whatever
+    delivery did.
+
+    Threads: the scheduler thread owns lanes, queues and state and makes
+    every launch; the delivery thread only waits for copies and puts
+    events. Rows it finishes go back through `released`, which the
+    scheduler drains (`ContinuousBatcher._drain_releases`), so the
+    scheduler alone writes the rows."""
+
+    def __init__(self, batcher: "ContinuousBatcher", codec, shift_fn):
+        self.codec = codec
+        self.shift = shift_fn if shift_fn is not None else (lambda c: c)
+        self.b = batcher.engine.batch_size
+        self.n_codebooks = batcher.engine.cfg.num_codebooks
+        # a lane that fell behind catches up at twice the decode rate
+        self.session = codec.start_stream(batch=self.b, max_step_frames=2 * batcher.horizon)
+        self.max_step = self.session.max_step
+        self.spf = codec.samples_per_frame
+        self.pend = [collections.deque() for _ in range(self.b)]  # (C, t) segments
+        self.pend_n = [0] * self.b
+        self.reset_mask = np.zeros(self.b, bool)
+        self.lanes: Dict[int, _RowState] = {}  # row -> slot streaming PCM
+        self._dq: "queue.Queue[Optional[tuple]]" = queue.Queue()  # (_Fetch | None, meta)
+        self._queued = 0  # deliveries put on _dq and not yet emitted
+        self._emitted = threading.Condition()
+        self.released: "queue.Queue[_RowState]" = queue.Queue()
+        self._thread = threading.Thread(target=self._deliver_loop, daemon=True)
+        self._thread.start()
+
+    def _mask(self, rows: np.ndarray) -> torch.Tensor:
+        return host_to_device(rows, self.codec.device)
+
+    @staticmethod
+    def _to_i16(audio: torch.Tensor) -> torch.Tensor:
+        return torch.clamp(torch.round(audio.float() * 32767.0), -32768, 32767).to(torch.int16)
+
+    def enable_row(self, slot: _RowState) -> None:
+        """A deliver_pcm chunk admitted: claim the lane and schedule its
+        reset (a fresh stream a text chunk)."""
+        r = slot.row
+        self.lanes[r] = slot
+        self.reset_mask[r] = True
+        self.pend[r].clear()
+        self.pend_n[r] = 0
+        slot.pcm = True
+        slot.ending = False
+
+    def push(self, slot: _RowState, seg: np.ndarray) -> None:
+        """Queue one (C+1, t) token segment for the slot's lane (semantic
+        row dropped, codec shift applied)."""
+        codes = np.ascontiguousarray(self.shift(np.asarray(seg)[1:]))
+        if codes.shape[-1]:
+            self.pend[slot.row].append(codes)
+            self.pend_n[slot.row] += codes.shape[-1]
+
+    def has_work(self) -> bool:
+        return bool(self.lanes) or self._queued > 0
+
+    def _put(self, fetch: Optional[_Fetch], meta: list) -> None:
+        with self._emitted:
+            self._queued += 1
+        self._dq.put((fetch, meta))
+
+    def _take(self, r: int, n: int) -> np.ndarray:
+        """Pop the first n pending frames of lane r, (C, n)."""
+        q, parts = self.pend[r], []
+        while n:
+            seg = q[0]
+            if seg.shape[-1] <= n:
+                parts.append(q.popleft())
+                n -= seg.shape[-1]
+            else:
+                parts.append(seg[:, :n])
+                q[0] = seg[:, n:]
+                n = 0
+        return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=-1)
+
+    @torch.inference_mode()
+    def warmup(self) -> None:
+        """Run a feed of max_step frames, the int16 conversion and the
+        masked select once, on a scratch state."""
+        st = self.session.state
+        audio, _ = self.codec.decode_step_async(
+            np.zeros((self.b, self.n_codebooks, self.max_step), np.int32), st)
+        self._to_i16(audio)
+        tree_where(self._mask(np.zeros(self.b, bool)), self.session._template(), st)
+        if self.codec.device.type == "cuda":
+            torch.cuda.synchronize(self.codec.device)
+
+    @torch.inference_mode()
+    def tick(self) -> None:
+        """Launch at most one batched feed and queue its PCM for delivery."""
+        mids = [self.pend_n[r] for r, s in self.lanes.items() if not s.ending and self.pend_n[r]]
+        ends = [self.pend_n[r] for r, s in self.lanes.items() if s.ending and self.pend_n[r]]
+        t = min(min(mids) if mids else max(ends, default=0), self.max_step)
+        buf = np.zeros((self.b, self.n_codebooks, t), np.int32)
+        fed = np.zeros(self.b, bool)
+        meta = []  # (slot, frames taken, final)
+        for r in list(self.lanes):
+            slot = self.lanes[r]
+            n = self.pend_n[r]
+            take = min(n, t) if slot.ending else (t if n >= t else 0)
+            if take:
+                buf[r, :, :take] = self._take(r, take)
+                self.pend_n[r] -= take
+                fed[r] = True
+            final = slot.ending and self.pend_n[r] == 0
+            if final:
+                del self.lanes[r]  # no further feeds for this chunk
+            if take or final:
+                meta.append((slot, take, final))
+        if not t:
+            if meta:  # lanes already fed in full: their held results, in order
+                self._put(None, meta)
+            return
+        state = self.session.state
+        if self.reset_mask.any():
+            state = tree_where(self._mask(self.reset_mask), self.session._template(), state)
+            self.reset_mask[:] = False
+        audio, new_state = self.codec.decode_step_async(buf, state)
+        sat_out = np.zeros(self.b, bool)
+        sat_out[[r for r in self.lanes if not fed[r]]] = True
+        if sat_out.any():  # lanes that did not take frames keep their state
+            new_state = tree_where(self._mask(sat_out), state, new_state)
+        self.session.state = new_state
+        self._put(_Fetch([self._to_i16(audio)]), meta)
+
+    def _deliver_loop(self) -> None:
+        while True:
+            item = self._dq.get()
+            if item is None:
+                return
+            fetch, meta = item
+            try:
+                pcm = fetch.get()[0] if fetch is not None else None  # (B, t * spf) int16
+                for slot, take, final in meta:
+                    if take:
+                        f32 = pcm[slot.row, :take * self.spf].astype(np.float32) / 32767.0
+                        slot.req.results.put(_PartialPCM(pcm=f32, frames=take))
+                    if final and slot.held_final is not None:
+                        slot.req.results.put(slot.held_final)
+            except Exception as e:  # noqa: BLE001 - reaches the tick's clients
+                logger.exception("central vocoder delivery failed")
+                for slot, _, _ in meta:
+                    slot.req.error = e
+                    slot.req.results.put(None)
+            finally:
+                for slot, _, final in meta:
+                    if final:
+                        slot.held_final = None
+                        self.released.put(slot)  # also after a failure
+                with self._emitted:
+                    self._queued -= 1
+                    self._emitted.notify_all()
+
+    def finish(self, timeout: float = 30.0) -> None:
+        """Feed every ending lane to its end, then wait until every queued
+        delivery has been emitted. Each tick takes at least one frame of
+        every ending lane or retires it, and no frames arrive meanwhile,
+        so the feeding ends."""
+        while any(s.ending for s in self.lanes.values()):
+            self.tick()
+        self.drain(timeout)
+
+    def drain(self, timeout: float = 30.0) -> None:
+        """Wait until every queued delivery has been emitted."""
+        with self._emitted:
+            if not self._emitted.wait_for(lambda: self._queued == 0, timeout):
+                logger.error("central vocoder deliveries not emitted within %.0fs", timeout)
+
+    def shutdown(self) -> None:
+        self._dq.put(None)
+        self._thread.join(timeout=10)
+
+
 class ContinuousBatcher:
     def __init__(self, engine: LMEngine, sampling: SamplingArgs, *, horizon: int = 16,
                  admit_horizon: int = 3, admit_cooldown: int = 2, codec=None,
@@ -180,11 +403,13 @@ class ContinuousBatcher:
         in the serving configuration). The admission tick of a fresh
         low-latency request decodes admit_horizon frames and the
         admit_cooldown ticks after it stay that short too, so its first
-        frames do not wait a full horizon; other ticks decode `horizon`."""
-        if codec is not None or shift_fn is not None:
-            raise NotImplementedError(
-                "central batched vocoding (codec=, shift_fn=) needs the streaming codec, "
-                "which is not ported yet (ROADMAP queue 1, module 3); vocode on the client")
+        frames do not wait a full horizon; other ticks decode `horizon`.
+
+        codec + shift_fn: a streaming codec (`can_stream`) on the engine's
+        device turns on central vocoding for deliver_pcm requests;
+        shift_fn maps codebook tokens to codec indices
+        (`overlap.output_shift`), None is the identity. A codec that
+        cannot stream leaves it off."""
         self.engine = engine
         self.sampling = sampling
         self.horizon = horizon
@@ -197,6 +422,9 @@ class ContinuousBatcher:
         # idle rows must be done on the device, or they decode junk and
         # advance their cache positions between admissions
         self.state: GenState = state._replace(done=torch.ones_like(state.done))
+        self._central: Optional[_CentralVocoder] = None
+        if codec is not None and getattr(codec, "can_stream", False):
+            self._central = _CentralVocoder(self, codec, shift_fn)
         self.rows: List[Optional[_RowState]] = [None] * engine.batch_size
         # bumped on every admission/finish of the row; tags dispatches so
         # speculative frames of a superseded chunk are discarded
@@ -215,13 +443,14 @@ class ContinuousBatcher:
                deliver_pcm: bool = False) -> BatchedRequest:
         """sampling/seed are honoured per request on dynamic_sampling
         engines; a static engine serves every request with the batcher's
-        config. deliver_pcm needs the central vocoder, not ported yet."""
-        if deliver_pcm:
+        config. deliver_pcm=True (needs the batcher's streaming codec)
+        streams _PartialPCM events from the central vocoder."""
+        if deliver_pcm and self._central is None:
             raise ValueError(
                 "deliver_pcm requires a streaming codec on the batcher "
                 "(ContinuousBatcher(..., codec=..., shift_fn=...))")
         req = BatchedRequest(prompts, cond_len, max_new, stream=stream, sampling=sampling,
-                             seed=seed, low_latency=low_latency)
+                             seed=seed, low_latency=low_latency, deliver_pcm=deliver_pcm)
         self.queue.put(req)
         self._wake.set()
         if self._stop:
@@ -234,6 +463,8 @@ class ContinuousBatcher:
         self._stop = True
         self._wake.set()
         self._thread.join(timeout=10)
+        if self._central is not None:
+            self._central.shutdown()
         if self._thread.is_alive():
             # scheduler wedged: its own exit drain will never run, so
             # release clients blocked on in-flight rows here
@@ -250,13 +481,17 @@ class ContinuousBatcher:
             self.queue.get_nowait().results.put(None)
 
     def warmup(self) -> None:
-        """Build the kernels and run the engine's paths once, then one
-        small request through the scheduler."""
+        """Build the kernels and run the engine's paths once, the central
+        vocoder's feed on a scratch state, then one small request through
+        the scheduler (through the central vocoder where there is one)."""
         eng = self.engine
         eng.warmup(self.sampling)
+        if self._central is not None:
+            self._central.warmup()
         n = min(eng.prompt_buckets[0], eng.cache_len - self.horizon - 2)
         prompt = np.zeros((eng.cfg.num_codebooks + 1, n), np.int32)
-        for _ in self.submit([prompt], 0, self.admit_horizon + 2, stream=True):
+        for _ in self.submit([prompt], 0, self.admit_horizon + 2, stream=True,
+                             deliver_pcm=self._central is not None):
             pass
 
     # -- scheduler ---------------------------------------------------------
@@ -266,8 +501,10 @@ class ContinuousBatcher:
         finished first (those keep their row), then new requests, in
         power-of-two bursts over contiguous free rows."""
         admits: List[_AdmitGroup] = []
+        self._drain_releases()
         for slot in self.rows:
-            if slot is not None and not slot.active:
+            # an ending slot keeps its row until its PCM is delivered
+            if slot is not None and not slot.active and not slot.ending:
                 admits.append(self._start_chunk(slot))
         placements: List[_RowState] = []
         for r in range(len(self.rows)):
@@ -295,6 +532,22 @@ class ContinuousBatcher:
             i = j + 1
         return admits
 
+    def _drain_releases(self) -> None:
+        """Apply the rows the central vocoder's delivery thread finished
+        (only this scheduler thread writes self.rows). A request whose
+        delivery failed gives its row up."""
+        if self._central is None:
+            return
+        while True:
+            try:
+                slot = self._central.released.get_nowait()
+            except queue.Empty:
+                return
+            slot.ending = False
+            slot.pcm = False
+            if slot.release_row or slot.req.error is not None:
+                self.rows[slot.row] = None
+
     def _req_sampling(self, req: BatchedRequest) -> SamplingArgs:
         """A request's own sampling on dynamic engines, the batcher's
         otherwise."""
@@ -317,6 +570,8 @@ class ContinuousBatcher:
                               self.engine.cache_len - (offset + prompt_len) - 1), 0)
         slot.active = True
         self.epoch[slot.row] += 1
+        if slot.req.deliver_pcm:
+            self._central.enable_row(slot)
 
     def _start_chunk_burst(self, slots: List[_RowState]) -> _AdmitGroup:
         """Admit a contiguous run of fresh requests (first chunk, offset 0)
@@ -350,6 +605,12 @@ class ContinuousBatcher:
         request (one event per scheduler tick)."""
         if not slot.req.stream or slot.sent_segs >= len(slot.segs):
             return
+        if slot.pcm:
+            # central vocoding: queue the segments for the batched feed
+            for seg in slot.segs[slot.sent_segs:]:
+                self._central.push(slot, seg)
+            slot.sent_segs = len(slot.segs)
+            return
         if slot.sent_segs == 0 and slot.req.low_latency:
             self._first_flush = True  # see _run
         new_segs = slot.segs[slot.sent_segs:]
@@ -365,8 +626,7 @@ class ContinuousBatcher:
         stacked = (slot.segs[0] if len(slot.segs) == 1
                    else np.concatenate(slot.segs, axis=1) if slot.segs
                    else np.zeros((c + 1, 0), np.int32))
-        slot.req.results.put(_ChunkResult(tokens=stacked[1:], semantic=stacked[0],
-                                          hit_max=hit_max))
+        result = _ChunkResult(tokens=stacked[1:], semantic=stacked[0], hit_max=hit_max)
         slot.active = False
         slot.segs = []
         self.epoch[slot.row] += 1
@@ -376,7 +636,17 @@ class ContinuousBatcher:
         done = self.state.done.clone()
         done[slot.row] = True
         self.state = self.state._replace(done=done)
-        if slot.chunk_idx + 1 >= len(slot.req.prompts):
+        last = slot.chunk_idx + 1 >= len(slot.req.prompts)
+        if slot.pcm:
+            # hold the result and the row until the lane's PCM is
+            # delivered: PCM events precede the chunk's result, and no
+            # admission may reset the lane before it is drained
+            slot.ending = True
+            slot.held_final = result
+            slot.release_row = last
+            return
+        slot.req.results.put(result)
+        if last:
             self.rows[slot.row] = None  # request complete; free the row
         # else: the row stays reserved; the next chunk is admitted next tick
 
@@ -443,6 +713,10 @@ class ContinuousBatcher:
         for slot, epoch in flight.snapshot:
             if slot.active and self.epoch[slot.row] == epoch:
                 self._flush_partial(slot)
+        # one batched vocoder feed for the deliver_pcm rows, launched
+        # behind the next decode chunk
+        if self._central is not None and self._central.has_work():
+            self._central.tick()
 
     def _run(self) -> None:
         pending: Optional[_Inflight] = None
@@ -464,8 +738,21 @@ class ContinuousBatcher:
                             self._first_flush = False
                             time.sleep(0.002)
                     pending = flight
+                    if pending is None and self._central is not None:
+                        # no decode work: go on feeding and retiring the
+                        # PCM lanes (the last requests of a wave)
+                        self._drain_releases()
+                        if self._central.has_work():
+                            self._central.tick()
+                            time.sleep(0.001)
                 if pending is not None:
                     self._process(pending)
+                if self._central is not None:
+                    # deliver held chunk results before releasing clients
+                    # (mid-stream lanes cut off by shutdown are released
+                    # below)
+                    self._central.finish()
+                    self._drain_releases()
             # clean shutdown: release clients still waiting for chunks
             for slot in self.rows:
                 if slot is not None:

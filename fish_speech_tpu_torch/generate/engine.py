@@ -51,11 +51,16 @@ int8 weight to the activation dtype at every product.
 * `generate` reads the device once a frame (its stop test);
   `decode_chunk` never reads it: outputs, valid flags and an "all rows
   done" marker stay on the card until the caller fetches them.
+* `_prefill_raw` and `generate(collect_hidden=True)` also give the slow
+  hidden state each frame was drawn from; `warmup` runs the smallest
+  prompt bucket (or the buckets, conditioning offsets and decode-chunk
+  horizons it is given) once.
 * `rewind` keeps a conditioning prefix: only the position counter moves.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -95,6 +100,8 @@ from fish_speech_tpu_torch.ops.slow_step import (
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
 
+logger = logging.getLogger(__name__)
+
 
 class GenState(NamedTuple):
     """Decode state of an engine. The cache and the noise streams are
@@ -118,6 +125,7 @@ class GenerationResult(NamedTuple):
     prefill_s: float
     decode_s: float
     prompt_tokens: int
+    hidden: Optional[np.ndarray] = None  # (T, D) float32 slow hiddens if collected
 
 
 def _bucket_for(n: int, buckets) -> int:
@@ -323,7 +331,8 @@ class LMEngine:
         """Prefill right-padded prompts into cache rows [row0, row0 + k)
         at `offset` and sample each row's first frame with `samp`
         (dynamic) or `sampling`. Returns (state, frames (k, C+1),
-        is_eos (k,)).
+        is_eos (k,), hidden (k, D)), hidden being the slow hidden state
+        the first frames were drawn from.
 
         Each row is prefilled by a call of its own: cuBLAS picks its
         summation order by a product's shape, so one call over the burst
@@ -350,7 +359,7 @@ class LMEngine:
                     (k, c, self.rep_pen_window), -1, dtype=torch.int32, device=self.device)),
                 ptr=state.rep_pen.ptr),
             done=_set_rows(state.done, row0, res.is_eos))
-        return state, res.tokens, res.is_eos
+        return state, res.tokens, res.is_eos, hidden
 
     @torch.inference_mode()
     def prefill(self, state: GenState, prompt: np.ndarray, sampling: SamplingArgs,
@@ -360,6 +369,13 @@ class LMEngine:
         every row. seq_lens: the rows' real lengths when they are
         right-padded to a common S. Returns (state, frame (B, C+1),
         is_eos (B,))."""
+        return self._prefill_raw(state, prompt, sampling, offset, seq_lens)[:3]
+
+    @torch.inference_mode()
+    def _prefill_raw(self, state: GenState, prompt: np.ndarray, sampling: SamplingArgs,
+                     offset: int = 0, seq_lens=None):
+        """Like prefill(), also returning the slow hidden state (B, D) the
+        first frames were drawn from."""
         prompt = np.asarray(prompt)
         if prompt.ndim == 2:
             prompt = prompt[None]
@@ -405,7 +421,7 @@ class LMEngine:
             vecs = torch.from_numpy(np.stack([RowSampling.row_vector(s) for s, _ in per_row]))
             state = state._replace(samp=state.samp.set_rows(row0, vecs))
             samp = RowSampling.from_vectors(vecs.to(self.device))
-        return self._prefill_rows_raw(state, prompts, sampling, row0, offset, samp)
+        return self._prefill_rows_raw(state, prompts, sampling, row0, offset, samp)[:3]
 
     @torch.inference_mode()
     def decode_step(self, state: GenState, sampling: SamplingArgs
@@ -413,6 +429,12 @@ class LMEngine:
         """One frame for every row: slow step, semantic draw, fast
         codebook loop. A row that is done keeps emitting EOS frames and
         stops advancing."""
+        return self._step(state, sampling)[:2]
+
+    @torch.inference_mode()
+    def _step(self, state: GenState, sampling: SamplingArgs):
+        """decode_step, also returning the slow hidden state (B, D) the
+        frame was drawn from."""
         noise = self._noise(state, sampling, range(self.batch_size))
         if self.use_fused_slow:
             x0 = embed_tokens(self.params, self.cfg, self.token_cfg,
@@ -435,7 +457,7 @@ class LMEngine:
         state = state._replace(
             pos=torch.where(state.done, state.pos, state.pos + 1),
             prev=frame, rep_pen=res.rep_pen, done=state.done | res.is_eos)
-        return state, frame
+        return state, frame, hidden
 
     @torch.inference_mode()
     def decode_chunk(self, state: GenState, sampling: SamplingArgs, horizon: int,
@@ -464,7 +486,7 @@ class LMEngine:
             valid[i] = ~was_done & (frame[:, 0] != self.token_cfg.im_end_id)
             all_done[i + 1] = state.done.all()
         steps = torch.where(all_done.any(), torch.argmax(all_done.to(torch.uint8)),
-                            torch.tensor(n, device=dev))
+                            torch.full((), n, dtype=torch.int64, device=dev))
         return state, out, valid, steps
 
     # -- generation -------------------------------------------------------
@@ -472,10 +494,13 @@ class LMEngine:
     def generate(self, prompt: np.ndarray, *, max_new_tokens: int = 1024,
                  sampling: Optional[SamplingArgs] = None,
                  state: Optional[GenState] = None, conditioning_offset: int = 0,
-                 seed: Optional[int] = None) -> Tuple[GenerationResult, GenState]:
+                 seed: Optional[int] = None,
+                 collect_hidden: bool = False) -> Tuple[GenerationResult, GenState]:
         """Blocking generation for one (C+1, S) prompt on a batch-1 engine.
         Returns codebook rows (C, T) and the semantic row; the first frame
-        is always kept, even if it is EOS."""
+        is always kept, even if it is EOS. collect_hidden: also return
+        the slow hidden state each kept frame was drawn from, (T, D)
+        float32."""
         if self.batch_size != 1:
             raise ValueError("generate() drives batch-1 engines; use generate_batch")
         sampling = sampling or SamplingArgs()
@@ -486,8 +511,10 @@ class LMEngine:
         prompt = np.asarray(prompt)
         prompt_len = prompt.shape[-1]
         t0 = time.perf_counter()
-        state, first, _ = self.prefill(state, prompt, sampling, offset=conditioning_offset)
+        state, first, _, first_hidden = self._prefill_raw(state, prompt, sampling,
+                                                          offset=conditioning_offset)
         frames: List[torch.Tensor] = [first[0]]
+        hiddens: List[torch.Tensor] = [first_hidden[0]]
         self._sync()
         prefill_s = time.perf_counter() - t0
 
@@ -500,12 +527,14 @@ class LMEngine:
         steps = 0
         done = bool(state.done[0])
         while steps < budget and not done:
-            state, frame = self.decode_step(state, sampling)
+            state, frame, hidden = self._step(state, sampling)
             steps += 1
             done = bool(state.done[0])  # one host sync per frame
             if int(frame[0, 0]) != self.token_cfg.im_end_id:
                 frames.append(frame[0])
+                hiddens.append(hidden[0])
         stacked = torch.stack(frames, dim=1).cpu().numpy()  # (C+1, T)
+        hidden = torch.stack(hiddens).float().cpu().numpy() if collect_hidden else None
         decode_s = time.perf_counter() - t1
         result = GenerationResult(
             tokens=stacked[1:],
@@ -515,6 +544,7 @@ class LMEngine:
             prefill_s=prefill_s,
             decode_s=decode_s,
             prompt_tokens=prompt_len,
+            hidden=hidden,
         )
         return result, state
 
@@ -538,7 +568,7 @@ class LMEngine:
         t0 = time.perf_counter()
         with torch.inference_mode():
             samp = state.samp if self.dynamic_sampling else None
-            state, first, _ = self._prefill_rows_raw(state, prompts, sampling, 0, 0, samp)
+            state, first, _, _ = self._prefill_rows_raw(state, prompts, sampling, 0, 0, samp)
         prefill_s = time.perf_counter() - t0
         budget = max(min(max_new_tokens - 1, self.max_frames, self.cache_len - max(lens) - 1), 0)
         t1 = time.perf_counter()
@@ -557,16 +587,36 @@ class LMEngine:
                 prefill_s=prefill_s, decode_s=decode_s, prompt_tokens=lens[r]))
         return results
 
-    def warmup(self, sampling: Optional[SamplingArgs] = None) -> None:
-        """Build the kernels and run each path once: one admission of the
-        smallest bucket and one decode frame, on a scratch state."""
+    def warmup(self, sampling: Optional[SamplingArgs] = None, buckets=None,
+               conditioning_lens=(0,), chunk_horizons=()) -> None:
+        """Build the kernels and run each path once, on scratch states, so
+        the first request pays no first-call cost: a prefill of each of
+        `buckets` (default: the smallest prompt bucket; PyTorch builds no
+        program per shape, so one prefill builds the path) at each
+        conditioning offset (each distinct (bucket, attention extent)
+        once; offsets whose bucket does not fit the cache are skipped),
+        one decode frame, and one decode chunk of each of chunk_horizons."""
         sampling = sampling or SamplingArgs()
-        state = self.init_state(seed=0)
-        n = min(self.prompt_buckets[0], self.cache_len - 2)
-        prompt = np.zeros((self.cfg.num_codebooks + 1, n), np.int32)
-        state, _, _ = self.prefill_row(state, prompt, sampling, 0)
-        self.decode_chunk(state, sampling, 1)
-        self._sync()
+        prompt_rows = self.cfg.num_codebooks + 1
+        seen = set()
+        for bucket in buckets or self.prompt_buckets[:1]:
+            for cond in conditioning_lens:
+                key = (bucket, self._kv_extent_for(cond, bucket))
+                if cond + bucket > self.cache_len or key in seen:
+                    continue
+                seen.add(key)
+                t0 = time.perf_counter()
+                prompt = np.zeros((prompt_rows, bucket), np.int32)
+                self.prefill_row(self.init_state(seed=0), prompt, sampling, 0, offset=cond)
+                self._sync()
+                logger.info("warmup prefill bucket %d (offset %d): %.2fs", bucket, cond,
+                            time.perf_counter() - t0)
+        for horizon in (1, *chunk_horizons):
+            t0 = time.perf_counter()
+            self.decode_chunk(self.init_state(seed=0), sampling, horizon)
+            self._sync()
+            logger.info("warmup decode chunk horizon %d: %.2fs", horizon,
+                        time.perf_counter() - t0)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

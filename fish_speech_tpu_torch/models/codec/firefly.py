@@ -5,6 +5,10 @@ and `FireflyCodec.decode`. Parameters follow the JAX package's tree for
 the decode halves: {"quantizer": {"upsample": [...], "rvqs": [...]},
 "head": {...}}. The encode side (mel, ConvNeXt backbone, downsample
 stack) is not ported yet.
+
+Streaming (Fish 1.4+): `FireflyCodec.start_stream` opens a carried-state
+session (`firefly_stream.py`) whose feeds concatenate to the batch
+decode, each frame decoded once.
 """
 
 from __future__ import annotations
@@ -14,10 +18,14 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from fish_speech_tpu_torch.config import FireflyConfig, HiFiGANConfig
-from fish_speech_tpu_torch.device import resolve_device, tree_to
+from fish_speech_tpu_torch.audio.mel import num_frames
+from fish_speech_tpu_torch.config import FireflyConfig, FishVersion, HiFiGANConfig
+from fish_speech_tpu_torch.device import host_to_device, resolve_device, tree_to
+from fish_speech_tpu_torch.models.codec.firefly_stream import (
+    firefly_decode_step, stream_state_init)
 from fish_speech_tpu_torch.models.codec.hifigan import hifigan_forward
 from fish_speech_tpu_torch.models.codec.quantizer import quantizer_decode
+from fish_speech_tpu_torch.models.codec.stream_conv import StreamSessionBase
 
 
 def firefly_decode(params: Dict, cfg: FireflyConfig, indices: torch.Tensor,
@@ -118,6 +126,7 @@ class FireflyCodec:
         self.params = tree_to(params, self.device)
         self.cfg = cfg
         self.sample_rate = cfg.spec_transform.sample_rate
+        self._stream_templates: Dict[int, Dict] = {}  # batch -> zero stream state
 
     @property
     def samples_per_frame(self) -> int:
@@ -137,3 +146,69 @@ class FireflyCodec:
             codes = codes[None]
         audio = self.decode_tensor(torch.from_numpy(codes.astype(np.int64)))
         return audio.float().cpu().numpy()
+
+    def decode_tail(self, codes: np.ndarray, new_frames: int,
+                    context_frames: int = 32) -> np.ndarray:
+        """Windowed incremental decode: given all codes so far (C, T), the
+        PCM of the last `new_frames` frames, decoded with `context_frames`
+        of left context. The convs are causal, so with enough context the
+        tail equals the whole-sequence decode's. A utility: streaming
+        callers use start_stream, which decodes each frame once."""
+        codes = np.asarray(codes)
+        t = codes.shape[-1]
+        new_frames = min(new_frames, t)
+        start = max(t - new_frames - context_frames, 0)
+        pcm = self.decode(codes[:, start:])[0]
+        return pcm[(t - start - new_frames) * self.samples_per_frame:]
+
+    def frames_for_samples(self, n_samples: int) -> int:
+        """Code frames of n_samples of audio under the reference's framing."""
+        st = self.cfg.spec_transform
+        return num_frames(n_samples, st.n_fft, st.hop_length) // self.cfg.quantizer.total_downsample
+
+    # -- streaming (carried state; Fish 1.4+ only) --------------------------
+
+    @property
+    def can_stream(self) -> bool:
+        """Fish 1.4+ decode is causal; 1.2's symmetric padding is not."""
+        return self.cfg.version != FishVersion.V1_2
+
+    def start_stream(self, batch: int = 1, max_step_frames: int = 32) -> "FireflyStreamSession":
+        """A carried-state decode session: feed code frames as they come and
+        receive the PCM the batch decode gives for the growing prefix."""
+        if not self.can_stream:
+            raise ValueError("Fish 1.2 codec decode is not streamable")
+        return FireflyStreamSession(self, batch, max_step_frames)
+
+    def decode_step(self, codes: np.ndarray, state):
+        """One streaming step: codes (C, t) or (B, C, t) -> (float32 PCM
+        (B, t * spf) as numpy, new_state). Any t >= 1 is exact."""
+        audio, state = self.decode_step_async(codes, state)
+        return audio.float().cpu().numpy(), state
+
+    @torch.inference_mode()
+    def decode_step_async(self, codes, state):
+        """decode_step without waiting for the card: host codes are copied
+        behind the queued work (`host_to_device`), and the PCM (B, t * spf)
+        stays a device tensor in the parameters' dtype."""
+        codes = host_to_device(codes, self.device, torch.int64)
+        if codes.dim() == 2:
+            codes = codes[None]
+        audio, state = firefly_decode_step(codes, self.params, self.cfg, state)
+        return audio[:, 0, :], state
+
+    @torch.inference_mode()
+    def stream_template(self, batch: int) -> Dict:
+        """The zero stream state for `batch` rows, made once per batch size
+        and shared: steps return new state and never write it."""
+        if batch not in self._stream_templates:
+            self._stream_templates[batch] = stream_state_init(self.params, self.cfg, batch)
+        return self._stream_templates[batch]
+
+
+class FireflyStreamSession(StreamSessionBase):
+    """Incremental Firefly decoder over one stream of `batch` rows:
+    feed(codes (C, t)) returns the PCM of exactly those t frames."""
+
+    def _template(self):
+        return self.codec.stream_template(self.batch)

@@ -8,6 +8,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from fish_speech_tpu_torch.device import device_constant
+
 
 def _basis(levels: Tuple[int, ...]) -> np.ndarray:
     """Mixed-radix basis [1, l0, l0*l1, ...]."""
@@ -19,8 +21,8 @@ def _basis(levels: Tuple[int, ...]) -> np.ndarray:
 
 def indices_to_codes(indices: torch.Tensor, levels: Tuple[int, ...]) -> torch.Tensor:
     """(...,) integer indices -> (..., d) float32 codes in [-1, 1]."""
-    lv = torch.tensor(levels, dtype=torch.float32, device=indices.device)
-    basis = torch.from_numpy(_basis(levels)).to(indices.device)
+    lv = device_constant(tuple(float(v) for v in levels), torch.float32, indices.device)
+    basis = device_constant(tuple(_basis(levels).tolist()), torch.float32, indices.device)
     x = indices[..., None].float()
     noncentered = torch.floor(x / basis)
     noncentered = noncentered - torch.floor(noncentered / lv) * lv

@@ -8,6 +8,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from fish_speech_tpu_torch.config import DownsampleFSQConfig
+from fish_speech_tpu_torch.device import device_constant
 from fish_speech_tpu_torch.models.codec import fsq
 
 
@@ -30,8 +31,8 @@ def _scales(levels: Tuple[int, ...], num_quantizers: int) -> List[float]:
 def residual_fsq_decode(indices: torch.Tensor, group_params: Dict,
                         levels: Tuple[int, ...], num_quantizers: int) -> torch.Tensor:
     """indices (B, T, Q) -> (B, T, dim_g); the lattice sum runs in float32."""
-    scales = torch.tensor(_scales(levels, num_quantizers), dtype=torch.float32,
-                          device=indices.device)
+    scales = device_constant(tuple(_scales(levels, num_quantizers)), torch.float32,
+                             indices.device)
     codes = fsq.indices_to_codes(indices, levels)  # (B, T, Q, d_cb)
     summed = torch.sum(codes * scales[None, None, :, None], dim=2)
     return _linear(summed, group_params["project_out"])

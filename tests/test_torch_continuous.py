@@ -8,6 +8,7 @@ co-tenants. Every wait has a timeout."""
 
 import sys
 import threading
+import types
 
 import numpy as np
 import pytest
@@ -269,12 +270,17 @@ def test_scheduler_death_reaches_waiters(params):
         b.shutdown()
 
 
-def test_central_vocoder_waits_for_the_streaming_codec(params):
+@pytest.mark.parametrize("codec", [None, object(), types.SimpleNamespace(can_stream=False)],
+                         ids=["no_codec", "no_stream_surface", "cannot_stream"])
+def test_central_vocoder_waits_for_the_streaming_codec(params, codec):
+    """Central vocoding needs a codec that can stream: without one (none,
+    or a codec such as Fish 1.2's whose decode is not causal) it stays
+    off, deliver_pcm raises ValueError as the JAX batcher's does
+    (continuous.py:586-590), and token requests run as before."""
     engine = _engine(params, 1)
-    with pytest.raises(NotImplementedError, match="module 3"):
-        ContinuousBatcher(engine, SAMPLED, codec=object())
-    b = ContinuousBatcher(engine, SAMPLED)
+    b = ContinuousBatcher(engine, SAMPLED, codec=codec, shift_fn=lambda c: c)
     try:
+        assert b._central is None
         with pytest.raises(ValueError, match="streaming codec"):
             b.submit([make_prompt(4)], 0, 4, deliver_pcm=True)
         b.warmup()

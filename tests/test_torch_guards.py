@@ -63,6 +63,17 @@ fc = c.FireflyConfig(head=c.HiFiGANConfig(upsample_rates=(2,), upsample_kernel_s
                                                      downsample_factor=(2,)))
 codec = FireflyCodec(init_firefly_params(fc, 1, torch.float32, "cpu"), fc, device="cpu")
 pcm_to_wav_bytes(codec.decode(np.zeros((2, 3), np.int32))[0], 44100)
+import fish_speech_tpu_torch.models.codec.stream_conv
+import fish_speech_tpu_torch.models.codec.firefly_stream
+from fish_speech_tpu_torch.generate.overlap import generate_vocode_overlapped, output_shift
+codec.start_stream().feed(np.zeros((2, 3), np.int32))
+generate_vocode_overlapped(engine, codec, np.zeros((3, 4), np.int32), max_new_tokens=3, seed=0,
+                           chunk=2, shift_fn=output_shift(c.WhichLM.FISH_1_5))
+central = ContinuousBatcher(batched, SamplingArgs(), horizon=2, codec=codec)
+events = list(central.submit([np.zeros((3, 4), np.int32)], 0, 3,
+                             deliver_pcm=True).iter_events(timeout=60))
+assert type(events[0]).__name__ == "_PartialPCM", events
+central.shutdown()
 int8 = LMEngine(init_dual_ar_params(cfg, 0, torch.float32, "cpu"), cfg, tok,
                 c.WhichLM.FISH_1_5, prompt_buckets=(8,), device="cpu", quantize_int8=True,
                 slow_impl="fused", fast_frame_impl="fused")
@@ -89,10 +100,12 @@ print("FORBIDDEN", bad)
 def test_port_imports_no_jax_and_no_jax_package():
     """A fresh interpreter imports the port, runs one CPU generation on
     the unfused and on the fused decode path, a batched dynamic
-    generation and one batcher request, one decode, an int8 generation
-    and the int8 decision machinery (quant, train/loss, audio/mel,
-    utils/quality, utils/int8_policy), and holds no jax* and no
-    fish_speech_tpu module."""
+    generation and one batcher request, one decode, a streaming feed, an
+    overlapped generation and a central-vocoder request (stream_conv,
+    firefly_stream, overlap), an int8 generation and the int8 decision
+    machinery (quant, train/loss, audio/mel, utils/quality,
+    utils/int8_policy), and holds no jax* and no fish_speech_tpu
+    module."""
     out = subprocess.run([sys.executable, "-c", _ONE_CPU_STEP], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -163,3 +176,139 @@ def test_wav_bytes_parse_and_clip():
             1, 2, 44100, 5)
         frames = np.frombuffer(w.readframes(5), np.int16)
     np.testing.assert_array_equal(frames, [0, 16383, -16383, 32767, -32767])
+
+
+@pytest.mark.cuda
+def test_cuda_stream_equals_batch_in_float32():
+    """On the card, with TF32 off (PyTorch runs float32 cuDNN convolutions
+    in TF32 on Hopper by default, and cuDNN picks its algorithm by
+    length, so a chunked decode would drift from the batch decode by
+    TF32's rounding): the float32 Firefly stream equals the batch decode
+    within 1e-4 absolute for several chunkings."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from fish_speech_tpu_torch.models.codec.firefly import init_firefly_params
+
+    cfg = tcfg.FireflyConfig.for_version(tcfg.FishVersion.V1_5)
+    params = init_firefly_params(cfg, seed=1, dtype=torch.float32, device="cuda")
+    params = {k: (v if k != "head" else {**v, "conv_post": {
+        "w": v["conv_post"]["w"] * 1000.0, "b": v["conv_post"]["b"]}})
+              for k, v in params.items()}  # PCM of order 1e-3, not 1e-6
+    codec = FireflyCodec(params, cfg)
+    codes = np.random.default_rng(0).integers(
+        0, 1000, size=(cfg.quantizer.n_groups * cfg.quantizer.n_codebooks, 64))
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref = codec.decode(codes)
+        for chunking in ([64], [5, 16, 16, 27], [1] * 8 + [56]):
+            sess, got, s = codec.start_stream(max_step_frames=32), [], 0
+            for n in chunking:
+                got.append(sess.feed(codes[:, s:s + n]))
+                s += n
+            err = float(np.abs(np.concatenate(got, axis=-1) - ref).max())
+            assert err <= 1e-4 * max(1.0, float(np.abs(ref).max())), (chunking, err)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def _full_width_on_the_card():
+    """The `auto` batch-1 engine at full Fish-1.5 width (random bf16
+    weights, im_end never drawn), the Firefly-1.5 codec (seed 1), a
+    40-token prompt and the serving sampling knobs."""
+    from fish_speech_tpu_torch.models.codec.firefly import init_firefly_params
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs
+
+    cfg = tcfg.DualARConfig.fish_speech_1_5()
+    tok = tcfg.TokenConfig(im_end_id=100011, pad_id=5, semantic_start_id=100012,
+                           semantic_end_id=100012 + cfg.codebook_size - 1)
+    params = init_dual_ar_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    params["output"][:, tok.im_end_id] = 0
+    engine = LMEngine(params, cfg, tok, tcfg.WhichLM.FISH_1_5, max_frames=64,
+                      prompt_buckets=(64,))
+    ccfg = tcfg.FireflyConfig.for_version(tcfg.FishVersion.V1_5)
+    codec = FireflyCodec(init_firefly_params(ccfg, seed=1), ccfg)
+    rng = np.random.default_rng(0)
+    prompt = np.concatenate([rng.integers(1000, 90000, size=(1, 40)),
+                             np.zeros((cfg.num_codebooks, 40), np.int64)]).astype(np.int32)
+    sampling = SamplingArgs(temp=0.7, top_p=0.8, top_k=256, repetition_penalty=1.4)
+    return engine, codec, prompt, sampling
+
+
+@pytest.mark.cuda
+def test_cuda_overlapped_tokens_equal_generate():
+    """On the card at full Fish-1.5 width (random bf16 weights, the `auto`
+    fused path): the overlapped driver's tokens are generate's for the
+    same seed, and its PCM has the batch decode's shape and is finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from fish_speech_tpu_torch.generate.overlap import generate_vocode_overlapped
+
+    engine, codec, prompt, sampling = _full_width_on_the_card()
+    ref, _ = engine.generate(prompt, max_new_tokens=48, sampling=sampling, seed=3)
+    pcm, res, _ = generate_vocode_overlapped(engine, codec, prompt, sampling=sampling,
+                                             max_new_tokens=48, seed=3, chunk=16)
+    np.testing.assert_array_equal(res.tokens, ref.tokens)
+    np.testing.assert_array_equal(res.semantic, ref.semantic)
+    assert pcm.shape == (res.frames * codec.samples_per_frame,) and np.isfinite(pcm).all()
+
+
+@pytest.mark.cuda
+def test_cuda_launches_between_reads_do_not_wait():
+    """On the card, what the overlapped driver and the central vocoder
+    launch between two reads queues behind the card's work: a decode
+    chunk, a feed of host codes, and a central-vocoder tick (a lane reset,
+    a lane sitting the tick out, the int16 conversion and the copy to the
+    host) run under PyTorch's sync debug mode set to raise, which raises
+    on a copy from pageable memory; the tick's PCM still arrives."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import types
+
+    from fish_speech_tpu_torch.generate.continuous import (
+        BatchedRequest, _CentralVocoder, _PartialPCM, _RowState)
+
+    engine, codec, prompt, sampling = _full_width_on_the_card()
+    n = engine.cfg.num_codebooks
+    codes = np.random.default_rng(2).integers(0, 1000, size=(n + 1, 32)).astype(np.int32)
+    fake = types.SimpleNamespace(horizon=8, engine=types.SimpleNamespace(
+        batch_size=3, cfg=types.SimpleNamespace(num_codebooks=n)))
+    vocoder = _CentralVocoder(fake, codec, None)
+    slots = [_RowState(BatchedRequest([None], 0, 64, deliver_pcm=True), r) for r in range(3)]
+    held = []
+    try:
+        state, _, _ = engine.prefill(engine.init_state(0), prompt, sampling)
+        session = codec.start_stream(max_step_frames=16)
+        for slot in slots:
+            vocoder.enable_row(slot)
+            vocoder.push(slot, codes[:, :8])
+        vocoder.tick()  # warm, outside the mode
+        engine.decode_chunk(state, sampling, 16)
+        session.feed_async(codes[1:, :16], pad_to=16)
+        vocoder.enable_row(slots[0])
+        for slot in (slots[0], slots[2]):  # slots[1] sits the next tick out
+            vocoder.push(slot, codes[:, 8:16])
+        torch.cuda.synchronize()
+        vocoder._put = lambda fetch, meta: held.append((fetch, meta))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with pytest.raises(RuntimeError):
+                torch.from_numpy(codes).to("cuda")
+            engine.decode_chunk(state, sampling, 16)
+            session.feed_async(codes[1:, :16], pad_to=16)
+            vocoder.tick()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        del vocoder._put
+        for fetch, meta in held:
+            vocoder._put(fetch, meta)
+        vocoder.drain(timeout=60)
+    finally:
+        vocoder.shutdown()
+    frames = []
+    for slot in slots:
+        events = []
+        while not slot.req.results.empty():
+            events.append(slot.req.results.get_nowait())
+        frames.append([ev.frames for ev in events if isinstance(ev, _PartialPCM)])
+    assert frames == [[8, 8], [8], [8, 8]]
