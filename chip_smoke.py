@@ -114,6 +114,27 @@ per phase, each with the seconds since start:
      ttfa     bench.py::bench_ttfa's path (cache 512, bucket 64,
               prefill, one 16-frame decode_chunk, one streaming feed):
               p50 and p90 of 11 trials after a warm-up;
+     cli      a user's voice-cloning path on checkpoints read from disk:
+              the full-width Fish-1.5 bf16 LM (the main path's weights)
+              and a float32 Firefly-1.5 codec (seed 1, each FSQ group's
+              project_in standardised on the voice, so that its codes
+              spread over the grid) written in the upstream key names
+              (io/checkpoint.py) and read back onto the card bit-equal;
+              a seeded 4 s 24 kHz 16-bit WAV through the encoder CLI
+              (read_wav, resample, FireflyCodec.encode) with TF32
+              allowed process-wide: codes in [0, 1024), equal to the CPU
+              encode of the same weights wherever the CPU's value before
+              rounding lies at least 1e-3 from a tie, and on at least
+              99.5% in all (the encode turns TF32 off itself); with
+              TF32 allowed in the encode, fewer equal; two text chunks behind that speaker
+              prompt through llama_generate's generation function (a
+              word-level stand-in tokenizer at build_models' ids, 64
+              frames a chunk, the CLI's sampling defaults): the speaker's
+              codes verbatim in the first prompt, the codes equal to the
+              in-memory engine's token for token, the prefill kernel
+              launched at the conditioning offset for chunk 2, launch
+              counts; the codes through the vocoder CLI to a WAV that
+              parses; write and load seconds and each CLI's RTF;
   5. profile  torch.profiler over 8 decode frames of each path;
   6. serving  continuous batching at the serving configuration (16 rows,
               cache 512, horizon 16, rep-pen window 12, dynamic
@@ -2360,6 +2381,377 @@ def run_ttfa(torch, np, params, cfg, tok, codec, smi) -> None:
 
 
 # --------------------------------------------------------------------------
+# Phase cli: checkpoints from disk, the text front end, the encoder and
+# the three CLIs
+# --------------------------------------------------------------------------
+
+CLI_FRAMES = 64  # frames a text chunk
+CLI_SEED = 7
+CLI_VOICE_S = 4.0
+CLI_VOICE_RATE = 24000
+CLI_PROMPT_TEXT = "The quick brown fox jumps over the lazy dog."
+CLI_TEXT = ("Here is the first sentence of the request. "
+            "And this second one is prefilled behind the cached speaker prompt.")
+CLI_CODE_SHARE = 0.995  # codes of the card's float32 encode equal to the CPU's, at least
+TIE_BAND = 1e-3  # a value this close to a half-integer may round either way
+
+
+class StandInTokenizer:
+    """A word-level tokenizer with the ChatML specials and <|semantic:i|>
+    at the ids `build_models` uses (<|im_end|> 100011, <|semantic:i|>
+    100012 + i, <|semantic|> 5), so that TokenConfig.from_tokenizer gives
+    that engine's TokenConfig; words get ids from 1000 on, in the order
+    first seen. It has what PromptEncoder calls: encode(text,
+    add_special_tokens=False).ids and token_to_id."""
+
+    def __init__(self, codebook_size: int) -> None:
+        self.vocab = {"<|semantic|>": 5, "<|voice|>": 100008, "<|im_start|>": 100010,
+                      "<|im_end|>": 100011}
+        self.vocab.update({f"<|semantic:{i}|>": 100012 + i for i in range(codebook_size)})
+        self.words = {}
+
+    def token_to_id(self, token: str):
+        return self.vocab.get(token)
+
+    def encode(self, text: str, add_special_tokens: bool = False):
+        import types
+
+        ids = []
+        for special, word in re.findall(r"(<\|[^|]*\|>)|(\w+|[^\w\s]+)", text):
+            if special:
+                ids.append(self.vocab[special])
+            else:
+                ids.append(self.words.setdefault(word, 1000 + len(self.words)))
+        return types.SimpleNamespace(ids=ids)
+
+
+def voice_wav(np, path) -> None:
+    """A seeded 4-second 24 kHz mono voice: harmonics of a gliding 140 Hz
+    tone under an envelope, plus noise, peaking near 0.3, as 16-bit PCM."""
+    from fish_speech_tpu_torch.audio.wav import write_pcm_as_wav
+
+    rng = np.random.default_rng(CLI_SEED)
+    t = np.arange(int(CLI_VOICE_S * CLI_VOICE_RATE)) / CLI_VOICE_RATE
+    phase = 2 * np.pi * (140 * t + 15 * np.sin(2 * np.pi * 0.7 * t))
+    x = sum(np.sin(k * phase + rng.uniform(0, 2 * np.pi)) / k for k in range(1, 6))
+    x = x * (0.6 + 0.4 * np.sin(2 * np.pi * 3 * t) ** 2) + 0.1 * rng.normal(size=t.shape)
+    x = 0.3 * x / np.abs(x).max()
+    with open(path, "wb") as f:
+        write_pcm_as_wav(f, x.astype(np.float32), CLI_VOICE_RATE)
+
+
+def encode_group_inputs(torch, codec, audio):
+    """Each FSQ group's input (1, T', dim / G) for one row of audio: the
+    encode's arithmetic (FireflyCodec.encode, quantizer_encode) up to the
+    groups' project_in."""
+    from fish_speech_tpu_torch.models.codec.conv import fish_conv1d
+    from fish_speech_tpu_torch.models.codec.convnext import convnext_block, convnext_encoder
+
+    cfg, p = codec.cfg, codec.params
+    with torch.no_grad():
+        z = convnext_encoder(codec.spec_transform(audio), p["backbone"], cfg.backbone,
+                             cfg.version)
+        for i, factor in enumerate(cfg.quantizer.downsample_factor):
+            layer = p["quantizer"]["downsample"][i]
+            z = fish_conv1d(z, layer["conv"], stride=factor, version=cfg.version)
+            z = convnext_block(z, layer["block"], version=cfg.version)
+    return torch.chunk(z.transpose(1, 2), cfg.quantizer.n_groups, dim=-1)
+
+
+def spread_encoder(torch, codec, audio) -> list:
+    """Standardise each group's project_in in place so that each of its
+    outputs has mean 0 and standard deviation 1 over `audio`'s frames;
+    returns the scales. At the init's scale (0.02) they lie within ~0.1
+    of zero, every dimension rounds to the middle of the grid and no
+    code can flip, whatever the features' rounding: a trained codec's
+    spread over the grid, and so do these then."""
+    from fish_speech_tpu_torch.models.codec import grfsq
+
+    scales = []
+    with torch.no_grad():
+        for x, gp in zip(encode_group_inputs(torch, codec, audio),
+                         codec.params["quantizer"]["rvqs"]):
+            z = grfsq._linear(x, gp["project_in"]).flatten(0, 1)  # (T', d)
+            mean, std = z.mean(0), z.std(0)
+            gp["project_in"]["w"].div_(std)
+            gp["project_in"]["b"].sub_(mean).div_(std)
+            scales += (1.0 / std).tolist()
+    return scales
+
+
+def encode_values(torch, codec, audio):
+    """(G*Q, T', d) float64: the value each dimension of each code of
+    codec.encode(audio) rounds, for one row, by the encode's arithmetic:
+    stage q of a group rounds the bound of its residual / scale."""
+    from fish_speech_tpu_torch.models.codec import fsq, grfsq
+
+    q = codec.cfg.quantizer
+    out = []
+    with torch.no_grad():
+        for x, gp in zip(encode_group_inputs(torch, codec, audio),
+                         codec.params["quantizer"]["rvqs"]):
+            residual = fsq.bound(grfsq._linear(x, gp["project_in"]), q.levels)
+            for scale in grfsq._scales(q.levels, q.n_codebooks):
+                out.append(fsq.bound(residual / scale, q.levels)[0])
+                codes, _ = fsq.fsq_forward(residual / scale, q.levels)
+                residual = residual - codes * scale
+    return torch.stack(out).double().cpu().numpy()
+
+
+def codes_of_values(np, values, levels):
+    """The FSQ indices that `values` (..., d) round to (half to even)."""
+    basis = np.cumprod([1] + list(levels[:-1]))
+    return ((np.round(values) + np.array([lv // 2 for lv in levels])) * basis).sum(-1)
+
+
+def near_ties(np, values, n_codebooks: int):
+    """(G*Q, T') flags: a dimension of the code lies within TIE_BAND of a
+    half-integer, in its stage or an earlier one of its group (whose
+    flip moves this stage's residual)."""
+    tie = (np.abs(np.abs(values - np.floor(values)) - 0.5) < TIE_BAND).any(-1)
+    g = tie.reshape(-1, n_codebooks, tie.shape[-1])
+    return np.logical_or.accumulate(g, axis=1).reshape(tie.shape)
+
+
+def logged(torch, fn, *args):
+    """fn(*args) in-process, its prints logged under the cli phase;
+    returns (its result, its seconds to the card's last work)."""
+    import contextlib
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        log("cli", f"  | {line}")
+    return result, seconds
+
+
+def trees_equal(torch, got, ref) -> bool:
+    if isinstance(ref, dict):
+        return set(got) == set(ref) and all(trees_equal(torch, got[k], ref[k]) for k in ref)
+    if isinstance(ref, (list, tuple)):
+        return len(got) == len(ref) and all(trees_equal(torch, a, b) for a, b in zip(got, ref))
+    return got.dtype == ref.dtype and got.device == ref.device and torch.equal(got, ref)
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def run_cli(torch, np, params, cfg, tok, codec_cfg, smi) -> None:
+    """A user's voice-cloning path on checkpoints read from disk: write
+    the full-width Fish-1.5 bf16 LM (the main path's weights) and a
+    float32 Firefly-1.5 codec (seed 1) in the upstream names, read both
+    back bit-equal onto the card, encode a reference WAV through the
+    encoder CLI, generate two text chunks behind that speaker prompt
+    through llama_generate's generation function (with a stand-in
+    tokenizer), and vocode the codes through the vocoder CLI."""
+    import tempfile
+    from pathlib import Path
+
+    from fish_speech_tpu_torch.audio.resample import resample
+    from fish_speech_tpu_torch.audio.wav import read_wav
+    from fish_speech_tpu_torch.cli import encoder, llama_generate, vocoder
+    from fish_speech_tpu_torch.config import TokenConfig, WhichLM
+    from fish_speech_tpu_torch.device import tree_to
+    from fish_speech_tpu_torch.generate.engine import LMEngine
+    from fish_speech_tpu_torch.io.checkpoint import (
+        FIREFLY_FILES, load_firefly_params, load_lm_params, save_firefly_params,
+        save_lm_params)
+    from fish_speech_tpu_torch.models.codec.firefly import FireflyCodec, init_firefly_params
+    from fish_speech_tpu_torch.ops import fast_frame as ff
+    from fish_speech_tpu_torch.ops import prefill_attention as pa
+    from fish_speech_tpu_torch.ops import slow_step as ss
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs
+
+    lm = WhichLM.FISH_1_5
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        wav = d / "voice.wav"
+        voice_wav(np, wav)
+        audio, sr = read_wav(str(wav))
+        audio44 = resample(audio, sr, codec_cfg.spec_transform.sample_rate)
+        # 1. write
+        codec32 = init_firefly_params(codec_cfg, seed=1, dtype=torch.float32, device="cuda")
+        spread = spread_encoder(torch, FireflyCodec(codec32, codec_cfg), audio44)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_lm_params(d / "model.safetensors", params, cfg)
+        (d / "config.json").write_text(json.dumps(dataclasses.asdict(cfg)))
+        save_firefly_params(d / FIREFLY_FILES[0], codec32, codec_cfg)
+        write_s = time.perf_counter() - t0
+        n_bytes = sum(f.stat().st_size for f in d.iterdir())
+        log("cli", f"wrote model.safetensors (bf16, {tree_bytes(params)} bytes of tensors), "
+            f"config.json and {FIREFLY_FILES[0]} (float32, project_in standardised on the "
+            f"voice, its columns scaled by {min(spread):.1f}-{max(spread):.1f}): {n_bytes} "
+            f"bytes in {write_s:.2f}s")
+
+        # 2. read back onto the card
+        t0 = time.perf_counter()
+        loaded = load_lm_params(d, cfg)
+        torch.cuda.synchronize()
+        lm_load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        codec_loaded = load_firefly_params(d, codec_cfg)
+        torch.cuda.synchronize()
+        codec_load_s = time.perf_counter() - t0
+        check(trees_equal(torch, loaded, params), "cli: the LM read back differs from the "
+              "in-memory parameters")
+        check(trees_equal(torch, codec_loaded, codec32), "cli: the codec read back differs "
+              "from the in-memory float32 codec")
+        log("cli", f"load_lm_params {lm_load_s:.2f}s, load_firefly_params {codec_load_s:.2f}s "
+            f"onto the card; every leaf bit-equal to the in-memory tree; {smi}")
+
+        # 3. encode a reference voice through the encoder CLI, with TF32
+        # allowed process-wide (PyTorch's default for cuDNN): the encode
+        # turns it off for itself
+        card = FireflyCodec(codec_loaded, codec_cfg)
+        switches = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            _, enc_cli_s = logged(torch, encoder.main, [
+                "--input", str(wav), "--checkpoint", str(d), "--out-path", str(d / "voice.npy")])
+            t0 = time.perf_counter()
+            again = card.encode(audio44)[0]
+            torch.cuda.synchronize()
+            enc_s = time.perf_counter() - t0
+            values_tf32 = encode_values(torch, card, audio44)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = switches
+        codes = np.load(d / "voice.npy")
+        n_code = card.frames_for_samples(audio44.shape[0])
+        n_cb = codec_cfg.quantizer.num_semantic_codebooks
+        check(codes.dtype == np.uint32 and codes.shape == (n_cb, n_code),
+              f"cli: encoder codes {codes.dtype} {codes.shape}, expected uint32 ({n_cb}, {n_code})")
+        check(int(codes.max()) < cfg.codebook_size, "cli: a code outside [0, 1024)")
+        tf32 = card.encode(audio44, allow_tf32=True)[0]
+        values = encode_values(torch, card, audio44)
+        cpu = FireflyCodec(tree_to(codec32, "cpu"), codec_cfg, device="cpu")
+        t0 = time.perf_counter()
+        ref = cpu.encode(audio44)[0]
+        cpu_enc_s = time.perf_counter() - t0
+        ref_values = encode_values(torch, cpu, audio44)
+        levels = codec_cfg.quantizer.levels
+        check(np.array_equal(codes_of_values(np, ref_values, levels), ref),
+              "cli: the CPU encode's values do not round to its codes")
+        tie = near_ties(np, ref_values, codec_cfg.quantizer.n_codebooks)
+        differ = codes != ref
+        share = float(1.0 - differ.mean())
+        share_tf32 = float((tf32 == ref).mean())
+        distinct = len(np.unique(ref))
+        check(np.array_equal(again, codes), "cli: two encodes on the card differ")
+        check(not (differ & ~tie).any(), f"cli: {int((differ & ~tie).sum())} codes of the "
+              f"card's float32 encode differ from the CPU's at least {TIE_BAND} from a tie")
+        check(share >= CLI_CODE_SHARE, f"cli: the card's float32 encode agrees with the CPU's "
+              f"on {share:.4f} of the codes, below {CLI_CODE_SHARE}")
+        check(share_tf32 < share, f"cli: with TF32 the encode agrees with the CPU's on "
+              f"{share_tf32:.5f} of the codes, no fewer than without ({share:.5f})")
+        log("cli", f"encoder CLI: {CLI_VOICE_S:.0f}s {sr} Hz 16-bit WAV -> resample to "
+            f"{codec_cfg.spec_transform.sample_rate} -> codes {codes.shape}, {distinct} distinct "
+            f"in [0, {int(codes.max()) + 1}); CLI {enc_cli_s:.2f}s (codec load included), encode "
+            f"{enc_s:.3f}s (RTF {enc_s / CLI_VOICE_S:.4f}), CPU encode {cpu_enc_s:.2f}s; codes "
+            f"equal to the CPU encode: {share:.5f} with TF32 off ({int(differ.sum())} differ, "
+            f"{int(tie.sum())} of {tie.size} within {TIE_BAND} of a tie, none outside), "
+            f"{share_tf32:.5f} with TF32 on; values before rounding vs the CPU's: max "
+            f"|diff| {np.abs(values - ref_values).max():.2e} TF32 off, "
+            f"{np.abs(values_tf32 - ref_values).max():.2e} TF32 on; {smi}")
+
+        # 4. generate two chunks behind the speaker prompt
+        stand_in = StandInTokenizer(cfg.codebook_size)
+        token_cfg = TokenConfig.from_tokenizer(lm, stand_in, cfg)
+        check(token_cfg == tok, f"cli: the stand-in tokenizer gives {token_cfg}, not {tok}")
+        args = llama_generate.build_parser().parse_args([
+            "--checkpoint", str(d), "--text", CLI_TEXT, "--prompt-tokens", str(d / "voice.npy"),
+            "--prompt-text", CLI_PROMPT_TEXT, "--max-new-tokens", str(CLI_FRAMES),
+            "--seed", str(CLI_SEED)])
+        n_cond, prompts = llama_generate.build_prompts(stand_in, cfg, lm, args)
+        check(len(prompts) == 2, f"cli: {len(prompts)} text chunks, expected 2")
+        first = prompts[0]
+        at = [i for i in range(first.shape[1] - n_code + 1)
+              if np.array_equal(first[1:, i:i + n_code], codes)]
+        check(len(at) == 1 and np.array_equal(first[0, at[0]:at[0] + n_code],
+                                              100012 + codes[0].astype(np.int64)),
+              "cli: the first chunk's prompt does not hold the speaker's codes verbatim, with "
+              "<|semantic:0|> + row 0 in the semantic row")
+        engine = LMEngine(loaded, cfg, token_cfg, lm)
+        check(engine.use_fused_slow and engine.use_fused_fast, "cli: the CLI's engine is not "
+              "on the fused path")
+        chunks = []
+        generate = engine.generate
+
+        def recorded(prompt, **kw):
+            before = pa.launches
+            out = generate(prompt, **kw)
+            chunks.append((kw["conditioning_offset"], pa.launches - before, prompt.shape[-1]))
+            return out
+
+        engine.generate = recorded
+        for m in (pa, ss, ff):
+            m.launches = 0
+        cli_codes, gen_s = logged(torch, llama_generate.generate_codes, stand_in, engine, args)
+        launches = {"prefill_attention": pa.launches, "fused_slow_step": ss.launches,
+                    "fused_fast_frame": ff.launches}
+        steps = 2 * (CLI_FRAMES - 1)
+        want = {"prefill_attention": 2 * cfg.n_layer, "fused_slow_step": steps,
+                "fused_fast_frame": steps}
+        check(launches == want, f"cli: launches {launches}, expected {want}")
+        check(chunks[0][0] == 0 and chunks[1][0] == n_cond > 0 and chunks[1][1] == cfg.n_layer,
+              f"cli: chunks (offset, prefill launches, prompt length) {chunks}; the second "
+              f"should prefill at offset {n_cond}")
+
+        ref_engine = LMEngine(params, cfg, tok, lm)
+        sampling = SamplingArgs(temp=args.temp, top_p=args.top_p, top_k=args.top_k,
+                                repetition_penalty=args.repetition_penalty)
+        state = ref_engine.init_state(CLI_SEED)
+        r1, state = ref_engine.generate(prompts[0], max_new_tokens=CLI_FRAMES,
+                                        sampling=sampling, state=state)
+        state = ref_engine.rewind(state, n_cond)
+        r2, _ = ref_engine.generate(prompts[1], max_new_tokens=CLI_FRAMES, sampling=sampling,
+                                    state=state, conditioning_offset=n_cond)
+        by_hand = np.concatenate([r1.tokens, r2.tokens], axis=1)
+        check(cli_codes.shape == (cfg.num_codebooks, 2 * CLI_FRAMES)
+              and np.array_equal(cli_codes, by_hand),
+              f"cli: llama_generate's codes {cli_codes.shape} differ from the in-memory "
+              f"engine's {by_hand.shape}")
+        np.save(d / "codes.npy", cli_codes)
+        audio_s = cli_codes.shape[1] / codec_cfg.frame_rate
+        log("cli", f"llama_generate: 2 chunks of {CLI_FRAMES} frames behind a {n_cond}-token "
+            f"conditioning (system prompt + speaker, {n_code} code frames), prompts "
+            f"{[c[2] for c in chunks]} tokens at offsets {[c[0] for c in chunks]}; codes equal "
+            f"to the in-memory engine's token for token; launches {json.dumps(launches)}; "
+            f"{gen_s:.3f}s for {audio_s:.3f}s of audio (RTF {gen_s / audio_s:.4f}); {smi}")
+        del engine, ref_engine, loaded
+
+        # 5. vocode through the vocoder CLI
+        out = d / "out.wav"
+        _, voc_cli_s = logged(torch, vocoder.main, [
+            "--input", str(d / "codes.npy"), "--checkpoint", str(d), "--out-path", str(out)])
+        n_samples = cli_codes.shape[1] * codec_cfg.samples_per_frame
+        with wave.open(str(out)) as w:
+            check((w.getnchannels(), w.getsampwidth(), w.getframerate(), w.getnframes())
+                  == (1, 2, codec_cfg.spec_transform.sample_rate, n_samples),
+                  "cli: the vocoder's WAV header")
+        pcm, _ = read_wav(str(out))
+        check(pcm.shape == (n_samples,) and bool(np.isfinite(pcm).all()),
+              "cli: the vocoder's PCM")
+        t0 = time.perf_counter()
+        card.decode(cli_codes.astype(np.int32))
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        log("cli", f"vocoder CLI: codes {cli_codes.shape} -> {out.name} ({n_samples} samples, "
+            f"header parses, PCM finite); CLI {voc_cli_s:.2f}s (codec load included), decode "
+            f"{dec_s:.3f}s; RTF: encoder {enc_s / CLI_VOICE_S:.4f}, llama_generate "
+            f"{gen_s / audio_s:.4f}, vocoder {dec_s / audio_s:.4f}; {smi}")
+
+
+# --------------------------------------------------------------------------
 # Phase 6: continuous-batching serving
 # --------------------------------------------------------------------------
 
@@ -2882,6 +3274,7 @@ def main() -> int:
     loud, loud32, bound16 = run_stream(torch, np, codec, codec_cfg, smi)
     run_overlap(torch, np, fused, loud, loud32, codec_cfg, bound16, smi)
     run_ttfa(torch, np, params, fused.cfg, tok, loud, smi)
+    run_cli(torch, np, params, fused.cfg, tok, codec_cfg, smi)
     served = run_serving(torch, np, dict(serving, int8=int8["serving"]), loud, loud32, tok,
                          codec_cfg, bound16)
     del loud, loud32

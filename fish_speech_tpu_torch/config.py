@@ -1,14 +1,15 @@
 """Version registry and model/codec configuration.
 
-The port's own copy of the JAX package's `config.py` (the subset the
-main path needs): plain frozen dataclasses, field-compatible with the
-checkpoint `config.json` files.
+The port's own copy of the JAX package's `config.py`: plain frozen
+dataclasses, field-compatible with the checkpoint `config.json` files.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import json
+from pathlib import Path
 from typing import Optional, Tuple
 
 
@@ -20,6 +21,23 @@ class FishVersion(enum.Enum):
     V1_5 = "1.5"
 
 
+class WhichModel(enum.Enum):
+    """User-facing model selector (the CLIs' --fish-version)."""
+
+    FISH_1_2 = "1.2"
+    FISH_1_4 = "1.4"
+    FISH_1_5 = "1.5"
+    DUAL_AR = "dual_ar"
+
+    @property
+    def fish_version(self) -> Optional[FishVersion]:
+        return {
+            WhichModel.FISH_1_2: FishVersion.V1_2,
+            WhichModel.FISH_1_4: FishVersion.V1_4,
+            WhichModel.FISH_1_5: FishVersion.V1_5,
+        }.get(self)
+
+
 class WhichLM(enum.Enum):
     """LM family: Fish (per-version quirks) or generic DualAR."""
 
@@ -28,12 +46,47 @@ class WhichLM(enum.Enum):
     FISH_1_5 = "fish_1.5"
     DUAL_AR = "dual_ar"
 
+    @staticmethod
+    def from_model(model: WhichModel) -> "WhichLM":
+        return {
+            WhichModel.FISH_1_2: WhichLM.FISH_1_2,
+            WhichModel.FISH_1_4: WhichLM.FISH_1_4,
+            WhichModel.FISH_1_5: WhichLM.FISH_1_5,
+            WhichModel.DUAL_AR: WhichLM.DUAL_AR,
+        }[model]
+
+    @property
+    def fish_version(self) -> Optional[FishVersion]:
+        return {
+            WhichLM.FISH_1_2: FishVersion.V1_2,
+            WhichLM.FISH_1_4: FishVersion.V1_4,
+            WhichLM.FISH_1_5: FishVersion.V1_5,
+        }.get(self)
+
     @property
     def uses_explicit_semantic_ids(self) -> bool:
         """1.5/DualAR encode semantic codes as distinct `<|semantic:N|>`
         vocab tokens; 1.2/1.4 use one `<|semantic|>` pad token and the
         slow head only chooses PAD vs `<|im_end|>`."""
         return self in (WhichLM.FISH_1_5, WhichLM.DUAL_AR)
+
+
+class WhichCodec(enum.Enum):
+    """Audio codec selector."""
+
+    FIREFLY_1_2 = "firefly_1.2"
+    FIREFLY_1_4 = "firefly_1.4"
+    FIREFLY_1_5 = "firefly_1.5"
+    MIMI = "mimi"
+
+    @staticmethod
+    def from_model(model: WhichModel) -> "WhichCodec":
+        return {
+            WhichModel.FISH_1_2: WhichCodec.FIREFLY_1_2,
+            WhichModel.FISH_1_4: WhichCodec.FIREFLY_1_4,
+            WhichModel.FISH_1_5: WhichCodec.FIREFLY_1_5,
+            WhichModel.DUAL_AR: WhichCodec.MIMI,
+        }[model]
 
 
 # --------------------------------------------------------------------------
@@ -59,6 +112,7 @@ class DualARConfig:
     codebook_size: int
     num_codebooks: int
     tie_word_embeddings: bool = False
+    attention_qkv_bias: bool = False  # the model has no qkv bias: loading refuses True
     depthwise_wte: bool = False
     depthwise_output: bool = False
     initializer_range: float = 0.02
@@ -109,6 +163,17 @@ class DualARConfig:
             num_codebooks=8,
         )
 
+    @staticmethod
+    def from_json(path: str | Path) -> "DualARConfig":
+        with open(path) as f:
+            raw = json.load(f)
+        fields = {f.name for f in dataclasses.fields(DualARConfig)}
+        kwargs = {k: v for k, v in raw.items() if k in fields}
+        for flag in ("depthwise_wte", "depthwise_output"):
+            if kwargs.get(flag) is None:
+                kwargs[flag] = False
+        return DualARConfig(**kwargs)
+
 
 @dataclasses.dataclass(frozen=True)
 class TokenConfig:
@@ -118,6 +183,32 @@ class TokenConfig:
     pad_id: int
     semantic_start_id: int
     semantic_end_id: Optional[int]
+
+    @staticmethod
+    def from_tokenizer(lm: WhichLM, tokenizer, config: DualARConfig) -> "TokenConfig":
+        """`tokenizer`: anything with `token_to_id(str) -> Optional[int]`
+        (a `tokenizers.Tokenizer`, or a stand-in). The fallback ids 100012
+        and 5 are the JAX package's."""
+        im_end_id = tokenizer.token_to_id("<|im_end|>")
+        if im_end_id is None:
+            raise ValueError("Tokenizer does not have <|im_end|>")
+        if lm.uses_explicit_semantic_ids:
+            semantic_start_id = tokenizer.token_to_id("<|semantic:0|>")
+            if semantic_start_id is None:
+                semantic_start_id = 100012
+            semantic_end_id = tokenizer.token_to_id(
+                f"<|semantic:{config.codebook_size - 1}|>")
+        else:
+            semantic_start_id = tokenizer.token_to_id("<|semantic|>")
+            if semantic_start_id is None:
+                semantic_start_id = 5
+            semantic_end_id = None
+        pad_id = tokenizer.token_to_id("<|semantic|>")
+        if pad_id is None:
+            pad_id = 5
+        return TokenConfig(im_end_id=im_end_id, pad_id=pad_id,
+                           semantic_start_id=semantic_start_id,
+                           semantic_end_id=semantic_end_id)
 
 
 # --------------------------------------------------------------------------
@@ -134,6 +225,16 @@ class SpecTransformConfig:
     n_mels: int = 160
     n_fft: int = 2048
     hop_length: int = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class BackboneConfig:
+    """The ConvNeXt encoder of the codec (encode side)."""
+
+    input_channels: int = 160
+    depths: Tuple[int, ...] = (3, 3, 9, 3)
+    dims: Tuple[int, ...] = (128, 256, 384, 512)
+    kernel_size: int = 7
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +275,11 @@ class DownsampleFSQConfig:
             out *= f
         return out
 
+    @property
+    def num_semantic_codebooks(self) -> int:
+        """Codebook rows an encode gives: groups * quantizers."""
+        return self.n_groups * self.n_codebooks
+
     @staticmethod
     def firefly_1_2() -> "DownsampleFSQConfig":
         return DownsampleFSQConfig(
@@ -189,10 +295,12 @@ class DownsampleFSQConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FireflyConfig:
-    """Decode-side Firefly codec config (the encoder backbone is not
-    ported yet)."""
+    """Firefly codec config: the mel front end and ConvNeXt backbone
+    (encode), the downsampling FSQ quantizer (both directions) and the
+    HiFiGAN head (decode)."""
 
     spec_transform: SpecTransformConfig = SpecTransformConfig()
+    backbone: BackboneConfig = BackboneConfig()
     head: HiFiGANConfig = HiFiGANConfig()
     quantizer: DownsampleFSQConfig = DownsampleFSQConfig()
     version: FishVersion = FishVersion.V1_5

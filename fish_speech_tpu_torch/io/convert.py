@@ -46,19 +46,7 @@ def dual_ar_params_from_numpy(tree: Dict, device="cpu", dtype=None) -> Dict:
 
 
 def firefly_params_from_numpy(tree: Dict, device="cpu", dtype=None) -> Dict:
-    """The decode halves of the Firefly tree: quantizer upsample stack,
-    the residual-FSQ output projections, and the HiFiGAN head. The
-    encoder backbone, the downsample stack and the FSQ input
-    projections are left out."""
-    q = tree["quantizer"]
-    return _convert(
-        {
-            "quantizer": {
-                "upsample": q["upsample"],
-                "rvqs": [{"project_out": g["project_out"]} for g in q["rvqs"]],
-            },
-            "head": tree["head"],
-        },
-        device,
-        dtype,
-    )
+    """The whole Firefly tree: the encoder backbone, the quantizer's
+    downsample and upsample stacks and residual-FSQ projections (in and
+    out), and the HiFiGAN head."""
+    return _convert(tree, device, dtype)

@@ -1,4 +1,6 @@
-"""Downsampling FSQ quantizer, decode half: grouped residual FSQ lookup,
+"""Downsampling FSQ quantizer. Encode: the strided-conv + ConvNeXt
+downsample stack, then grouped residual FSQ to the (B, G*Q, T') integer
+grid of the LM's codebook rows. Decode: the grouped residual FSQ lookup,
 then the transposed-conv + ConvNeXt upsample stack."""
 
 from __future__ import annotations
@@ -9,8 +11,21 @@ import torch
 
 from fish_speech_tpu_torch.config import DownsampleFSQConfig, FishVersion
 from fish_speech_tpu_torch.models.codec import grfsq
-from fish_speech_tpu_torch.models.codec.conv import fish_conv_transpose1d
+from fish_speech_tpu_torch.models.codec.conv import fish_conv1d, fish_conv_transpose1d
 from fish_speech_tpu_torch.models.codec.convnext import convnext_block
+
+
+def quantizer_encode(z: torch.Tensor, p: Dict, cfg: DownsampleFSQConfig,
+                     version: FishVersion) -> torch.Tensor:
+    """(B, dim, T) features -> (B, G*Q, T') int32 codes, laid out
+    `g b l r -> b (g r) l`."""
+    for i, factor in enumerate(cfg.downsample_factor):
+        layer = p["downsample"][i]
+        z = fish_conv1d(z, layer["conv"], stride=factor, version=version)
+        z = convnext_block(z, layer["block"], version=version)
+    _, indices = grfsq.grouped_forward(z.transpose(1, 2), p["rvqs"], cfg)  # (G, B, T', Q)
+    g, b, t, q = indices.shape
+    return indices.permute(1, 0, 3, 2).reshape(b, g * q, t)
 
 
 def quantizer_decode(indices: torch.Tensor, p: Dict, cfg: DownsampleFSQConfig,

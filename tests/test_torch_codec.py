@@ -51,6 +51,7 @@ def _cfgs(version="1.5"):
         version=jv)
     tc = tcfg.FireflyConfig(
         spec_transform=tcfg.SpecTransformConfig(hop_length=4),
+        backbone=tcfg.BackboneConfig(input_channels=8, depths=(1,), dims=(16,)),
         head=tcfg.HiFiGANConfig(**HEAD), quantizer=tcfg.DownsampleFSQConfig(**QUANT),
         version=tv)
     return jc, tc
@@ -166,7 +167,8 @@ def test_bf16_leaves_carry_bit_for_bit():
 @pytest.mark.parametrize("version", ["1.2", "1.5"])
 def test_init_matches_jax_tree_shapes(version):
     """The port's random init has the shapes of the JAX initialiser's
-    decode halves, so converted and port-made parameters are alike."""
+    tree, encode and decode halves, so converted and port-made parameters
+    are alike."""
     jc, tc = _cfgs(version)
     shapes = jax.eval_shape(
         lambda: jfire.init_firefly_params(jax.random.PRNGKey(0), jc, jnp.float32))

@@ -60,7 +60,8 @@ fc = c.FireflyConfig(head=c.HiFiGANConfig(upsample_rates=(2,), upsample_kernel_s
                                           resblock_dilation_sizes=((1,),), num_mels=8,
                                           upsample_initial_channel=8),
                      quantizer=c.DownsampleFSQConfig(input_dim=8, n_groups=2,
-                                                     downsample_factor=(2,)))
+                                                     downsample_factor=(2,)),
+                     backbone=c.BackboneConfig(depths=(1,), dims=(8,)))
 codec = FireflyCodec(init_firefly_params(fc, 1, torch.float32, "cpu"), fc, device="cpu")
 pcm_to_wav_bytes(codec.decode(np.zeros((2, 3), np.int32))[0], 44100)
 import fish_speech_tpu_torch.models.codec.stream_conv
@@ -91,8 +92,53 @@ pcm = np.sin(np.arange(4096) * 0.01).astype(np.float32)
 mel_l1_distance(pcm, pcm, c.SpecTransformConfig(), device="cpu")
 pcm_metrics(pcm, pcm)
 int8_policy.evaluate(1.0, 0.0, 0.0, 99.0)
+import json, re, tempfile, pathlib, types
+from fish_speech_tpu_torch.io.checkpoint import (
+    load_firefly_params, load_lm_params, save_firefly_params, save_lm_params)
+from fish_speech_tpu_torch.audio.resample import resample
+from fish_speech_tpu_torch.audio.wav import read_wav, write_pcm_as_wav
+from fish_speech_tpu_torch.cli import encoder, llama_generate, vocoder
+
+
+class StandInTokenizer:  # what PromptEncoder calls, without the tokenizers package
+    vocab = {"<|im_start|>": 3, "<|im_end|>": 1, "<|semantic|>": 2, "user": 4,
+             "assistant": 5, "system": 6, "hi": 7, ".": 8,
+             **{f"<|semantic:{i}|>": 10 + i for i in range(8)}}
+
+    def token_to_id(self, token):
+        return self.vocab.get(token)
+
+    def encode(self, text, add_special_tokens=False):
+        return types.SimpleNamespace(ids=[self.vocab.get(w, 0) for w in re.findall(
+            r"<\|[^|]*\|>|\w+|[^\w\s]", text)])
+
+
+llama_generate.load_tokenizer = lambda path: StandInTokenizer()
+tmp = tempfile.TemporaryDirectory()
+d = pathlib.Path(tmp.name)
+save_lm_params(d / "model.safetensors", init_dual_ar_params(cfg, 0, torch.float32, "cpu"), cfg)
+(d / "config.json").write_text(json.dumps({k: getattr(cfg, k) for k in (
+    "vocab_size", "n_layer", "n_fast_layer", "n_head", "dim", "intermediate_size", "n_local_heads",
+    "head_dim", "rope_base", "norm_eps", "max_seq_len", "codebook_size", "num_codebooks")}))
+llama_generate.main(["--checkpoint", str(d), "--text", "hi . hi hi .", "--max-new-tokens", "2",
+                     "--device", "cpu", "--out-path", str(d / "codes.npy")])
+assert load_lm_params(d, cfg, device="cpu")["slow"]["wqkv"].shape == (1, 32, 64)
+save_firefly_params(d / "firefly-gan-vq-fsq-8x1024-21hz-generator.safetensors",
+                    init_firefly_params(fc, 1, torch.float32, "cpu"), fc)
+c.FireflyConfig.for_version = staticmethod(lambda v: fc)
+vocoder.main(["--checkpoint", str(d), "--input", str(d / "codes.npy"), "--device", "cpu",
+              "--out-path", str(d / "out.wav")])
+with open(d / "ref.wav", "wb") as f:
+    write_pcm_as_wav(f, 0.3 * np.sin(np.arange(4096) * 0.05), 22050)
+encoder.main(["--checkpoint", str(d), "--input", str(d / "ref.wav"), "--device", "cpu",
+              "--out-path", str(d / "voice.npy")])
+codec = FireflyCodec(load_firefly_params(d, fc, device="cpu"), fc, device="cpu")
+pcm, sr = read_wav(str(d / "ref.wav"))
+assert (codec.encode(resample(pcm, sr, 44100)) == np.load(d / "voice.npy")).all()
+tmp.cleanup()
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0].startswith("jax") or m.split(".")[0] == "fish_speech_tpu")
+             if m.split(".")[0].startswith("jax") or m.split(".")[0] == "fish_speech_tpu"
+             or m.split(".")[0] in ("safetensors", "ml_dtypes", "tokenizers"))
 print("FORBIDDEN", bad)
 """
 
@@ -104,8 +150,12 @@ def test_port_imports_no_jax_and_no_jax_package():
     overlapped generation and a central-vocoder request (stream_conv,
     firefly_stream, overlap), an int8 generation and the int8 decision
     machinery (quant, train/loss, audio/mel, utils/quality,
-    utils/int8_policy), and holds no jax* and no fish_speech_tpu
-    module."""
+    utils/int8_policy), a checkpoint written and read back, the three
+    CLIs (llama_generate on a checkpoint directory, the vocoder, the
+    encoder) and an encode, and holds no jax*, no fish_speech_tpu, no
+    safetensors, no ml_dtypes and no tokenizers module: llama_generate
+    reads its tokenizer through a stand-in with the methods PromptEncoder
+    calls, as where the tokenizers package is missing."""
     out = subprocess.run([sys.executable, "-c", _ONE_CPU_STEP], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -131,19 +181,55 @@ def _tiny():
     return cfg, tok
 
 
-@pytest.mark.parametrize("entry", ["engine", "codec"])
-def test_entry_points_default_to_cuda(entry):
+@pytest.mark.parametrize("entry", ["engine", "codec", "load_lm_params", "load_firefly_params",
+                                   "llama_generate", "vocoder", "encoder"])
+def test_entry_points_default_to_cuda(entry, tmp_path):
     """With no device argument the entry points ask for CUDA, and raise
-    where it is missing instead of falling back to the CPU."""
+    where it is missing instead of falling back to the CPU: the engine,
+    the codec, both checkpoint loaders, and each CLI's main without
+    --device."""
     if torch.cuda.is_available():
         pytest.skip("CUDA is present")
+    from fish_speech_tpu_torch.cli import encoder, llama_generate, vocoder
+    from fish_speech_tpu_torch.io.checkpoint import load_firefly_params, load_lm_params
+
     cfg, tok = _tiny()
+    ckpt = ["--checkpoint", str(tmp_path)]
+    calls = {
+        "engine": lambda: LMEngine(init_dual_ar_params(cfg, 0, torch.float32, "cpu"), cfg, tok,
+                                   tcfg.WhichLM.FISH_1_5),
+        "codec": lambda: FireflyCodec({}, tcfg.FireflyConfig()),
+        "load_lm_params": lambda: load_lm_params(tmp_path, cfg),
+        "load_firefly_params": lambda: load_firefly_params(tmp_path, tcfg.FireflyConfig()),
+        "llama_generate": lambda: llama_generate.main(ckpt + ["--text", "hi"]),
+        "vocoder": lambda: vocoder.main(ckpt),
+        "encoder": lambda: encoder.main(ckpt + ["--input", str(tmp_path / "x.wav")]),
+    }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        if entry == "engine":
-            LMEngine(init_dual_ar_params(cfg, 0, torch.float32, "cpu"), cfg, tok,
-                     tcfg.WhichLM.FISH_1_5)
-        else:
-            FireflyCodec({}, tcfg.FireflyConfig())
+        calls[entry]()
+
+
+def test_packages_the_port_does_not_need():
+    """The port imports neither safetensors nor ml_dtypes, and tokenizers
+    only inside the CLI's tokenizer-file loader: it runs where none of
+    the three is installed."""
+    import ast
+
+    def imports(node, fn=None):
+        """(top-level package, enclosing function name) of every import."""
+        if isinstance(node, ast.Import):
+            yield from ((a.name.split(".")[0], fn) for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield (node.module or "").split(".")[0], fn
+        for child in ast.iter_child_nodes(node):
+            inner = child.name if isinstance(child, ast.FunctionDef) else fn
+            yield from imports(child, inner)
+
+    for f in (REPO / "fish_speech_tpu_torch").rglob("*.py"):
+        for top, fn in imports(ast.parse(f.read_text())):
+            assert top not in ("safetensors", "ml_dtypes"), f"{f}: {top}"
+            if top == "tokenizers":
+                assert (f.name, fn) == ("llama_generate.py", "load_tokenizer"), f"{f}: {fn}"
 
 
 def test_cuda_engine_takes_int8_only_with_bf16_scales():
@@ -312,3 +398,54 @@ def test_cuda_launches_between_reads_do_not_wait():
             events.append(slot.req.results.get_nowait())
         frames.append([ev.frames for ev in events if isinstance(ev, _PartialPCM)])
     assert frames == [[8, 8], [8], [8, 8]]
+
+
+@pytest.mark.cuda
+def test_cuda_float32_encode_without_tf32():
+    """On the card, the float32 encode of the full-width Firefly-1.5 codec
+    (seed 1, each FSQ group's project_in standardised on the audio so
+    that the codes spread over the grid, as chip_smoke.py's cli phase
+    does) with TF32 allowed process-wide: the encode turns TF32 off for
+    itself, so its codes equal the CPU encode's wherever the CPU's value
+    before rounding lies at least 1e-3 from a tie, and on at least 99.5%
+    in all; with TF32 allowed in the encode (cuDNN's float32 convolutions
+    then move the features by ~1e-3 relative) strictly fewer agree."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import importlib.util
+
+    from fish_speech_tpu_torch.models.codec.firefly import init_firefly_params
+    from fish_speech_tpu_torch.device import tree_to
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = tcfg.FireflyConfig.for_version(tcfg.FishVersion.V1_5)
+    t = np.arange(4 * 44100) / 44100.0
+    rng = np.random.default_rng(0)
+    audio = (0.1 * np.sin(2 * np.pi * 220 * t) + 0.05 * np.sin(2 * np.pi * 660 * t)
+             + 0.02 * rng.normal(size=t.shape)).astype(np.float32)
+    params = init_firefly_params(cfg, seed=1, dtype=torch.float32, device="cuda")
+    switches = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        smoke.spread_encoder(torch, FireflyCodec(params, cfg), audio)
+        card = FireflyCodec(params, cfg)
+        cpu = FireflyCodec(tree_to(params, "cpu"), cfg, device="cpu")
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        got = card.encode(audio)
+        got_tf32 = card.encode(audio, allow_tf32=True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = switches
+    ref = cpu.encode(audio)
+    values = smoke.encode_values(torch, cpu, audio)
+    assert np.array_equal(smoke.codes_of_values(np, values, cfg.quantizer.levels), ref[0])
+    tie = smoke.near_ties(np, values, cfg.quantizer.n_codebooks)[None]
+    differ = got != ref
+    off, on = float(1 - differ.mean()), float((got_tf32 == ref).mean())
+    print(f"codes equal to the CPU encode: TF32 off {off:.5f} ({int(differ.sum())} differ, "
+          f"{int(tie.sum())} of {tie.size} near a tie), TF32 on {on:.5f}; "
+          f"{len(np.unique(ref))} distinct codes")
+    assert ref.shape == (1, 8, card.frames_for_samples(audio.shape[0]))
+    assert not (differ & ~tie).any()
+    assert off >= 0.995 and on < off
