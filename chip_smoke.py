@@ -165,6 +165,26 @@ per phase, each with the seconds since start:
               slow_xla, xla, int8, int8, xla, slow_xla, central, auto),
               and a profile of 4 central-vocoding ticks gives the
               vocoder's share of device time;
+     server   the serving surface as a user runs it: a TTSPipeline built
+              by its constructor on the batch-1 weights (cache 512), the
+              loud bf16 codec and the stand-in tokenizer, reroll off, with
+              create_batcher(16, 16), behind the port's aiohttp app on
+              localhost (the aiohttp-free core where aiohttp is missing):
+              20 requests at once (10 streaming Ogg/Opus with
+              stream_chunk_frames 16, 10 WAV; two seeded, two at temp 0;
+              where the native library does not build, Opus answers 501
+              and the streaming clients read the core's PCM stream), each
+              checked against the codes the batcher produced; the seeded
+              and temp-0 requests against synthesize_streaming_continuous
+              called directly (codes equal, PCM within twice the bf16
+              bound); a client that leaves after its first audio (its
+              row free within two ticks); a voice through
+              /v1/audio/encoding and a request in it; a batch_size 2
+              request (decode attention), a serial and a hidden-states
+              request (the batch-1 fused kernels) on a second app; the
+              kernels each route launched; requests/s, frames/s, client
+              RTF and TTFA p50/p95, the Opus host ms a chunk, the
+              cancel-to-free seconds and whether libfishaudio.so built;
   7. int8     the int8 proxy of bench.py --int8-proxy at full size on the
               same weights: teacher-forced and free-running agreement of
               the int8 and bf16 engines, mel-L1 and SNR of the two
@@ -3127,6 +3147,495 @@ def run_serving(torch, np, serving, codec, codec32, tok, codec_cfg, bound16):
 
 
 # --------------------------------------------------------------------------
+# Phase 6b: the serving surface over HTTP
+# --------------------------------------------------------------------------
+
+SERVER_BUCKETS = (64, 128, 256)  # a 40-word request; the cloned voice's prompt
+SERVER_OPUS = 10  # requests 0-9 stream Ogg/Opus, 10-19 get WAV
+SERVER_SEEDED = (11, 13)
+SERVER_ARGMAX = (15, 17)
+SERVER_CHUNK = 16  # stream_chunk_frames of the Opus requests
+SERVER_SHORT = 32  # max_new_tokens of the static-batch and hidden-states requests
+SERVER_WORDS = ("amber bright calm dawn ember field grove harbor island juniper kettle "
+                "lantern meadow north orchard pebble quiet river silver timber upland "
+                "valley willow yonder zephyr").split()
+
+
+def server_texts(np, n: int) -> list:
+    """n texts of 40 words and a full stop: one text chunk each."""
+    rng = np.random.default_rng(11)
+    return [" ".join(rng.choice(SERVER_WORDS, size=PROMPT_LEN)) + "." for _ in range(n)]
+
+
+class HttpServers:
+    """The port's aiohttp apps on localhost ports, in a thread running
+    their event loop (a client's disconnect cancels its handler), and a
+    stdlib http.client per request."""
+
+    def __init__(self, states) -> None:
+        import asyncio
+        import threading
+
+        from aiohttp import web
+
+        from fish_speech_tpu_torch.server.app import create_app
+
+        self.loop = asyncio.new_event_loop()
+        self.runners, self.ports = [], []
+        for state in states:
+            try:
+                runner = web.AppRunner(create_app(state), handler_cancellation=True)
+            except TypeError:  # aiohttp before 3.9 cancels on disconnect anyway
+                runner = web.AppRunner(create_app(state))
+            self.loop.run_until_complete(runner.setup())
+            site = web.TCPSite(runner, "127.0.0.1", 0)
+            self.loop.run_until_complete(site.start())
+            self.runners.append(runner)
+            self.ports.append(site._server.sockets[0].getsockname()[1])
+        self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self.thread.start()
+
+    def request(self, app: int, path: str, body: bytes, headers: dict, first_audio=None,
+                drop: bool = False):
+        """(status, content type, body, seconds to the first Opus audio
+        page or None). first_audio: called at the first audio page;
+        drop: close the connection there."""
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", self.ports[app], timeout=WAIT_S)
+        t0 = time.perf_counter()
+        try:
+            conn.request("POST", path, body=body, headers=headers)
+            resp = conn.getresponse()
+            kind = resp.getheader("Content-Type", "").split(";")[0]
+            data, t_audio = b"", None
+            while True:
+                piece = resp.read1(65536)
+                if not piece:
+                    break
+                data += piece
+                if kind == "audio/ogg" and t_audio is None and data.count(b"OggS") >= 3:
+                    t_audio = time.perf_counter() - t0  # past OpusHead and OpusTags
+                    if first_audio is not None:
+                        first_audio()
+                    if drop:
+                        break
+            return resp.status, kind, data, t_audio
+        finally:
+            conn.close()
+
+    def close(self) -> None:
+        import asyncio
+
+        async def stop():
+            for runner in self.runners:
+                await runner.cleanup()
+
+        asyncio.run_coroutine_threadsafe(stop(), self.loop).result(timeout=60)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=30)
+
+
+class CoreServers:
+    """The aiohttp-free core (server/core.py) called on the client's
+    thread, for a machine where aiohttp is missing: the same routes."""
+
+    def __init__(self, states) -> None:
+        self.states = states
+
+    def request(self, app: int, path: str, body: bytes, headers: dict, first_audio=None,
+                drop: bool = False):
+        from fish_speech_tpu_torch.audio.decode import decode_audio_bytes
+        from fish_speech_tpu_torch.server import core
+
+        state, t0 = self.states[app], time.perf_counter()
+        try:
+            if path.startswith("/v1/audio/encoding"):
+                query = dict(kv.split("=", 1) for kv in path.split("?", 1)[1].split("&"))
+                audio, sr = decode_audio_bytes(body)
+                codes = state.pipeline.encode_reference_audio(audio, sr)
+                core.register_voice(state, query.get("id"), query.get("prompt"), codes)
+                return 200, "application/x-npy", core.npy_bytes(codes), None
+            req_body = json.loads(body)
+            if path == "/v1/audio/hidden_states":
+                return 200, "application/zip", core.hidden_states_zip(state, req_body), None
+            req = core.SpeechRequest.parse(req_body, state.pipeline.default_sampling)
+            if req.response_format != "opus":
+                return 200, "audio/wav", core.wav_bytes(state, core.wav_pcm(state, req)), None
+            handles, data, t_audio = [], b"", None
+            gen = core.opus_body(state, req, on_submit=handles.append)
+            try:
+                for piece in gen:
+                    data += piece
+                    if t_audio is None and data.count(b"OggS") >= 3:
+                        t_audio = time.perf_counter() - t0
+                        if first_audio is not None:
+                            first_audio()
+                        if drop:
+                            for h in handles:
+                                h.cancel()
+                            break
+            finally:
+                gen.close()
+            return 200, "audio/ogg", data, t_audio
+        except core.HTTPError as err:
+            return err.status, "text/plain", err.text.encode(), None
+
+    def close(self) -> None:
+        pass
+
+
+def sniff_batcher(np, batcher, key_of):
+    """Record each batcher request (by the key of its first prompt) and
+    the codes of its chunk results as the pipeline reads them; returns
+    {key: [request, codes (C+1, T) or None]}."""
+    from fish_speech_tpu_torch.generate.continuous import _ChunkResult
+
+    seen = {}
+    submit = batcher.submit
+
+    def recording(prompts, *a, **k):
+        req = submit(prompts, *a, **k)
+        entry = seen.setdefault(key_of(prompts[0]), [req, None])
+        entry[0] = req
+        events = req.iter_events
+
+        def iter_events(timeout=None):
+            for ev in events(timeout):
+                if isinstance(ev, _ChunkResult):
+                    entry[1] = np.concatenate([ev.semantic[None], ev.tokens])
+                yield ev
+
+        req.iter_events = iter_events
+        return req
+
+    batcher.submit = recording
+    return seen
+
+
+def run_server(torch, np, params, cfg, tok, codec, codec_cfg, bound16, smi) -> dict:
+    """The serving surface on the card: a TTSPipeline (constructor, the
+    full-width Fish-1.5 weights, the loud bf16 codec, the stand-in
+    tokenizer, reroll off) with `create_batcher(16, 16)`, behind the
+    port's HTTP app (or its aiohttp-free core where aiohttp is missing):
+    20 requests at once (10 Ogg/Opus streams with stream_chunk_frames 16,
+    10 WAV, two seeded and two at temp 0), an Opus client that goes away
+    after its first audio page, a voice encoded through
+    /v1/audio/encoding and a request in it, a batch_size 2 request, a
+    serial request and a hidden-states request on a second app without a
+    batcher. Checks the responses, the seeded and temp-0 requests against
+    synthesize_streaming_continuous called directly, the cancelled row's
+    release, and each route's kernels; returns {kernel: launches in this
+    phase}."""
+    import importlib.util
+    import threading
+
+    from fish_speech_tpu_torch.audio import _natlib
+    from fish_speech_tpu_torch.audio.decode import decode_audio_bytes
+    from fish_speech_tpu_torch.audio.opus import OggOpusEncoder
+    from fish_speech_tpu_torch.audio.wav import pcm_to_wav_bytes, read_wav
+    from fish_speech_tpu_torch.config import WhichLM
+    from fish_speech_tpu_torch.generate.engine import LMEngine
+    from fish_speech_tpu_torch.ops import decode_attention as da
+    from fish_speech_tpu_torch.ops import fast_frame as ff
+    from fish_speech_tpu_torch.ops import fast_frame_batched as fb
+    from fish_speech_tpu_torch.ops import prefill_attention as pa
+    from fish_speech_tpu_torch.ops import slow_step as ss
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs
+    from fish_speech_tpu_torch.pipeline import TTSPipeline
+    from fish_speech_tpu_torch.server.core import AppState
+
+    t_phase = time.perf_counter()
+    engine = LMEngine(params, cfg, tok, WhichLM.FISH_1_5, cache_len=SERVE_CACHE,
+                      max_frames=N_FRAMES, prompt_buckets=SERVER_BUCKETS)
+    pipeline = TTSPipeline(engine, codec, StandInTokenizer(cfg.codebook_size), WhichLM.FISH_1_5,
+                           max_new_tokens=N_FRAMES, default_sampling=SamplingArgs(**SAMPLING))
+    pipeline.reroll_on_runaway = False
+    batcher = pipeline.create_batcher(SERVE_ROWS, SERVE_HORIZON)
+    check(batcher._central is not None and batcher.engine.use_fused_slow
+          and batcher.engine.use_fused_fast and engine.use_fused_slow and engine.use_fused_fast,
+          "server: the pipeline's engines are not on the fused paths, or no central vocoder")
+    batcher.warmup()
+    pipeline.warmup_codec(SERVER_CHUNK)
+    states = [AppState(pipeline, batcher=batcher), AppState(pipeline)]
+    native = OggOpusEncoder.available()
+    reason = " ".join((_natlib.build_error() or "").split())
+    native_line = "built" if native else f"NOT built ({reason[-400:]})"
+    if importlib.util.find_spec("aiohttp") is not None:
+        servers, how = HttpServers(states), "the port's aiohttp app on localhost (http.client)"
+    else:
+        servers, how = CoreServers(states), "the aiohttp-free core (aiohttp is not installed)"
+    texts = server_texts(np, SERVE_REQUESTS + 4)
+    key_of = lambda p: np.asarray(p).tobytes()  # noqa: E731
+    seen = sniff_batcher(np, batcher, key_of)
+    enc = lambda text, voice=None: key_of(pipeline._encode(text, voice, None)[1][0])  # noqa: E731
+    check(all(pipeline._encode(t, None, None)[1][0].shape[1] <= 64 for t in texts),
+          "server: a 40-word request's prompt is longer than the 64-token bucket")
+    mods = {"decode_attention": da, "prefill_attention": pa, "fused_slow_step": ss,
+            "fused_fast_frame": ff, "fused_fast_frame_batched": fb}
+
+    def counted(fn):
+        for m in mods.values():
+            m.launches = 0
+        ss.rows_launches = 0
+        out = fn()
+        got = {name: m.launches for name, m in mods.items()}
+        got["slow_step_rows"] = ss.rows_launches
+        return out, got
+
+    def body(i):
+        b = {"input": texts[i], "voice": "unconditioned"}
+        if i < SERVER_OPUS:
+            b.update(response_format="opus", stream_chunk_frames=SERVER_CHUNK)
+        if i in SERVER_SEEDED:
+            b["seed"] = 1000 + i
+        if i in SERVER_ARGMAX:
+            b["temperature"] = 0.0
+        return json.dumps(b).encode()
+
+    spf, rate = codec.samples_per_frame, codec.sample_rate
+    json_hdr = {"Content-Type": "application/json"}
+    try:
+        # 1. the serving cell's 20 requests at once, through the batcher.
+        # Without the native encoder an Opus request is answered 501, and
+        # the 10 streaming clients read the same low-latency PCM stream
+        # from the core's generator (the Opus route's source), resampling
+        # each chunk to 24 kHz as the route does
+        if not native:
+            status, kind, data, _ = servers.request(0, "/v1/audio/speech", body(0), json_hdr)
+            check(status == 501 and b"native encoder" in data, f"server: an Opus request "
+                  f"without the native encoder got {status} {data[:200]!r}, not 501")
+        out = [None] * SERVE_REQUESTS
+        resample_s = []
+
+        def core_stream(i):
+            from fish_speech_tpu_torch.audio.resample import StreamingResampler
+            from fish_speech_tpu_torch.server import core
+
+            req = core.SpeechRequest.parse(json.loads(body(i)), pipeline.default_sampling)
+            rs, parts, t_first, t0 = StreamingResampler(rate, 24000), [], None, time.perf_counter()
+            for pcm in core.pcm_chunks(states[0], req):
+                t_first = time.perf_counter() - t0 if t_first is None else t_first
+                t1 = time.perf_counter()
+                rs.process(pcm)
+                resample_s.append(time.perf_counter() - t1)
+                parts.append(pcm)
+            return 200, "audio/pcm", np.concatenate(parts), t_first
+
+        def client(i):
+            t0 = time.perf_counter()
+            if i < SERVER_OPUS and not native:
+                res = core_stream(i)
+            else:
+                res = servers.request(0, "/v1/audio/speech", body(i), json_hdr)
+            out[i] = (t0, time.perf_counter(), *res)
+
+        def burst():
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_REQUESTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(WAIT_S)
+            check(all(o is not None for o in out), "server: a client got no response")
+
+        _, burst_launches = counted(burst)
+        frames, rtf, ttfa = [], [], []
+        for i, (t0, t1, status, kind, data, t_audio) in enumerate(out):
+            entry = seen.get(enc(texts[i]))
+            check(status == 200 and entry is not None and entry[1] is not None,
+                  f"server request {i}: status {status} ({data[:200]!r}), codes seen "
+                  f"{entry is not None and entry[1] is not None}")
+            t = entry[1].shape[1]
+            check(1 <= t <= N_FRAMES and bool(((entry[1][1:] >= 0)
+                                                & (entry[1][1:] < cfg.codebook_size)).all()),
+                  f"server request {i}: codes {entry[1].shape} out of range")
+            if kind == "audio/ogg":
+                check(t_audio is not None, f"server request {i}: no Opus audio page")
+                pcm, sr = decode_audio_bytes(data)
+                want = t * spf * sr / rate
+                check(abs(pcm.shape[0] - want) <= spf * sr / rate and np.isfinite(pcm).all(),
+                      f"server request {i}: Opus decodes to {pcm.shape[0]} samples at {sr} Hz, "
+                      f"expected {want:.0f} within a frame")
+                ttfa.append(t_audio)
+            elif kind == "audio/pcm":
+                check(data.shape == (t * spf,) and np.isfinite(data).all() and t_audio is not None,
+                      f"server request {i}: streamed PCM {data.shape}, expected {(t * spf,)}")
+                ttfa.append(t_audio)
+            else:
+                check(kind == "audio/wav", f"server request {i}: {kind}")
+                pcm, sr = read_wav(data)
+                check(sr == rate and pcm.shape == (t * spf,) and np.isfinite(pcm).all(),
+                      f"server request {i}: WAV {pcm.shape} at {sr}, expected {(t * spf,)}")
+            frames.append(t)
+            rtf.append((t1 - t0) / (t / codec_cfg.frame_rate))
+        span = max(o[1] for o in out) - min(o[0] for o in out)
+        m = states[0].metrics
+        if m.opus_chunks:
+            opus_line = (f"Opus host work a chunk on the event loop: resample "
+                         f"{1e3 * m.opus_resample_s / m.opus_chunks:.3f} ms, encode "
+                         f"{1e3 * m.opus_encode_s / m.opus_chunks:.3f} ms ({m.opus_chunks} chunks)")
+        else:
+            opus_line = (f"no native encoder: Opus answered 501; the streaming clients read the "
+                         f"core's PCM stream, resample "
+                         f"{1e3 * sum(resample_s) / max(len(resample_s), 1):.3f} ms a chunk "
+                         f"({len(resample_s)} chunks), encode not measured")
+
+        # 2. the seeded and temp-0 WAV requests, called directly
+        direct = {}
+
+        def direct_call(i):
+            sampling = SamplingArgs(**dict(SAMPLING, temp=0.0)) if i in SERVER_ARGMAX else None
+            direct[i] = np.concatenate(list(pipeline.synthesize_streaming_continuous(
+                batcher, texts[i], sampling=sampling, seed=1000 + i if i in SERVER_SEEDED
+                else None)))
+
+        http_codes = {i: seen[enc(texts[i])][1] for i in SERVER_SEEDED + SERVER_ARGMAX}
+        threads = [threading.Thread(target=direct_call, args=(i,))
+                   for i in SERVER_SEEDED + SERVER_ARGMAX]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(WAIT_S)
+        worst = 0.0
+        for i in SERVER_SEEDED + SERVER_ARGMAX:
+            check(np.array_equal(seen[enc(texts[i])][1], http_codes[i]),
+                  f"server request {i}: other codes when called directly than over HTTP")
+            got = read_wav(out[i][4])[0]
+            ref = read_wav(pcm_to_wav_bytes(direct[i], rate))[0]
+            err = float(np.abs(got - ref).max())
+            worst = max(worst, err)
+            check(got.shape == ref.shape and err <= 2 * bound16 + 2 * PCM_I16_ATOL,
+                  f"server request {i}: PCM {err:.3e} from the direct call's (limit "
+                  f"{2 * bound16 + 2 * PCM_I16_ATOL:.3e})")
+
+        # 3. a client that goes away after its first audio: an Opus client
+        # closing its connection; without the native encoder, the core's
+        # PCM generator closed after its first chunk
+        cancel_text = texts[SERVE_REQUESTS]
+        if native:
+            servers.request(0, "/v1/audio/speech", json.dumps(
+                {"input": cancel_text, "voice": "unconditioned", "response_format": "opus",
+                 "stream_chunk_frames": SERVER_CHUNK}).encode(), json_hdr, drop=True)
+        else:
+            from fish_speech_tpu_torch.server import core
+
+            gen = core.pcm_chunks(states[0], core.SpeechRequest.parse(
+                {"input": cancel_text, "voice": "unconditioned",
+                 "stream_chunk_frames": SERVER_CHUNK}, pipeline.default_sampling))
+            next(gen)
+            gen.close()
+        req = seen[enc(cancel_text)][0]
+        t0 = time.perf_counter()
+        while req.freed_tick is None or any(s is not None for s in batcher.rows):
+            check(time.perf_counter() - t0 < WAIT_S, "server: the cancelled row was not freed")
+            time.sleep(0.001)
+        check(req.cancelled and req.freed_tick - req.cancel_tick <= 2,
+              f"server: the cancelled request's row was freed {req.freed_tick - req.cancel_tick} "
+              "ticks after its cancel, more than two horizons")
+        cancel_s = req.freed_time - req.cancel_time
+
+        # 4. a voice through /v1/audio/encoding, then a request in it
+        import tempfile
+        from pathlib import Path
+        from urllib.parse import quote
+
+        with tempfile.TemporaryDirectory() as tmp:
+            voice_wav(np, Path(tmp) / "voice.wav")
+            wav_in = (Path(tmp) / "voice.wav").read_bytes()
+        boundary = "fishboundary"
+        form = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; filename=\"v.wav\""
+                f"\r\nContent-Type: audio/wav\r\n\r\n").encode() + wav_in + \
+            f"\r\n--{boundary}--\r\n".encode()
+        status, kind, data, _ = servers.request(
+            0, f"/v1/audio/encoding?id=clone&prompt={quote(CLI_PROMPT_TEXT)}", form,
+            {"Content-Type": f"multipart/form-data; boundary={boundary}"})
+        check(status == 200 and kind == "application/x-npy", f"server encoding: {status} {kind}")
+        voice_codes = np.load(io.BytesIO(data))
+        check(voice_codes.shape[0] == cfg.num_codebooks and voice_codes.shape[1] > 80
+              and int(voice_codes.max()) < cfg.codebook_size and "clone" in states[0].voices,
+              f"server encoding: codes {voice_codes.shape}, registered "
+              f"{'clone' in states[0].voices}")
+        vtext = texts[SERVE_REQUESTS + 1]
+        status, kind, data, _ = servers.request(0, "/v1/audio/speech", json.dumps(
+            {"input": vtext, "voice": "clone", "seed": 5}).encode(), json_hdr)
+        vkey = enc(vtext, states[0].voices["clone"])
+        check(status == 200 and vkey in seen and read_wav(data)[0].shape[0]
+              == seen[vkey][1].shape[1] * spf, f"server: the cloned voice's request {status}")
+        t0 = time.perf_counter()  # a central row is released just after its last PCM
+        while not (all(s is None for s in batcher.rows) and batcher.queue.empty()):
+            check(time.perf_counter() - t0 < 10, "server: a request is left in the batcher")
+            time.sleep(0.001)
+
+        # 5. static batch, then the serial and hidden-states routes
+        def static():
+            return servers.request(0, "/v1/audio/speech", json.dumps(
+                {"input": texts[SERVE_REQUESTS + 2], "voice": "unconditioned", "batch_size": 2,
+                 "max_new_tokens": SERVER_SHORT}).encode(), json_hdr)
+
+        (status, kind, data, _), static_launches = counted(static)
+        n = read_wav(data)[0].shape[0] if status == 200 else 0
+        check(kind == "audio/wav" and 0 < n <= SERVER_SHORT * spf and n % spf == 0,
+              f"server static batch: {status} {kind}, {n} samples")
+
+        def serial():
+            a = servers.request(1, "/v1/audio/speech", json.dumps(
+                {"input": texts[SERVE_REQUESTS + 3], "voice": "unconditioned", "seed": 7}
+            ).encode(), json_hdr)
+            b = servers.request(1, "/v1/audio/hidden_states", json.dumps(
+                {"input": texts[0], "voice": "unconditioned", "seed": 7,
+                 "max_new_tokens": SERVER_SHORT}).encode(), json_hdr)
+            return a, b
+
+        (wav_res, zip_res), serial_launches = counted(serial)
+        n = read_wav(wav_res[2])[0].shape[0] if wav_res[0] == 200 else 0
+        check(0 < n <= N_FRAMES * spf and n % spf == 0,
+              f"server serial request: {wav_res[0]}, {n} samples")
+        import zipfile
+
+        zf = zipfile.ZipFile(io.BytesIO(zip_res[2]))
+        hidden = np.load(io.BytesIO(zf.read("hidden_states.npy")))
+        meta = json.loads(zf.read("metadata.json"))
+        check(zip_res[0] == 200 and hidden.shape[1] == cfg.dim
+              and 1 <= hidden.shape[0] <= SERVER_SHORT and np.isfinite(hidden).all()
+              and meta["num_frames"] == hidden.shape[0],
+              f"server hidden states: {zip_res[0]} {hidden.shape} {meta}")
+    finally:
+        servers.close()
+        batcher.shutdown()
+    check(burst_launches["prefill_attention"] > 0 and burst_launches["slow_step_rows"] > 0
+          and burst_launches["fused_fast_frame_batched"] > 0,
+          f"server: the batcher routes launched {burst_launches}")
+    check(static_launches["decode_attention"] > 0, f"server: static batch {static_launches}")
+    check(serial_launches["fused_slow_step"] > 0 and serial_launches["fused_fast_frame"] > 0,
+          f"server: serial and hidden-states routes {serial_launches}")
+    n_ok = len(frames)
+    log("server", f"served through {how}; native audio library (libfishaudio.so) "
+        f"{native_line}; {SERVE_REQUESTS} requests at once ({SERVER_OPUS} Ogg/Opus with "
+        f"stream_chunk_frames {SERVER_CHUNK}" + ("" if native else ", read from the core")
+        + f", {SERVE_REQUESTS - SERVER_OPUS} WAV; seeded "
+        f"{list(SERVER_SEEDED)}, temp 0 {list(SERVER_ARGMAX)}) through create_batcher("
+        f"{SERVE_ROWS}, {SERVE_HORIZON}) with the central vocoder: {n_ok} answered 200 "
+        f"in {span:.3f}s = {n_ok / span:.2f} requests/s, {sum(frames)} frames = "
+        f"{sum(frames) / span:.1f} frames/s aggregate; client RTF p50 "
+        f"{float(np.percentile(rtf, 50)):.4f} p95 {float(np.percentile(rtf, 95)):.4f}; "
+        + f"TTFA of the streaming clients (to the first " + ("Opus audio page" if native else
+                                                              "PCM chunk") + f") p50 "
+        f"{float(np.percentile(ttfa, 50)):.4f}s p95 {float(np.percentile(ttfa, 95)):.4f}s; "
+        f"{opus_line} on {smi}")
+    log("server", f"seeded and temp-0 requests: codes over HTTP = a direct "
+        f"synthesize_streaming_continuous call's, PCM within {worst:.3e} (limit "
+        f"{2 * bound16 + 2 * PCM_I16_ATOL:.3e}); a client that left after its first audio: "
+        f"row free {req.freed_tick - req.cancel_tick} tick(s) and {cancel_s:.4f}s after the "
+        f"cancel; voice encoded ({voice_codes.shape[1]} frames) and registered, a request in "
+        f"it; batch_size 2, serial and hidden-states routes; no request left in the batcher; "
+        f"phase {time.perf_counter() - t_phase:.1f}s")
+    log("server", f"launches: batcher routes {json.dumps(burst_launches)}; static batch "
+        f"{json.dumps(static_launches)}; serial + hidden states {json.dumps(serial_launches)}")
+    return {k: burst_launches[k] + static_launches[k] + serial_launches[k]
+            for k in burst_launches}
+
+
+# --------------------------------------------------------------------------
 # Phase 7: the int8 proxy
 # --------------------------------------------------------------------------
 
@@ -3277,6 +3786,7 @@ def main() -> int:
     run_cli(torch, np, params, fused.cfg, tok, codec_cfg, smi)
     served = run_serving(torch, np, dict(serving, int8=int8["serving"]), loud, loud32, tok,
                          codec_cfg, bound16)
+    server = run_server(torch, np, params, fused.cfg, tok, loud, codec_cfg, bound16, smi)
     del loud, loud32
     for name in ("fused_fast_frame_batched", "fused_fast_frame_batched_int8", "slow_step_rows",
                  "slow_step_rows_int8"):
@@ -3285,6 +3795,8 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
+        if k["name"] in server:
+            k["server_launches"] = server[k["name"]]
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

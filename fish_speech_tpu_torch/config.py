@@ -325,6 +325,13 @@ class FireflyConfig:
         return self.spec_transform.hop_length * self.quantizer.total_downsample
 
 
+# The server's default sampling and generation budget
+DEFAULT_TEMP = 0.7
+DEFAULT_TOP_P = 0.8
+DEFAULT_TOP_K = 256
+DEFAULT_MAX_NEW_TOKENS = 1792
+
+
 def default_rep_pen(lm: WhichLM) -> float:
     """1.4 for Fish 1.5, 1.2 for earlier."""
     return 1.4 if lm == WhichLM.FISH_1_5 else 1.2

@@ -28,6 +28,12 @@ With a streaming codec (`codec=`, `shift_fn=`), requests submitted with
 `deliver_pcm=True` receive PCM from the batcher's central vocoder: one
 batched carried-state feed a tick for every such row (`_CentralVocoder`).
 Other clients vocode their own codes.
+
+A request can be cancelled from any thread (`BatchedRequest.cancel`): its
+iterators end at once, and at the next tick the scheduler frees its row
+(or drops it from the admission queue) and its vocoder lane. The JAX
+batcher has no cancel (its `BatchedRequest`, continuous.py:88): there a
+client that goes away leaves its row decoding to the end of its budget.
 """
 
 from __future__ import annotations
@@ -76,9 +82,16 @@ class _PartialPCM:
     frames: int
 
 
+class _Cancelled(Exception):
+    """Raised inside a cancelled request's iterators, which end on it."""
+
+
+_CANCELLED = object()  # the results sentinel of a cancelled request
+
+
 class BatchedRequest:
     """Handle returned by ContinuousBatcher.submit: iterate to receive one
-    _ChunkResult per text chunk, in order."""
+    _ChunkResult per text chunk, in order; `cancel()` gives its row up."""
 
     def __init__(self, prompts: List[np.ndarray], cond_len: int, max_new: int,
                  stream: bool = False, sampling: Optional[SamplingArgs] = None,
@@ -98,12 +111,43 @@ class BatchedRequest:
         self.seed = seed
         self.results: "queue.Queue[Optional[object]]" = queue.Queue()
         self.error: Optional[Exception] = None
+        self.batcher: Optional["ContinuousBatcher"] = None  # set by submit
+        self.cancelled = False
+        self.ended = False  # every chunk result was read
+        # scheduler ticks (ContinuousBatcher.ticks) and perf_counter times
+        # of the first admission, the cancel and the row's release
+        self.admitted_tick: Optional[int] = None
+        self.cancel_tick: Optional[int] = None
+        self.freed_tick: Optional[int] = None
+        self.cancel_time: Optional[float] = None
+        self.freed_time: Optional[float] = None
+
+    def cancel(self) -> None:
+        """Give the request up, from any thread: its iterators end now
+        (a caller blocked in one returns), and at the next tick the
+        scheduler frees its row, or drops it from the admission queue,
+        and throws away its pending frames and its vocoder lane. A no-op
+        once every result was read."""
+        if self.cancelled or self.ended:
+            return
+        self.cancelled = True
+        self.cancel_time = time.perf_counter()
+        self.results.put(_CANCELLED)
+        b = self.batcher
+        if b is not None:
+            self.cancel_tick = b.ticks
+            b._cancels.put(self)
+            b._wake.set()
 
     def _next(self, timeout: Optional[float]):
+        if self.cancelled:
+            raise _Cancelled
         try:
             r = self.results.get(timeout=timeout)
         except queue.Empty:
             raise TimeoutError(f"no batcher event within {timeout} s") from None
+        if r is _CANCELLED:
+            raise _Cancelled
         if r is None:
             raise self.error or RuntimeError("batcher shut down")
         return r
@@ -114,23 +158,31 @@ class BatchedRequest:
     def iter_chunks(self, timeout: Optional[float] = None):
         """Yield one _ChunkResult per text chunk (partial-frame events of
         a stream=True request are skipped). timeout: seconds to wait for
-        each event before TimeoutError."""
-        for _ in range(len(self.prompts)):
+        each event before TimeoutError. Ends early once cancelled."""
+        for i in range(len(self.prompts)):
             while True:
-                r = self._next(timeout)
+                try:
+                    r = self._next(timeout)
+                except _Cancelled:
+                    return
                 if isinstance(r, _ChunkResult):
                     break
+            self.ended = i + 1 == len(self.prompts)
             yield r
 
     def iter_events(self, timeout: Optional[float] = None):
         """Yield _PartialFrames (or, with deliver_pcm, _PartialPCM) and
         _ChunkResult events in decode order; requires stream=True or
-        deliver_pcm=True at submit."""
+        deliver_pcm=True at submit. Ends early once cancelled."""
         ended = 0
         while ended < len(self.prompts):
-            r = self._next(timeout)
+            try:
+                r = self._next(timeout)
+            except _Cancelled:
+                return
             if isinstance(r, _ChunkResult):
                 ended += 1
+                self.ended = ended == len(self.prompts)
             yield r
 
 
@@ -266,6 +318,19 @@ class _CentralVocoder:
         self.pend_n[r] = 0
         slot.pcm = True
         slot.ending = False
+
+    def drop(self, slot: _RowState) -> None:
+        """A cancelled request's lane: no further feeds, its pending frames
+        and held result thrown away. Deliveries already queued for it
+        still run; their release of the row is ignored (the row is no
+        longer the slot's, `ContinuousBatcher._drain_releases`)."""
+        r = slot.row
+        if self.lanes.get(r) is slot:
+            del self.lanes[r]
+            self.pend[r].clear()
+            self.pend_n[r] = 0
+        slot.held_final = None
+        slot.ending = slot.pcm = slot.release_row = False
 
     def push(self, slot: _RowState, seg: np.ndarray) -> None:
         """Queue one (C+1, t) token segment for the slot's lane (semantic
@@ -430,6 +495,8 @@ class ContinuousBatcher:
         # speculative frames of a superseded chunk are discarded
         self.epoch = [0] * engine.batch_size
         self.queue: "queue.Queue[BatchedRequest]" = queue.Queue()
+        self._cancels: "queue.Queue[BatchedRequest]" = queue.Queue()  # BatchedRequest.cancel
+        self.ticks = 0  # ticks dispatched
         self._wake = threading.Event()
         self._stop = False
         self._thread = threading.Thread(target=self._run, daemon=True)
@@ -451,6 +518,7 @@ class ContinuousBatcher:
                 "(ContinuousBatcher(..., codec=..., shift_fn=...))")
         req = BatchedRequest(prompts, cond_len, max_new, stream=stream, sampling=sampling,
                              seed=seed, low_latency=low_latency, deliver_pcm=deliver_pcm)
+        req.batcher = self
         self.queue.put(req)
         self._wake.set()
         if self._stop:
@@ -502,6 +570,7 @@ class ContinuousBatcher:
         power-of-two bursts over contiguous free rows."""
         admits: List[_AdmitGroup] = []
         self._drain_releases()
+        self._reap_cancelled()
         for slot in self.rows:
             # an ending slot keeps its row until its PCM is delivered
             if slot is not None and not slot.active and not slot.ending:
@@ -509,9 +578,8 @@ class ContinuousBatcher:
         placements: List[_RowState] = []
         for r in range(len(self.rows)):
             if self.rows[r] is None:
-                try:
-                    req = self.queue.get_nowait()
-                except queue.Empty:
+                req = self._next_queued()
+                if req is None:
                     break
                 slot = _RowState(req, r)
                 self.rows[r] = slot
@@ -532,10 +600,56 @@ class ContinuousBatcher:
             i = j + 1
         return admits
 
+    def _next_queued(self) -> Optional[BatchedRequest]:
+        """The next request of the admission queue that is not cancelled."""
+        while True:
+            try:
+                req = self.queue.get_nowait()
+            except queue.Empty:
+                return None
+            if not req.cancelled:
+                return req
+
+    def _reap_cancelled(self) -> None:
+        """Apply the cancels made since the last tick: free each cancelled
+        request's row (its in-flight frames turn epoch-stale, and the row
+        is silenced on the device), drop its vocoder lane, and drop it
+        from the admission queue if it was never admitted."""
+        reqs = []
+        while True:
+            try:
+                reqs.append(self._cancels.get_nowait())
+            except queue.Empty:
+                break
+        if not reqs:
+            return
+        queued = False
+        for req in reqs:
+            slot = next((s for s in self.rows if s is not None and s.req is req), None)
+            if slot is None:
+                queued = True
+                continue
+            if self._central is not None:
+                self._central.drop(slot)
+            if slot.active:
+                done = self.state.done.clone()
+                done[slot.row] = True
+                self.state = self.state._replace(done=done)
+            slot.active = False
+            slot.segs = []
+            self.epoch[slot.row] += 1
+            self.rows[slot.row] = None
+            req.freed_tick, req.freed_time = self.ticks, time.perf_counter()
+        if queued:
+            with self.queue.mutex:  # submit's put takes the same lock
+                self.queue.queue = collections.deque(
+                    r for r in self.queue.queue if not r.cancelled)
+
     def _drain_releases(self) -> None:
         """Apply the rows the central vocoder's delivery thread finished
         (only this scheduler thread writes self.rows). A request whose
-        delivery failed gives its row up."""
+        delivery failed gives its row up; a slot whose row was taken from
+        it by a cancel is past."""
         if self._central is None:
             return
         while True:
@@ -545,7 +659,8 @@ class ContinuousBatcher:
                 return
             slot.ending = False
             slot.pcm = False
-            if slot.release_row or slot.req.error is not None:
+            if ((slot.release_row or slot.req.error is not None)
+                    and self.rows[slot.row] is slot):
                 self.rows[slot.row] = None
 
     def _req_sampling(self, req: BatchedRequest) -> SamplingArgs:
@@ -570,6 +685,8 @@ class ContinuousBatcher:
                               self.engine.cache_len - (offset + prompt_len) - 1), 0)
         slot.active = True
         self.epoch[slot.row] += 1
+        if slot.req.admitted_tick is None:
+            slot.req.admitted_tick = self.ticks
         if slot.req.deliver_pcm:
             self._central.enable_row(slot)
 
@@ -656,6 +773,7 @@ class ContinuousBatcher:
     def _dispatch(self) -> Optional[_Inflight]:
         """One tick's device work, launched without waiting: admissions
         and one decode chunk. None when there is nothing to run."""
+        self.ticks += 1
         admits = self._admit()
         if not self._any_active():
             return None

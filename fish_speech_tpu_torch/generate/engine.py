@@ -146,6 +146,11 @@ def _set_rows(t: torch.Tensor, row0: int, rows: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _pad_rows(t: torch.Tensor, n: int) -> torch.Tensor:
+    """t (k, ...) with its last row repeated up to n rows."""
+    return torch.cat([t, t[-1:].expand(n - t.shape[0], *t.shape[1:])])
+
+
 def _check_cuda_dtypes(params, dtype) -> None:
     """The CUDA kernels take bfloat16 weights and cache, and int8
     quantized weights {"q": int8, "s": bfloat16}: refuse anything else
@@ -196,21 +201,28 @@ class LMEngine:
         dynamic_sampling: bool = False,
         dyn_top_k_cap: int = 256,
         quantize_int8: bool = False,
+        _params_preprocessed: bool = False,
     ) -> None:
+        """_params_preprocessed: `params` is another engine's `params`
+        (head gathered, quantized if quantize_int8), shared as it is, as
+        the JAX engine's flag of that name does for the pipeline's
+        batched engines."""
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             _check_cuda_dtypes(params, dtype)
-        if quantize_int8 and any(is_quantized(v) for st in ("slow", "fast")
-                                 for v in params[st].values()):
-            raise ValueError("LMEngine(quantize_int8=True): the stacks are quantized already")
-        # Gather the LM head down to the audio-legal columns once; the
-        # full head is not kept, nor, under int8, the bf16 stacks.
-        params = dict(params)
-        cols = torch.as_tensor(semantic_head_columns(lm, token_cfg, cfg), dtype=torch.long)
-        params["output"] = params["output"][:, cols.to(params["output"].device)].contiguous()
+        if not _params_preprocessed:
+            if quantize_int8 and any(is_quantized(v) for st in ("slow", "fast")
+                                     for v in params[st].values()):
+                raise ValueError("LMEngine(quantize_int8=True): the stacks are quantized already")
+            # Gather the LM head down to the audio-legal columns once; the
+            # full head is not kept, nor, under int8, the bf16 stacks.
+            params = dict(params)
+            cols = torch.as_tensor(semantic_head_columns(lm, token_cfg, cfg), dtype=torch.long)
+            params["output"] = params["output"][:, cols.to(params["output"].device)].contiguous()
         params = tree_to(params, self.device)
         self.quantize_int8 = quantize_int8
-        self.params = quantize_lm_params(params) if quantize_int8 else params
+        self.params = (quantize_lm_params(params) if quantize_int8 and not _params_preprocessed
+                       else params)
         self.cfg = cfg
         self.token_cfg = token_cfg
         self.lm = lm
@@ -337,8 +349,11 @@ class LMEngine:
         Each row is prefilled by a call of its own: cuBLAS picks its
         summation order by a product's shape, so one call over the burst
         would make a row's cache and codes depend on how many rows were
-        admitted with it. The first frames are then drawn for all k rows
-        at once."""
+        admitted with it. For the same reason the first frames of a
+        dynamic engine's burst are drawn at the engine's whole batch (the
+        rows past the burst copies of its last, their draws thrown away):
+        on the H100 a 16-row engine drew other codebook tokens for a row
+        in a burst of 8 than for the same row alone."""
         tokens, seq_lens, bucket = self._pad(prompts)
         k, c = tokens.shape[0], self.cfg.num_codebooks
         extent = self._kv_extent_for(offset, bucket)
@@ -346,11 +361,18 @@ class LMEngine:
                              seq_lens[i:i + 1], state.cache, offset, self.rope,
                              kv_extent=extent, slot=row0 + i) for i in range(k)]
         logits, hidden = (torch.cat(t) for t in zip(*rows))
+        noise = self._noise(state, sampling, range(row0, row0 + k))
+        n = self.batch_size if samp is not None else k
+        if n > k:
+            logits, hidden = _pad_rows(logits, n), _pad_rows(hidden, n)
+            noise = FrameNoise(*(_pad_rows(t, n) for t in noise))
+            samp = RowSampling(*(_pad_rows(t, n) for t in samp))
         res: FrameResult = generate_frame(
             self.params, self.cfg, self.token_cfg, self.lm, sampling, logits, hidden,
-            RepPenWindow.init((k, c), self.rep_pen_window, self.device), None,
-            self._noise(state, sampling, range(row0, row0 + k)), self.rope,
-            samp=samp, dyn_top_k_cap=self.dyn_top_k_cap)
+            RepPenWindow.init((n, c), self.rep_pen_window, self.device), None, noise,
+            self.rope, samp=samp, dyn_top_k_cap=self.dyn_top_k_cap)
+        res = FrameResult(tokens=res.tokens[:k], is_eos=res.is_eos[:k], rep_pen=res.rep_pen)
+        hidden = hidden[:k]
         state = state._replace(
             pos=_set_rows(state.pos, row0, offset + seq_lens),
             prev=_set_rows(state.prev, row0, res.tokens),
@@ -454,8 +476,13 @@ class LMEngine:
         eos_frame = torch.zeros_like(state.prev)
         eos_frame[:, 0] = self.token_cfg.im_end_id
         frame = torch.where(state.done[:, None], eos_frame, res.tokens)
+        # A row decoding past its budget (a batcher's speculative tick, the
+        # last tick's frames past the budget) stays at the last cache slot,
+        # where the JAX engine's gathers and updates clamp; a row within
+        # its budget never gets there.
         state = state._replace(
-            pos=torch.where(state.done, state.pos, state.pos + 1),
+            pos=torch.where(state.done, state.pos,
+                            torch.clamp(state.pos + 1, max=self.cache_len - 1)),
             prev=frame, rep_pen=res.rep_pen, done=state.done | res.is_eos)
         return state, frame, hidden
 

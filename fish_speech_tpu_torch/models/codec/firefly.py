@@ -72,7 +72,11 @@ def firefly_encode_mel(params: Dict, cfg: FireflyConfig, mel: torch.Tensor) -> t
     return quantizer_encode(features, params["quantizer"], cfg.quantizer, cfg.version)
 
 
-_TF32_LOCK = threading.Lock()
+# Held by every codec call of any thread while it queues its work on the
+# card (encode, decode, streaming steps, the central vocoder's feeds),
+# and by `_tf32` blocks: no codec work of another thread is queued while
+# a block has the process-wide TF32 switches set.
+_CODEC_LOCK = threading.RLock()
 
 
 @contextlib.contextmanager
@@ -80,11 +84,12 @@ def _tf32(allow: bool):
     """cuDNN convolutions and cuBLAS float32 matmuls with TF32 allowed or
     not, for the block only. (`torch.backends.cudnn.flags` would also
     reset cuDNN's other switches to its own defaults.) The two switches
-    are process-wide: blocks on several threads run one at a time, so
-    none restores a value another set; float32 work of other threads
-    that runs during a block (a server's encode beside its decoding)
-    sees the block's setting."""
-    with _TF32_LOCK:
+    are process-wide, and the switches are read when work is queued: a
+    block holds the codec lock, so blocks on several threads run one at
+    a time (none restores a value another set) and no other thread's
+    codec work is queued under a block's setting (a server's encode
+    beside the central vocoder's feeds)."""
+    with _CODEC_LOCK:
         conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = allow
         try:
@@ -224,7 +229,8 @@ class FireflyCodec:
         """(B, C, T) int codes on any device -> (B, T * spf) PCM on the
         codec's device, in the parameters' dtype."""
         codes = codes.to(self.device)
-        return firefly_decode(self.params, self.cfg, codes)[:, 0, :]
+        with _CODEC_LOCK:
+            return firefly_decode(self.params, self.cfg, codes)[:, 0, :]
 
     def decode(self, codes: np.ndarray) -> np.ndarray:
         """codes (C, T) or (B, C, T) -> (B, T * spf) float32 PCM."""
@@ -241,17 +247,18 @@ class FireflyCodec:
         allow_tf32: let a float32 encode on the card use TF32 (it moves
         codes; off by default)."""
         audio = np.atleast_2d(np.asarray(audio, dtype=np.float32))
-        mels = [self.spec_transform(row)[0] for row in audio]
-        t = max(m.shape[-1] for m in mels)
-        if t < self.cfg.quantizer.total_downsample:  # shorter than one code frame
-            return np.zeros((audio.shape[0], self.cfg.quantizer.num_semantic_codebooks, 0),
-                            np.int32)
-        mel = torch.full((audio.shape[0], self.cfg.spec_transform.n_mels, t), math.log(1e-5),
-                         dtype=torch.float32, device=self.device)
-        for i, m in enumerate(mels):
-            mel[i, :, :m.shape[-1]] = m
-        with _tf32(allow_tf32):
-            codes = firefly_encode_mel(self.params, self.cfg, mel)
+        with _CODEC_LOCK:
+            mels = [self.spec_transform(row)[0] for row in audio]
+            t = max(m.shape[-1] for m in mels)
+            if t < self.cfg.quantizer.total_downsample:  # shorter than one code frame
+                return np.zeros((audio.shape[0], self.cfg.quantizer.num_semantic_codebooks, 0),
+                                np.int32)
+            mel = torch.full((audio.shape[0], self.cfg.spec_transform.n_mels, t),
+                             math.log(1e-5), dtype=torch.float32, device=self.device)
+            for i, m in enumerate(mels):
+                mel[i, :, :m.shape[-1]] = m
+            with _tf32(allow_tf32):
+                codes = firefly_encode_mel(self.params, self.cfg, mel)
         return codes.cpu().numpy()
 
     def decode_tail(self, codes: np.ndarray, new_frames: int,
@@ -301,7 +308,8 @@ class FireflyCodec:
         codes = host_to_device(codes, self.device, torch.int64)
         if codes.dim() == 2:
             codes = codes[None]
-        audio, state = firefly_decode_step(codes, self.params, self.cfg, state)
+        with _CODEC_LOCK:
+            audio, state = firefly_decode_step(codes, self.params, self.cfg, state)
         return audio[:, 0, :], state
 
     @torch.inference_mode()

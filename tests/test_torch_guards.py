@@ -2,9 +2,11 @@
 its entry points run on CUDA unless asked otherwise, and its WAV bytes
 parse."""
 
+import dataclasses
 import io
 import subprocess
 import sys
+import time
 import wave
 from pathlib import Path
 
@@ -136,6 +138,23 @@ codec = FireflyCodec(load_firefly_params(d, fc, device="cpu"), fc, device="cpu")
 pcm, sr = read_wav(str(d / "ref.wav"))
 assert (codec.encode(resample(pcm, sr, 44100)) == np.load(d / "voice.npy")).all()
 tmp.cleanup()
+import importlib.util
+from fish_speech_tpu_torch.pipeline import TTSPipeline
+from fish_speech_tpu_torch import api
+from fish_speech_tpu_torch.server import core, main as server_main, voices
+from fish_speech_tpu_torch.audio import _natlib, decode, opus, webm
+from fish_speech_tpu_torch.cli import benchmark
+if importlib.util.find_spec("aiohttp") is not None:
+    from fish_speech_tpu_torch.server import app
+pipe = TTSPipeline(LMEngine(init_dual_ar_params(cfg, 0, torch.float32, "cpu"), cfg, tok,
+                            c.WhichLM.FISH_1_5, prompt_buckets=(32,), device="cpu"),
+                   codec, StandInTokenizer(), c.WhichLM.FISH_1_5, max_new_tokens=2)
+pipe.reroll_on_runaway = False
+st = core.AppState(pipe)
+req = core.SpeechRequest.parse({"input": "hi ."}, pipe.default_sampling)
+assert core.wav_bytes(st, core.wav_pcm(st, req))[:4] == b"RIFF"
+if opus.OggOpusEncoder.available():
+    assert b"".join(core.opus_body(st, req))[:4] == b"OggS"
 bad = sorted(m for m in sys.modules
              if m.split(".")[0].startswith("jax") or m.split(".")[0] == "fish_speech_tpu"
              or m.split(".")[0] in ("safetensors", "ml_dtypes", "tokenizers"))
@@ -152,7 +171,11 @@ def test_port_imports_no_jax_and_no_jax_package():
     machinery (quant, train/loss, audio/mel, utils/quality,
     utils/int8_policy), a checkpoint written and read back, the three
     CLIs (llama_generate on a checkpoint directory, the vocoder, the
-    encoder) and an encode, and holds no jax*, no fish_speech_tpu, no
+    encoder) and an encode, the serving surface (pipeline, api,
+    server.{core,app,main,voices}, audio.{_natlib,opus,decode,webm},
+    cli.benchmark; a TTSPipeline request through the server core to WAV
+    and, where the native library builds, to Ogg/Opus), and holds no
+    jax*, no fish_speech_tpu, no
     safetensors, no ml_dtypes and no tokenizers module: llama_generate
     reads its tokenizer through a stand-in with the methods PromptEncoder
     calls, as where the tokenizers package is missing."""
@@ -173,6 +196,16 @@ def test_no_jax_import_in_port_sources():
                 assert top != "fish_speech_tpu", f"{f}: {line}"
 
 
+def _tiny_codec_cfg():
+    """The fresh-interpreter script's tiny Firefly config."""
+    return tcfg.FireflyConfig(
+        head=tcfg.HiFiGANConfig(upsample_rates=(2,), upsample_kernel_sizes=(4,),
+                                resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1,),),
+                                num_mels=8, upsample_initial_channel=8),
+        quantizer=tcfg.DownsampleFSQConfig(input_dim=8, n_groups=2, downsample_factor=(2,)),
+        backbone=tcfg.BackboneConfig(depths=(1,), dims=(8,)))
+
+
 def _tiny():
     cfg = tcfg.DualARConfig(vocab_size=64, n_layer=1, n_fast_layer=1, n_head=2, dim=32,
                             intermediate_size=64, n_local_heads=1, head_dim=16, rope_base=1e4,
@@ -182,16 +215,21 @@ def _tiny():
 
 
 @pytest.mark.parametrize("entry", ["engine", "codec", "load_lm_params", "load_firefly_params",
-                                   "llama_generate", "vocoder", "encoder"])
+                                   "llama_generate", "vocoder", "encoder", "pipeline_load",
+                                   "api_lm", "api_codec", "server_main", "benchmark"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """With no device argument the entry points ask for CUDA, and raise
     where it is missing instead of falling back to the CPU: the engine,
-    the codec, both checkpoint loaders, and each CLI's main without
-    --device."""
+    the codec, both checkpoint loaders, each CLI's main without
+    --device, TTSPipeline.load, the API's LM and FireflyCodec, and the
+    server's main without --device."""
     if torch.cuda.is_available():
         pytest.skip("CUDA is present")
-    from fish_speech_tpu_torch.cli import encoder, llama_generate, vocoder
+    from fish_speech_tpu_torch import api
+    from fish_speech_tpu_torch.cli import benchmark, encoder, llama_generate, vocoder
     from fish_speech_tpu_torch.io.checkpoint import load_firefly_params, load_lm_params
+    from fish_speech_tpu_torch.pipeline import TTSPipeline
+    from fish_speech_tpu_torch.server import main as server_main
 
     cfg, tok = _tiny()
     ckpt = ["--checkpoint", str(tmp_path)]
@@ -204,9 +242,65 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         "llama_generate": lambda: llama_generate.main(ckpt + ["--text", "hi"]),
         "vocoder": lambda: vocoder.main(ckpt),
         "encoder": lambda: encoder.main(ckpt + ["--input", str(tmp_path / "x.wav")]),
+        "pipeline_load": lambda: TTSPipeline.load(tmp_path, tcfg.WhichModel.FISH_1_5),
+        "api_lm": lambda: api.LM(tmp_path),
+        "api_codec": lambda: api.FireflyCodec(tmp_path),
+        "server_main": lambda: server_main.main(ckpt),
+        "benchmark": lambda: benchmark.main([]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
+
+
+def test_server_main_builds_on_the_cpu_when_asked(tmp_path, monkeypatch):
+    """`--device cpu` takes the server's main past the device check: a
+    checkpoint directory (a stand-in tokenizer where the tokenizers
+    package would read tokenizer.json) and a voices directory become the
+    served state, with a 2-row batcher, warmed; serve is not entered."""
+    import json
+    import re
+    import types
+
+    from fish_speech_tpu_torch.cli import llama_generate
+    from fish_speech_tpu_torch.io.checkpoint import save_firefly_params, save_lm_params
+    from fish_speech_tpu_torch.models.codec.firefly import init_firefly_params
+    from fish_speech_tpu_torch.server import app, main as server_main
+
+    cfg, tok = _tiny()
+    cfg = dataclasses.replace(cfg, max_seq_len=64)
+    vocab = {"<|im_start|>": 3, "<|im_end|>": 1, "<|semantic|>": 2, "<|voice|>": 4,
+             **{f"<|semantic:{i}|>": 10 + i for i in range(8)}}
+    stand_in = types.SimpleNamespace(
+        token_to_id=vocab.get,
+        encode=lambda text, add_special_tokens=False: types.SimpleNamespace(ids=[
+            vocab.get(w, 20 + len(w)) for w in re.findall(r"<\|[^|]*\|>|\w+|[^\w\s]", text)]))
+    monkeypatch.setattr(llama_generate, "load_tokenizer", lambda path: stand_in)
+    fc = _tiny_codec_cfg()
+    monkeypatch.setattr(tcfg.FireflyConfig, "for_version", staticmethod(lambda v: fc))
+    save_lm_params(tmp_path / "model.safetensors", init_dual_ar_params(cfg, 0, torch.float32,
+                                                                       "cpu"), cfg)
+    (tmp_path / "config.json").write_text(json.dumps(dataclasses.asdict(cfg)))
+    save_firefly_params(tmp_path / "firefly-gan-vq-fsq-8x1024-21hz-generator.safetensors",
+                        init_firefly_params(fc, 1, torch.float32, "cpu"), fc)
+    voices = tmp_path / "voices"
+    voices.mkdir()
+    np.save(voices / "default.npy", np.zeros((2, 3), np.uint32))
+    (voices / "index.json").write_text(json.dumps({"speakers": {"default": "hi"}}))
+    served = []
+    monkeypatch.setattr(app, "serve", lambda state, port: served.append(state))
+    server_main.main(["--checkpoint", str(tmp_path), "--voice-dir", str(voices), "--device",
+                      "cpu", "--continuous-batch", "2", "--warmup", "--no-quantize-int8",
+                      "--max-new-tokens", "3", "--temp", "0"])
+    (state,) = served
+    try:
+        assert state.pipeline.engine.device.type == "cpu" and state.batcher is not None
+        assert sorted(state.voices) == ["default"] and state.pipeline.default_sampling.temp == 0
+        t0 = time.perf_counter()  # the warm-up request's row is released by the scheduler
+        while not all(s is None for s in state.batcher.rows):
+            assert time.perf_counter() - t0 < 60
+            time.sleep(0.01)
+    finally:
+        state.batcher.shutdown()
 
 
 def test_packages_the_port_does_not_need():
