@@ -185,6 +185,39 @@ per phase, each with the seconds since start:
               kernels each route launched; requests/s, frames/s, client
               RTF and TTFA p50/p95, the Opus host ms a chunk, the
               cancel-to-free seconds and whether libfishaudio.so built;
+     versions every other model family at full width on random bf16
+              weights, one at a time (each freed before the next): Fish
+              1.2 (its published config, the non-causal Firefly-1.2
+              codec), Fish 1.4 (stand-in widths: the 1.2 backbone with 8
+              codebooks of 1024; the streaming Firefly-1.4 codec) and
+              DualAR (stand-in widths: the 1.5 backbone, depthwise
+              embeddings and heads, 8 codebooks of 2048, a vocab holding
+              the stand-in tokenizer's 2048 semantic ids; Mimi at
+              kyutai/mimi's widths, float32, its random weights written
+              in transformers' names and read back through the port's
+              loader); the stand-ins because no Fish 1.4 or smoltts
+              config.json is in the repo. For each: the persistent slow
+              step (batch 1, the 2-column [PAD, <|im_end|>] head of Fish
+              <= 1.4 or DualAR's 2049 columns), the row kernel (16 rows),
+              the batch-1 fast frame (V = 2048 takes the sampler's two
+              items a thread) and the batched frame (16 rows; C = 4 for
+              Fish 1.2; depthwise for DualAR), on the engines and
+              weights that version's path runs, through the kernels
+              phase's checks (plans, contracts, bounds and times at
+              these shapes; where the weights carry the PAD bias in
+              hidden dimension 0, the hidden held over the others and a
+              2-column head's logits pooled over every row of every
+              case; for DualAR also on int8 stacks, the kernels' int8
+              bodies at V = 2048); batch 1 on `auto` (40
+              tokens, 64 frames, the legacy PAD/EOS draw for Fish <= 1.4,
+              DualAR's codebook rep-pen off) vocoded to a WAV, 8 frames on the
+              unfused path (decode attention); 8 requests through
+              TTSPipeline.create_batcher(16, 16) (the central vocoder
+              for 1.4 and DualAR, clients decoding for 1.2), two seeded,
+              each equal alone; frames/s and RTF p50; for DualAR, Mimi's
+              card decode within 1e-4 of the CPU's, its stream in uneven
+              pieces within 1e-4 of its batch decode, decode_step timed,
+              and generate_vocode_overlapped with Mimi (chunk 64);
   7. int8     the int8 proxy of bench.py --int8-proxy at full size on the
               same weights: teacher-forced and free-running agreement of
               the int8 and bf16 engines, mel-L1 and SNR of the two
@@ -195,7 +228,10 @@ per phase, each with the seconds since start:
 
 The kernel launch counts are read around the run of the path that
 launches the kernel: the bf16 kernels in the bf16 runs, the int8 bodies
-(each wrapper's int8_launches) in the int8 runs.
+(each wrapper's int8_launches) in the int8 runs; each bf16 kernel's
+entry also carries its launches on each version's paths
+(`version_launches`), and each kernel its errors, times and bounds at
+each version's shapes where that version runs it (`versions`).
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}. Without CUDA, or
@@ -696,6 +732,16 @@ def layer_bytes(cfg, int8: bool) -> int:
     return (layer_elems(cfg) - 2 * d) + 2 * (qkv + d + 2 * f + d) + 2 * 2 * d
 
 
+def fast_weight_bytes(cfg, int8: bool):
+    """(bytes of the fast stack's weights, bytes one codebook step reads
+    of them): the layers (int8 ones with their scales), the final norm
+    and the head, which under depthwise_output is a d x V slice a step."""
+    d, v = cfg.dim, cfg.codebook_size
+    step = cfg.n_fast_layer * layer_bytes(cfg, int8) + 2 * (d + d * v)
+    heads = cfg.num_codebooks if cfg.depthwise_output else 1
+    return step + (heads - 1) * 2 * d * v, step
+
+
 def is_int8(engine) -> bool:
     from fish_speech_tpu_torch.ops.quant import is_quantized
 
@@ -734,13 +780,77 @@ def as_accurate(name: str, got, plain, ref):
     return err_k, err_p
 
 
-def check_slow_step(torch, engine, params32, main_pos: int):
+# Fish <= 1.4's head gathers [PAD, <|im_end|>]: too few logits a row for
+# their largest distance to a float32 evaluation to say anything case by
+# case, so a head of fewer columns is held over every row of every case
+SMALL_HEAD = 64
+# version_params' embedding dimension 0 for Fish <= 1.4: PAD's head column
+# reads it alone, so PAD wins the random PAD/EOS draw on random weights
+PAD_BIAS = 30.0
+
+
+def held_dims(params) -> int:
+    """The first hidden dimension held to the plain version's largest
+    distance: 1 where the weights carry PAD_BIAS in dimension 0 (a value
+    of ~30 among ~1, whose own bf16 roundings set the largest distance of
+    every case; it reaches the PAD logit, held pooled), else 0."""
+    return int(bool((params["embeddings"][:, 0] == PAD_BIAS).all()))
+
+
+def step_errors(torch, what: str, outs, caches, rows, p, h0: int, pool: list) -> dict:
+    """One slow step against the plain version's distance to a float32
+    evaluation (`as_accurate`). outs: (logits, hidden) of the kernel, the
+    plain version and the float32 evaluation; caches: their (k, v). The
+    hidden over dimensions h0 on (`held_dims`; dimension 0's distances are
+    reported), each row's new K/V rows, the logits, or for a head of fewer
+    than SMALL_HEAD columns their triple appended to `pool`
+    (`pooled_logits`); the other cache rows bit-equal. Returns {part:
+    (kernel, plain)}."""
+    (got_l, got_h), (pl_l, pl_h), (ref_l, ref_h) = outs
+    (ck, cv), (ckp, cvp), (ck32, cv32) = caches
+    errs = {}
+    if got_l.shape[-1] >= SMALL_HEAD:
+        errs["logits"] = as_accurate(f"{what} logits", got_l, pl_l, ref_l)
+    else:
+        pool.append((got_l, pl_l, ref_l))
+    errs["hidden"] = as_accurate(f"{what} hidden" + (" dims 1.." if h0 else ""),
+                                 got_h[:, h0:], pl_h[:, h0:], ref_h[:, h0:])
+    if h0:
+        errs["hidden dim 0 (reported)"] = tuple(
+            float((t[:, 0].float() - ref_h[:, 0]).abs().max()) for t in (got_h, pl_h))
+    errs["new k rows"] = as_accurate(f"{what} new k rows", ck[:, rows, :, p], ckp[:, rows, :, p],
+                                     ck32[:, rows, :, p])
+    errs["new v rows"] = as_accurate(f"{what} new v rows", cv[:, rows, :, p], cvp[:, rows, :, p],
+                                     cv32[:, rows, :, p])
+    for kv_name, got_c, pl_c in (("k", ck, ckp), ("v", cv, cvp)):
+        rest = got_c.clone()
+        rest[:, rows, :, p] = pl_c[:, rows, :, p]
+        check(torch.equal(rest, pl_c), f"{what}: {kv_name} cache rows other than pos changed")
+    return errs
+
+
+def pooled_logits(torch, what: str, pool: list, phase: str):
+    """A small head's logits (`step_errors`) over every row of every case
+    at once against the plain version's distance to the float32
+    evaluation. Returns (kernel, plain), or None for an empty pool."""
+    if not pool:
+        return None
+    got, plain, ref = (torch.cat([c[i].float() for c in pool]) for i in range(3))
+    errs = as_accurate(f"{what} logits pooled over {got.shape[0]} rows", got, plain, ref)
+    log(phase, f"{what}: logits of the {got.shape[1]}-column head pooled over {got.shape[0]} "
+        f"rows, max abs distance to the float32 evaluation, kernel {errs[0]:.4e} | plain "
+        f"{errs[1]:.4e}")
+    return errs
+
+
+def check_slow_step(torch, engine, params32, main_pos: int, label: str = ""):
     from fish_speech_tpu_torch.ops import decode_stack as ds
     from fish_speech_tpu_torch.ops import slow_step as ss
 
     cfg, params, rope = engine.cfg, engine.params, engine.rope
     int8 = is_int8(engine)
     name = "fused_slow_step_int8" if int8 else "fused_slow_step"
+    tag, phase = (f"{label}: {name}", "versions") if label else (name, "kernels")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(99)
@@ -754,39 +864,33 @@ def check_slow_step(torch, engine, params32, main_pos: int):
         return (params["embeddings"][ids].contiguous(),
                 torch.tensor(positions, dtype=torch.int32, device=dev), rnd(), rnd())
 
-    worst = {}
-    for positions in ((0,), (1,), (104,), (s - 1,), (0, 1), (104, s - 1)):
+    worst, pool, h0 = {}, [], held_dims(params)
+    for positions in ((0,), (1,), (104,), (s - 1,), (0, 1), (104, s - 1), (3, 40, 200, s - 1)):
         x0, pos, ck, cv = inputs(positions)
         ckp, cvp, ck32, cv32 = ck.clone(), cv.clone(), ck.float(), cv.float()
         got_l, got_h = ss.fused_slow_step(params, cfg, x0, pos, ck, cv, rope)
         pl_l, pl_h = ss.fused_slow_step_plain(params, cfg, x0, pos, ckp, cvp, rope)
         ref_l, ref_h = ss.fused_slow_step_plain(params32, cfg, x0.float(), pos, ck32, cv32, rope)
         torch.cuda.synchronize()
-        what = f"{name} pos={positions}"
+        what = f"{tag} pos={positions}"
         check(bool(torch.isfinite(got_l).all()), f"{what}: non-finite logits")
         rows, p = torch.arange(len(positions), device=dev), pos.long()
-        errs = {
-            "logits": as_accurate(f"{what} logits", got_l, pl_l, ref_l),
-            "hidden": as_accurate(f"{what} hidden", got_h, pl_h, ref_h),
-            "new k rows": as_accurate(f"{what} new k rows", ck[:, rows, :, p], ckp[:, rows, :, p],
-                                      ck32[:, rows, :, p]),
-            "new v rows": as_accurate(f"{what} new v rows", cv[:, rows, :, p], cvp[:, rows, :, p],
-                                      cv32[:, rows, :, p]),
-        }
-        for kv_name, got_c, pl_c in (("k", ck, ckp), ("v", cv, cvp)):
-            rest = got_c.clone()
-            rest[:, rows, :, p] = pl_c[:, rows, :, p]
-            check(torch.equal(rest, pl_c), f"{what}: {kv_name} cache rows other than pos changed")
+        errs = step_errors(torch, what, ((got_l, got_h), (pl_l, pl_h), (ref_l, ref_h)),
+                           ((ck, cv), (ckp, cvp), (ck32, cv32)), rows, p, h0, pool)
         vs_plain = float((got_l - pl_l).abs().max())
         h_ulp, _ = within_ulp(torch, got_h, pl_h)
         argmax = [got_l.argmax(-1).tolist(), pl_l.argmax(-1).tolist(), ref_l.argmax(-1).tolist()]
         for k, v in errs.items():
             worst[k] = max(worst.get(k, (0.0, 0.0)), v)
         worst["vs_plain"] = max(worst.get("vs_plain", 0.0), vs_plain)
-        log("kernels", f"{what}: max abs distance to the float32 evaluation, kernel | plain: "
+        log(phase, f"{what}: max abs distance to the float32 evaluation, kernel | plain: "
             + ", ".join(f"{k} {a:.4f} | {b:.4f}" for k, (a, b) in errs.items())
             + f"; other cache rows bit-equal; kernel vs plain: logits {vs_plain:.4f}, hidden "
             f"{h_ulp:.0f} bf16 ulp at worst; argmax kernel/plain/float32 {argmax}")
+
+    small = pooled_logits(torch, tag, pool, phase)
+    if small is not None:
+        worst["logits"] = small
 
     # how far one rounding flip spreads: one layer, kernel vs plain
     one = dataclasses.replace(cfg, n_layer=1)
@@ -798,7 +902,7 @@ def check_slow_step(torch, engine, params32, main_pos: int):
         got_h = ss.fused_slow_step(one_params, one, x0, pos, ck, cv, rope)[1]
         pl_h = ss.fused_slow_step_plain(one_params, one, x0, pos, ck.clone(), cv.clone(), rope)[1]
         spread.append(int((got_h != pl_h).sum()))
-    log("kernels", f"{name}, one layer at pos {main_pos}, 4 inputs: hidden elements "
+    log(phase, f"{tag}, one layer at pos {main_pos}, 4 inputs: hidden elements "
         f"differing from the plain version {spread} of {cfg.dim}")
 
     x0, pos, ck, cv = inputs((main_pos,))
@@ -821,7 +925,7 @@ def check_slow_step(torch, engine, params32, main_pos: int):
         return (*bound(nbytes, flops), nbytes)
 
     bound_ms, bound_by, nbytes = step_bound(main_pos)
-    log("kernels", f"{name} B=1 pos={main_pos}: kernel {ms:.4f} ms (eager call "
+    log(phase, f"{tag} B=1 pos={main_pos}: kernel {ms:.4f} ms (eager call "
         f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, "
         f"{nbytes / 1e6:.1f} MB)")
     # long caches: the last position at which each block computes every
@@ -835,9 +939,9 @@ def check_slow_step(torch, engine, params32, main_pos: int):
             torch, lambda: ss.fused_slow_step(params, cfg, x0l, posl, ckl, cvl, rope),
             calls=20, replays=5)
         b_ms = step_bound(p_long)[0]
-        log("kernels", f"{name} B=1 pos={p_long}: kernel {long_ms[p_long]:.4f} ms, bound "
+        log(phase, f"{tag} B=1 pos={p_long}: kernel {long_ms[p_long]:.4f} ms, bound "
             f"{b_ms:.6f} ms ({100 * b_ms / long_ms[p_long]:.1f}% of it)")
-    contract = check_stack_contract(torch, engine, False, name, ms, bound_ms)
+    contract = check_stack_contract(torch, engine, False, tag, ms, bound_ms, phase)
     return {**contract,
         "name": name, "route": "cuda",
         "source": "fish_speech_tpu_torch/csrc/slow_step.cu",
@@ -852,7 +956,8 @@ def check_slow_step(torch, engine, params32, main_pos: int):
     }
 
 
-def check_stack_contract(torch, engine, fast: bool, name: str, ms: float, bound_ms: float) -> dict:
+def check_stack_contract(torch, engine, fast: bool, name: str, ms: float, bound_ms: float,
+                         phase: str = "kernels") -> dict:
     """The persistent kernel's contract on the card (csrc/decode_stack.cuh):
     its plan as built equals ops/decode_stack.py's mirror; one launch a
     call (a fast frame: a persistent and a sampler launch a codebook step)
@@ -889,7 +994,7 @@ def check_stack_contract(torch, engine, fast: bool, name: str, ms: float, bound_
 
         def call():
             return ff.fused_fast_frame(params, cfg, sampling, hidden, window, gumbel, eos, rope,
-                                       rep_enabled=True, return_logits=True)
+                                       rep_enabled=not cfg.depthwise_wte, return_logits=True)
         counter = ff
     else:
         head_cols, s = params["output"].shape[1], engine.cache_len
@@ -973,7 +1078,7 @@ def check_stack_contract(torch, engine, fast: bool, name: str, ms: float, bound_
                   and torch.equal(one[3][:, 0], four[3][:, r]),
                   f"{name}: row {r} (pos {positions[r]}) alone differs from the same row among 4")
         alone = "; each of 4 rows (pos 104, 3, cache-1, 40) alone bit-equal to itself among 4"
-    log("kernels", f"{name} persistent kernel: plan on the card equal to the mirror (grid "
+    log(phase, f"{name} persistent kernel: plan on the card equal to the mirror (grid "
         f"{mirror.grid} x {ds.BLOCK_THREADS} threads, {mirror.smem} B of shared memory a block, "
         f"ring of {mirror.stages} stages x {ds.THREADS * mirror.piece_bytes} B, QKV {mirror.qkv_tiles}"
         f"x{mirror.qkv_splits} units, attention+wo {mirror.attn_units}, w1/w3+w2 "
@@ -1023,7 +1128,7 @@ def log_top_kernels(phase: str, kernels, n: int, unit: str, top: int = 8) -> Non
             f"{e.count / n:6.1f}x  {e.key[:90]}")
 
 
-def check_slow_step_rows(torch, engine, params32) -> dict:
+def check_slow_step_rows(torch, engine, params32, label: str = "") -> dict:
     """The fused slow step's row kernel (csrc/slow_step_rows.cu, one
     persistent launch a group of 32 rows), which the serving engine's
     `auto` runs at 16 rows: its plan as built against the mirror
@@ -1045,6 +1150,7 @@ def check_slow_step_rows(torch, engine, params32) -> dict:
     cfg, params, rope = engine.cfg, engine.params, engine.rope
     int8 = is_int8(engine)
     name = "slow_step_rows_int8" if int8 else "slow_step_rows"
+    tag, phase = (f"{label}: {name}", "versions") if label else (name, "kernels")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(77)
@@ -1054,14 +1160,14 @@ def check_slow_step_rows(torch, engine, params32) -> dict:
     check(head_rows is not None and tuple(head_rows.shape) == (cfg.dim, ss.head_stride(head_cols))
           and torch.equal(head_rows[:, :head_cols], params["output"])
           and not bool(head_rows[:, head_cols:].any()),
-          f"{name}: the engine's padded head {None if head_rows is None else head_rows.shape}")
+          f"{tag}: the engine's padded head {None if head_rows is None else head_rows.shape}")
     plans = {}
     for s_len in (SERVE_CACHE, 256, 2048):
         mirror = ss.rows_plan(cfg, head_cols, s_len, int8, ds.grid_of(dev))
         card = ds.rows_plan_on_card(cfg.dim, cfg.n_head, kv, cfg.intermediate_size, head_cols,
                                     s_len, int8)
         check(mirror is not None and card == mirror,
-              f"{name}: the plan on the card {card} differs from the mirror {mirror} at cache "
+              f"{tag}: the plan on the card {card} differs from the mirror {mirror} at cache "
               f"{s_len}")
         plans[s_len] = mirror
     plan = plans[SERVE_CACHE]
@@ -1076,7 +1182,7 @@ def check_slow_step_rows(torch, engine, params32) -> dict:
         return (params["embeddings"][ids].contiguous(),
                 torch.as_tensor(positions, device=dev).to(torch.int32), rnd(), rnd())
 
-    worst = {}
+    worst, pool, h0 = {}, [], held_dims(params)
     # serving; one group of 32; two groups; and 8 rows of a cache whose
     # keys past 1024 lie beyond the first 4 steps of a rank's tiles
     cases = ((16, SERVE_CACHE, None), (32, 256, [(37 * i + 5) % 256 for i in range(31)] + [255]),
@@ -1095,7 +1201,7 @@ def check_slow_step_rows(torch, engine, params32) -> dict:
         pl_l, pl_h = ss.fused_slow_step_plain(params, cfg, x0, pos, ckp, cvp, rope)
         ref_l, ref_h = ss.fused_slow_step_plain(params32, cfg, x0.float(), pos, ck32, cv32, rope)
         torch.cuda.synchronize()
-        what = f"{name} B={b} cache {s}"
+        what = f"{tag} B={b} cache {s}"
         want = ss.rows_launches_per_step(n_layer, b)
         check(launched == want and launched8 == (want if int8 else 0) and counted == want,
               f"{what}: the C entry counted {launched} launches ({launched8} int8), the kernel "
@@ -1107,28 +1213,22 @@ def check_slow_step_rows(torch, engine, params32) -> dict:
         check(tuple(got_l.shape) == (b, head_cols) and bool(torch.isfinite(got_l).all()),
               f"{what}: logits {tuple(got_l.shape)} not finite or misshaped")
         rows, p = torch.arange(b, device=dev), pos.long()
-        errs = {
-            "logits": as_accurate(f"{what} logits", got_l, pl_l, ref_l),
-            "hidden": as_accurate(f"{what} hidden", got_h, pl_h, ref_h),
-            "new k rows": as_accurate(f"{what} new k rows", ck[:, rows, :, p], ckp[:, rows, :, p],
-                                      ck32[:, rows, :, p]),
-            "new v rows": as_accurate(f"{what} new v rows", cv[:, rows, :, p], cvp[:, rows, :, p],
-                                      cv32[:, rows, :, p]),
-        }
-        for kv_name, got_c, pl_c in (("k", ck, ckp), ("v", cv, cvp)):
-            rest = got_c.clone()
-            rest[:, rows, :, p] = pl_c[:, rows, :, p]
-            check(torch.equal(rest, pl_c), f"{what}: {kv_name} cache rows other than pos changed")
+        errs = step_errors(torch, what, ((got_l, got_h), (pl_l, pl_h), (ref_l, ref_h)),
+                           ((ck, cv), (ckp, cvp), (ck32, cv32)), rows, p, h0, pool)
         vs_plain = float((got_l - pl_l).abs().max())
         for k, v in errs.items():
             worst[k] = max(worst.get(k, (0.0, 0.0)), v)
         worst["vs_plain"] = max(worst.get("vs_plain", 0.0), vs_plain)
-        log("kernels", f"{what}: {launched} launches (one a group of <= {ss.ROWS_GROUP} rows, "
+        log(phase, f"{what}: {launched} launches (one a group of <= {ss.ROWS_GROUP} rows, "
             f"counted by the C entry and by the kernel), {card_syncs} grid syncs and "
             f"{card_exchanges} head exchanges a launch (counted by the kernel); max abs distance "
             "to the float32 evaluation, kernel | plain: "
             + ", ".join(f"{k} {a:.4f} | {c:.4f}" for k, (a, c) in errs.items())
             + f"; other cache rows bit-equal; kernel vs plain: logits {vs_plain:.4f}")
+
+    small = pooled_logits(torch, tag, pool, phase)
+    if small is not None:
+        worst["logits"] = small
 
     # a row alone through the same kernel, bit-equal to itself among 16
     x0, pos, ck, cv = inputs(SERVE_ROWS, SERVE_CACHE)
@@ -1140,8 +1240,8 @@ def check_slow_step_rows(torch, engine, params32) -> dict:
                               rope, head_rows=head_rows)
         check(torch.equal(l1[0], l16[r]) and torch.equal(h1[0], h16[r])
               and torch.equal(k1[:, 0], k16[:, r]) and torch.equal(v1[:, 0], v16[:, r]),
-              f"{name}: row {r} (pos {int(pos[r])}) alone differs from the same row among 16")
-    log("kernels", f"{name}: each of {SERVE_ROWS} rows alone bit-equal to itself among "
+              f"{tag}: row {r} (pos {int(pos[r])}) alone differs from the same row among 16")
+    log(phase, f"{tag}: each of {SERVE_ROWS} rows alone bit-equal to itself among "
         f"{SERVE_ROWS} (logits, hidden, its cache rows)")
 
     kernel = lambda: ss.fused_slow_step(params, cfg, x0, pos, ck, cv, rope,  # noqa: E731
@@ -1164,7 +1264,7 @@ def check_slow_step_rows(torch, engine, params32) -> dict:
         times[b] = device_ms(torch, lambda: ss.fused_slow_step(
             params, cfg, xb, posb, ckb, cvb, rope, head_rows=head_rows), calls=5, replays=3)
         b_ms = rows_bound(cfg, int8, head_cols, posb.tolist())[0]
-        log("kernels", f"{name} B={b} cache {s}: kernel {times[b]:.4f} ms, bound {b_ms:.6f} ms "
+        log(phase, f"{tag} B={b} cache {s}: kernel {times[b]:.4f} ms, bound {b_ms:.6f} ms "
             f"({100 * b_ms / times[b]:.1f}% of it)")
     # where a step's device time goes, by kernel
     from torch.profiler import ProfilerActivity, profile
@@ -1173,16 +1273,16 @@ def check_slow_step_rows(torch, engine, params32) -> dict:
         for _ in range(3):
             kernel()
         torch.cuda.synchronize()
-    log("kernels", f"{name} B={SERVE_ROWS}: a step's kernels under torch.profiler (3 steps):")
+    log(phase, f"{tag} B={SERVE_ROWS}: a step's kernels under torch.profiler (3 steps):")
     log_top_kernels("kernels", device_kernels(prof), 3, "step", top=6)
     per_step = ss.rows_launches_per_step(n_layer, SERVE_ROWS)
-    log("kernels", f"{name} row kernel: plan on the card equal to the mirror at caches "
+    log(phase, f"{tag} row kernel: plan on the card equal to the mirror at caches "
         f"{sorted(plans)} (grid {plan.grid} x {ds.BLOCK_THREADS} threads, {plan.smem} B of shared "
         f"memory a block, ring of {plan.stages} stages x {plan.stage_bytes} B, QKV "
         f"{plan.qkv_tiles}x{plan.qkv_splits} units, attention+wo {plan.attn_units} "
         f"({plan.attn_ranks} ranks a row), w1/w3+w2 {plan.sw_units} ({plan.sw_split}-way "
         f"K-split), {plan.owners} owners of x)")
-    log("kernels", f"{name} B={SERVE_ROWS} cache {SERVE_CACHE} pos 39-167 ({n_layer} layers, "
+    log(phase, f"{tag} B={SERVE_ROWS} cache {SERVE_CACHE} pos 39-167 ({n_layer} layers, "
         f"{'int8' if int8 else 'bf16'}, {per_step} launch a step, {syncs} grid syncs): kernel "
         f"{ms:.4f} ms (eager call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, unfused step "
         f"(slow_decode_step) {unfused_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, "
@@ -1225,17 +1325,19 @@ def exact_fast_params(torch, params, cfg):
     return out
 
 
-def check_fast_frame(torch, engine, params32):
+def check_fast_frame(torch, engine, params32, label: str = ""):
     from fish_speech_tpu_torch.ops import fast_frame as ff
     from fish_speech_tpu_torch.ops.sampling import SamplingArgs, gumbel_noise, top_k_width
 
     cfg, params, rope = engine.cfg, engine.params, engine.rope
     int8 = is_int8(engine)
     name = "fused_fast_frame_int8" if int8 else "fused_fast_frame"
+    tag, phase = (f"{label}: {name}", "versions") if label else (name, "kernels")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(77)
     n_cb, vocab, d = cfg.num_codebooks, cfg.codebook_size, cfg.dim
+    rep = not cfg.depthwise_wte  # the codebook rep-pen, off under depthwise_wte as engines run it
 
     def inputs(sampling, eos=False, one_hot=False):
         if one_hot:
@@ -1254,29 +1356,29 @@ def check_fast_frame(torch, engine, params32):
     # 1. tokens exactly equal where every sum is exact
     exact = exact_fast_params(torch, params, cfg)
     sampled = SamplingArgs(**SAMPLING)
-    cases = (("sampled", sampled, True, False, FAST_FRAMES),
+    cases = (("sampled", sampled, rep, False, FAST_FRAMES),
              ("argmax", SamplingArgs(temp=0.0, top_p=1.0, top_k=vocab,
-                                     repetition_penalty=1.4), True, False, 8),
+                                     repetition_penalty=1.4), rep, False, 8),
              ("no rep-pen", SamplingArgs(temp=0.7, top_p=0.8, top_k=256,
                                          repetition_penalty=1.0), False, False, 8),
-             ("is_eos", sampled, True, True, 4))
-    for case, sampling, rep, eos, frames in cases:
+             ("is_eos", sampled, rep, True, 4))
+    for case, sampling, case_rep, eos, frames in cases:
         n_diff = n_tied = 0
         for _ in range(frames):
             hidden, window, gumbel, is_eos = inputs(sampling, eos, one_hot=True)
             got, got_l = ff.fused_fast_frame(exact, cfg, sampling, hidden, window, gumbel, is_eos,
-                                             rope, rep_enabled=rep, return_logits=True)
+                                             rope, rep_enabled=case_rep, return_logits=True)
             ref, ref_l = ff.fused_fast_frame_plain(exact, cfg, sampling, hidden, window, gumbel,
-                                                   is_eos, rope, rep_enabled=rep,
+                                                   is_eos, rope, rep_enabled=case_rep,
                                                    return_logits=True)
-            check(torch.equal(got_l, ref_l), f"{name} {case}: exact logits differ")
+            check(torch.equal(got_l, ref_l), f"{tag} {case}: exact logits differ")
             n_diff += int((got != ref).sum())
             n_tied += sum(vocab - len(torch.unique(row)) for row in ref_l)
             if eos:
-                check(not bool(got.any()), f"{name} is_eos: tokens are not all 0")
-        check(n_diff == 0, f"{name} {case}: {n_diff} of {frames * n_cb} tokens "
+                check(not bool(got.any()), f"{tag} is_eos: tokens are not all 0")
+        check(n_diff == 0, f"{tag} {case}: {n_diff} of {frames * n_cb} tokens "
               f"differ from the plain version")
-        log("kernels", f"{name} exact inputs, {case} ({sampling}, rep_enabled={rep}): "
+        log(phase, f"{tag} exact inputs, {case} ({sampling}, rep_enabled={case_rep}): "
             f"{frames * n_cb} tokens over {frames} frames equal to the plain version "
             f"(logits bit-equal, {n_tied} tied logit values)")
 
@@ -1288,10 +1390,10 @@ def check_fast_frame(torch, engine, params32):
     for _ in range(FAST_FRAMES):
         hidden, window, _, is_eos = inputs(argmax)
         args = (cfg, argmax, hidden, window, None, is_eos, rope)
-        tk, lk = ff.fused_fast_frame(params, *args, rep_enabled=True, return_logits=True)
-        tp, lp = ff.fused_fast_frame_plain(params, *args, rep_enabled=True, return_logits=True)
+        tk, lk = ff.fused_fast_frame(params, *args, rep_enabled=rep, return_logits=True)
+        tp, lp = ff.fused_fast_frame_plain(params, *args, rep_enabled=rep, return_logits=True)
         tr, lr = ff.fused_fast_frame_plain(params32, cfg, argmax, hidden.float(), window, None,
-                                           is_eos, rope, rep_enabled=True, return_logits=True)
+                                           is_eos, rope, rep_enabled=rep, return_logits=True)
         differ = ((tk != tp) | (tk != tr)).nonzero()
         n = n_cb if len(differ) == 0 else int(differ[0]) + 1
         steps += n
@@ -1300,9 +1402,9 @@ def check_fast_frame(torch, engine, params32):
         err_p = max(err_p, float((lp[:n] - lr[:n]).abs().max()))
         vs_plain = max(vs_plain, float((lk[:n] - lp[:n]).abs().max()))
     check(err_k <= ACCURACY_FACTOR * err_p + 1e-6,
-          f"{name} step logits: {err_k:.4e} from the float32 evaluation, plain "
+          f"{tag} step logits: {err_k:.4e} from the float32 evaluation, plain "
           f"version {err_p:.4e}")
-    log("kernels", f"{name} full weights, argmax, {FAST_FRAMES} frames: step logits "
+    log(phase, f"{tag} full weights, argmax, {FAST_FRAMES} frames: step logits "
         f"over {steps} steps, max abs distance to the float32 evaluation kernel {err_k:.4f} | "
         f"plain {err_p:.4f}, kernel vs plain {vs_plain:.4f}; tokens equal to the plain "
         f"version {same_tokens} of {FAST_FRAMES * n_cb}")
@@ -1312,42 +1414,42 @@ def check_fast_frame(torch, engine, params32):
     same_kp = same_pr = 0
     for _ in range(8):
         args = (cfg, sampled, *inputs(sampled), rope)
-        tk = ff.fused_fast_frame(params, *args, rep_enabled=True)
-        tp = ff.fused_fast_frame_plain(params, *args, rep_enabled=True)
+        tk = ff.fused_fast_frame(params, *args, rep_enabled=rep)
+        tp = ff.fused_fast_frame_plain(params, *args, rep_enabled=rep)
         h, w, g, e, _ = args[2:]
         tr = ff.fused_fast_frame_plain(params32, cfg, sampled, h.float(), w, g, e, rope,
-                                       rep_enabled=True)
+                                       rep_enabled=rep)
         same_kp += int((tk == tp).sum())
         same_pr += int((tp == tr).sum())
-    log("kernels", f"{name} full weights, sampled, 8 frames: tokens equal kernel vs "
+    log(phase, f"{tag} full weights, sampled, 8 frames: tokens equal kernel vs "
         f"plain {same_kp} of {8 * n_cb}, plain vs float32 evaluation {same_pr} of {8 * n_cb}")
 
     hidden, window, gumbel, is_eos = inputs(sampled)
     kernel = lambda: ff.fused_fast_frame(params, cfg, sampled, hidden, window, gumbel,  # noqa: E731
-                                         is_eos, rope, rep_enabled=True)
+                                         is_eos, rope, rep_enabled=rep)
     ms = device_ms(torch, kernel, calls=10, replays=5)
     call_ms = eager_ms(torch, kernel, 20)
     plain_ms = device_ms(
         torch, lambda: ff.fused_fast_frame_plain(params, cfg, sampled, hidden, window, gumbel,
-                                                 is_eos, rope, rep_enabled=True),
+                                                 is_eos, rope, rep_enabled=rep),
         calls=2, replays=3)
     n_layer, k_eff = cfg.n_fast_layer, gumbel.shape[1]
     weights = n_layer * layer_elems(cfg) + d + d * vocab
-    wbytes = n_layer * layer_bytes(cfg, int8) + 2 * (d + d * vocab)
+    wbytes, step_bytes = fast_weight_bytes(cfg, int8)
     # read once: the weights (int8 ones with their scales) and head,
     # hidden, the C-1 embedding rows gathered, windows, noise, is_eos;
-    # written: the C tokens. The re-read floor streams the weights and
-    # head at every step.
+    # written: the C tokens. The re-read floor streams a step's weights
+    # and head at every step.
     once = wbytes + 2 * d + 2 * d * (n_cb - 1) + 4 * n_cb * 16 + 4 * n_cb * k_eff + 1 + 4 * n_cb
-    reread = once + (n_cb - 1) * wbytes
+    reread = once + n_cb * step_bytes - wbytes
     flops = n_cb * 2 * (weights - (2 * n_layer + 1) * d)
     bound_ms, bound_by = bound(once, flops)
     reread_ms, _ = bound(reread, flops)
-    log("kernels", f"{name} ({n_cb} steps x {n_layer} layers): kernel {ms:.4f} ms "
+    log(phase, f"{tag} ({n_cb} steps x {n_layer} layers): kernel {ms:.4f} ms "
         f"(eager call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
         f"({bound_by}, read once, {once / 1e6:.1f} MB), re-read floor {reread_ms:.6f} ms "
         f"({reread / 1e6:.1f} MB)")
-    contract = check_stack_contract(torch, engine, True, name, ms, reread_ms)
+    contract = check_stack_contract(torch, engine, True, tag, ms, reread_ms, phase)
     return {**contract,
         "name": name, "route": "cuda",
         "source": "fish_speech_tpu_torch/csrc/fast_frame.cu",
@@ -1368,7 +1470,7 @@ def batched_inputs(torch, cfg, gen, b: int, k_dyn: int, mode: str, one_hot: bool
     (rows differ in every knob; row 1 argmax, row 2 EOS)."""
     from fish_speech_tpu_torch.ops.sampling import RowSampling, gumbel_noise
 
-    dev = torch.device("cuda")
+    dev = gen.device
     d, n_cb, vocab = cfg.dim, cfg.num_codebooks, cfg.codebook_size
     if one_hot:
         hidden = torch.zeros((b, d), dtype=torch.bfloat16, device=dev)
@@ -1393,16 +1495,18 @@ def batched_inputs(torch, cfg, gen, b: int, k_dyn: int, mode: str, one_hot: bool
     return (RowSampling.from_vectors(vecs.to(dev)), hidden, window, gumbel, is_eos)
 
 
-def check_fast_frame_batched(torch, engine, params32):
+def check_fast_frame_batched(torch, engine, params32, label: str = ""):
     from fish_speech_tpu_torch.ops import fast_frame_batched as fb
 
     cfg, params, rope = engine.cfg, engine.params, engine.rope
     int8 = is_int8(engine)
     name = "fused_fast_frame_batched_int8" if int8 else "fused_fast_frame_batched"
+    tag, phase = (f"{label}: {name}", "versions") if label else (name, "kernels")
     gen = torch.Generator(device=torch.device("cuda"))
     gen.manual_seed(55)
     n_cb, vocab, d, b = cfg.num_codebooks, cfg.codebook_size, cfg.dim, engine.batch_size
     k_dyn = min(engine.dyn_top_k_cap, vocab)
+    rep = not cfg.depthwise_wte  # the codebook rep-pen, off under depthwise_wte as engines run it
 
     # 1. tokens and step logits bit-equal where every sum is exact
     exact = exact_fast_params(torch, params, cfg)
@@ -1411,18 +1515,18 @@ def check_fast_frame_batched(torch, engine, params32):
             n_tied = 0
             for _ in range(4):
                 args = (cfg, *batched_inputs(torch, cfg, gen, rows, k_dyn, mode, True), rope)
-                got, got_l = fb.fused_fast_frame_batched(exact, *args, rep_enabled=True,
+                got, got_l = fb.fused_fast_frame_batched(exact, *args, rep_enabled=rep,
                                                          return_logits=True)
-                ref, ref_l = fb.fused_fast_frame_batched_plain(exact, *args, rep_enabled=True,
+                ref, ref_l = fb.fused_fast_frame_batched_plain(exact, *args, rep_enabled=rep,
                                                                return_logits=True)
-                check(torch.equal(got_l, ref_l), f"{name} B={rows} {mode}: exact logits differ")
+                check(torch.equal(got_l, ref_l), f"{tag} B={rows} {mode}: exact logits differ")
                 n_diff = int((got != ref).sum())
-                check(n_diff == 0, f"{name} B={rows} {mode}: {n_diff} of "
+                check(n_diff == 0, f"{tag} B={rows} {mode}: {n_diff} of "
                       f"{rows * n_cb} tokens differ from the plain version")
                 if mode == "mixed":
-                    check(not bool(got[2].any()), f"{name}: EOS row not all 0")
+                    check(not bool(got[2].any()), f"{tag}: EOS row not all 0")
                 n_tied += sum(vocab - len(torch.unique(r)) for r in ref_l.reshape(-1, vocab))
-            log("kernels", f"{name} exact inputs, B={rows}, {mode} rows: "
+            log(phase, f"{tag} exact inputs, B={rows}, {mode} rows: "
                 f"{4 * rows * n_cb} tokens over 4 frames equal to the plain version (step "
                 f"logits bit-equal, {n_tied} tied logit values)")
 
@@ -1434,12 +1538,12 @@ def check_fast_frame_batched(torch, engine, params32):
         samp, hidden, window, gumbel, is_eos = batched_inputs(torch, cfg, gen, b, k_dyn,
                                                               "argmax", False)
         args = (samp, hidden, window, gumbel, is_eos, rope)
-        tk, lk = fb.fused_fast_frame_batched(params, cfg, *args, rep_enabled=True,
+        tk, lk = fb.fused_fast_frame_batched(params, cfg, *args, rep_enabled=rep,
                                              return_logits=True)
-        tp, lp = fb.fused_fast_frame_batched_plain(params, cfg, *args, rep_enabled=True,
+        tp, lp = fb.fused_fast_frame_batched_plain(params, cfg, *args, rep_enabled=rep,
                                                    return_logits=True)
         tr, lr = fb.fused_fast_frame_batched_plain(params32, cfg, samp, hidden.float(), window,
-                                                   gumbel, is_eos, rope, rep_enabled=True,
+                                                   gumbel, is_eos, rope, rep_enabled=rep,
                                                    return_logits=True)
         same += int((tk == tp).sum())
         for r in range(b):
@@ -1450,39 +1554,38 @@ def check_fast_frame_batched(torch, engine, params32):
             err_p = max(err_p, float((lp[:n, r] - lr[:n, r]).abs().max()))
             vs_plain = max(vs_plain, float((lk[:n, r] - lp[:n, r]).abs().max()))
     check(err_k <= ACCURACY_FACTOR * err_p + 1e-6,
-          f"{name} step logits: {err_k:.4e} from the float32 evaluation, "
+          f"{tag} step logits: {err_k:.4e} from the float32 evaluation, "
           f"plain version {err_p:.4e}")
-    log("kernels", f"{name} full weights, B={b} argmax, 4 frames: step "
+    log(phase, f"{tag} full weights, B={b} argmax, 4 frames: step "
         f"logits over {steps} row-steps, max abs distance to the float32 evaluation kernel "
         f"{err_k:.4f} | plain {err_p:.4f}, kernel vs plain {vs_plain:.4f}; tokens equal to the "
         f"plain version {same} of {4 * b * n_cb}")
 
-    contract = check_frame_contract(torch, engine, name)
-    gemms = check_rows_gemms(torch, engine)
+    contract = check_frame_contract(torch, engine, tag, phase)
     n_layer, h, hd = cfg.n_fast_layer, cfg.n_head, cfg.head_dim
     weights = n_layer * layer_elems(cfg) + d + d * vocab
-    wbytes = n_layer * layer_bytes(cfg, int8) + 2 * (d + d * vocab)
+    wbytes, step_bytes = fast_weight_bytes(cfg, int8)
     timed = {}
     for rows in (4, b, 32):
         samp, hidden, window, gumbel, is_eos = batched_inputs(torch, cfg, gen, rows, k_dyn,
                                                               "sampled", False)
         args = (cfg, samp, hidden, window, gumbel, is_eos, rope)
-        kernel = lambda: fb.fused_fast_frame_batched(params, *args, rep_enabled=True)  # noqa: E731
+        kernel = lambda: fb.fused_fast_frame_batched(params, *args, rep_enabled=rep)  # noqa: E731
         ms = device_ms(torch, kernel, calls=10, replays=5)
         # read once: the weights (int8 ones with their scales) and head; per
         # row the hidden, the C-1 embedding rows gathered, its windows,
         # draws, knobs and EOS flag; written: the C tokens of each row. The
-        # re-read floor streams the weights and head at every step.
+        # re-read floor streams a step's weights and head at every step.
         per_row = (2 * d + 2 * d * (n_cb - 1) + 4 * n_cb * 12 + 4 * n_cb * k_dyn + 4 * 4 + 1
                    + 4 * n_cb)
         once = wbytes + rows * per_row
-        reread = once + (n_cb - 1) * wbytes
+        reread = once + n_cb * step_bytes - wbytes
         attn = 4 * h * hd * n_cb * (n_cb + 1) // 2 * n_layer
         flops = rows * (n_cb * 2 * (weights - (2 * n_layer + 1) * d) + attn)
         bound_ms, bound_by = bound(once, flops)
         reread_ms, _ = bound(reread, flops)
         timed[rows] = (ms, bound_ms, bound_by, reread_ms, once, reread)
-        line = (f"{name} B={rows} ({n_cb} steps x {n_layer} layers, one launch): kernel "
+        line = (f"{tag} B={rows} ({n_cb} steps x {n_layer} layers, one launch): kernel "
                 f"{ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}, read once, "
                 f"{once / 1e6:.1f} MB), re-read floor {reread_ms:.6f} ms ({reread / 1e6:.1f} MB, "
                 f"{100 * reread_ms / ms:.1f}% of the kernel); grid {contract['grid']}, "
@@ -1491,10 +1594,10 @@ def check_fast_frame_batched(torch, engine, params32):
         if rows == b:
             call_ms = eager_ms(torch, kernel, 20)
             plain_ms = device_ms(
-                torch, lambda: fb.fused_fast_frame_batched_plain(params, *args, rep_enabled=True),
+                torch, lambda: fb.fused_fast_frame_batched_plain(params, *args, rep_enabled=rep),
                 calls=2, replays=3)
             line += f"; eager call {call_ms:.4f} ms, plain {plain_ms:.4f} ms"
-        log("kernels", line)
+        log(phase, line)
     ms, bound_ms, bound_by, reread_ms, _, _ = timed[b]
     return {
         "name": name, "route": "cuda",
@@ -1509,11 +1612,10 @@ def check_fast_frame_batched(torch, engine, params32):
         **contract,
         "shape": f"hidden ({b},{d}), {n_cb} codebooks x {n_layer} layers "
                  f"({'int8' if int8 else 'bf16'}), vocab {vocab}, k_dyn {k_dyn}, window 12",
-        "gemms": gemms,
     }
 
 
-def check_frame_contract(torch, engine, name: str) -> dict:
+def check_frame_contract(torch, engine, name: str, phase: str = "kernels") -> dict:
     """The batched frame kernel's contract on the card
     (csrc/fast_frame_batched.cu, one persistent launch a frame): its plan
     as built equals ops/decode_stack.py's mirror; one launch a call,
@@ -1545,7 +1647,7 @@ def check_frame_contract(torch, engine, name: str) -> dict:
     def call(rows=slice(None)):
         samp = RowSampling(*(t[rows] for t in inputs[0]))
         return fb.fused_fast_frame_batched(params, cfg, samp, *(t[rows] for t in inputs[1:]),
-                                           rope, rep_enabled=True, return_logits=True,
+                                           rope, rep_enabled=not cfg.depthwise_wte, return_logits=True,
                                            sync=state)
 
     before, on_card = fb.launches, ds.frame_launch_count(dev, state)
@@ -1590,7 +1692,7 @@ def check_frame_contract(torch, engine, name: str) -> dict:
     check(all(torch.equal(x, y) for x, y in zip(got, outs[0])),
           f"{name}: the call beside a second stream's kernel differs")
     rp = mirror.rows
-    log("kernels", f"{name} persistent kernel: plan on the card equal to the mirror (grid "
+    log(phase, f"{name} persistent kernel: plan on the card equal to the mirror (grid "
         f"{rp.grid} x {ds.BLOCK_THREADS} threads, {rp.smem} B of shared memory a block, ring of "
         f"{rp.stages} stages x {rp.stage_bytes} B, QKV {rp.qkv_tiles}x{rp.qkv_splits} units, "
         f"attention+wo {rp.attn_units}, w1/w3+w2 {rp.sw_units} ({rp.sw_split}-way K-split), head "
@@ -1807,7 +1909,7 @@ def main_prompt(np, cfg):
     """The 40-token prompt of the batch-1 runs (text frames)."""
     rng = np.random.default_rng(0)
     return np.concatenate([
-        rng.integers(1000, 90000, size=(1, PROMPT_LEN)),
+        rng.integers(1000, min(90000, cfg.vocab_size), size=(1, PROMPT_LEN)),
         np.zeros((cfg.num_codebooks, PROMPT_LEN), np.int64),
     ]).astype(np.int32)
 
@@ -1817,6 +1919,7 @@ def run_path(torch, np, engine, codec, tok, codec_cfg, n_frames: int, label: str
     PCM and WAV; returns the launch counts of the run (all, and those of
     the int8 bodies), its state and its sampling."""
     from fish_speech_tpu_torch.audio.wav import pcm_to_wav_bytes
+    from fish_speech_tpu_torch.generate.overlap import output_shift
     from fish_speech_tpu_torch.ops import decode_attention as da
     from fish_speech_tpu_torch.ops import fast_frame as ff
     from fish_speech_tpu_torch.ops import prefill_attention as pa
@@ -1824,6 +1927,7 @@ def run_path(torch, np, engine, codec, tok, codec_cfg, n_frames: int, label: str
     from fish_speech_tpu_torch.ops.sampling import SamplingArgs
 
     cfg = engine.cfg
+    shift = output_shift(engine.lm)  # Fish <= 1.4 emits codebook tokens + 1
     prompt = main_prompt(np, cfg)
     sampling = SamplingArgs(**SAMPLING)
 
@@ -1845,14 +1949,17 @@ def run_path(torch, np, engine, codec, tok, codec_cfg, n_frames: int, label: str
     launches = {name: m.launches for name, m in mods.items()}
     int8 = {name: getattr(m, "int8_launches", 0) for name, m in mods.items()}
     t1 = time.perf_counter()
-    pcm = codec.decode(res.tokens)
+    pcm = codec.decode(shift(res.tokens))
     torch.cuda.synchronize()
     voc_s = time.perf_counter() - t1
     wav = pcm_to_wav_bytes(pcm[0], codec.sample_rate)
 
-    codes = np.concatenate([res.semantic[None], res.tokens])
+    codes = np.concatenate([res.semantic[None], shift(res.tokens)])
     check(codes.shape == (cfg.num_codebooks + 1, n_frames), f"{label}: codes shape {codes.shape}")
-    sem_ok = (codes[0] >= tok.semantic_start_id) & (codes[0] <= tok.semantic_end_id)
+    if tok.semantic_end_id is None:  # Fish <= 1.4: PAD, drawn against <|im_end|>
+        sem_ok = codes[0] == tok.pad_id
+    else:
+        sem_ok = (codes[0] >= tok.semantic_start_id) & (codes[0] <= tok.semantic_end_id)
     check(bool(sem_ok.all()), f"{label}: semantic ids outside the semantic range")
     check(bool(((codes[1:] >= 0) & (codes[1:] < cfg.codebook_size)).all()),
           f"{label}: codebook ids outside [0, codebook_size)")
@@ -2089,7 +2196,8 @@ def loud_codec(np, codec, codec_cfg, codes):
     scale = 2.0 ** round(float(np.log2(STREAM_PEAK / peak)))
     head = codec.params["head"]
     post = {**head["conv_post"], "w": head["conv_post"]["w"] * scale}
-    return FireflyCodec({**codec.params, "head": {**head, "conv_post": post}}, codec_cfg), scale
+    return FireflyCodec({**codec.params, "head": {**head, "conv_post": post}}, codec_cfg,
+                        device=codec.device), scale
 
 
 def run_stream(torch, np, codec, codec_cfg, smi):
@@ -2422,12 +2530,14 @@ class StandInTokenizer:
     100012 + i, <|semantic|> 5), so that TokenConfig.from_tokenizer gives
     that engine's TokenConfig; words get ids from 1000 on, in the order
     first seen. It has what PromptEncoder calls: encode(text,
-    add_special_tokens=False).ids and token_to_id."""
+    add_special_tokens=False).ids and token_to_id. base: <|voice|>'s id,
+    the other specials following it (a vocab of Fish 1.2's 32000 ids
+    takes a lower one)."""
 
-    def __init__(self, codebook_size: int) -> None:
-        self.vocab = {"<|semantic|>": 5, "<|voice|>": 100008, "<|im_start|>": 100010,
-                      "<|im_end|>": 100011}
-        self.vocab.update({f"<|semantic:{i}|>": 100012 + i for i in range(codebook_size)})
+    def __init__(self, codebook_size: int, base: int = 100008) -> None:
+        self.vocab = {"<|semantic|>": 5, "<|voice|>": base, "<|im_start|>": base + 2,
+                      "<|im_end|>": base + 3}
+        self.vocab.update({f"<|semantic:{i}|>": base + 4 + i for i in range(codebook_size)})
         self.words = {}
 
     def token_to_id(self, token: str):
@@ -3287,7 +3397,8 @@ class CoreServers:
 
 def sniff_batcher(np, batcher, key_of):
     """Record each batcher request (by the key of its first prompt) and
-    the codes of its chunk results as the pipeline reads them; returns
+    the codes of its chunk results as the pipeline reads them (through
+    iter_events or iter_chunks); returns
     {key: [request, codes (C+1, T) or None]}."""
     from fish_speech_tpu_torch.generate.continuous import _ChunkResult
 
@@ -3298,15 +3409,16 @@ def sniff_batcher(np, batcher, key_of):
         req = submit(prompts, *a, **k)
         entry = seen.setdefault(key_of(prompts[0]), [req, None])
         entry[0] = req
-        events = req.iter_events
+        def recorded(events):
+            def iterate(timeout=None):
+                for ev in events(timeout):
+                    if isinstance(ev, _ChunkResult):
+                        entry[1] = np.concatenate([ev.semantic[None], ev.tokens])
+                    yield ev
+            return iterate
 
-        def iter_events(timeout=None):
-            for ev in events(timeout):
-                if isinstance(ev, _ChunkResult):
-                    entry[1] = np.concatenate([ev.semantic[None], ev.tokens])
-                yield ev
-
-        req.iter_events = iter_events
+        req.iter_events = recorded(req.iter_events)
+        req.iter_chunks = recorded(req.iter_chunks)
         return req
 
     batcher.submit = recording
@@ -3640,6 +3752,402 @@ def run_server(torch, np, params, cfg, tok, codec, codec_cfg, bound16, smi) -> d
 # --------------------------------------------------------------------------
 
 
+# -- versions: Fish 1.2, Fish 1.4 and DualAR through the ported kernels ------
+
+VERSIONS = ("1.2", "1.4", "dual_ar")
+VERSION_FRAMES = 64
+VERSION_REQUESTS = 8
+VERSION_SEEDED = (2, 5)  # requests with a seed, each run again alone
+VERSION_XLA_FRAMES = 8  # the unfused path, which launches decode attention
+# DualAR's stand-in vocab holds the stand-in tokenizer's 2048
+# <|semantic:i|> ids from 100012, rounded up to a multiple of 128
+DUAL_AR_VOCAB = 102144
+# Fish 1.2's vocab has 32000 ids: the stand-in tokenizer's specials there
+LEGACY_TOKEN_BASE = 28000
+# Mimi in float32 with TF32 off: the card's decode against the CPU's, and
+# the card's stream against its batch decode
+MIMI_TOL = 1e-4
+MIMI_FRAMES = 32
+MIMI_CHUNKING = (1, 7, 16, 3, 5)
+
+
+def version_setup(version: str):
+    """(cfg, lm, tokenizer, TokenConfig, what the widths are) of a
+    version. Fish 1.2: its published config. Fish 1.4 and DualAR: their
+    config.json files are not in the repo, so stand-in widths: the 1.2
+    backbone with 8 codebooks of 1024 (the Firefly-1.4 quantizer's 8
+    groups), and the 1.5 backbone with depthwise_wte and
+    depthwise_output, 8 codebooks of 2048 (Mimi's codebook size) and a
+    vocab that holds the stand-in tokenizer's 2048 semantic ids."""
+    from fish_speech_tpu_torch.config import DualARConfig, TokenConfig, WhichLM
+
+    if version == "1.2":
+        cfg, lm, what = DualARConfig.fish_speech_1_2(), WhichLM.FISH_1_2, "published widths"
+    elif version == "1.4":
+        cfg = dataclasses.replace(DualARConfig.fish_speech_1_2(), num_codebooks=8)
+        lm, what = WhichLM.FISH_1_4, "stand-in widths: the 1.2 backbone, 8 codebooks x 1024"
+    else:
+        cfg = dataclasses.replace(DualARConfig.fish_speech_1_5(), vocab_size=DUAL_AR_VOCAB,
+                                  codebook_size=2048, depthwise_wte=True,
+                                  depthwise_output=True)
+        lm, what = (WhichLM.DUAL_AR, f"stand-in widths: the 1.5 backbone, depthwise, 8 "
+                    f"codebooks x 2048, vocab {DUAL_AR_VOCAB}")
+    legacy = lm in (WhichLM.FISH_1_2, WhichLM.FISH_1_4)
+    tokenizer = StandInTokenizer(cfg.codebook_size, LEGACY_TOKEN_BASE if legacy else 100008)
+    return cfg, lm, tokenizer, TokenConfig.from_tokenizer(lm, tokenizer, cfg), what
+
+
+def version_params(torch, cfg, tok, device):
+    """Random bf16 weights (seed 0) whose generations run their length:
+    the <|im_end|> column zeroed; for Fish <= 1.4, whose PAD/EOS draw is
+    random at every temperature, embedding dimension 0 set to PAD_BIAS
+    (it stays the largest through the residual stream and the final
+    norm) and read by the PAD column alone, so that PAD wins the draw."""
+    from fish_speech_tpu_torch.models.dual_ar import init_dual_ar_params
+
+    params = init_dual_ar_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    params["output"][:, tok.im_end_id] = 0
+    if tok.semantic_end_id is None:
+        params["embeddings"][:, 0] = PAD_BIAS
+        params["output"][:, tok.pad_id] = 0
+        params["output"][0, tok.pad_id] = 1.0
+    return params
+
+
+# the kernels line's numbers of a kernel at a version's shapes
+VERSION_KEYS = ("max_abs_err", "err_vs_float32", "ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_reread_ms", "share_of_bound", "launches_per_call", "shape")
+
+
+def check_version_kernels(torch, label: str, engine, rows) -> dict:
+    """Rows 3, 4, 5 and 3b (or their int8 bodies) on the engines a
+    version's path runs, with their weights: the batch-1 engine and the
+    serving engine of SERVE_ROWS rows, through the kernels phase's checks
+    (the bounds computed at these shapes). Returns {kernel: VERSION_KEYS
+    of its numbers}."""
+    params32 = float32_copy(engine.params)
+    main_pos = PROMPT_LEN + VERSION_FRAMES // 2
+    got = [check_slow_step(torch, engine, params32, main_pos, label),
+           check_fast_frame(torch, engine, params32, label),
+           check_fast_frame_batched(torch, rows, params32, label),
+           check_slow_step_rows(torch, rows, params32, label)]
+    del params32
+    return {k["name"]: {key: k[key] for key in VERSION_KEYS if key in k} for k in got}
+
+
+def version_firefly(torch, np, cfg, version):
+    """The version's Firefly codec, bf16 (seed 1), made loud (`loud_codec`)
+    on seeded codes, its float32 copy, and the bf16 bound
+    (ACCURACY_FACTOR x the bf16 decode's largest distance to the float32
+    one on those codes)."""
+    from fish_speech_tpu_torch.config import FireflyConfig, FishVersion
+    from fish_speech_tpu_torch.models.codec.firefly import FireflyCodec, init_firefly_params
+
+    codec_cfg = FireflyConfig.for_version(FishVersion(version))
+    codec = FireflyCodec(init_firefly_params(codec_cfg, seed=1, dtype=torch.bfloat16,
+                                             device="cuda"), codec_cfg,
+                         device="cuda")
+    codes = np.random.default_rng(1).integers(0, 1000, size=(cfg.num_codebooks, 48))
+    codec, scale = loud_codec(np, codec, codec_cfg, codes.astype(np.int32))
+    codec32 = FireflyCodec(float32_copy(codec.params), codec_cfg, device="cuda")
+    own = float(np.abs(codec.decode(codes) - codec32.decode(codes)).max())
+    return codec, codec32, codec_cfg, ACCURACY_FACTOR * own, scale
+
+
+def version_mimi(torch, np, smi):
+    """Mimi at kyutai/mimi's width (MimiConfig.kyutai(), 32 codebooks in
+    the file, 8 decoded), float32: random weights (seed 2) written in
+    transformers' names and read back through the port's loader,
+    bit-equal to the state dict's conversion; the decoder's last conv
+    scaled by a power of two so the PCM of seeded codes peaks near
+    STREAM_PEAK; the card's batch decode within MIMI_TOL of the CPU's
+    (TF32 off), the card's stream in uneven pieces within MIMI_TOL of its
+    batch decode; decode_step timed at 16 and 64 frames, batch 1 and 16.
+    Returns the codec."""
+    import tempfile
+    from pathlib import Path
+
+    from fish_speech_tpu_torch.device import tree_to
+    from fish_speech_tpu_torch.io.checkpoint import save_safetensors
+    from fish_speech_tpu_torch.models.codec import mimi
+
+    cfg = mimi.MimiConfig.kyutai()
+    t0 = time.perf_counter()
+    sd = mimi.random_mimi_state_dict(cfg, seed=2, device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "mimi.safetensors"
+        save_safetensors(path, sd)
+        size, write_s = path.stat().st_size, time.perf_counter() - t0
+        t1 = time.perf_counter()
+        params = mimi.load_mimi_params(path, cfg, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+    check(trees_equal(torch, params, mimi.convert_mimi_state_dict(sd, cfg, device="cuda")),
+          "versions dual_ar: Mimi weights read back differ from the state dict's conversion")
+    del sd
+    codes = np.random.default_rng(3).integers(0, cfg.codebook_size, size=(8, MIMI_FRAMES))
+    peak = float(np.abs(mimi.MimiCodec(params, cfg, 8, device="cuda").decode(codes)).max())
+    check(np.isfinite(peak) and peak > 0, f"versions dual_ar: Mimi's PCM peak is {peak}")
+    scale = 2.0 ** round(float(np.log2(STREAM_PEAK / peak)))
+    last = params["decoder"]["layers"][-1]
+    params["decoder"]["layers"][-1] = {"w": last["w"] * scale, "b": last["b"] * scale}
+    codec = mimi.MimiCodec(params, cfg, num_quantizers=8, device="cuda")
+    got = codec.decode(codes)
+    ref = mimi.MimiCodec(tree_to(params, "cpu"), cfg, 8, device="cpu").decode(codes)
+    err = float(np.abs(got - ref).max())
+    peak = float(np.abs(ref).max())
+    check(got.shape == (1, MIMI_FRAMES * codec.samples_per_frame) and np.isfinite(got).all()
+          and err <= MIMI_TOL,
+          f"versions dual_ar: Mimi's float32 decode on the card {err:.3e} from the CPU's "
+          f"(limit {MIMI_TOL}), shape {got.shape}")
+    check(peak * 32767 >= PCM_MIN_STEPS, f"versions dual_ar: Mimi's PCM peaks at "
+          f"{peak * 32767:.1f} int16 steps")
+    err_s = float(np.abs(stream_decode(np, codec, codes, MIMI_CHUNKING) - got[0]).max())
+    check(err_s <= MIMI_TOL, f"versions dual_ar: Mimi's stream in pieces {MIMI_CHUNKING} "
+          f"{err_s:.3e} from its batch decode (limit {MIMI_TOL})")
+    log("versions", f"dual_ar: Mimi (kyutai/mimi's widths, {cfg.num_quantizers} codebooks in "
+        f"the file, 8 decoded, float32) written in transformers' names ({size / 1e6:.1f} MB, "
+        f"{write_s:.2f}s) and read back through load_mimi_params ({load_s:.2f}s) bit-equal; "
+        f"decoder's last conv x {scale:g} (a power of two): |pcm|max {peak:.4f} = "
+        f"{peak * 32767:.0f} int16 steps; {MIMI_FRAMES} frames, card vs CPU max_abs_err "
+        f"{err:.3e}, stream in pieces {list(MIMI_CHUNKING)} vs batch {err_s:.3e} (limit "
+        f"{MIMI_TOL}, TF32 off)")
+    steps = {}
+    for b in (1, 16):
+        state = codec.stream_template(b, 64)
+        for t in (16, 64):
+            c = np.tile(codes[None, :, :1], (b, 1, t))
+            steps[f"{b}x{t}"] = ms = eager_ms(torch, lambda: codec.decode_step(c, state), 10)
+            audio_ms = 1e3 * b * t / cfg.frame_rate
+            log("versions", f"dual_ar: Mimi decode_step float32 (host codes in, host PCM out), "
+                f"batch {b} x {t} frames: {ms:.3f} ms ({audio_ms / ms:.1f}x real time for "
+                f"{audio_ms:.0f} ms of audio) on {smi}")
+    return codec, steps
+
+
+def version_serving(torch, np, pipeline, batcher, codec, bound, label, frame_rate):
+    """VERSION_REQUESTS requests of 40 words at once through the
+    pipeline's 16-row batcher (synthesize_streaming_continuous: the
+    central vocoder where the codec streams, else each client decodes its
+    chunk), two seeded and each run again alone: codes equal alone and in
+    the burst, each request's PCM its codes' length, finite, and for the
+    seeded ones within `bound` of codec.decode of their codes. Returns
+    (frames/s, RTF p50, launches)."""
+    import threading
+
+    from fish_speech_tpu_torch.ops import decode_attention as da
+    from fish_speech_tpu_torch.ops import fast_frame_batched as fb
+    from fish_speech_tpu_torch.ops import prefill_attention as pa
+    from fish_speech_tpu_torch.ops import slow_step as ss
+
+    texts = server_texts(np, VERSION_REQUESTS)
+    key_of = lambda p: np.asarray(p).tobytes()  # noqa: E731
+    seen = sniff_batcher(np, batcher, key_of)
+    shift = pipeline._shift_output_tokens
+    spf = codec.samples_per_frame
+
+    def client(i, out):
+        t0 = time.perf_counter()
+        seed = 1000 + i if i in VERSION_SEEDED else None
+        pcm = np.concatenate(list(pipeline.synthesize_streaming_continuous(
+            batcher, texts[i], seed=seed)))
+        out[i] = (pcm, time.perf_counter() - t0)
+
+    for m in (da, pa, fb):
+        m.launches = 0
+    ss.rows_launches = 0
+    out = {}
+    threads = [threading.Thread(target=client, args=(i, out)) for i in range(VERSION_REQUESTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=WAIT_S)
+    wall = time.perf_counter() - t0
+    launches = {"decode_attention": da.launches, "prefill_attention": pa.launches,
+                "slow_step_rows": ss.rows_launches, "fused_fast_frame_batched": fb.launches}
+    check(len(out) == VERSION_REQUESTS, f"versions {label}: {len(out)} of {VERSION_REQUESTS} "
+          f"requests ended")
+    check(launches["decode_attention"] == 0 and all(
+        launches[k] > 0 for k in ("prefill_attention", "slow_step_rows",
+                                  "fused_fast_frame_batched")),
+          f"versions {label}: serving launches {launches}")
+    codes = {i: seen[key_of(pipeline._encode(texts[i], None, None)[1][0])][1].copy()
+             for i in range(VERSION_REQUESTS)}
+    frames, rtf = 0, []
+    for i, (pcm, secs) in out.items():
+        n = codes[i].shape[1]
+        check(pcm.shape == (n * spf,) and bool(np.isfinite(pcm).all()) and n > 0,
+              f"versions {label}: request {i}'s PCM {pcm.shape}, {n} frames of codes")
+        frames += n
+        rtf.append(secs / (n / frame_rate))
+    for i in VERSION_SEEDED:
+        pcm = out[i][0]
+        err = float(np.abs(pcm - codec.decode(shift(codes[i][1:]))[0]).max())
+        check(err <= bound, f"versions {label}: seeded request {i}'s PCM {err:.3e} from "
+              f"codec.decode of its codes (bound {bound:.3e})")
+        alone = {}
+        client(i, alone)
+        again = seen[key_of(pipeline._encode(texts[i], None, None)[1][0])][1]
+        check(np.array_equal(again, codes[i]), f"versions {label}: seeded request {i}'s codes "
+              f"alone differ from its codes among {VERSION_REQUESTS}")
+    fps, p50 = frames / wall, float(np.median(rtf))
+    log("versions", f"{label}: {VERSION_REQUESTS} requests through create_batcher"
+        f"({SERVE_ROWS}, {SERVE_HORIZON}) "
+        f"({'central vocoder' if batcher._central is not None else 'clients vocode'}): "
+        f"{frames} frames in {wall:.3f}s = {fps:.1f} frames/s, RTF p50 {p50:.4f}; seeded "
+        f"{list(VERSION_SEEDED)} equal alone; launches {json.dumps(launches)}")
+    return fps, p50, launches
+
+
+def run_version(torch, np, version: str, smi) -> dict:
+    """One version through the ported kernels: the kernels against their
+    plain versions at its shapes; batch 1 (40 tokens, VERSION_FRAMES on
+    `auto`, vocoded to a WAV), its unfused path for decode attention;
+    16-row serving through TTSPipeline.create_batcher; for DualAR, Mimi on
+    the card and the overlapped driver with Mimi. Returns {"launches":
+    {kernel: n}, "kernels": {kernel: stats}, ...}."""
+    from fish_speech_tpu_torch.generate.engine import LMEngine
+    from fish_speech_tpu_torch.generate.overlap import generate_vocode_overlapped, output_shift
+    from fish_speech_tpu_torch.ops import decode_attention as da
+    from fish_speech_tpu_torch.ops import fast_frame as ff
+    from fish_speech_tpu_torch.ops import prefill_attention as pa
+    from fish_speech_tpu_torch.ops import slow_step as ss
+    from fish_speech_tpu_torch.ops.sampling import BATCHED_REP_PEN_WINDOW, SamplingArgs
+    from fish_speech_tpu_torch.pipeline import TTSPipeline
+
+    t0 = time.perf_counter()
+    cfg, lm, tokenizer, tok, what = version_setup(version)
+    label = f"Fish {version}" if version != "dual_ar" else "DualAR"
+    params = version_params(torch, cfg, tok, "cuda")
+    engine = LMEngine(params, cfg, tok, lm, cache_len=SERVE_CACHE, max_frames=VERSION_FRAMES,
+                      prompt_buckets=SERVER_BUCKETS, device="cuda")
+    sampling = SamplingArgs(**SAMPLING)
+    if version == "dual_ar":
+        codec, steps = version_mimi(torch, np, smi)
+        codec32, bound, frame_rate, codec_what = codec, MIMI_TOL, codec.cfg.frame_rate, "Mimi"
+    else:
+        codec, codec32, codec_cfg, bound16, scale = version_firefly(torch, np, cfg, version)
+        frame_rate, steps = codec_cfg.frame_rate, None
+        bound = bound16 if not codec.can_stream else 2 * bound16 + 1.0 / 32767
+        codec_what = (f"Firefly-{version} bf16 (seed 1, conv_post x {scale:g}"
+                      f"{', not streaming' if not codec.can_stream else ''})")
+    pipeline = TTSPipeline(engine, codec, tokenizer, lm, max_new_tokens=VERSION_FRAMES,
+                           default_sampling=sampling)
+    pipeline.reroll_on_runaway = False
+    batcher = pipeline.create_batcher(SERVE_ROWS, SERVE_HORIZON)
+    rows = batcher.engine
+    check(engine.use_fused_slow and engine.use_fused_fast and rows.use_fused_slow
+          and rows.use_fused_fast and (batcher._central is not None) == codec.can_stream,
+          f"versions {label}: `auto` is not on the fused kernels at batch 1 and 16 rows, or "
+          f"the central vocoder is {'missing' if codec.can_stream else 'there'}")
+    log("versions", f"{label} ({what}; {cfg.n_layer} + {cfg.n_fast_layer} layers, dim "
+        f"{cfg.dim}, {cfg.n_head}/{cfg.n_local_heads} heads, vocab {cfg.vocab_size}, "
+        f"{cfg.num_codebooks} x {cfg.codebook_size}; random bf16 weights, seed 0) with "
+        f"{codec_what}; `auto` at batch 1 and at {SERVE_ROWS} rows: the fused slow step and "
+        f"fast frame, the row kernel and the batched frame; semantic head "
+        f"{engine.params['output'].shape[1]} columns; {time.perf_counter() - t0:.1f}s")
+    # the kernels against their plain versions on the engines of this
+    # path; for DualAR's V = 2048 also the int8 bodies, on int8 engines of
+    # the same weights (held to a float32 evaluation of the dequantized ones)
+    with torch.inference_mode():
+        kernels = check_version_kernels(torch, label, engine, rows)
+        if version == "dual_ar":
+            kw = dict(cache_len=SERVE_CACHE, prompt_buckets=(64,), quantize_int8=True)
+            kernels.update(check_version_kernels(
+                torch, label + " int8", LMEngine(params, cfg, tok, lm, **kw),
+                LMEngine(params, cfg, tok, lm, batch_size=SERVE_ROWS, dynamic_sampling=True,
+                         rep_pen_window=BATCHED_REP_PEN_WINDOW, **kw)))
+
+    # batch 1 on `auto`: launches, frames/s, a WAV
+    launches, _, _, _, stats = run_path(torch, np, engine, codec, tok, codec32.cfg,
+                                        VERSION_FRAMES, f"versions {label} auto")
+    want = {"fused_slow_step": VERSION_FRAMES - 1, "fused_fast_frame": VERSION_FRAMES - 1,
+            "prefill_attention": cfg.n_layer, "decode_attention": 0}
+    check(launches == want, f"versions {label}: batch-1 launches {launches}, expected {want}")
+    prompt = main_prompt(np, cfg)
+    if cfg.depthwise_wte:  # DualAR's codebook rep-pen is off: the penalty changes nothing
+        a = engine.generate(prompt, max_new_tokens=16, sampling=sampling, seed=7)[0]
+        b = engine.generate(prompt, max_new_tokens=16, seed=7, sampling=SamplingArgs(
+            **{**SAMPLING, "repetition_penalty": 1.0}))[0]
+        check(np.array_equal(a.tokens, b.tokens) and np.array_equal(a.semantic, b.semantic),
+              f"versions {label}: rep-pen 1.4 and 1.0 give other codes under depthwise_wte")
+    unfused = LMEngine(params, cfg, tok, lm, cache_len=SERVE_CACHE,
+                       max_frames=VERSION_XLA_FRAMES, prompt_buckets=(64,), slow_impl="xla",
+                       fast_frame_impl="xla", device="cuda")
+    da.launches = 0
+    res, _ = unfused.generate(prompt, max_new_tokens=VERSION_XLA_FRAMES, sampling=sampling,
+                              seed=1)
+    launches["decode_attention"] = da.launches
+    check(da.launches == cfg.n_layer * (res.frames - 1) and res.frames == VERSION_XLA_FRAMES,
+          f"versions {label}: the unfused path launched decode attention {da.launches} times "
+          f"over {res.frames} frames")
+    del unfused
+
+    # DualAR: the overlapped batch-1 driver with Mimi
+    overlap = None
+    if version == "dual_ar":
+        shift = output_shift(lm)
+        kw = dict(sampling=sampling, max_new_tokens=VERSION_FRAMES, chunk=OVERLAP_CHUNK,
+                  shift_fn=shift)
+        generate_vocode_overlapped(engine, codec, prompt, seed=4, **kw)  # warm-up
+        for m in (pa, ss, ff):
+            m.launches = 0
+        t1 = time.perf_counter()
+        pcm, res, _ = generate_vocode_overlapped(engine, codec, prompt, seed=5, **kw)
+        wall = time.perf_counter() - t1
+        counts = {"prefill_attention": pa.launches, "fused_slow_step": ss.launches,
+                  "fused_fast_frame": ff.launches}
+        ref, _ = engine.generate(prompt, max_new_tokens=VERSION_FRAMES, sampling=sampling,
+                                 seed=5)
+        check(np.array_equal(res.tokens, ref.tokens) and np.array_equal(res.semantic,
+                                                                        ref.semantic),
+              "versions DualAR: overlapped tokens differ from generate's on the same seed")
+        dec = codec.decode(shift(ref.tokens))[0]
+        err = float(np.abs(pcm - dec).max())
+        peak = float(np.abs(dec).max())
+        check(all(counts.values()) and pcm.shape == dec.shape and err <= MIMI_TOL
+              and peak * 32767 >= PCM_MIN_STEPS,
+              f"versions DualAR: overlapped PCM {err:.3e} from Mimi's decode (limit "
+              f"{MIMI_TOL}), peak {peak * 32767:.0f} int16 steps, launches {counts}")
+        overlap = wall / (res.frames / frame_rate)
+        log("versions", f"DualAR: generate_vocode_overlapped with Mimi, chunk {OVERLAP_CHUNK}, "
+            f"{res.frames} frames: tokens equal generate's (seed 5), PCM (|pcm|max {peak:.4f}) "
+            f"{err:.3e} from Mimi's decode of them; RTF {overlap:.4f}; launches "
+            f"{json.dumps(counts)}")
+
+    # 16-row serving through the pipeline's batcher
+    batcher.warmup()
+    pipeline.warmup_codec(SERVE_HORIZON)
+    try:
+        fps, p50, served = version_serving(torch, np, pipeline, batcher, codec, bound, label,
+                                           frame_rate)
+    finally:
+        batcher.shutdown()
+    launches["prefill_attention"] += served["prefill_attention"]
+    launches["slow_step_rows"] = served["slow_step_rows"]
+    launches["fused_fast_frame_batched"] = served["fused_fast_frame_batched"]
+    log("versions", f"{label}: phase {time.perf_counter() - t0:.1f}s; launches "
+        f"{json.dumps(launches)}")
+    return {"launches": launches, "kernels": kernels,
+            "batch1_frames_per_s": stats[0],
+            "batch1_rtf": stats[1], "serving_frames_per_s": fps, "serving_rtf_p50": p50,
+            "overlap_rtf": overlap, "mimi_decode_step_ms": steps}
+
+
+def run_versions(torch, np, smi) -> dict:
+    """Each of VERSIONS in turn, its engines and codec freed before the
+    next is built. Returns {version: run_version's result}."""
+    import gc
+
+    out = {}
+    for version in VERSIONS:
+        out[version] = run_version(torch, np, version, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def run_int8_proxy(torch, np, engine, engine8, params, codec, codec_cfg) -> None:
     """bench.py::bench_int8_proxy at full size on the same random weights:
     the bf16 and the int8 engine generate 128 frames at argmax; both
@@ -3772,6 +4280,7 @@ def main() -> int:
                         check_fast_frame(torch, batch1, params32),
                         check_fast_frame_batched(torch, rows, params32),
                         check_slow_step_rows(torch, rows, params32)]
+            kernels[-2]["gemms"] = check_rows_gemms(torch, rows)
             del params32
     launches, bf16_stats = run_main_path(torch, np, fused, unfused, codec, tok, codec_cfg)
     with torch.inference_mode():
@@ -3788,6 +4297,7 @@ def main() -> int:
                          codec_cfg, bound16)
     server = run_server(torch, np, params, fused.cfg, tok, loud, codec_cfg, bound16, smi)
     del loud, loud32
+    versions = run_versions(torch, np, smi)
     for name in ("fused_fast_frame_batched", "fused_fast_frame_batched_int8", "slow_step_rows",
                  "slow_step_rows_int8"):
         launches[name] = served[name]
@@ -3797,6 +4307,13 @@ def main() -> int:
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
         if k["name"] in server:
             k["server_launches"] = server[k["name"]]
+        if not k["name"].endswith("_int8"):
+            k["version_launches"] = {v: r["launches"][k["name"]] for v, r in versions.items()}
+            check(all(k["version_launches"].values()),
+                  f"{k['name']} was not launched on every version's path: "
+                  f"{k['version_launches']}")
+        k["versions"] = {v: r["kernels"][k["name"]] for v, r in versions.items()
+                         if k["name"] in r["kernels"]}
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

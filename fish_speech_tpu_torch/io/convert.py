@@ -50,3 +50,11 @@ def firefly_params_from_numpy(tree: Dict, device="cpu", dtype=None) -> Dict:
     downsample and upsample stacks and residual-FSQ projections (in and
     out), and the HiFiGAN head."""
     return _convert(tree, device, dtype)
+
+
+def mimi_params_from_numpy(tree: Dict, device="cpu", dtype=None) -> Dict:
+    """The whole Mimi tree (models/codec/mimi.py layout): the SEANet
+    encoder and decoder, both transformers, the split-RVQ codebooks and
+    projections, the resampling convs. Entries that are None in the JAX
+    tree (a conv without bias, an RVQ without projections) are left out."""
+    return _convert(tree, device, dtype)

@@ -4,6 +4,9 @@ The port's counterpart of `fish_speech_tpu/io/hub.py`, without the
 fetch: an existing directory is used as it is; anything else raises a
 `ValueError` that names the version's pinned Hub repo, to download by
 hand. The repo and file names stay here as data, for those messages.
+DualAR checkpoints take the Mimi codec, which is published in a repo of
+its own: its weights go into the checkpoint directory as
+`MIMI_CHECKPOINT_FILE` (or are passed as the pipeline's codec_file).
 """
 
 from __future__ import annotations
@@ -26,6 +29,13 @@ _CODEC_FILES = {
     WhichModel.FISH_1_5: "firefly-gan-vq-fsq-8x1024-21hz-generator.safetensors",
 }
 
+# DualAR (smoltts) checkpoints use Mimi: the transformers-format export of
+# kyutai's weights (the upstream server reads the moshi-MLX export, whose
+# names the loader does not take), stored beside the LM as mimi.safetensors.
+MIMI_REPO = "kyutai/mimi"
+MIMI_FILE = "model.safetensors"
+MIMI_CHECKPOINT_FILE = "mimi.safetensors"
+
 
 def resolve_checkpoint(checkpoint: str | Path, model: WhichModel) -> Path:
     """`checkpoint` as a local directory; the port does not fetch, so a
@@ -39,7 +49,9 @@ def resolve_checkpoint(checkpoint: str | Path, model: WhichModel) -> Path:
     files = ["config.json", "tokenizer.json", weights]
     if model in _CODEC_FILES:
         files.append(_CODEC_FILES[model])
+    mimi = (f", and {MIMI_FILE} of {MIMI_REPO} as {MIMI_CHECKPOINT_FILE} beside them"
+            if model == WhichModel.DUAL_AR else "")
     raise ValueError(
         f"{checkpoint!r} is not a local directory, and the port does not fetch checkpoints: "
         f"download {', '.join(files)} of {repo} (the pinned repo for {model.value} is "
-        f"{HUB_REPOS[model]}) into a directory and pass its path")
+        f"{HUB_REPOS[model]}){mimi} into a directory and pass its path")

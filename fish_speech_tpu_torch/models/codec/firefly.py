@@ -25,9 +25,7 @@ decode, each frame decoded once.
 
 from __future__ import annotations
 
-import contextlib
 import math
-import threading
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -42,7 +40,8 @@ from fish_speech_tpu_torch.models.codec.firefly_stream import (
     firefly_decode_step, stream_state_init)
 from fish_speech_tpu_torch.models.codec.hifigan import hifigan_forward
 from fish_speech_tpu_torch.models.codec.quantizer import quantizer_decode, quantizer_encode
-from fish_speech_tpu_torch.models.codec.stream_conv import StreamSessionBase
+from fish_speech_tpu_torch.models.codec.stream_conv import (
+    _CODEC_LOCK, StreamSessionBase, _tf32)
 
 
 def firefly_decode(params: Dict, cfg: FireflyConfig, indices: torch.Tensor,
@@ -70,32 +69,6 @@ def firefly_encode_mel(params: Dict, cfg: FireflyConfig, mel: torch.Tensor) -> t
     mel = mel.to(params["backbone"]["stem"]["conv"]["w"].dtype)
     features = convnext_encoder(mel, params["backbone"], cfg.backbone, cfg.version)
     return quantizer_encode(features, params["quantizer"], cfg.quantizer, cfg.version)
-
-
-# Held by every codec call of any thread while it queues its work on the
-# card (encode, decode, streaming steps, the central vocoder's feeds),
-# and by `_tf32` blocks: no codec work of another thread is queued while
-# a block has the process-wide TF32 switches set.
-_CODEC_LOCK = threading.RLock()
-
-
-@contextlib.contextmanager
-def _tf32(allow: bool):
-    """cuDNN convolutions and cuBLAS float32 matmuls with TF32 allowed or
-    not, for the block only. (`torch.backends.cudnn.flags` would also
-    reset cuDNN's other switches to its own defaults.) The two switches
-    are process-wide, and the switches are read when work is queued: a
-    block holds the codec lock, so blocks on several threads run one at
-    a time (none restores a value another set) and no other thread's
-    codec work is queued under a block's setting (a server's encode
-    beside the central vocoder's feeds)."""
-    with _CODEC_LOCK:
-        conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = allow
-        try:
-            yield
-        finally:
-            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
 
 
 # -- init (benchmarks without weights) --------------------------------------

@@ -1,9 +1,11 @@
-"""Carried-state streaming primitives for causal 1-D conv stacks.
+"""Carried-state streaming primitives for causal 1-D conv stacks, and
+the lock that every codec call takes.
 
-Counterpart of `fish_speech_tpu/models/codec/stream_conv.py`. Feeding a
+Counterpart of `fish_speech_tpu/models/codec/stream_conv.py`, shared by
+the Firefly stream (`firefly_stream.py`) and Mimi (`mimi.py`). Feeding a
 sequence in chunks of any sizes gives the concatenation that the
 whole-sequence (batch) decode gives, because the only time-coupled ops
-of the Fish 1.4+ decode path are
+of the Fish 1.4+ and Mimi decode paths are
 
 * a causal conv (left zero-pad of (k-1)*d + 1 - stride): the stream
   carries the last pad_left input samples, zeros at first, which is the
@@ -19,11 +21,38 @@ zero-insert formulation is needed.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+# Held by every codec call of any thread while it queues its work on the
+# card (encode, decode, streaming steps, the central vocoder's feeds),
+# and by `_tf32` blocks: no codec work of another thread is queued while
+# a block has the process-wide TF32 switches set.
+_CODEC_LOCK = threading.RLock()
+
+
+@contextlib.contextmanager
+def _tf32(allow: bool):
+    """cuDNN convolutions and cuBLAS float32 matmuls with TF32 allowed or
+    not, for the block only. (`torch.backends.cudnn.flags` would also
+    reset cuDNN's other switches to its own defaults.) The two switches
+    are process-wide, and the switches are read when work is queued: a
+    block holds the codec lock, so blocks on several threads run one at
+    a time (none restores a value another set) and no other thread's
+    codec work is queued under a block's setting (a server's encode
+    beside the central vocoder's feeds)."""
+    with _CODEC_LOCK:
+        conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = allow
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
 
 
 def conv_state(batch: int, c_in: int, k: int, *, stride: int = 1, dilation: int = 1,
@@ -55,6 +84,13 @@ def stream_conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     return F.conv1d(xin, w, b, stride=stride, dilation=dilation, groups=groups), new_state
 
 
+def conv_transpose_raw(x: torch.Tensor, w: torch.Tensor, *, stride: int,
+                       groups: int = 1) -> torch.Tensor:
+    """The full (untrimmed, bias-free) transposed conv: x (B, C_in, T),
+    w (C_in, C_out/groups, K) -> (B, C_out, (T - 1) * stride + K)."""
+    return F.conv_transpose1d(x, w, None, stride=stride, groups=groups)
+
+
 def stream_conv_transpose1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                             state: torch.Tensor, *, stride: int,
                             groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -62,7 +98,7 @@ def stream_conv_transpose1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.
     the carried bias-free tail onto this chunk's head, emit T*stride
     samples, carry the new k - stride tail, then add the bias. Returns
     (out, new_state)."""
-    out = F.conv_transpose1d(x, w, None, stride=stride, groups=groups)
+    out = conv_transpose_raw(x, w, stride=stride, groups=groups)
     tail = max(w.shape[-1] - stride, 0)
     if tail:
         out[..., :tail] += state

@@ -27,10 +27,9 @@ dropped (`BatchedRequest.cancel`, in a `finally`), which frees its row;
 cancel it while this generator waits for the batcher.
 
 Departures from JAX: `load` takes the version's own config where
-config.json is missing (as the port's CLI does, `cli/llama_generate.py`),
-raises for `dual_ar` (the Mimi codec is not ported yet) and takes no
-mesh; there are no compile buckets, so `warmup_codec` runs each shape a
-request reaches once.
+config.json is missing (as the port's CLI does, `cli/llama_generate.py`;
+1.4 and dual_ar need the file) and takes no mesh; there are no compile
+buckets, so `warmup_codec` runs each shape a request reaches once.
 """
 
 from __future__ import annotations
@@ -76,8 +75,8 @@ class TTSPipeline:
     def __init__(self, engine: LMEngine, codec, tokenizer, lm: WhichLM, *,
                  max_new_tokens: int = DEFAULT_MAX_NEW_TOKENS,
                  default_sampling: Optional[SamplingArgs] = None) -> None:
-        """engine: a batch-1 LMEngine; codec: a FireflyCodec on the
-        engine's device; tokenizer: anything with PromptEncoder's calls
+        """engine: a batch-1 LMEngine; codec: a FireflyCodec or a
+        MimiCodec on the engine's device; tokenizer: anything with PromptEncoder's calls
         (`encode(text, add_special_tokens=False).ids`, `token_to_id`)."""
         if codec.device.type != engine.device.type:
             raise ValueError(f"the codec is on {codec.device}, the engine on {engine.device}")
@@ -103,18 +102,20 @@ class TTSPipeline:
              max_new_tokens: int = DEFAULT_MAX_NEW_TOKENS, cache_len: Optional[int] = None,
              quantize_int8: bool = False, device="cuda") -> "TTSPipeline":
         """config.json (or the version's own config), tokenizer.json and the
-        LM and Firefly weights of a local checkpoint directory, on `device`
-        (CUDA unless asked otherwise; on CUDA the LM is bfloat16)."""
+        LM and codec weights of a local checkpoint directory, on `device`
+        (CUDA unless asked otherwise; on CUDA the LM is bfloat16). The
+        codec: Firefly of the version, in codec_dtype; for dual_ar, Mimi
+        (kyutai/mimi's config, float32, as JAX loads it) from
+        mimi.safetensors in the directory, encoding the LM's codebook
+        count. codec_file: the codec's weights elsewhere."""
         from fish_speech_tpu_torch.cli.llama_generate import load_config, load_tokenizer
         from fish_speech_tpu_torch.io.checkpoint import load_firefly_params, load_lm_params
-        from fish_speech_tpu_torch.io.hub import resolve_checkpoint
+        from fish_speech_tpu_torch.io.hub import MIMI_CHECKPOINT_FILE, resolve_checkpoint
         from fish_speech_tpu_torch.models.codec.firefly import FireflyCodec
+        from fish_speech_tpu_torch.models.codec.mimi import (
+            MimiCodec, MimiConfig, load_mimi_params)
 
         device = resolve_device(device)
-        if model.fish_version is None:
-            raise NotImplementedError(
-                f"{model.value}: its codec is Mimi, which the port does not have yet "
-                "(ROADMAP.md, module 9); Fish 1.2, 1.4 and 1.5 load")
         ckpt = resolve_checkpoint(checkpoint_dir, model)
         lm = WhichLM.from_model(model)
         cfg = load_config(ckpt, model)
@@ -125,10 +126,16 @@ class TTSPipeline:
         engine = LMEngine(params, cfg, token_cfg, lm, cache_len=cache_len, dtype=lm_dtype,
                           quantize_int8=quantize_int8, device=device)
         logger.info("LM loaded in %.1fs", time.perf_counter() - t0)
-        codec_cfg = FireflyConfig.for_version(model.fish_version)
-        codec_params = load_firefly_params(codec_file if codec_file is not None else ckpt,
-                                           codec_cfg, dtype=codec_dtype, device=device)
-        codec = FireflyCodec(codec_params, codec_cfg, device=device)
+        if model.fish_version is None:
+            mimi_cfg = MimiConfig.kyutai()
+            mimi = load_mimi_params(codec_file if codec_file is not None
+                                    else ckpt / MIMI_CHECKPOINT_FILE, mimi_cfg, device=device)
+            codec = MimiCodec(mimi, mimi_cfg, num_quantizers=cfg.num_codebooks, device=device)
+        else:
+            codec_cfg = FireflyConfig.for_version(model.fish_version)
+            codec_params = load_firefly_params(codec_file if codec_file is not None else ckpt,
+                                               codec_cfg, dtype=codec_dtype, device=device)
+            codec = FireflyCodec(codec_params, codec_cfg, device=device)
         return TTSPipeline(engine, codec, tokenizer, lm, max_new_tokens=max_new_tokens)
 
     # -- warmup ------------------------------------------------------------

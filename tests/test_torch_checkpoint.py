@@ -382,15 +382,18 @@ def test_resolve_checkpoint_directory(tmp_path):
 @pytest.mark.parametrize("model", ["FISH_1_2", "FISH_1_4", "FISH_1_5", "DUAL_AR"])
 def test_resolve_checkpoint_does_not_fetch(model):
     """A repo id or an empty string raises, naming the repo, the files and
-    the version's pinned repo; the table is the JAX package's."""
+    the version's pinned repo, and for dual_ar Mimi's repo and file; the
+    tables are the JAX package's."""
     from fish_speech_tpu.io import hub as jhub
 
     m = tcfg.WhichModel[model]
+    assert (hub.MIMI_REPO, hub.MIMI_FILE) == (jhub.MIMI_REPO, jhub.MIMI_FILE)
     assert hub.HUB_REPOS[m] == jhub.HUB_REPOS[jcfg.WhichModel[model]]
     assert hub._CODEC_FILES.get(m) == jhub._CODEC_FILES.get(jcfg.WhichModel[model])
     with pytest.raises(ValueError, match="does not fetch") as e:
         hub.resolve_checkpoint("someone/some-repo", m)
     assert "someone/some-repo" in str(e.value) and hub.HUB_REPOS[m] in str(e.value)
     assert "tokenizer.json" in str(e.value)
+    assert (hub.MIMI_REPO in str(e.value)) == (model == "DUAL_AR")
     with pytest.raises(ValueError, match=hub.HUB_REPOS[m]):
         hub.resolve_checkpoint("", m)

@@ -94,7 +94,7 @@ pcm = np.sin(np.arange(4096) * 0.01).astype(np.float32)
 mel_l1_distance(pcm, pcm, c.SpecTransformConfig(), device="cpu")
 pcm_metrics(pcm, pcm)
 int8_policy.evaluate(1.0, 0.0, 0.0, 99.0)
-import json, re, tempfile, pathlib, types
+import dataclasses, json, re, tempfile, pathlib, types
 from fish_speech_tpu_torch.io.checkpoint import (
     load_firefly_params, load_lm_params, save_firefly_params, save_lm_params)
 from fish_speech_tpu_torch.audio.resample import resample
@@ -155,6 +155,32 @@ req = core.SpeechRequest.parse({"input": "hi ."}, pipe.default_sampling)
 assert core.wav_bytes(st, core.wav_pcm(st, req))[:4] == b"RIFF"
 if opus.OggOpusEncoder.available():
     assert b"".join(core.opus_body(st, req))[:4] == b"OggS"
+from fish_speech_tpu_torch.models.codec import mimi
+from fish_speech_tpu_torch.io.checkpoint import save_safetensors
+from fish_speech_tpu_torch.io.convert import mimi_params_from_numpy
+mc = mimi.MimiConfig(sampling_rate=2000, hidden_size=16, num_filters=4,
+                     upsampling_ratios=(5, 4, 2, 2), num_hidden_layers=1, num_attention_heads=2,
+                     num_key_value_heads=1, head_dim=8, intermediate_size=32, sliding_window=6,
+                     num_quantizers=2, codebook_size=8, codebook_dim=8,
+                     vector_quantization_hidden_dimension=8, upsample_groups=16)
+mimi.MimiConfig.kyutai = staticmethod(lambda: mc)
+dw = dataclasses.replace(cfg, depthwise_wte=True, depthwise_output=True)
+tmp = tempfile.TemporaryDirectory()
+d = pathlib.Path(tmp.name)
+save_lm_params(d / "model.safetensors", init_dual_ar_params(dw, 0, torch.float32, "cpu"), dw)
+(d / "config.json").write_text(json.dumps(dataclasses.asdict(dw)))
+save_safetensors(d / "mimi.safetensors", mimi.random_mimi_state_dict(mc, device="cpu"))
+dual = TTSPipeline.load(d, c.WhichModel.DUAL_AR, lm_dtype=torch.float32, max_new_tokens=3,
+                        device="cpu")
+assert isinstance(dual.codec, mimi.MimiCodec)
+dual.reroll_on_runaway = False
+st = core.AppState(dual)
+assert core.wav_bytes(st, core.wav_pcm(st, req))[:4] == b"RIFF"
+dual_batcher = dual.create_batcher(rows=2, horizon=2)
+assert dual_batcher._central is not None
+assert list(dual.synthesize_streaming_continuous(dual_batcher, "hi ."))[0].shape[0] % 160 == 0
+dual_batcher.shutdown()
+tmp.cleanup()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0].startswith("jax") or m.split(".")[0] == "fish_speech_tpu"
              or m.split(".")[0] in ("safetensors", "ml_dtypes", "tokenizers"))
@@ -174,7 +200,10 @@ def test_port_imports_no_jax_and_no_jax_package():
     encoder) and an encode, the serving surface (pipeline, api,
     server.{core,app,main,voices}, audio.{_natlib,opus,decode,webm},
     cli.benchmark; a TTSPipeline request through the server core to WAV
-    and, where the native library builds, to Ogg/Opus), and holds no
+    and, where the native library builds, to Ogg/Opus), the Mimi codec
+    and the dual_ar pipeline (TTSPipeline.load of a depthwise LM with
+    mimi.safetensors, a request through the server core and one through
+    the central vocoder on Mimi), and holds no
     jax*, no fish_speech_tpu, no
     safetensors, no ml_dtypes and no tokenizers module: llama_generate
     reads its tokenizer through a stand-in with the methods PromptEncoder
@@ -216,18 +245,21 @@ def _tiny():
 
 @pytest.mark.parametrize("entry", ["engine", "codec", "load_lm_params", "load_firefly_params",
                                    "llama_generate", "vocoder", "encoder", "pipeline_load",
-                                   "api_lm", "api_codec", "server_main", "benchmark"])
+                                   "api_lm", "api_codec", "server_main", "benchmark",
+                                   "mimi_codec", "load_mimi_params", "random_mimi",
+                                   "pipeline_load_dual_ar"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """With no device argument the entry points ask for CUDA, and raise
     where it is missing instead of falling back to the CPU: the engine,
-    the codec, both checkpoint loaders, each CLI's main without
-    --device, TTSPipeline.load, the API's LM and FireflyCodec, and the
-    server's main without --device."""
+    the codecs, the checkpoint loaders, each CLI's main without
+    --device, TTSPipeline.load (Fish and dual_ar), the API's LM and
+    FireflyCodec, and the server's main without --device."""
     if torch.cuda.is_available():
         pytest.skip("CUDA is present")
     from fish_speech_tpu_torch import api
     from fish_speech_tpu_torch.cli import benchmark, encoder, llama_generate, vocoder
     from fish_speech_tpu_torch.io.checkpoint import load_firefly_params, load_lm_params
+    from fish_speech_tpu_torch.models.codec import mimi
     from fish_speech_tpu_torch.pipeline import TTSPipeline
     from fish_speech_tpu_torch.server import main as server_main
 
@@ -247,6 +279,11 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         "api_codec": lambda: api.FireflyCodec(tmp_path),
         "server_main": lambda: server_main.main(ckpt),
         "benchmark": lambda: benchmark.main([]),
+        "mimi_codec": lambda: mimi.MimiCodec({}, mimi.MimiConfig()),
+        "load_mimi_params": lambda: mimi.load_mimi_params(tmp_path / "m.safetensors",
+                                                          mimi.MimiConfig()),
+        "random_mimi": lambda: mimi.random_mimi_state_dict(mimi.MimiConfig()),
+        "pipeline_load_dual_ar": lambda: TTSPipeline.load(tmp_path, tcfg.WhichModel.DUAL_AR),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

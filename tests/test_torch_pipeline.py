@@ -20,16 +20,20 @@ pytest.importorskip("safetensors")
 pytest.importorskip("tokenizers")
 
 import dataclasses
+import threading
+import time
 
 import jax.numpy as jnp
 import numpy as np
 import torch
 
 from fish_speech_tpu import config as jcfg
+from fish_speech_tpu.generate import continuous as jcont
 from fish_speech_tpu.generate.continuous import ContinuousBatcher as JaxBatcher
 from fish_speech_tpu.ops.sampling import SamplingArgs as JaxSampling
 from fish_speech_tpu.pipeline import TTSPipeline as JaxPipeline
 from fish_speech_tpu_torch import config as tcfg
+from fish_speech_tpu_torch.generate import continuous as tcont
 from fish_speech_tpu_torch.generate.continuous import ContinuousBatcher
 from fish_speech_tpu_torch.ops.sampling import SamplingArgs
 from fish_speech_tpu_torch.pipeline import TTSPipeline
@@ -66,6 +70,33 @@ def pipes(ckpt):  # noqa: F811
     return jp, tp, voices[1]
 
 
+class _CopyingJnp:
+    """jax.numpy, with asarray copying its host input first."""
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+    @staticmethod
+    def asarray(a, *args, **kwargs):
+        return jnp.asarray(np.array(a, copy=True), *args, **kwargs)
+
+
+@pytest.fixture
+def jax_lane_resets(monkeypatch):
+    """The JAX central vocoder's lane resets, made to happen. Its tick
+    hands `jnp.asarray(self.reset_mask)` to the asynchronously dispatched
+    reset and then clears the numpy array in place
+    (fish_speech_tpu/generate/continuous.py:381-387); on the CPU the
+    reset can read the array after the clear, the lane is not reset, and
+    its request's next text chunk decodes on the previous chunk's carried
+    state (hundreds of int16 steps off, when the delivery thread lags the
+    scheduler). Where it runs a JAX central vocoder as the reference, a
+    test takes the mask as it was when the tick used it; the port reads
+    its mask before clearing it (test_central_lane_reset_in_a_lagging_
+    interleaving)."""
+    monkeypatch.setattr(jcont, "jnp", _CopyingJnp())
+
+
 def _close(got, ref, atol=TOL):
     got, ref = np.asarray(got), np.asarray(ref)
     assert got.dtype == np.float32 and got.shape == ref.shape, (got.shape, ref.shape)
@@ -78,13 +109,6 @@ def test_load_from_a_checkpoint_directory(pipes):
     assert tp.engine.device.type == tp.codec.device.type == "cpu"
     assert tp.engine.token_cfg.im_end_id == jp.engine.token_cfg.im_end_id
     assert tp.codec.cfg.samples_per_frame == jp.codec.cfg.samples_per_frame
-
-
-def test_dual_ar_is_refused_naming_mimi(ckpt):  # noqa: F811
-    """The JAX pipeline builds a Mimi codec for dual_ar; the port has none
-    yet and says so before reading anything."""
-    with pytest.raises(NotImplementedError, match="Mimi"):
-        TTSPipeline.load(ckpt, tcfg.WhichModel.DUAL_AR, device="cpu")
 
 
 @pytest.mark.parametrize("voiced", [False, True])
@@ -173,7 +197,7 @@ def _batchers(jp, tp, central):
 
 
 @pytest.mark.parametrize("central", [True, False])
-def test_continuous_routes(pipes, central):
+def test_continuous_routes(pipes, central, jax_lane_resets):
     """synthesize_streaming_continuous (a PCM chunk a text chunk) and its
     low-latency form (PCM every tick) through a 2-row batcher, with the
     central vocoder and with the client vocoding: the PCM of JAX's, and
@@ -197,6 +221,40 @@ def test_continuous_routes(pipes, central):
         jb.shutdown()
         tb.shutdown()
     assert all(s is None for s in tb.rows)
+
+
+def test_central_lane_reset_in_a_lagging_interleaving(pipes, monkeypatch):
+    """The interleaving in which the JAX central vocoder skips a lane's
+    reset (jax_lane_resets): the delivery thread's copies slowed by 50 ms
+    and a second request arriving a second after the first, so that the
+    first request's second text chunk is admitted, and its lane reset,
+    while the other lane streams. Each request's PCM through the port's
+    create_batcher(2, 4) is its codes' decode, within one int16 step."""
+    _, tp, voice = pipes
+    get = tcont._Fetch.get
+    monkeypatch.setattr(tcont._Fetch, "get", lambda self: (time.sleep(0.05), get(self))[1])
+    texts = ((TEXT, 2), ("hello world .", 3))
+    batcher = tp.create_batcher(rows=2, horizon=4)
+    outs = {}
+
+    def run(i):
+        text, seed = texts[i]
+        outs[i] = np.concatenate(list(tp.synthesize_streaming_continuous(
+            batcher, text, voice_conditioning=voice, seed=seed)))
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    try:
+        threads[0].start()
+        time.sleep(1.0)
+        threads[1].start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        batcher.shutdown()
+    for i, (text, seed) in enumerate(texts):
+        codes = [c.codes for c in tp.synthesize_streaming(text, voice_conditioning=voice,
+                                                          seed=seed)]
+        _close(outs[i], np.concatenate([tp.codec.decode(c)[0] for c in codes]), I16)
 
 
 def test_shift_output_tokens():

@@ -41,7 +41,7 @@ from fish_speech_tpu_torch.server import core  # noqa: E402
 from fish_speech_tpu_torch.server.voices import load_speaker_prompts  # noqa: E402
 from test_torch_cli import ckpt  # noqa: E402,F401
 from test_torch_encode import MAX_FLIP_SHARE  # noqa: E402
-from test_torch_pipeline import MAX_NEW, TEXT, TOL, pipes  # noqa: E402,F401
+from test_torch_pipeline import MAX_NEW, TEXT, TOL, jax_lane_resets, pipes  # noqa: E402,F401
 
 I16 = 1.0 / 32767
 WAV_TOL = TOL + I16  # PCM within TOL, each side rounded to int16
@@ -148,10 +148,13 @@ def test_speech_wav(states, body):
     assert got[1] == jax_wav_bytes(pcm, states[1].pipeline.codec.sample_rate)
 
 
-def test_speech_through_the_batcher(pipes):  # noqa: F811
+def test_speech_through_the_batcher(pipes, jax_lane_resets):  # noqa: F811
     """Two concurrent WAV requests and one low-latency Opus request
     through each package's create_batcher(2, 4) (central vocoder): the
-    same statuses and headers, the WAV PCM within tolerance."""
+    same statuses and headers, the WAV PCM within tolerance. The JAX
+    central vocoder's lane resets are made to happen (jax_lane_resets):
+    it skipped one when its delivery thread lagged, and its first
+    request's second text chunk came out hundreds of int16 steps off."""
     jp, tp, voice = pipes
     batchers = (jp.create_batcher(rows=2, horizon=4), tp.create_batcher(rows=2, horizon=4))
     states = tuple(m.AppState(p, {"default": voice}, voice, batcher=b)
