@@ -9,8 +9,16 @@ fails (non-zero exit) on the first check that does not hold. One line
 per phase, each with the seconds since start:
 
   1. device   torch version, card name and power limit (nvidia-smi);
+     cold     two fresh processes (`chip_smoke.py --cold-start`) to the
+              first audio with $FISH_TPU_CACHE_DIR at a new directory:
+              import, the kernel library (built by the first, found by
+              the second), engine and codec from seeded weights, first
+              prefill, first 16-frame decode_chunk, first Firefly
+              decode, each timed;
   2. build    the kernels, one nvcc per source started together and one
-              link, its time, ptxas's register and spill lines, and the
+              link, built by the first cold-start process into that
+              directory and loaded from it here (one build a run), the
+              build's time, ptxas's register and spill lines, and the
               tensor-core instructions (HGMMA/HMMA) in the prefill
               kernel's SASS by cuobjdump, which must be more than none;
   3. kernels  each CUDA kernel against its plain PyTorch version on the
@@ -135,7 +143,11 @@ per phase, each with the seconds since start:
               launched at the conditioning offset for chunk 2, launch
               counts; the codes through the vocoder CLI to a WAV that
               parses; write and load seconds and each CLI's RTF;
-  5. profile  torch.profiler over 8 decode frames of each path;
+  5. profile  a device_trace (utils/profiling) of 8 decode frames of
+              each path (2 of the unfused one) under annotate("decode")
+              (its own span left out of the kernels' time): the file parses
+              and holds the region, and on the `auto` paths the fused
+              kernels' names; device time against the wall;
   6. serving  continuous batching at the serving configuration (16 rows,
               cache 512, horizon 16, rep-pen window 12, dynamic
               sampling): 20 requests of 40 tokens, 128 frames each, all
@@ -224,7 +236,21 @@ per phase, each with the seconds since start:
               predictions' PCM against the bf16-vs-float32 vocoder
               floor, and utils/int8_policy.evaluate's verdict (reported;
               random weights are not what the criteria are for; no
-              decision file is written).
+              decision file is written);
+  8. train    finetuning at Fish 1.5's published widths in float32 with
+              TF32 off: 3 steps at 2 slow layers (the fast stack whole,
+              B = 2, S = 128) on the card and on this machine's CPU from
+              the same weights (loss and grad_norm within 1e-4
+              relative, moments within 1e-4 of each leaf's largest,
+              parameters within one step's lr); 12 full-depth steps of
+              the finetune CLI's function on 16 seeded pairs of 200-400
+              frames (seq-len 512, B = 4, lr 1e-4, warmup 2), remat on
+              and off: the loss falls, s/step (median of the last 8),
+              real tokens/s and peak memory (utils/profiling); at 2 slow
+              layers, 4 steps straight against 2, a snapshot and
+              --resume to 4, bitwise equal; the trained checkpoint in
+              bf16 through load_lm_params into the `auto` engine, 16
+              frames through the fused kernels, with their launches.
 
 The kernel launch counts are read around the run of the path that
 launches the kernel: the bf16 kernels in the bf16 runs, the int8 bodies
@@ -233,17 +259,20 @@ entry also carries its launches on each version's paths
 (`version_launches`), and each kernel its errors, times and bounds at
 each version's shapes where that version runs it (`versions`).
 
-The line before the last is a JSON object with one entry per kernel;
-the last line is {"ok": true, "device": {...}}. Without CUDA, or
-without the package beside the script, it prints no result and exits 2.
+The line before the last is the card's nvidia-smi name and power
+limit, the one before it a JSON object with one entry per kernel; the
+last line is {"ok": true, "device": {...}}. Without CUDA, or without
+the package beside the script, it prints no result and exits 2.
 """
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import io
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1113,12 +1142,13 @@ def rows_bound(cfg, int8: bool, head_cols: int, positions):
     return (*bound(nbytes, flops), nbytes)
 
 
-def device_kernels(prof) -> list:
-    """The CUDA kernels of a torch.profiler run, with their device time."""
+def device_kernels(prof, regions=()) -> list:
+    """The CUDA kernels of a torch.profiler run, with their device time;
+    the device-side spans of the named `regions` (annotate) are left out."""
     return [e for e in prof.key_averages()
             if getattr(e, "device_type", None) is not None
             and str(e.device_type).endswith("CUDA")
-            and getattr(e, "self_device_time_total", 0) > 0]
+            and getattr(e, "self_device_time_total", 0) > 0 and e.key not in regions]
 
 
 def log_top_kernels(phase: str, kernels, n: int, unit: str, top: int = 8) -> None:
@@ -1993,7 +2023,8 @@ def run_main_path(torch, np, fused, unfused, codec, tok, codec_cfg):
             "prefill_attention": n_layer, "decode_attention": 0}
     check(lf == want and not any(l8.values()), f"auto path launches {lf} (int8 {l8}), "
           f"expected {want}")
-    profile_decode(torch, fused, state, sampling, "auto (fused)")
+    profile_decode(torch, fused, state, sampling, "auto (fused)",
+                   kernel_names=FUSED_DECODE_KERNELS)
 
     steps_u = N_FRAMES_UNFUSED - 1
     lu, _, state_u, _, _ = run_path(torch, np, unfused, codec, tok, codec_cfg,
@@ -2002,7 +2033,8 @@ def run_main_path(torch, np, fused, unfused, codec, tok, codec_cfg):
             "prefill_attention": n_layer, "decode_attention": n_layer * steps_u}
     check(lu == want, f"xla path launches {lu}, expected {want}")
     compare_decode_step(torch, unfused, state_u)
-    profile_decode(torch, unfused, state_u, sampling, "xla (unfused)")
+    # 2 frames: a frame's ~3900 launches make a 17 MB trace file
+    profile_decode(torch, unfused, state_u, sampling, "xla (unfused)", frames=2)
     return {"fused_slow_step": lf["fused_slow_step"], "fused_fast_frame": lf["fused_fast_frame"],
             "prefill_attention": lf["prefill_attention"],
             "decode_attention": lu["decode_attention"]}, stats
@@ -2027,7 +2059,8 @@ def run_int8_main_path(torch, np, engine, fused, bf16_first, codec, tok, codec_c
     log("main", f"batch-1 A/B in turns (bf16, int8, int8, bf16), means of two runs: int8 "
         f"{(first[0] + again[0]) / 2:.1f} frames/s, RTF {(first[1] + again[1]) / 2:.4f}; bf16 "
         f"{(bf16_first[0] + bf16[0]) / 2:.1f} frames/s, RTF {(bf16_first[1] + bf16[1]) / 2:.4f}")
-    profile_decode(torch, engine, state, sampling, "int8 auto (fused)")
+    profile_decode(torch, engine, state, sampling, "int8 auto (fused)",
+                   kernel_names=FUSED_DECODE_KERNELS)
     return {"fused_slow_step_int8": l8["fused_slow_step"],
             "fused_fast_frame_int8": l8["fused_fast_frame"]}
 
@@ -2093,19 +2126,40 @@ def run_long_prefill(torch, np, params, cfg, tok) -> dict:
             "attention_share": attn_ms / dev_ms if dev_ms > 0 else None}
 
 
-def profile_decode(torch, engine, state, sampling, label: str, frames: int = 8) -> None:
-    """Where a decode frame's time goes: torch.profiler over a few
-    frames; device time summed over CUDA kernels, against the wall."""
-    from torch.profiler import ProfilerActivity, profile
+# the fused kernels of the batch-1 `auto` path, as the trace names them
+FUSED_DECODE_KERNELS = ("decode_stack_kernel", "ds_sampler_kernel")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.perf_counter()
-        for _ in range(frames):
-            state, _ = engine.decode_step(state, sampling)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / frames
-    kernels = device_kernels(prof)
+
+def profile_decode(torch, engine, state, sampling, label: str, frames: int = 8,
+                   kernel_names=()) -> None:
+    """Where a decode frame's time goes: a device_trace (utils/profiling)
+    of a few frames under annotate("decode"), whose trace file must parse
+    and hold the region and a kernel of each of kernel_names; device time
+    summed over CUDA kernels, against the wall."""
+    import tempfile
+
+    from fish_speech_tpu_torch.utils.profiling import annotate, device_trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp) as trace:
+            t0 = time.perf_counter()
+            with annotate("decode"):
+                for _ in range(frames):
+                    state, _ = engine.decode_step(state, sampling)
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / frames
+        size = trace.path.stat().st_size
+        with open(trace.path) as f:
+            events = json.load(f)["traceEvents"]
+    in_file = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    check(any(e.get("name") == "decode" for e in events),
+          f"profile {label}: the trace file holds no 'decode' region")
+    for name in kernel_names:
+        check(any(name in k for k in in_file), f"profile {label}: no {name} in the trace file")
+    log("profile", f"{label}: device_trace file {size} bytes, {len(events)} events, the "
+        f"'decode' region and {len(in_file)} kernel names"
+        + (f", {' and '.join(kernel_names)} among them" if kernel_names else ""))
+    kernels = device_kernels(trace.prof, regions=("decode",))
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / frames
     launches = sum(e.count for e in kernels) / frames
     log("profile", f"{label}: decode frame under torch.profiler: wall {wall_ms:.2f} ms, device "
@@ -2643,9 +2697,9 @@ def near_ties(np, values, n_codebooks: int):
     return np.logical_or.accumulate(g, axis=1).reshape(tie.shape)
 
 
-def logged(torch, fn, *args):
-    """fn(*args) in-process, its prints logged under the cli phase;
-    returns (its result, its seconds to the card's last work)."""
+def logged(torch, fn, *args, phase: str = "cli"):
+    """fn(*args) in-process, its prints logged under `phase`; returns
+    (its result, its seconds to the card's last work)."""
     import contextlib
 
     out = io.StringIO()
@@ -2655,7 +2709,7 @@ def logged(torch, fn, *args):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     for line in out.getvalue().splitlines():
-        log("cli", f"  | {line}")
+        log(phase, f"  | {line}")
     return result, seconds
 
 
@@ -4202,6 +4256,375 @@ def run_int8_proxy(torch, np, engine, engine8, params, codec, codec_cfg) -> None
         f"weights, reported only) in {time.perf_counter() - t0:.1f}s")
 
 
+# --------------------------------------------------------------------------
+# Phase train: finetuning at the full Fish-1.5 width, and the trained
+# checkpoint served back through the fused kernels
+# --------------------------------------------------------------------------
+
+TRAIN_LR = 1e-4
+# Card against CPU, the same 3 steps at 2 slow layers: the loss and the
+# gradients' global norm within 1e-4 relative at each step; the AdamW
+# moments within 1e-4 of each leaf's largest value; every parameter
+# within one step's learning rate and all but 0.1% within 1e-2 of it
+# (Adam divides each gradient by its own running magnitude, so where a
+# gradient is near zero the ulps by which the card's sums differ from
+# the CPU's can move its parameter by up to about lr).
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_MOMENT_TOL = 1e-4
+TRAIN_PARAM_TIGHT = 1e-2  # of lr, for all but TRAIN_OUTLIERS of the parameters
+TRAIN_OUTLIERS = 1e-3
+TRAIN_WORDS = ("hello", "world", "speak", "the", "text", "voice", "sample", "clone", "fish",
+               "card")
+
+
+def train_batch(np, cfg, tok, seed: int, b: int, s: int) -> dict:
+    """A text prefix, then audio frames (semantic ids in range, seeded
+    codebooks), right-padded, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    tokens = np.zeros((b, cfg.num_codebooks + 1, s), np.int32)
+    tokens[:, 0] = tok.pad_id
+    lens = rng.integers(s * 3 // 4, s + 1, size=b).astype(np.int32)
+    for i in range(b):
+        t = int(rng.integers(16, 48))
+        tokens[i, 0, :t] = rng.integers(1000, 1100, size=t)
+        tokens[i, 1:, t:lens[i]] = rng.integers(0, cfg.codebook_size,
+                                                 size=(cfg.num_codebooks, lens[i] - t))
+        tokens[i, 0, t:lens[i]] = tok.semantic_start_id + tokens[i, 1, t:lens[i]]
+    return {"tokens": tokens, "seq_lens": lens}
+
+
+def train_dataset(np, d, cfg, n: int = 16, seed: int = 0) -> None:
+    """n seeded (transcript, codes) pairs in d: stand-in words and
+    (num_codebooks, 200-400) codes."""
+    rng = np.random.default_rng(seed)
+    d.mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        frames = int(rng.integers(200, 401))
+        np.save(d / f"s{i:02d}.npy", rng.integers(0, cfg.codebook_size, size=(
+            cfg.num_codebooks, frames)).astype(np.uint32))
+        words = rng.choice(TRAIN_WORDS, size=int(rng.integers(6, 20)))
+        (d / f"s{i:02d}.txt").write_text(" ".join(words) + " .")
+
+
+def write_checkpoint(torch, cfg, d, seed: int) -> None:
+    """Random float32 weights (seed) in the upstream names with config.json."""
+    from fish_speech_tpu_torch.io.checkpoint import save_lm_params
+    from fish_speech_tpu_torch.models.dual_ar import init_dual_ar_params
+
+    d.mkdir(parents=True, exist_ok=True)
+    save_lm_params(d / "model.safetensors",
+                   init_dual_ar_params(cfg, seed=seed, dtype=torch.float32, device="cuda"), cfg)
+    (d / "config.json").write_text(json.dumps(dataclasses.asdict(cfg)))
+
+
+def adam_close(np, got, ref, lr: float):
+    """(largest difference, share beyond TRAIN_PARAM_TIGHT x lr) over
+    every value of two lists of parameter tensors."""
+    worst, beyond, total = 0.0, 0, 0
+    for a, b in zip(got, ref):
+        diff = (a.double().cpu() - b.double().cpu()).abs()
+        worst = max(worst, float(diff.max()))
+        beyond += int((diff > TRAIN_PARAM_TIGHT * lr).sum())
+        total += diff.numel()
+    return worst, beyond / total
+
+
+def train_card_against_cpu(torch, np, cfg, tok) -> None:
+    """3 steps (warmup 1) at full width with 2 slow layers, B = 2, S =
+    128, on the card and on this machine's CPU from the same weights."""
+    from fish_speech_tpu_torch.models.dual_ar import init_dual_ar_params
+    from fish_speech_tpu_torch.train import TrainConfig, init_train_state, make_train_step
+    from fish_speech_tpu_torch.train.step import tree_leaves
+
+    cfg2 = dataclasses.replace(cfg, n_layer=2)
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1, total_steps=3)
+    batches = [train_batch(np, cfg2, tok, seed=10 + i, b=2, s=128) for i in range(3)]
+    card = init_dual_ar_params(cfg2, seed=3, dtype=torch.float32, device="cuda")
+    runs = {}
+    for dev in ("cpu", "cuda"):  # the card's run updates `card` in place
+        params, state = init_train_state(card, tc, device=dev)
+        step = make_train_step(cfg2, tok, tc)
+        metrics = []
+        t0 = time.perf_counter()
+        for b in batches:
+            params, state, m = step(params, state, {k: torch.from_numpy(v).to(dev)
+                                                    for k, v in b.items()})
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[dev] = (params, state, metrics, time.perf_counter() - t0)
+    (pg, sg, mg, tg), (pc, sc, mc, tcpu) = runs["cuda"], runs["cpu"]
+    for i, ((lg, ng), (lc, nc)) in enumerate(zip(mg, mc)):
+        check(abs(lg - lc) <= TRAIN_LOSS_RTOL * abs(lc) and abs(ng - nc) <= TRAIN_LOSS_RTOL * nc,
+              f"train: step {i} on the card loss {lg} grad_norm {ng}, on the CPU {lc} {nc}")
+    moment_err = 0.0
+    for key in ("mu", "nu"):
+        for (path, a), (_, b) in zip(tree_leaves(sg[key]), tree_leaves(sc[key])):
+            err = float((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1e-30))
+            check(err <= TRAIN_MOMENT_TOL, f"train: {key} {'/'.join(path)} differs from the "
+                  f"CPU's by {err:.2e} of its largest value")
+            moment_err = max(moment_err, err)
+    check(int(sg["count"]) == int(sc["count"]) == 3, "train: the optimizer count is not 3")
+    worst, share = adam_close(np, [t for _, t in tree_leaves(pg)], [t for _, t in tree_leaves(pc)],
+                              TRAIN_LR)
+    check(worst <= TRAIN_LR and share <= TRAIN_OUTLIERS,
+          f"train: parameters after 3 steps differ from the CPU's by up to {worst:.2e} "
+          f"({share:.2e} of them beyond {TRAIN_PARAM_TIGHT} x lr)")
+    rel = max(max(abs(lg - lc) / abs(lc), abs(ng - nc) / nc) for (lg, ng), (lc, nc) in zip(mg, mc))
+    log("train", f"card against CPU, full width with 2 slow layers (the 4 fast layers whole), "
+        f"B=2 S=128, 3 steps warmup 1, lr {TRAIN_LR}: loss {' '.join(f'{l:.6f}' for l, _ in mg)} "
+        f"(CPU {' '.join(f'{l:.6f}' for l, _ in mc)}), largest relative difference of loss and "
+        f"grad_norm {rel:.2e} (tol {TRAIN_LOSS_RTOL}); moments within {moment_err:.2e} of each "
+        f"leaf's largest (tol {TRAIN_MOMENT_TOL}); parameters within {worst:.2e} (tol lr "
+        f"{TRAIN_LR}), {share:.2e} of them beyond {TRAIN_PARAM_TIGHT} x lr (tol "
+        f"{TRAIN_OUTLIERS}); card {tg:.2f}s, CPU {tcpu:.1f}s ({torch.get_num_threads()} "
+        f"threads)")
+
+
+def finetune_args(ckpt, data, out, *extra):
+    from fish_speech_tpu_torch.cli import finetune
+
+    return finetune.build_parser().parse_args([
+        "--checkpoint", str(ckpt), "--data", str(data), "--out", str(out),
+        "--seq-len", "512", "--batch-size", "4", "--lr", str(TRAIN_LR), "--warmup", "2",
+        *map(str, extra)])
+
+
+def train_full_depth(torch, np, cfg, d, smi) -> None:
+    """12 steps of the finetune CLI's function at full depth on 16 seeded
+    pairs, with remat on and off: the loss falls; s/step (median of the
+    last 8), real tokens/s and the peak memory (utils/profiling)."""
+    from fish_speech_tpu_torch.cli import finetune
+    from fish_speech_tpu_torch.utils.profiling import memory_stats
+
+    write_checkpoint(torch, cfg, d / "ckpt", seed=4)
+    train_dataset(np, d / "data", cfg)
+    for remat in (True, False):
+        out = d / ("trained" if remat else "trained_no_remat")
+        args = finetune_args(d / "ckpt", d / "data", out, "--steps", 12, "--log-every", 1,
+                             *([] if remat else ["--no-remat"]))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        records, seconds = logged(torch, finetune.finetune, StandInTokenizer(cfg.codebook_size),
+                                  args, phase="train")
+        peak = memory_stats()["cuda:0"]["allocated_bytes.all.peak"]
+        losses = [r["loss"] for r in records]
+        check(len(records) == 12 and all(np.isfinite(losses)), f"train: losses {losses}")
+        check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+        ends = [r["seconds"] for r in records]
+        steps = np.diff([0.0] + ends)[-8:]
+        tokens = sum(r["tokens"] for r in records[-8:])
+        log("train", f"full depth (24 + 4 layers), remat {'on' if remat else 'off'}: 12 steps of B=4, seq-len 512 (16 pairs of 200-400 "
+            f"frames, lr {TRAIN_LR}, warmup 2) through the finetune CLI's function: loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}; {float(np.median(steps)):.4f} s/step "
+            f"(median of the last 8), {tokens / float(np.sum(steps)):.0f} real tokens/s; peak "
+            f"allocated {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above the "
+            f"{base / 1e9:.2f} GB held before); {seconds:.1f}s with the checkpoint's load and "
+            f"write; {smi}")
+        if not remat:
+            shutil.rmtree(out)
+
+
+def train_resume(torch, np, cfg, d) -> None:
+    """At 2 slow layers: 4 steps straight against 2 steps, a snapshot and
+    --resume to 4, through the finetune CLI's function; the final train
+    states (parameters, moments, count, data-order RNG and permutation)
+    and checkpoints are bitwise equal."""
+    from fish_speech_tpu_torch.cli import finetune
+
+    cfg2 = dataclasses.replace(cfg, n_layer=2)
+    write_checkpoint(torch, cfg2, d / "ckpt2", seed=5)
+    tok = StandInTokenizer(cfg.codebook_size)
+    straight, resumed = d / "straight", d / "resumed"
+    common = (d / "ckpt2", d / "data")
+    t0 = time.perf_counter()
+    logged(torch, finetune.finetune, tok, finetune_args(*common, straight, "--steps", 4,
+                                                        "--save-every", 4), phase="train")
+    logged(torch, finetune.finetune, tok, finetune_args(*common, resumed, "--steps", 2,
+                                                        "--save-every", 2), phase="train")
+    logged(torch, finetune.finetune, tok, finetune_args(*common, resumed, "--steps", 4,
+                                                        "--save-every", 2, "--resume"),
+           phase="train")
+    seconds = time.perf_counter() - t0
+    with np.load(straight / "train_state.npz") as a, np.load(resumed / "train_state.npz") as b:
+        check(sorted(a.files) == sorted(b.files), "train: the two train states hold other names")
+        meta_a, meta_b = (json.loads(bytes(z["__meta__"]).decode()) for z in (a, b))
+        check(meta_a == meta_b and meta_a["step"] == 4,
+              "train: the resumed run's step, RNG state or permutation differs")
+        differ = [k for k in a.files if not np.array_equal(a[k], b[k])]
+        n = len(a.files) - 1
+    check(not differ, f"train: the resumed run's tensors differ from the straight run's: {differ}")
+    check((straight / "model.safetensors").read_bytes() == (resumed / "model.safetensors")
+          .read_bytes(), "train: the resumed run's model.safetensors differs")
+    log("train", f"resume at 2 slow layers: 4 steps straight, and 2 steps + a snapshot + "
+        f"--resume to 4: the {n} tensors of the train states (parameters, AdamW moments, "
+        f"count), the step, the data-order RNG's state and permutation, and model.safetensors "
+        f"bitwise equal ({seconds:.1f}s for the three runs with their snapshots)")
+
+
+def train_serve_back(torch, np, cfg, tok, d) -> None:
+    """The trained checkpoint in bf16 through load_lm_params into the
+    batch-1 `auto` engine: 16 frames from the 40-token prompt through the
+    fused kernels, with their launches."""
+    from fish_speech_tpu_torch.config import WhichLM
+    from fish_speech_tpu_torch.generate.engine import LMEngine
+    from fish_speech_tpu_torch.io.checkpoint import load_lm_params
+    from fish_speech_tpu_torch.ops import decode_attention as da
+    from fish_speech_tpu_torch.ops import fast_frame as ff
+    from fish_speech_tpu_torch.ops import prefill_attention as pa
+    from fish_speech_tpu_torch.ops import slow_step as ss
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs
+
+    params = load_lm_params(d / "trained", cfg, dtype=torch.bfloat16)
+    engine = LMEngine(params, cfg, tok, WhichLM.FISH_1_5, max_frames=16, prompt_buckets=(64,))
+    check(engine.use_fused_slow and engine.use_fused_fast,
+          "train: the trained checkpoint's engine is not on the fused path")
+    mods = {"prefill_attention": pa, "fused_slow_step": ss, "fused_fast_frame": ff,
+            "decode_attention": da}
+    for m in mods.values():
+        m.launches = 0
+    res, _ = engine.generate(main_prompt(np, cfg), max_new_tokens=16,
+                             sampling=SamplingArgs(**SAMPLING), seed=0)
+    launches = {k: m.launches for k, m in mods.items()}
+    frames = res.tokens.shape[1]
+    sem = res.semantic
+    check(1 <= frames <= 16, f"train: served {frames} frames")
+    check(bool(((sem >= tok.semantic_start_id) & (sem <= tok.semantic_end_id)).all()),
+          f"train: served semantic ids outside the range: {sem}")
+    check(bool(((res.tokens >= 0) & (res.tokens < cfg.codebook_size)).all()),
+          "train: served codebook ids outside [0, codebook_size)")
+    # one slow step and one fast frame a decode step: frames - 1 of them,
+    # or frames when the last step drew <|im_end|> (a frame not kept)
+    steps = launches["fused_slow_step"]
+    check(launches["prefill_attention"] == cfg.n_layer and launches["decode_attention"] == 0
+          and launches["fused_fast_frame"] == steps and steps in (frames - 1, frames)
+          and steps > 0, f"train: serving the trained checkpoint's {frames} frames launched "
+          f"{launches}")
+    log("train", f"the trained model.safetensors in bf16 through load_lm_params into the "
+        f"batch-1 auto engine: {frames} frames from the {PROMPT_LEN}-token prompt, ids in "
+        f"range, launches {json.dumps(launches)}")
+
+
+def run_train(torch, np, tok) -> None:
+    import tempfile
+    from pathlib import Path
+
+    from fish_speech_tpu_torch.config import DualARConfig
+
+    cfg = DualARConfig.fish_speech_1_5()
+    check(not torch.backends.cuda.matmul.allow_tf32, "train: TF32 is on for matmuls")
+    train_card_against_cpu(torch, np, cfg, tok)
+    smi = nvidia_smi_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        train_full_depth(torch, np, cfg, d, smi)
+        train_resume(torch, np, cfg, d)
+        train_serve_back(torch, np, cfg, tok, d)
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# Cold start: a fresh process to its first audio, with and without the
+# kernel library built
+# --------------------------------------------------------------------------
+
+COLD_FRAMES = 16
+
+
+def cold_start_child() -> int:
+    """`chip_smoke.py --cold-start`: import, kernel library (built or
+    loaded under $FISH_TPU_CACHE_DIR), the batch-1 engine and the
+    Firefly-1.5 codec from seeded bf16 weights, the first prefill, the
+    first 16-frame decode_chunk and the first Firefly decode, each timed
+    to the card's last work; one JSON line of seconds."""
+    t0 = time.perf_counter()
+    import numpy as np
+    import torch
+
+    from fish_speech_tpu_torch.config import (
+        DualARConfig, FireflyConfig, FishVersion, TokenConfig, WhichLM)
+    from fish_speech_tpu_torch.generate.engine import LMEngine
+    from fish_speech_tpu_torch.models.codec.firefly import FireflyCodec, init_firefly_params
+    from fish_speech_tpu_torch.models.dual_ar import init_dual_ar_params
+    from fish_speech_tpu_torch.ops import _cuda_build
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs
+    from fish_speech_tpu_torch.utils.cache import setup_compilation_cache
+
+    cache = setup_compilation_cache()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    out = {"import_s": time.perf_counter() - t0}
+    t = time.perf_counter()
+    _cuda_build.load_library()
+    out["library_s"] = time.perf_counter() - t
+    out["built"] = _cuda_build.build_seconds is not None
+    t = time.perf_counter()
+    cfg = DualARConfig.fish_speech_1_5()
+    tok = TokenConfig(im_end_id=100011, pad_id=5, semantic_start_id=100012,
+                      semantic_end_id=100012 + cfg.codebook_size - 1)
+    params = init_dual_ar_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    params["output"][:, tok.im_end_id] = 0
+    engine = LMEngine(params, cfg, tok, WhichLM.FISH_1_5, cache_len=SERVE_CACHE,
+                      max_frames=COLD_FRAMES, prompt_buckets=(64,))
+    codec_cfg = FireflyConfig.for_version(FishVersion.V1_5)
+    codec = FireflyCodec(init_firefly_params(codec_cfg, seed=1, dtype=torch.bfloat16,
+                                             device="cuda"), codec_cfg)
+    torch.cuda.synchronize()
+    out["engine_s"] = time.perf_counter() - t
+    sampling = SamplingArgs(**SAMPLING)
+    t = time.perf_counter()
+    state, first, _, _ = engine._prefill_raw(engine.init_state(0), main_prompt(np, cfg), sampling)
+    frames = [first.cpu().numpy()[0]]
+    out["prefill_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    state, chunk, valid, steps = engine.decode_chunk(state, sampling, COLD_FRAMES)
+    chunk, valid, steps = (x.cpu().numpy() for x in (chunk, valid, steps))
+    frames += [chunk[i, 0] for i in range(int(steps)) if valid[i, 0]]
+    out["decode_chunk_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    pcm = codec.decode(np.stack(frames, axis=1)[1:])
+    torch.cuda.synchronize()
+    out["firefly_s"] = time.perf_counter() - t
+    out["total_s"] = time.perf_counter() - t0
+    out["frames"] = len(frames)
+    out["pcm_finite"] = bool(np.isfinite(pcm).all()) and pcm.shape[-1] > 0
+    out["cache"] = cache
+    out["nvcc_log"] = _cuda_build.nvcc_log
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def run_cold(smi):
+    """Two fresh processes to the first audio with $FISH_TPU_CACHE_DIR at
+    one new directory: the first builds the kernel library there, the
+    second finds it built. Returns the directory, the first process's
+    build seconds and its nvcc log."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    cache = tempfile.mkdtemp(prefix="fish_tpu_kernels_")
+    env = dict(os.environ, FISH_TPU_CACHE_DIR=cache)
+    first = None
+    for label, built in (("empty cache", True), ("library built", False)):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--cold-start"],
+                              env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"cold: the {label} process failed: {proc.stderr[-3000:]}")
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(r["built"] == built and r["cache"] == cache and r["pcm_finite"],
+              f"cold: {label}: {dict(r, nvcc_log='...')}")
+        first = first or r
+        log("cold", f"{label}: a fresh process to its first audio in {r['total_s']:.2f}s "
+            f"({wall:.2f}s with the interpreter's start and exit): import and CUDA init "
+            f"{r['import_s']:.2f}s, kernel library {'built' if built else 'loaded'} "
+            f"{r['library_s']:.2f}s, engine and codec from seeded weights "
+            f"{r['engine_s']:.2f}s, first prefill {r['prefill_s']:.3f}s, first "
+            f"{COLD_FRAMES}-frame decode_chunk {r['decode_chunk_s']:.3f}s, first Firefly "
+            f"decode of {r['frames'] - 1} frames {r['firefly_s']:.3f}s; {smi}")
+    return cache, first["library_s"], first["nvcc_log"]
+
+
 def log_ptxas(nvcc_log: str) -> None:
     """ptxas's register, stack and shared-memory line of each kernel,
     once, with the sources that compile it."""
@@ -4252,15 +4675,20 @@ def main() -> int:
     log("device", f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; nvidia-smi: {smi}")
 
+    # the cold start's first process builds the kernel library into a new
+    # directory, which this process then loads: one build a run
+    from fish_speech_tpu_torch.utils.cache import setup_compilation_cache
+
+    cache, built, nvcc_log = run_cold(smi)
+    atexit.register(shutil.rmtree, cache, ignore_errors=True)
+    setup_compilation_cache(cache)
     t0 = time.perf_counter()
     _cuda_build.load_library()
-    built = _cuda_build.build_seconds
     n_src = len(list(_cuda_build.CSRC.glob("*.cu")))
     log("build", f"{n_src} x nvcc {' '.join(_cuda_build.NVCC_FLAGS[:2])} -c, in parallel, "
-        f"+ link -> libfstorch.so: "
-        + (f"built in {built:.1f}s" if built is not None else "found built")
-        + f" (load {time.perf_counter() - t0:.1f}s)")
-    log_ptxas(_cuda_build.nvcc_log)
+        f"+ link -> libfstorch.so: built in {built:.1f}s by the cold start's first process "
+        f"(load here {time.perf_counter() - t0:.2f}s)")
+    log_ptxas(nvcc_log)
     n_tensor = sass_tensor_ops(_cuda_build.find_nvcc(), _cuda_build.build())
     log("build", f"cuobjdump -sass: {n_tensor} HGMMA/HMMA instructions in prefill_attention_kernel")
     check(n_tensor > 0, "prefill_attention_kernel has no tensor-core instruction")
@@ -4302,6 +4730,7 @@ def main() -> int:
                  "slow_step_rows_int8"):
         launches[name] = served[name]
     run_int8_proxy(torch, np, fused, int8["batch1"], params, codec, codec_cfg)
+    run_train(torch, np, tok)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
@@ -4315,6 +4744,7 @@ def main() -> int:
         k["versions"] = {v: r["kernels"][k["name"]] for v, r in versions.items()
                          if k["name"] in r["kernels"]}
 
+    log("done", f"every phase held, in {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4326,4 +4756,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cold_start_child() if sys.argv[1:] == ["--cold-start"] else main())

@@ -99,6 +99,10 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    from fish_speech_tpu_torch.utils.cache import setup_compilation_cache
+
+    setup_compilation_cache()
+
     if args.random_weights or args.checkpoint is None:
         log("loading random-weight Fish-1.5-architecture pipeline")
         pipeline = _load_random_pipeline(args.device)

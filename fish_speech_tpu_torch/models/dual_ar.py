@@ -130,14 +130,16 @@ def embed_tokens(params, cfg: DualARConfig, token_cfg: TokenConfig,
 
     tokens: (B, C+1, S) int -> (B, S, D). Codebook embeddings count only
     where the semantic token is in the semantic range (1.5+) or equals
-    PAD (<= 1.4)."""
+    PAD (<= 1.4). The rows are gathered by F.embedding, whose backward
+    sums a table row's gradients in a fixed order (that of indexing sums
+    them in an order that varies from run to run on the CPU)."""
     tokens = tokens.long()
     semantic = tokens[:, 0, :]
     codebooks = tokens[:, 1:, :]
-    sem_emb = params["embeddings"][semantic]  # (B, S, D)
+    sem_emb = F.embedding(semantic, params["embeddings"])  # (B, S, D)
     offsets = (torch.arange(cfg.num_codebooks, device=tokens.device)
                * cfg.codebook_size)[None, :, None]
-    cb_emb = params["codebook_embeddings"][codebooks + offsets]  # (B, C, S, D)
+    cb_emb = F.embedding(codebooks + offsets, params["codebook_embeddings"])  # (B, C, S, D)
     if token_cfg.semantic_end_id is not None:
         keep = (semantic >= token_cfg.semantic_start_id) & (
             semantic <= token_cfg.semantic_end_id)

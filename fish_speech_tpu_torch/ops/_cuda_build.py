@@ -6,8 +6,8 @@ shared library with a C interface, `libfstorch.so`, which is loaded with
 `ctypes`. Sources include no PyTorch header, so the build takes seconds
 and needs neither `ninja` nor `torch.utils.cpp_extension`. The library
 lands in `build/torch_kernels/<hash of the sources and flags>/` beside
-the package, so a changed source builds anew and an unchanged one is
-loaded from disk.
+the package (or under $FISH_TPU_CACHE_DIR: `utils/cache.py`), so a
+changed source builds anew and an unchanged one is loaded from disk.
 
 Nothing is built at import: `load_library()` builds on first use, and
 raises (with nvcc's stderr) when nvcc is missing or fails. There is no
@@ -27,7 +27,8 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
+DEFAULT_BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
+BUILD_ROOT = DEFAULT_BUILD_ROOT  # utils/cache.py::setup_compilation_cache sets it
 LIB_NAME = "libfstorch.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -123,7 +124,7 @@ def _digest() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into build/torch_kernels/<hash>/libfstorch.so
+    """Compile csrc/*.cu into <BUILD_ROOT>/<hash>/libfstorch.so
     unless that file exists: one `nvcc -c` per source, all running at
     once, then one link. Returns the library's path."""
     global build_seconds, nvcc_log
@@ -186,7 +187,7 @@ def load_variant(name: str, defines) -> ctypes.CDLL:
     them from then on. Built anew on every call; not for the port's own
     paths."""
     global _lib
-    out = BUILD_ROOT.parent / name
+    out = DEFAULT_BUILD_ROOT.parent / name
     out.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     flags = [*NVCC_FLAGS[:-2], *(f"-D{d}" for d in defines)]

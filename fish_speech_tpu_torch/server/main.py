@@ -126,6 +126,11 @@ def build_state(args: argparse.Namespace) -> AppState:
 def main(argv: Optional[List[str]] = None) -> None:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    # the kernel library under $FISH_TPU_CACHE_DIR, when set: a restart
+    # loads it instead of building it
+    from fish_speech_tpu_torch.utils.cache import setup_compilation_cache
+
+    setup_compilation_cache()
     state = build_state(args)  # no card and no --device cpu: raises before loading
     from fish_speech_tpu_torch.server.app import serve
 

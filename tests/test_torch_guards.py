@@ -181,9 +181,30 @@ assert dual_batcher._central is not None
 assert list(dual.synthesize_streaming_continuous(dual_batcher, "hi ."))[0].shape[0] % 160 == 0
 dual_batcher.shutdown()
 tmp.cleanup()
+from fish_speech_tpu_torch.cli import finetune
+from fish_speech_tpu_torch.train import checkpoint as train_checkpoint, step as train_step
+from fish_speech_tpu_torch.utils.cache import setup_compilation_cache
+from fish_speech_tpu_torch.utils.profiling import annotate, device_trace, memory_stats
+from fish_speech_tpu_torch.utils.timing import Timer
+tmp = tempfile.TemporaryDirectory()
+d = pathlib.Path(tmp.name)
+save_lm_params(d / "model.safetensors", init_dual_ar_params(cfg, 0, torch.float32, "cpu"), cfg)
+(d / "config.json").write_text(json.dumps(dataclasses.asdict(cfg)))
+(d / "data").mkdir()
+np.save(d / "data" / "a.npy", np.ones((2, 5), np.uint32))
+(d / "data" / "a.txt").write_text("hi .")
+timer = Timer()
+with timer.span("finetune"), device_trace(d / "trace") as trace, annotate("finetune"):
+    finetune.finetune(StandInTokenizer(), finetune.build_parser().parse_args([
+        "--checkpoint", str(d), "--data", str(d / "data"), "--out", str(d / "out"),
+        "--steps", "2", "--batch-size", "1", "--save-every", "1", "--device", "cpu"]))
+assert (d / "out" / "train_state.npz").exists() and trace.path.exists()
+assert memory_stats()["cpu"] is None and timer.total("finetune") > 0
+setup_compilation_cache()
+tmp.cleanup()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0].startswith("jax") or m.split(".")[0] == "fish_speech_tpu"
-             or m.split(".")[0] in ("safetensors", "ml_dtypes", "tokenizers"))
+             or m.split(".")[0] in ("optax", "safetensors", "ml_dtypes", "tokenizers"))
 print("FORBIDDEN", bad)
 """
 
@@ -203,8 +224,11 @@ def test_port_imports_no_jax_and_no_jax_package():
     and, where the native library builds, to Ogg/Opus), the Mimi codec
     and the dual_ar pipeline (TTSPipeline.load of a depthwise LM with
     mimi.safetensors, a request through the server core and one through
-    the central vocoder on Mimi), and holds no
-    jax*, no fish_speech_tpu, no
+    the central vocoder on Mimi), finetuning (two steps of the finetune
+    CLI's function on a checkpoint directory, a train-state snapshot) under
+    the utilities (a Timer span, a device_trace with an annotate region,
+    memory_stats, setup_compilation_cache), and holds no
+    jax*, no optax, no fish_speech_tpu, no
     safetensors, no ml_dtypes and no tokenizers module: llama_generate
     reads its tokenizer through a stand-in with the methods PromptEncoder
     calls, as where the tokenizers package is missing."""
@@ -247,17 +271,17 @@ def _tiny():
                                    "llama_generate", "vocoder", "encoder", "pipeline_load",
                                    "api_lm", "api_codec", "server_main", "benchmark",
                                    "mimi_codec", "load_mimi_params", "random_mimi",
-                                   "pipeline_load_dual_ar"])
+                                   "pipeline_load_dual_ar", "finetune"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """With no device argument the entry points ask for CUDA, and raise
     where it is missing instead of falling back to the CPU: the engine,
-    the codecs, the checkpoint loaders, each CLI's main without
-    --device, TTSPipeline.load (Fish and dual_ar), the API's LM and
-    FireflyCodec, and the server's main without --device."""
+    the codecs, the checkpoint loaders, each CLI's main (finetune's too)
+    without --device, TTSPipeline.load (Fish and dual_ar), the API's LM
+    and FireflyCodec, and the server's main without --device."""
     if torch.cuda.is_available():
         pytest.skip("CUDA is present")
     from fish_speech_tpu_torch import api
-    from fish_speech_tpu_torch.cli import benchmark, encoder, llama_generate, vocoder
+    from fish_speech_tpu_torch.cli import benchmark, encoder, finetune, llama_generate, vocoder
     from fish_speech_tpu_torch.io.checkpoint import load_firefly_params, load_lm_params
     from fish_speech_tpu_torch.models.codec import mimi
     from fish_speech_tpu_torch.pipeline import TTSPipeline
@@ -284,6 +308,8 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
                                                           mimi.MimiConfig()),
         "random_mimi": lambda: mimi.random_mimi_state_dict(mimi.MimiConfig()),
         "pipeline_load_dual_ar": lambda: TTSPipeline.load(tmp_path, tcfg.WhichModel.DUAL_AR),
+        "finetune": lambda: finetune.main(ckpt + ["--data", str(tmp_path), "--out",
+                                                  str(tmp_path / "out")]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
