@@ -237,7 +237,31 @@ per phase, each with the seconds since start:
               floor, and utils/int8_policy.evaluate's verdict (reported;
               random weights are not what the criteria are for; no
               decision file is written);
-  8. train    finetuning at Fish 1.5's published widths in float32 with
+  8. parallel parallel serving (`fish_speech_tpu_torch/parallel/`) at
+              Fish 1.5's width on the seed-0 weights, worlds of spawned
+              ranks through `parallel.dryrun.serving_dryrun`: (a) one
+              rank on nccl (dp = tp = 1): the sharded engine's prefill
+              and 32 frames on the unfused path bit-equal to the
+              unsharded engine's (tokens and logits); (b) two ranks on
+              this one card over gloo at tp = 2: decode attention at a
+              rank's shape (8 q heads over 1 KV head: B = 1 at pos 0, 1,
+              104 and 4095 at cache 4096, 16 rows at cache 512 with
+              ragged pos) against its plain version with the kernels
+              phase's tolerance and timed beside SDPA and its byte
+              bound; 64 sampled frames of the sharded batch-1 engine,
+              whose logits must be as close to a float32 evaluation on
+              their own context as the unsharded engine's are on theirs
+              (ACCURACY_FACTOR), with the token agreement of the two;
+              8 requests through the sharded pipeline's
+              create_batcher(16, 16) and its central vocoder, PCM for
+              every one, frames/s (two ranks sharing one card over gloo:
+              not a speed of tensor parallelism); (c) two ranks at dp =
+              2 through the batcher, 16 requests on the unfused path:
+              each request's codes against the unsharded batcher's (the
+              first frame's semantic token equal, the agreement
+              printed). Every rank launched both
+              attention kernels; no rank holds a JAX module;
+  9. train    finetuning at Fish 1.5's published widths in float32 with
               TF32 off: 3 steps at 2 slow layers (the fast stack whole,
               B = 2, S = 128) on the card and on this machine's CPU from
               the same weights (loss and grad_norm within 1e-4
@@ -257,7 +281,10 @@ launches the kernel: the bf16 kernels in the bf16 runs, the int8 bodies
 (each wrapper's int8_launches) in the int8 runs; each bf16 kernel's
 entry also carries its launches on each version's paths
 (`version_launches`), and each kernel its errors, times and bounds at
-each version's shapes where that version runs it (`versions`).
+each version's shapes where that version runs it (`versions`); decode
+and prefill attention also carry each rank's launches in each world of
+the parallel phase (`parallel_launches`), and decode attention its
+checks and times at a tp = 2 rank's shape (`tp2_rank_shape`, row 1p).
 
 The line before the last is the card's nvidia-smi name and power
 limit, the one before it a JSON object with one entry per kernel; the
@@ -4257,6 +4284,240 @@ def run_int8_proxy(torch, np, engine, engine8, params, codec, codec_cfg) -> None
 
 
 # --------------------------------------------------------------------------
+# Phase parallel: the LM sharded over worlds of ranks on this card
+# --------------------------------------------------------------------------
+
+PAR_FRAMES_A = 32  # (a): nccl world of one against the unsharded engine
+PAR_FRAMES_B = 64  # (b): tp = 2 against the unsharded engine, by accuracy
+PAR_REQUESTS = 8
+PAR_NEW = 24  # frames a batcher request
+PAR_TIMEOUT_S = 600.0
+
+
+def check_decode_rank_shape(torch, cfg, tp: int = 2) -> dict:
+    """Decode attention at a tp rank's own shape (its q and KV heads)
+    through `decode_attention_sharded`, against the plain version with the
+    kernels phase's tolerance; timed beside SDPA and the byte bound."""
+    from fish_speech_tpu_torch.ops import decode_attention as da
+
+    local = dataclasses.replace(cfg, n_head=cfg.n_head // tp, n_local_heads=cfg.n_local_heads // tp)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2024)
+    h, kv, hd, n_layer, layer = local.n_head, local.n_local_heads, cfg.head_dim, cfg.n_layer, 5
+    heads = (cfg.n_head, cfg.n_local_heads)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)  # noqa: E731
+
+    def one_row(pos, s):
+        return (rnd(1, h, hd), rnd(1, kv, hd), rnd(1, kv, hd),
+                torch.tensor([pos], dtype=torch.int32, device=dev),
+                rnd(n_layer, 1, kv, s, hd), rnd(n_layer, 1, kv, s, hd))
+
+    g_rows = torch.Generator(device=dev).manual_seed(4322)
+    pos_rows = torch.randint(39, 168, (SERVE_ROWS,), generator=g_rows, device=dev,
+                             dtype=torch.int32)
+    cases = [(f"B=1 pos={p} cache={cfg.max_seq_len}", one_row(p, cfg.max_seq_len))
+             for p in (0, 1, 104, cfg.max_seq_len - 1)]
+    cases.append((f"B={SERVE_ROWS} cache={SERVE_CACHE} ragged",
+                  serving_decode_inputs(torch, local, gen, pos_rows)))
+    max_err = 0.0
+    for label, (q, kn, vn, p, ck, cv) in cases:
+        ck2, cv2 = ck.clone(), cv.clone()
+        got = da.decode_attention_sharded(q, kn, vn, p, ck, cv, layer, heads=heads, tp=tp)
+        ref = da.decode_attention_plain(q, kn, vn, p, ck2, cv2, layer)
+        torch.cuda.synchronize()
+        check(torch.equal(ck, ck2) and torch.equal(cv, cv2),
+              f"parallel: decode_attention tp={tp} {label}: cache differs from the plain version")
+        err, ok = within(torch, got, ref, DECODE_ATOL, DECODE_RTOL)
+        check(ok, f"parallel: decode_attention tp={tp} {label}: max abs err {err}")
+        max_err = max(max_err, err)
+        log("parallel", f"decode_attention at a tp={tp} rank's shape ({h} q heads over {kv} KV "
+            f"head) {label}: cache bit-equal, attn max_abs_err={err:.3e} (atol={DECODE_ATOL}, "
+            f"rtol={DECODE_RTOL})")
+    timed = {}
+    for label, args in ((f"B=1 pos=104 cache={cfg.max_seq_len}", cases[2][1]),
+                        (f"B={SERVE_ROWS} cache={SERVE_CACHE} ragged", cases[-1][1])):
+        timed[label] = t = time_decode(torch, da, local, args, layer)
+        log("parallel", f"decode_attention tp={tp} rank {label}: kernel {t['ms']:.4f} ms (eager "
+            f"call {t['eager_call_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, sdpa "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']}); "
+            f"{t['blocks']} blocks in clusters of {t['cluster']}")
+    return {"shape": f"q (B,{h},{hd}), cache ({n_layer},B,{kv},S,{hd}) bf16",
+            "max_abs_err": max_err, "timings": timed}
+
+
+def par_spec(cfg, tok, dtype, parts: dict) -> dict:
+    from fish_speech_tpu_torch.config import WhichLM
+
+    return dict(cfg=cfg, token_cfg=tok, lm=WhichLM.FISH_1_5, dtype=dtype, seed=0,
+                zero_head_columns=[tok.im_end_id], timeout_s=PAR_TIMEOUT_S,
+                engine=dict(cache_len=SERVE_CACHE, prompt_buckets=(64,), slow_impl="xla",
+                            fast_frame_impl="xla"),
+                parts=parts)
+
+
+def par_requests(np, cfg, n: int):
+    """n seeded requests: 40-token prompts, PAR_NEW frames."""
+    return [dict(r, max_new=PAR_NEW, seed=2000 + i)
+            for i, r in enumerate(serving_requests(np, cfg)[:n])]
+
+
+def check_world(world: dict, label: str) -> list:
+    """Every rank launched both attention kernels and holds no JAX module;
+    returns each rank's launch counts."""
+    launches = [r["launches"] for r in world["ranks"]]
+    for i, r in enumerate(world["ranks"]):
+        check(r["foreign_modules"] == [], f"parallel {label}: rank {i} holds {r['foreign_modules']}")
+        check(min(r["launches"].values()) > 0,
+              f"parallel {label}: rank {i} launched the attention kernels {r['launches']}")
+    return launches
+
+
+def float32_logits(torch, np, params32, cfg, tok, prompt, frames):
+    """The float32 evaluation of a run's logits on its own context: the
+    slow stack over prompt ++ frames[:-1] (teacher-forced, no cache) and
+    the gathered head at each frame's position."""
+    from fish_speech_tpu_torch.generate.frame import semantic_head_columns
+    from fish_speech_tpu_torch.config import WhichLM
+    from fish_speech_tpu_torch.ops.norms import rms_norm
+    from fish_speech_tpu_torch.train.loss import slow_forward_full
+
+    dev = params32["norm"].device
+    seq = np.concatenate([prompt, frames[:-1, 0].T], axis=1)
+    tokens = torch.from_numpy(seq.astype(np.int32))[None].to(dev)
+    lens = torch.tensor([seq.shape[1]], dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        hidden = slow_forward_full(params32, cfg, tok, tokens, lens, remat=False)[0]
+        hidden = hidden[prompt.shape[1] - 1:]
+        cols = torch.as_tensor(semantic_head_columns(WhichLM.FISH_1_5, tok, cfg), device=dev)
+        return (rms_norm(hidden, params32["norm"], cfg.norm_eps)
+                @ params32["output"][:, cols]).cpu().numpy()
+
+
+def run_parallel(torch, np, params, tok, smi) -> dict:
+    """The phase on `params` (Fish 1.5's seed-0 weights on the card; the
+    worlds run on the device and in the dtype the weights have)."""
+    from fish_speech_tpu_torch.config import DualARConfig, FireflyConfig, FishVersion, WhichLM
+    from fish_speech_tpu_torch.generate.engine import LMEngine
+    from fish_speech_tpu_torch.ops.sampling import BATCHED_REP_PEN_WINDOW, SamplingArgs
+    from fish_speech_tpu_torch.parallel import dryrun
+
+    cfg = DualARConfig.fish_speech_1_5()
+    dev, dtype = params["norm"].device, params["norm"].dtype
+    on = dict(device="cuda", backend="gloo") if dev.type == "cuda" else dict(device="cpu",
+                                                                             backend="gloo")
+    sampling = SamplingArgs(**SAMPLING)
+    prompt = main_prompt(np, cfg)
+    base = LMEngine(params, cfg, tok, WhichLM.FISH_1_5, cache_len=SERVE_CACHE,
+                    prompt_buckets=(64,), slow_impl="xla", fast_frame_impl="xla", dtype=dtype,
+                    device=dev)
+    out = {"rank_shape": check_decode_rank_shape(torch, cfg) if dev.type == "cuda" else None}
+
+    # (a) one rank on nccl: bit-equal to the unsharded engine
+    part_a = dict(prompts=prompt[None], n=PAR_FRAMES_A, sampling=sampling, seed=5)
+    t0 = time.perf_counter()
+    world = dryrun.serving_dryrun(1, 1, par_spec(cfg, tok, dtype, {"frames": part_a}),
+                                  **dict(on, backend="nccl" if dev.type == "cuda" else "gloo"),
+                                  timeout_s=PAR_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    ref = dryrun.run_frames(base, part_a)
+    check(np.array_equal(world["frames"]["frames"], ref["frames"])
+          and np.array_equal(world["frames"]["logits"], ref["logits"]),
+          "parallel (a): the nccl world of one differs from the unsharded engine")
+    out["world1_nccl"] = {"launches": check_world(world, "(a)"), "wall_s": wall}
+    log("parallel", f"(a) a world of one rank on nccl (dp = tp = 1), {PAR_FRAMES_A} frames on "
+        f"the unfused path: tokens and logits bit-equal to the unsharded engine; launches "
+        f"{out['world1_nccl']['launches']}; the world in {wall:.1f}s")
+
+    # (b) two ranks on this card over gloo at tp = 2
+    part_b = dict(prompts=prompt[None], n=PAR_FRAMES_B, sampling=sampling, seed=11)
+    codec_cfg = FireflyConfig.for_version(FishVersion.V1_5)
+    batch_b = dict(rows=SERVE_ROWS, horizon=SERVE_HORIZON, sampling=sampling,
+                   requests=par_requests(np, cfg, PAR_REQUESTS),
+                   codec=(codec_cfg, 1, dtype))
+    t0 = time.perf_counter()
+    world = dryrun.serving_dryrun(1, 2, par_spec(cfg, tok, dtype, {"frames": part_b,
+                                                                  "batcher": batch_b}),
+                                  **on, timeout_s=PAR_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(world["local_heads"] == (cfg.n_head + 2 * cfg.n_local_heads) // 2,
+          f"parallel (b): a rank holds {world['local_heads']} wqkv heads")
+    ref = dryrun.run_frames(base, part_b)
+    params32 = float32_copy(params)
+    errs = []
+    for run in (world["frames"], ref):
+        f32 = float32_logits(torch, np, params32, cfg, tok, prompt, run["frames"])
+        errs.append(float(np.abs(run["logits"][:, 0] - f32).max()))
+    del params32
+    check(errs[0] <= ACCURACY_FACTOR * errs[1] + 1e-6,
+          f"parallel (b): tp = 2 logits {errs[0]:.4e} from the float32 evaluation, the "
+          f"unsharded engine's {errs[1]:.4e}")
+    same = world["frames"]["frames"] == ref["frames"]
+    first_diff = int(np.argmin(same.all(axis=(1, 2)))) if not same.all() else None
+    served = world["batcher"]
+    spf = served["samples_per_frame"]
+    for i, r in enumerate(served["requests"]):
+        pcm, n = r["pcm"], sum(c["semantic"].shape[0] for c in r["chunks"])
+        check(pcm is not None and pcm.shape[0] == n * spf and bool(np.isfinite(pcm).all()),
+              f"parallel (b): request {i}: PCM of {None if pcm is None else pcm.shape[0]} "
+              f"samples for its {n} frames of {spf}")
+    out["tp2_gloo"] = {"launches": check_world(world, "(b)"), "wall_s": wall,
+                       "collective_ms": world["collective_ms"],
+                       "frames_s": world["frames"]["seconds"],
+                       "logits_err_vs_float32": errs, "token_agreement":
+                       float(same.mean()), "frames_per_s": served["frames_per_s"]}
+    log("parallel", f"(b) two ranks on one card over gloo at tp = 2 ({world['local_heads']} "
+        f"wqkv heads a rank): logits over {PAR_FRAMES_B + 1} frames {errs[0]:.4e} from a float32 "
+        f"evaluation on their own context, the unsharded engine's {errs[1]:.4e} (factor "
+        f"{ACCURACY_FACTOR}); token agreement with the unsharded engine {same.mean():.4f} "
+        f"(first differing frame {first_diff}); {world['frames']['seconds']:.2f}s for the "
+        f"{PAR_FRAMES_B + 1} frames and their logits; launches {out['tp2_gloo']['launches']}; "
+        f"one all-reduce of 16 x 1024 float32 over tp: {world['collective_ms']['device']:.3f} "
+        f"ms on card tensors, {world['collective_ms']['staged']:.3f} ms staged through the "
+        f"host; the world in {wall:.1f}s")
+    log("parallel", f"(b) {PAR_REQUESTS} requests through the sharded pipeline's "
+        f"create_batcher({SERVE_ROWS}, {SERVE_HORIZON}) and its central vocoder: PCM for every "
+        f"request, {served['frames']} frames in {served['seconds']:.2f}s, "
+        f"{served['frames_per_s']:.1f} frames/s, {served['ticks']} ticks (two ranks sharing "
+        f"one card over gloo; not a speed of tensor parallelism); {smi}")
+
+    # (c) two ranks at dp = 2 through the batcher, against the unsharded
+    # one on the same (unfused) path; SERVE_ROWS requests fill both ranks'
+    # rows
+    batch_c = dict(rows=SERVE_ROWS, horizon=SERVE_HORIZON, sampling=sampling,
+                   requests=par_requests(np, cfg, SERVE_ROWS),
+                   engine=dict(dynamic_sampling=True, rep_pen_window=BATCHED_REP_PEN_WINDOW,
+                               slow_impl="xla", fast_frame_impl="xla"))
+    t0 = time.perf_counter()
+    world = dryrun.serving_dryrun(2, 1, par_spec(cfg, tok, dtype, {"batcher": batch_c}),
+                                  **on, timeout_s=PAR_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    ref = dryrun.run_batcher(base, batch_c)
+    agree, total = 0, 0
+    for i, (g, r) in enumerate(zip(world["batcher"]["requests"], ref["requests"])):
+        a = np.concatenate([g["chunks"][0]["semantic"][None], g["chunks"][0]["tokens"]])
+        b = np.concatenate([r["chunks"][0]["semantic"][None], r["chunks"][0]["tokens"]])
+        check(a[0, 0] == b[0, 0], f"parallel (c): request {i}'s first semantic token "
+              f"{a[0, 0]} differs from the unsharded batcher's {b[0, 0]}")
+        n = min(a.shape[1], b.shape[1])
+        agree += int((a[:, :n] == b[:, :n]).sum())
+        total += max(a.shape[1], b.shape[1]) * a.shape[0]
+    out["dp2_gloo"] = {"launches": check_world(world, "(c)"), "wall_s": wall,
+                       "collective_ms": world["collective_ms"],
+                       "token_agreement": agree / total,
+                       "frames_per_s": world["batcher"]["frames_per_s"]}
+    log("parallel", f"(c) two ranks on one card over gloo at dp = 2 (8 of the 16 rows a rank): "
+        f"{SERVE_ROWS} requests, each one's first semantic token equal to the unsharded "
+        f"batcher's, codes agreeing on {agree / total:.4f} of their entries; "
+        f"{world['batcher']['frames_per_s']:.1f} frames/s (one card, gloo); launches "
+        f"{out['dp2_gloo']['launches']}; the world in {wall:.1f}s")
+    del base
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
 # Phase train: finetuning at the full Fish-1.5 width, and the trained
 # checkpoint served back through the fused kernels
 # --------------------------------------------------------------------------
@@ -4730,6 +4991,13 @@ def main() -> int:
                  "slow_step_rows_int8"):
         launches[name] = served[name]
     run_int8_proxy(torch, np, fused, int8["batch1"], params, codec, codec_cfg)
+    parallel = run_parallel(torch, np, params, tok, smi)
+    for name in ("decode_attention", "prefill_attention"):
+        k = next(k for k in kernels if k["name"] == name)
+        k["parallel_launches"] = {w: [r[name] for r in v["launches"]]
+                                  for w, v in parallel.items() if w != "rank_shape"}
+    next(k for k in kernels if k["name"] == "decode_attention")["tp2_rank_shape"] = \
+        parallel["rank_shape"]
     run_train(torch, np, tok)
     for k in kernels:
         k["launches"] = launches[k["name"]]

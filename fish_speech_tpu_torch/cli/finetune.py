@@ -23,8 +23,8 @@ Usage:
 moments, the schedule's count, the data-order RNG and permutation) to
 <out>/train_state.npz; rerun with `--resume` to continue bit for bit
 (train/checkpoint.py). Training runs on one device: `--tp` other than 1
-raises, since tensor parallelism waits for the port of the JAX
-package's `parallel/`. Without a config.json the checkpoint's version
+raises. `parallel/` shards serving; training under a mesh (the train
+half of module 10) is the slice still to come. Without a config.json the checkpoint's version
 gives the config (llama_generate.load_config), where the JAX CLI takes
 Fish 1.2's for every version.
 """
@@ -77,7 +77,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "continues bit-exactly (optimizer moments, LR "
                         "schedule, and data order all restored)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel width; only 1 (one device) is ported")
+                   help="tensor-parallel width; only 1 (one device) is ported for training")
     p.add_argument("--no-remat", action="store_true",
                    help="keep the slow layers' activations for the backward "
                         "instead of running each layer again there")
@@ -87,8 +87,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _one_device(args: argparse.Namespace) -> None:
     if args.tp != 1:
-        raise ValueError(f"--tp {args.tp}: tensor parallelism waits for the port of the JAX "
-                         "package's parallel/ (module 10); this finetune trains on one device")
+        raise ValueError(f"--tp {args.tp}: training under a mesh (the train half of module 10, "
+                         "its slice still to come) is not ported; parallel/ shards serving "
+                         "only, and this finetune trains on one device")
 
 
 def load_dataset(data_dir: Path, encoder: PromptEncoder, lm: WhichLM, num_codebooks: int,

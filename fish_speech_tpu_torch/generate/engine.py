@@ -56,6 +56,22 @@ int8 weight to the activation dtype at every product.
   prompt bucket (or the buckets, conditioning offsets and decode-chunk
   horizons it is given) once.
 * `rewind` keeps a conditioning prefix: only the position counter moves.
+
+Under a (dp, tp) mesh (`mesh=`, `parallel/`) the engine is one rank's:
+its parameters are the rank's shard (`parallel.mesh.shard_lm_params`),
+its cache holds the rank's KV heads, and its state the rank's rows, those
+of its dp block where dp divides the batch, else all of them (as the
+JAX engine keeps the batch-1 engine whole under dp). Arguments name rows
+of the whole batch; results are the rank's rows. `parallel.driver`
+gathers them, and drives every rank's engine from one. On a mesh of more
+than one rank the fused slow step and fast frame are off, as in JAX
+(engine.py:215-262), and an explicit "fused" raises; decode and prefill
+attention run their kernels on the rank's own heads (the JAX engine
+turns flash prefill off under a mesh only because its shard_map covers
+the decode kernel alone). Static engines draw every row's noise on every
+rank and keep their own; a dynamic row's stream is seeded from its row
+in the whole batch; `decode_chunk`'s "all rows done" marker is reduced
+over dp.
 """
 
 from __future__ import annotations
@@ -81,8 +97,10 @@ from fish_speech_tpu_torch.generate.frame import (
 from fish_speech_tpu_torch.models.dual_ar import (
     KVCache,
     embed_tokens,
+    local_heads,
     rope_tables,
     slow_decode_step,
+    slow_head,
     slow_prefill,
 )
 from fish_speech_tpu_torch.ops import decode_stack
@@ -97,6 +115,8 @@ from fish_speech_tpu_torch.ops.sampling import (
 )
 from fish_speech_tpu_torch.ops.slow_step import (
     MAX_BATCH as PERSISTENT_ROWS, fused_slow_step, fused_slow_step_supported, padded_head)
+from fish_speech_tpu_torch.parallel.distributed import coords, local_rows
+from fish_speech_tpu_torch.parallel.mesh import TensorParallel, split_block
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
 
@@ -201,24 +221,43 @@ class LMEngine:
         dynamic_sampling: bool = False,
         dyn_top_k_cap: int = 256,
         quantize_int8: bool = False,
+        mesh=None,
         _params_preprocessed: bool = False,
     ) -> None:
-        """_params_preprocessed: `params` is another engine's `params`
-        (head gathered, quantized if quantize_int8), shared as it is, as
-        the JAX engine's flag of that name does for the pipeline's
-        batched engines."""
+        """mesh: a (dp, tp) DeviceMesh (`parallel.distributed.make_mesh`),
+        with `params` this rank's shard; every rank of the mesh builds
+        its engine at the same point (under tp the head gather is a
+        collective). _params_preprocessed: `params` is another engine's
+        `params` (head gathered, quantized if quantize_int8), shared as
+        it is, as the JAX engine's flag of that name does for the
+        pipeline's batched engines."""
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             _check_cuda_dtypes(params, dtype)
+        self.mesh = mesh
+        self.tp = TensorParallel.of(mesh)
+        sharded = coords(mesh).size > 1
+        if quantize_int8 and self.tp is not None and not _params_preprocessed:
+            raise ValueError("LMEngine(quantize_int8=True) under tp: a row-split weight's "
+                             "scales need its whole column; quantize the whole tree before "
+                             "sharding it")
+        cols = semantic_head_columns(lm, token_cfg, cfg)
+        self.head_width = len(cols)  # the gathered head's columns (split under tp)
         if not _params_preprocessed:
             if quantize_int8 and any(is_quantized(v) for st in ("slow", "fast")
                                      for v in params[st].values()):
                 raise ValueError("LMEngine(quantize_int8=True): the stacks are quantized already")
             # Gather the LM head down to the audio-legal columns once; the
             # full head is not kept, nor, under int8, the bf16 stacks.
+            # Under tp the vocab-split head is gathered whole, then split
+            # again by columns, padded to a multiple of tp.
             params = dict(params)
-            cols = torch.as_tensor(semantic_head_columns(lm, token_cfg, cfg), dtype=torch.long)
-            params["output"] = params["output"][:, cols.to(params["output"].device)].contiguous()
+            cols = torch.as_tensor(cols, dtype=torch.long, device=params["output"].device)
+            if self.tp is None:
+                params["output"] = params["output"][:, cols].contiguous()
+            else:
+                head = self.tp.gather_columns(params["output"], cols)
+                params["output"] = split_block(head, 1, self.tp.rank, self.tp.size).contiguous()
         params = tree_to(params, self.device)
         self.quantize_int8 = quantize_int8
         self.params = (quantize_lm_params(params) if quantize_int8 and not _params_preprocessed
@@ -226,7 +265,10 @@ class LMEngine:
         self.cfg = cfg
         self.token_cfg = token_cfg
         self.lm = lm
-        self.batch_size = batch_size
+        self.batch_size = batch_size  # rows of the whole batch
+        self.rows = local_rows(batch_size, mesh)  # this rank's [lo, hi)
+        self.local_batch = self.rows[1] - self.rows[0]
+        self.rows_split = self.local_batch < batch_size
         self.cache_len = cache_len or cfg.max_seq_len
         self.max_frames = max_frames
         self.rep_pen_window = rep_pen_window
@@ -237,10 +279,13 @@ class LMEngine:
         self.dyn_top_k_cap = int(dyn_top_k_cap)
         self.decode_unroll = 1  # frames per loop step, for the batcher's horizons
         self.rope = rope_tables(cfg, self.device)
-        self.noise_layout = NoiseLayout.of(lm, cfg, self.params["output"].shape[1],
-                                           self.dyn_top_k_cap)
+        self.noise_layout = NoiseLayout.of(lm, cfg, self.head_width, self.dyn_top_k_cap)
         on_cuda = self.device.type == "cuda"
-        self.use_fused_slow = self._pick(
+        for name, impl in (("slow_impl", slow_impl), ("fast_frame_impl", fast_frame_impl)):
+            if sharded and impl == "fused":
+                raise ValueError(f"{name}='fused' on a mesh of more than one rank: the fused "
+                                 "kernels run unsharded only, as in JAX; use 'xla' or 'auto'")
+        self.use_fused_slow = not sharded and self._pick(
             "slow_impl", slow_impl,
             fused_slow_step_supported(cfg, self.params, batch_size, self.cache_len),
             on_cuda and (batch_size == 1 or batch_size > PERSISTENT_ROWS))
@@ -255,7 +300,19 @@ class LMEngine:
                                                          self.dyn_top_k_cap)
         else:
             fast_ok = fused_fast_frame_supported(cfg, self.params, batch_size)
-        self.use_fused_fast = self._pick("fast_frame_impl", fast_frame_impl, fast_ok, on_cuda)
+        self.use_fused_fast = not sharded and self._pick("fast_frame_impl", fast_frame_impl,
+                                                          fast_ok, on_cuda)
+
+    def sibling(self, **kwargs) -> "LMEngine":
+        """A new engine sharing these weights as they are (head gathered,
+        quantized), with this one's cache length, frame budget, prompt
+        buckets, dtype, device, quantization and mesh, and `kwargs` for
+        the rest (batch_size, rep_pen_window, dynamic_sampling, ...)."""
+        base = dict(cache_len=self.cache_len, max_frames=self.max_frames,
+                    prompt_buckets=self.prompt_buckets, dtype=self.dtype, device=self.device,
+                    quantize_int8=self.quantize_int8, mesh=self.mesh)
+        return LMEngine(self.params, self.cfg, self.token_cfg, self.lm, **{**base, **kwargs},
+                        _params_preprocessed=True)
 
     @staticmethod
     def _pick(name: str, impl: str, supported: bool, auto: bool) -> bool:
@@ -272,19 +329,19 @@ class LMEngine:
     # -- state ------------------------------------------------------------
 
     def init_state(self, seed: Optional[int] = None) -> GenState:
-        """Fresh state; on dynamic engines row r's stream starts from
-        seed + r (admissions reseed their rows)."""
+        """Fresh state of this rank's rows; on dynamic engines batch row r's
+        stream starts from seed + r (admissions reseed their rows)."""
         if seed is None:
             seed = _fresh_seed()
-        b, c = self.batch_size, self.cfg.num_codebooks
+        b, c = self.local_batch, self.cfg.num_codebooks
         dev = self.device
         if self.dynamic_sampling:
-            rng = RowNoise(b, int(seed) & 0x7FFFFFFF, dev)
+            rng = RowNoise(b, int(seed) & 0x7FFFFFFF, dev, row0=self.rows[0])
         else:
             rng = torch.Generator(device=dev)
             rng.manual_seed(int(seed) & 0x7FFFFFFF)
         return GenState(
-            cache=KVCache.init(self.cfg.n_layer, b, self.cfg.n_local_heads,
+            cache=KVCache.init(self.cfg.n_layer, b, local_heads(self.cfg, self.tp)[1],
                                self.cache_len, self.cfg.head_dim, self.dtype, dev),
             pos=torch.zeros((b,), dtype=torch.int32, device=dev),
             prev=torch.zeros((b, c + 1), dtype=torch.int32, device=dev),
@@ -296,7 +353,7 @@ class LMEngine:
 
     def rewind(self, state: GenState, length: int) -> GenState:
         """Keep the first `length` cache positions, reset everything else."""
-        b, c = self.batch_size, self.cfg.num_codebooks
+        b, c = self.local_batch, self.cfg.num_codebooks
         dev = self.device
         return state._replace(
             pos=torch.full((b,), length, dtype=torch.int32, device=dev),
@@ -314,14 +371,48 @@ class LMEngine:
                 return b
         return self.cache_len
 
+    def with_sampling(self, state: GenState, sampling: SamplingArgs) -> GenState:
+        """The state with every row's knobs set to `sampling` (dynamic
+        engines read them)."""
+        return state._replace(samp=RowSampling.broadcast(sampling, self.local_batch,
+                                                         self.device))
+
+    def with_rng(self, state: GenState, rng) -> GenState:
+        """The state with the noise streams of the whole batch replaced by
+        a `generate.frame.ReplayRowNoise`'s: this rank keeps its rows'."""
+        return state._replace(rng=rng.rows(*self.rows, device=self.device))
+
+    def mine(self, row0: int, k: int) -> range:
+        """The positions in a burst of batch rows [row0, row0 + k) that
+        this rank holds."""
+        lo, hi = self.rows
+        a, b = max(row0, lo) - row0, min(row0 + k, hi) - row0
+        return range(a, max(a, b))
+
     def _noise(self, state: GenState, sampling: SamplingArgs,
-               rows: Sequence[int]) -> Optional[FrameNoise]:
-        """One frame's draws for `rows`: from their own streams (dynamic)
-        or from the engine's one generator (static)."""
+               rows: range) -> Optional[FrameNoise]:
+        """One frame's draws for batch rows `rows`, of those this rank
+        holds: from their own streams (dynamic), or from the engine's one
+        generator (static), which draws every row of `rows` on every
+        rank, so its stream does not depend on the split."""
+        row0, k = rows.start, len(rows)
+        mine = self.mine(row0, k)
         if self.dynamic_sampling:
-            return state.rng.frame(rows, self.noise_layout)
-        return draw_frame_noise(self.lm, self.cfg, sampling, len(rows),
-                                self.params["output"].shape[1], state.rng, self.device)
+            return (state.rng.frame([row0 + i - self.rows[0] for i in mine], self.noise_layout)
+                    if mine else None)
+        noise = draw_frame_noise(self.lm, self.cfg, sampling, k, self.head_width, state.rng,
+                                 self.device)
+        if noise is None or len(mine) == k:
+            return noise
+        cut = slice(mine.start, mine.stop)
+        return FrameNoise(semantic=noise.semantic[cut],
+                          codebooks=None if noise.codebooks is None
+                          else [t[cut] for t in noise.codebooks])
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """The gathered head's logits (B, W) float32 of slow hidden states
+        (B, D), as the slow step computes them."""
+        return slow_head(self.params, self.cfg, hidden, self.tp, self.head_width)
 
     def _pad(self, prompts: Sequence[np.ndarray]) -> Tuple[torch.Tensor, torch.Tensor, int]:
         """Right-pad (C+1, S_i) prompts to one bucket: (k, C+1, bucket)
@@ -340,11 +431,13 @@ class LMEngine:
     def _prefill_rows_raw(self, state: GenState, prompts: Sequence[np.ndarray],
                           sampling: SamplingArgs, row0: int, offset: int,
                           samp: Optional[RowSampling]):
-        """Prefill right-padded prompts into cache rows [row0, row0 + k)
+        """Prefill right-padded prompts into batch rows [row0, row0 + k)
         at `offset` and sample each row's first frame with `samp`
-        (dynamic) or `sampling`. Returns (state, frames (k, C+1),
-        is_eos (k,), hidden (k, D)), hidden being the slow hidden state
-        the first frames were drawn from.
+        (dynamic: the knobs of the burst's rows this rank holds) or
+        `sampling`. Returns (state, frames, is_eos, hidden) of the
+        burst's rows this rank holds (`mine`): (k', C+1), (k',), (k', D),
+        hidden being the slow hidden state the first frames were drawn
+        from.
 
         Each row is prefilled by a call of its own: cuBLAS picks its
         summation order by a product's shape, so one call over the burst
@@ -354,15 +447,26 @@ class LMEngine:
         rows past the burst copies of its last, their draws thrown away):
         on the H100 a 16-row engine drew other codebook tokens for a row
         in a burst of 8 than for the same row alone."""
+        # the whole burst is padded on every rank: one bucket for its rows,
+        # and a bad prompt raises on every rank alike
         tokens, seq_lens, bucket = self._pad(prompts)
-        k, c = tokens.shape[0], self.cfg.num_codebooks
+        noise = self._noise(state, sampling, range(row0, row0 + len(prompts)))
+        mine = self.mine(row0, len(prompts))
+        c = self.cfg.num_codebooks
+        if not mine:
+            empty = torch.zeros((0, c + 1), dtype=torch.int32, device=self.device)
+            return (state, empty, torch.zeros((0,), dtype=torch.bool, device=self.device),
+                    torch.zeros((0, self.cfg.dim), dtype=self.dtype, device=self.device))
+        slot0 = row0 + mine.start - self.rows[0]  # the first local cache row
+        tokens, seq_lens = tokens[mine.start:mine.stop], seq_lens[mine.start:mine.stop]
+        k = tokens.shape[0]
         extent = self._kv_extent_for(offset, bucket)
         rows = [slow_prefill(self.params, self.cfg, self.token_cfg, tokens[i:i + 1],
                              seq_lens[i:i + 1], state.cache, offset, self.rope,
-                             kv_extent=extent, slot=row0 + i) for i in range(k)]
+                             kv_extent=extent, slot=slot0 + i, tp=self.tp,
+                             head_width=self.head_width) for i in range(k)]
         logits, hidden = (torch.cat(t) for t in zip(*rows))
-        noise = self._noise(state, sampling, range(row0, row0 + k))
-        n = self.batch_size if samp is not None else k
+        n = self.local_batch if samp is not None else k
         if n > k:
             logits, hidden = _pad_rows(logits, n), _pad_rows(hidden, n)
             noise = FrameNoise(*(_pad_rows(t, n) for t in noise))
@@ -370,17 +474,17 @@ class LMEngine:
         res: FrameResult = generate_frame(
             self.params, self.cfg, self.token_cfg, self.lm, sampling, logits, hidden,
             RepPenWindow.init((n, c), self.rep_pen_window, self.device), None, noise,
-            self.rope, samp=samp, dyn_top_k_cap=self.dyn_top_k_cap)
+            self.rope, samp=samp, dyn_top_k_cap=self.dyn_top_k_cap, tp=self.tp)
         res = FrameResult(tokens=res.tokens[:k], is_eos=res.is_eos[:k], rep_pen=res.rep_pen)
         hidden = hidden[:k]
         state = state._replace(
-            pos=_set_rows(state.pos, row0, offset + seq_lens),
-            prev=_set_rows(state.prev, row0, res.tokens),
+            pos=_set_rows(state.pos, slot0, offset + seq_lens),
+            prev=_set_rows(state.prev, slot0, res.tokens),
             rep_pen=RepPenWindow(
-                tokens=_set_rows(state.rep_pen.tokens, row0, torch.full(
+                tokens=_set_rows(state.rep_pen.tokens, slot0, torch.full(
                     (k, c, self.rep_pen_window), -1, dtype=torch.int32, device=self.device)),
                 ptr=state.rep_pen.ptr),
-            done=_set_rows(state.done, row0, res.is_eos))
+            done=_set_rows(state.done, slot0, res.is_eos))
         return state, res.tokens, res.is_eos, hidden
 
     @torch.inference_mode()
@@ -390,7 +494,7 @@ class LMEngine:
         batch at cache position `offset` and sample the first frame of
         every row. seq_lens: the rows' real lengths when they are
         right-padded to a common S. Returns (state, frame (B, C+1),
-        is_eos (B,))."""
+        is_eos (B,)) of this rank's rows."""
         return self._prefill_raw(state, prompt, sampling, offset, seq_lens)[:3]
 
     @torch.inference_mode()
@@ -432,16 +536,22 @@ class LMEngine:
         [row0, row0 + k), with one first-frame draw for the burst.
         per_row: on dynamic engines each row's (SamplingArgs, seed or
         None); defaults to `sampling` with fresh seeds. Returns (state,
-        frames (k, C+1), is_eos (k,)) as device tensors."""
+        frames (k, C+1), is_eos (k,)) as device tensors, of the burst's
+        rows this rank holds (`mine`)."""
         prompts = [np.asarray(p) for p in prompts]
         k = len(prompts)
         samp = None
         if self.dynamic_sampling:
             per_row = per_row or [(sampling, None)] * k
-            for i, (_, seed) in enumerate(per_row):
-                state.rng.reseed(row0 + i, _fresh_seed() if seed is None else int(seed))
-            vecs = torch.from_numpy(np.stack([RowSampling.row_vector(s) for s, _ in per_row]))
-            state = state._replace(samp=state.samp.set_rows(row0, vecs))
+            mine = self.mine(row0, k)
+            for i in mine:
+                seed = per_row[i][1]
+                state.rng.reseed(row0 + i - self.rows[0],
+                                 _fresh_seed() if seed is None else int(seed))
+            vecs = torch.from_numpy(np.array([RowSampling.row_vector(per_row[i][0])
+                                              for i in mine], np.float32).reshape(len(mine), 4))
+            state = state._replace(samp=state.samp.set_rows(row0 + mine.start - self.rows[0],
+                                                            vecs))
             samp = RowSampling.from_vectors(vecs.to(self.device))
         return self._prefill_rows_raw(state, prompts, sampling, row0, offset, samp)[:3]
 
@@ -467,12 +577,12 @@ class LMEngine:
         else:
             logits, hidden = slow_decode_step(
                 self.params, self.cfg, self.token_cfg, state.prev, state.cache,
-                state.pos, self.rope)
+                state.pos, self.rope, tp=self.tp, head_width=self.head_width)
         res = generate_frame(
             self.params, self.cfg, self.token_cfg, self.lm, sampling, logits, hidden,
             state.rep_pen, state.prev, noise, self.rope, use_fused_fast=self.use_fused_fast,
             samp=state.samp if self.dynamic_sampling else None,
-            dyn_top_k_cap=self.dyn_top_k_cap, sync_state=self.sync_state)
+            dyn_top_k_cap=self.dyn_top_k_cap, sync_state=self.sync_state, tp=self.tp)
         eos_frame = torch.zeros_like(state.prev)
         eos_frame[:, 0] = self.token_cfg.im_end_id
         frame = torch.where(state.done[:, None], eos_frame, res.tokens)
@@ -495,12 +605,13 @@ class LMEngine:
 
         valid[i, b] is false where row b was done before frame i or emits
         <|im_end|> there. steps is where the JAX decode loop stops: at
-        max_steps, or after the frame in which every row is done (0 when
-        all are done already). The frames past `steps` still run, and are
-        invalid EOS frames; the carried state is the JAX loop's up to
-        those dead frames' positions, which do not move."""
+        max_steps, or after the frame in which every row of the whole
+        batch is done (0 when all are done already). The frames past
+        `steps` still run, and are invalid EOS frames; the carried state
+        is the JAX loop's up to those dead frames' positions, which do not
+        move. out and valid are this rank's rows."""
         n = horizon if max_steps is None else max(min(max_steps, horizon), 0)
-        b, c = self.batch_size, self.cfg.num_codebooks
+        b, c = self.local_batch, self.cfg.num_codebooks
         dev = self.device
         out = torch.zeros((horizon, b, c + 1), dtype=torch.int32, device=dev)
         valid = torch.zeros((horizon, b), dtype=torch.bool, device=dev)
@@ -512,6 +623,10 @@ class LMEngine:
             out[i] = frame
             valid[i] = ~was_done & (frame[:, 0] != self.token_cfg.im_end_id)
             all_done[i + 1] = state.done.all()
+        if self.rows_split:  # every dp rank's rows done: no rank has one left
+            left = (~all_done).to(torch.int64)
+            torch.distributed.all_reduce(left, group=self.mesh.get_group("dp"))
+            all_done = left == 0
         steps = torch.where(all_done.any(), torch.argmax(all_done.to(torch.uint8)),
                             torch.full((), n, dtype=torch.int64, device=dev))
         return state, out, valid, steps
@@ -534,7 +649,7 @@ class LMEngine:
         if state is None:
             state = self.init_state(seed)
         if self.dynamic_sampling:
-            state = state._replace(samp=RowSampling.broadcast(sampling, 1, self.device))
+            state = self.with_sampling(state, sampling)
         prompt = np.asarray(prompt)
         prompt_len = prompt.shape[-1]
         t0 = time.perf_counter()
@@ -586,16 +701,20 @@ class LMEngine:
         b = self.batch_size
         if len(prompts) != b:
             raise ValueError(f"generate_batch: {len(prompts)} prompts, engine batch {b}")
+        if self.rows_split:
+            raise ValueError("generate_batch: this engine holds some rows of the batch; "
+                             "drive it through parallel.driver")
         sampling = sampling or SamplingArgs()
         state = self.init_state(seed)
         if self.dynamic_sampling:
-            state = state._replace(samp=RowSampling.broadcast(sampling, b, self.device))
+            state = self.with_sampling(state, sampling)
         prompts = [np.asarray(p) for p in prompts]
         lens = [int(p.shape[-1]) for p in prompts]
+        padded = np.zeros((b, self.cfg.num_codebooks + 1, max(lens)), np.int32)
+        for r, p in enumerate(prompts):
+            padded[r, :, :lens[r]] = p
         t0 = time.perf_counter()
-        with torch.inference_mode():
-            samp = state.samp if self.dynamic_sampling else None
-            state, first, _, _ = self._prefill_rows_raw(state, prompts, sampling, 0, 0, samp)
+        state, first, _ = self.prefill(state, padded, sampling, seq_lens=lens)
         prefill_s = time.perf_counter() - t0
         budget = max(min(max_new_tokens - 1, self.max_frames, self.cache_len - max(lens) - 1), 0)
         t1 = time.perf_counter()

@@ -123,13 +123,23 @@ class RowNoise:
     row on the engine's device, as the JAX engine keeps one key chain per
     row, so a seeded row's draws depend only on its own seed and frame
     count, whatever its co-tenants. Tests substitute an object with the
-    same two methods that replays JAX's draws."""
+    same two methods that replays JAX's draws (`ReplayRowNoise`).
 
-    def __init__(self, batch: int, seed: int, device) -> None:
+    row0: the batch row of the first stream, where a rank holds rows
+    [row0, row0 + batch) of a batch split over dp; a stream is seeded from
+    its row in the whole batch, so the split does not change it."""
+
+    def __init__(self, batch: int, seed: int, device, row0: int = 0) -> None:
         self.device = device
         self.generators = [torch.Generator(device=device) for _ in range(batch)]
         for r, g in enumerate(self.generators):
-            g.manual_seed((seed + r) & 0x7FFFFFFF)
+            g.manual_seed((seed + row0 + r) & 0x7FFFFFFF)
+
+    def rows(self, lo: int, hi: int) -> "RowNoise":
+        """The streams of rows [lo, hi), shared with this object."""
+        out = RowNoise(0, 0, self.device)
+        out.generators = self.generators[lo:hi]
+        return out
 
     def reseed(self, row: int, seed: int) -> None:
         """Restart row `row`'s stream from `seed` (an admission)."""
@@ -140,6 +150,33 @@ class RowNoise:
         u = torch.stack([torch.rand((layout.width,), generator=self.generators[r],
                                     device=self.device) for r in rows])
         return layout.split(u)
+
+
+class ReplayRowNoise:
+    """`RowNoise`'s interface over recorded draws: row r replays
+    draws[r], one (semantic, codebooks) pair of arrays a frame ((k,) or
+    () and (C, k_dyn)), in order. Tests record another package's draws
+    and feed them through it to ranks that import nothing of that
+    package. Streams are not reseeded: admissions that reseed raise."""
+
+    def __init__(self, draws, device) -> None:
+        self.draws, self.device = draws, device
+        self.taken = [0] * len(draws)
+
+    def rows(self, lo: int, hi: int, device=None) -> "ReplayRowNoise":
+        """Rows [lo, hi), drawing onto `device` (default: this one's)."""
+        return ReplayRowNoise(self.draws[lo:hi], device or self.device)
+
+    def reseed(self, row: int, seed: int) -> None:
+        raise NotImplementedError("ReplayRowNoise replays recorded streams; it is not reseeded")
+
+    def frame(self, rows: Sequence[int], layout: NoiseLayout) -> FrameNoise:
+        picked = []
+        for r in rows:
+            picked.append(self.draws[r][self.taken[r]])
+            self.taken[r] += 1
+        sem, cbs = (torch.from_numpy(np.stack(a)).to(self.device) for a in zip(*picked))
+        return FrameNoise(semantic=sem, codebooks=cbs)
 
 
 def sample_semantic(logits: torch.Tensor, lm: WhichLM, token_cfg: TokenConfig,
@@ -185,7 +222,7 @@ def generate_frame(params, cfg: DualARConfig, token_cfg: TokenConfig, lm: WhichL
                    noise: Optional[FrameNoise], rope,
                    use_fused_fast: bool = False, samp: Optional[RowSampling] = None,
                    dyn_top_k_cap: int = 256,
-                   sync_state: Optional[torch.Tensor] = None) -> FrameResult:
+                   sync_state: Optional[torch.Tensor] = None, tp=None) -> FrameResult:
     """Sample the semantic token, then run the fast transformer over the
     codebook axis. prev_tokens: the previous frame (B, C+1), or None on
     the prefill frame; noise: None only in static argmax mode (Fish 1.5 /
@@ -197,7 +234,8 @@ def generate_frame(params, cfg: DualARConfig, token_cfg: TokenConfig, lm: WhichL
     use_fused_fast: the whole codebook loop is one call fed the same
     draws, `ops.fast_frame` (static, batch 1) or `ops.fast_frame_batched`
     (dynamic). sync_state: the fused frames' grid sync state (the
-    engine's own)."""
+    engine's own). tp: the parameters are this rank's tensor-parallel
+    shard (`models/dual_ar.py`); the unfused codebook loop only."""
     dynamic = samp is not None
     if noise is None and (dynamic or not sampling.is_argmax or is_legacy(lm)):
         raise ValueError("generate_frame: this frame needs noise")
@@ -226,11 +264,11 @@ def generate_frame(params, cfg: DualARConfig, token_cfg: TokenConfig, lm: WhichL
         return FrameResult(tokens=frame, is_eos=is_eos, rep_pen=rep_pen)
 
     b = logits.shape[0]
-    hist = fast_hist_init(cfg, b, hidden.dtype, hidden.device)
+    hist = fast_hist_init(cfg, b, hidden.dtype, hidden.device, tp)
     x = hidden[:, None, :]
     toks = []
     for cb in range(cfg.num_codebooks):
-        cb_logits, hist = fast_step(params, cfg, x, hist, cb, rope)
+        cb_logits, hist = fast_step(params, cfg, x, hist, cb, rope, tp=tp)
         if rep_pen_enabled:
             row = RepPenWindow(tokens=rep_pen.tokens[:, cb], ptr=rep_pen.ptr)
             cb_logits = (row.penalize_rows(cb_logits, samp.rep_pen) if dynamic
@@ -246,7 +284,7 @@ def generate_frame(params, cfg: DualARConfig, token_cfg: TokenConfig, lm: WhichL
             )
         tok = torch.where(is_eos, torch.zeros_like(tok), tok)  # EOS frames emit 0s
         if cb + 1 < cfg.num_codebooks:  # the last token feeds no further step
-            x = fast_embed(params, cfg, tok, cb)
+            x = fast_embed(params, cfg, tok, cb, tp)
         toks.append(tok)
     frame = torch.cat([semantic[:, None], torch.stack(toks, dim=1)], dim=1)
     return FrameResult(tokens=frame, is_eos=is_eos, rep_pen=rep_pen)

@@ -34,7 +34,7 @@ import torch
 from fish_speech_tpu_torch.config import WhichLM
 from fish_speech_tpu_torch.generate.continuous import _Fetch
 from fish_speech_tpu_torch.generate.engine import GenerationResult, GenState
-from fish_speech_tpu_torch.ops.sampling import RowSampling, SamplingArgs
+from fish_speech_tpu_torch.ops.sampling import SamplingArgs
 
 
 def output_shift(lm: WhichLM) -> Callable[[np.ndarray], np.ndarray]:
@@ -78,7 +78,7 @@ def generate_vocode_overlapped(
         state = engine.init_state(seed)
     if engine.dynamic_sampling:
         # dynamic engines read every knob from state.samp (as generate does)
-        state = state._replace(samp=RowSampling.broadcast(sampling, 1, engine.device))
+        state = engine.with_sampling(state, sampling)
     chunk = max(engine.decode_unroll, (chunk // engine.decode_unroll) * engine.decode_unroll)
 
     prompt = np.asarray(prompt)

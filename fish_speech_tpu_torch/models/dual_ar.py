@@ -21,6 +21,12 @@ weights may be int8-quantized (`ops/quant.py`: {"q": (L, in, out) int8,
   the port's kernels, on CPU tensors they run the plain versions.
 * Rows track their own positions; rewinding to a conditioning prefix is
   a change of the position counter only.
+* `tp`: a `parallel.mesh.TensorParallel` when the parameters are one
+  rank's tensor-parallel shard (`parallel.mesh.shard_lm_params`): the
+  layers then run on the rank's own heads and FFN columns, with an
+  all-reduce after wo and after w2, vocab-split lookups (a masked local
+  gather, then an all-reduce) and column-split heads whose logits are
+  gathered. Attention needs no communication. None: unsharded.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from fish_speech_tpu_torch.config import DualARConfig, TokenConfig
-from fish_speech_tpu_torch.ops.decode_attention import decode_attention
+from fish_speech_tpu_torch.ops.decode_attention import decode_attention, decode_attention_sharded
 from fish_speech_tpu_torch.ops.norms import rms_norm
 from fish_speech_tpu_torch.ops.prefill_attention import prefill_attention
 from fish_speech_tpu_torch.ops.attention import gqa_attention
@@ -125,21 +131,28 @@ def _layer(stack: Dict[str, object], l: int) -> Dict[str, object]:
 
 
 def embed_tokens(params, cfg: DualARConfig, token_cfg: TokenConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
+                 tokens: torch.Tensor, tp=None) -> torch.Tensor:
     """Sum of semantic-token and (masked) codebook embeddings.
 
     tokens: (B, C+1, S) int -> (B, S, D). Codebook embeddings count only
     where the semantic token is in the semantic range (1.5+) or equals
     PAD (<= 1.4). The rows are gathered by F.embedding, whose backward
     sums a table row's gradients in a fixed order (that of indexing sums
-    them in an order that varies from run to run on the CPU)."""
+    them in an order that varies from run to run on the CPU). Under tp
+    both lookups go through one all-reduce, each exact, before the sum."""
     tokens = tokens.long()
     semantic = tokens[:, 0, :]
     codebooks = tokens[:, 1:, :]
-    sem_emb = F.embedding(semantic, params["embeddings"])  # (B, S, D)
     offsets = (torch.arange(cfg.num_codebooks, device=tokens.device)
                * cfg.codebook_size)[None, :, None]
-    cb_emb = F.embedding(codebooks + offsets, params["codebook_embeddings"])  # (B, C, S, D)
+    if tp is None:
+        sem_emb = F.embedding(semantic, params["embeddings"])  # (B, S, D)
+        cb_emb = F.embedding(codebooks + offsets, params["codebook_embeddings"])  # (B, C, S, D)
+    else:
+        both = tp.all_reduce(torch.cat([
+            tp.local_lookup(params["embeddings"], semantic)[:, None],
+            tp.local_lookup(params["codebook_embeddings"], codebooks + offsets)], dim=1))
+        sem_emb, cb_emb = both[:, 0], both[:, 1:]
     if token_cfg.semantic_end_id is not None:
         keep = (semantic >= token_cfg.semantic_start_id) & (
             semantic <= token_cfg.semantic_end_id)
@@ -154,33 +167,57 @@ def embed_tokens(params, cfg: DualARConfig, token_cfg: TokenConfig,
 # --------------------------------------------------------------------------
 
 
-def _project_qkv(x, lp, cfg: DualARConfig):
-    """x (B, S, D) -> q (B, H, S, hd), k, v (B, KV, S, hd)."""
+def local_heads(cfg: DualARConfig, tp=None) -> Tuple[int, int]:
+    """(q heads, KV heads) of one rank: all of them without tp."""
+    t = 1 if tp is None else tp.size
+    return cfg.n_head // t, cfg.n_local_heads // t
+
+
+def _sum(x, tp):
+    """The sum over the tp group of a row-split product's partials."""
+    return x if tp is None else tp.all_reduce(x)
+
+
+def _project_qkv(x, lp, cfg: DualARConfig, tp=None):
+    """x (B, S, D) -> q (B, H, S, hd), k, v (B, KV, S, hd), of this rank's
+    heads under tp (its wqkv columns are its q, k and v heads)."""
     b, s, _ = x.shape
+    h, kv = local_heads(cfg, tp)
     qkv = _mm(x, lp["wqkv"])
-    q_sz = cfg.n_head * cfg.head_dim
-    kv_sz = cfg.n_local_heads * cfg.head_dim
-    q = qkv[..., :q_sz].reshape(b, s, cfg.n_head, cfg.head_dim)
-    k = qkv[..., q_sz:q_sz + kv_sz].reshape(b, s, cfg.n_local_heads, cfg.head_dim)
-    v = qkv[..., q_sz + kv_sz:].reshape(b, s, cfg.n_local_heads, cfg.head_dim)
+    q_sz = h * cfg.head_dim
+    kv_sz = kv * cfg.head_dim
+    q = qkv[..., :q_sz].reshape(b, s, h, cfg.head_dim)
+    k = qkv[..., q_sz:q_sz + kv_sz].reshape(b, s, kv, cfg.head_dim)
+    v = qkv[..., q_sz + kv_sz:].reshape(b, s, kv, cfg.head_dim)
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
-def _attn_out_ffn(x, attn, lp, cfg: DualARConfig, unrounded: bool = False):
+def _attn_out_ffn(x, attn, lp, cfg: DualARConfig, unrounded: bool = False, tp=None):
     """Residual attention projection, then the SwiGLU feed-forward.
     unrounded: silu sees the w1 product in float32, as in the fused TPU
     kernels, instead of the product rounded to x's dtype. An int8 w1 has
     no unrounded product: silu sees the rescaled product in x's dtype,
     in the fused TPU kernels too (slow_step_pallas.py:313-323)."""
-    b, s, d = x.shape
-    x = x + _mm(attn.transpose(1, 2).reshape(b, s, d), lp["wo"])
+    b, s, _ = x.shape
+    x = x + _sum(_mm(attn.transpose(1, 2).reshape(b, s, -1), lp["wo"]), tp)
     h2 = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
     if unrounded and not is_quantized(lp["w1"]):
         up = h2.float() @ lp["w1"].float()
     else:
         up = _mm(h2, lp["w1"]).float()
     gate = F.silu(up).to(x.dtype)
-    return x + _mm(gate * _mm(h2, lp["w3"]), lp["w2"])
+    return x + _sum(_mm(gate * _mm(h2, lp["w3"]), lp["w2"]), tp)
+
+
+def slow_head(params, cfg: DualARConfig, hidden: torch.Tensor, tp=None,
+              width: Optional[int] = None) -> torch.Tensor:
+    """The slow head's logits (..., W) float32 of pre-norm hidden states.
+    Under tp the head is column-split (padded): its logits are gathered
+    and cut to `width`, the head's whole width."""
+    out = rms_norm(hidden, params["norm"], cfg.norm_eps)
+    if tp is None:
+        return (out @ params["output"]).float()
+    return tp.columns(out, params["output"], 0, width)
 
 
 @lru_cache(maxsize=None)
@@ -201,7 +238,8 @@ def rope_tables(cfg: DualARConfig, device) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def slow_prefill(params, cfg: DualARConfig, token_cfg: TokenConfig,
                  tokens: torch.Tensor, seq_lens: torch.Tensor, cache: KVCache,
-                 offset: int, rope, kv_extent: Optional[int] = None, slot: int = 0):
+                 offset: int, rope, kv_extent: Optional[int] = None, slot: int = 0,
+                 tp=None, head_width: Optional[int] = None):
     """Prefill cache rows [slot, slot + B) with a right-padded prompt chunk.
 
     tokens: (B, C+1, S_pad) int; seq_lens: (B,) int32 real lengths. The
@@ -210,12 +248,12 @@ def slow_prefill(params, cfg: DualARConfig, token_cfg: TokenConfig,
     they are. Attention reads the first `kv_extent` positions (default:
     the whole cache) of the same rows, as row-slice views of the cache;
     the extent must cover offset + max(seq_lens). The cache is updated in
-    place.
+    place. tp / head_width: see `slow_head`.
 
     Returns (logits (B, V) float32 at each row's last real token,
              hidden (B, D) pre-norm at the same position)."""
     b, _, s_pad = tokens.shape
-    x = embed_tokens(params, cfg, token_cfg, tokens)
+    x = embed_tokens(params, cfg, token_cfg, tokens, tp)
     cos_t, sin_t = rope
     rope_idx = (offset + torch.arange(s_pad, device=x.device)).clamp(max=cfg.max_seq_len - 1)
     cos, sin = cos_t[rope_idx], sin_t[rope_idx]
@@ -225,7 +263,7 @@ def slow_prefill(params, cfg: DualARConfig, token_cfg: TokenConfig,
     for l in range(cfg.n_layer):
         lp = _layer(params["slow"], l)
         h = rms_norm(x, lp["attention_norm"], cfg.norm_eps)
-        q, k, v = _project_qkv(h, lp, cfg)
+        q, k, v = _project_qkv(h, lp, cfg, tp)
         q = apply_rope_interleaved(q, cos, sin)
         k = apply_rope_interleaved(k, cos, sin)
         ck, cv = cache.k[l, slot:slot + b], cache.v[l, slot:slot + b]
@@ -234,43 +272,39 @@ def slow_prefill(params, cfg: DualARConfig, token_cfg: TokenConfig,
         attn = prefill_attention(
             q.contiguous(), ck[:, :, :e], cv[:, :, :e], offset, seq_lens, cfg.max_seq_len,
         )
-        x = _attn_out_ffn(x, attn, lp, cfg)
+        x = _attn_out_ffn(x, attn, lp, cfg, tp=tp)
 
     last_idx = (seq_lens.long() - 1).clamp(0, s_pad - 1)
     hidden = x[torch.arange(b, device=x.device), last_idx]
-    logits = (rms_norm(hidden, params["norm"], cfg.norm_eps) @ params["output"]).float()
-    return logits, hidden
+    return slow_head(params, cfg, hidden, tp, head_width), hidden
 
 
 def slow_decode_step(params, cfg: DualARConfig, token_cfg: TokenConfig,
                      tokens: torch.Tensor, cache: KVCache, pos: torch.Tensor,
-                     rope):
+                     rope, tp=None, head_width: Optional[int] = None):
     """One slow-stack decode step for all cache rows.
 
     tokens: (B, C+1), the previous frame per row; pos: (B,) int32, each
-    row's write position. The cache is updated in place.
+    row's write position. The cache is updated in place; under tp it
+    holds this rank's KV heads, and decode attention runs on its heads.
     Returns (logits (B, V) float32, hidden (B, D) pre-norm)."""
-    b = tokens.shape[0]
-    x = embed_tokens(params, cfg, token_cfg, tokens[:, :, None])  # (B, 1, D)
+    x = embed_tokens(params, cfg, token_cfg, tokens[:, :, None], tp)  # (B, 1, D)
     cos_t, sin_t = rope
     cos = cos_t[pos.long()][:, None, None, :]
     sin = sin_t[pos.long()][:, None, None, :]
     for l in range(cfg.n_layer):
         lp = _layer(params["slow"], l)
         h = rms_norm(x, lp["attention_norm"], cfg.norm_eps)
-        q, k, v = _project_qkv(h, lp, cfg)  # (B, heads, 1, hd)
+        q, k, v = _project_qkv(h, lp, cfg, tp)  # (B, heads, 1, hd)
         q = apply_rope_interleaved(q, cos, sin)
         k = apply_rope_interleaved(k, cos, sin)
-        attn = decode_attention(
-            q[:, :, 0].contiguous(),
-            k[:, :, 0].to(cache.k.dtype).contiguous(),
-            v[:, :, 0].to(cache.v.dtype).contiguous(),
-            pos, cache.k, cache.v, l,
-        )
-        x = _attn_out_ffn(x, attn[:, :, None, :], lp, cfg)
+        args = (q[:, :, 0].contiguous(), k[:, :, 0].to(cache.k.dtype).contiguous(),
+                v[:, :, 0].to(cache.v.dtype).contiguous(), pos, cache.k, cache.v, l)
+        attn = (decode_attention(*args) if tp is None else decode_attention_sharded(
+            *args, heads=(cfg.n_head, cfg.n_local_heads), tp=tp.size))
+        x = _attn_out_ffn(x, attn[:, :, None, :], lp, cfg, tp=tp)
     hidden = x[:, 0, :]
-    logits = (rms_norm(hidden, params["norm"], cfg.norm_eps) @ params["output"]).float()
-    return logits, hidden
+    return slow_head(params, cfg, hidden, tp, head_width), hidden
 
 
 # --------------------------------------------------------------------------
@@ -279,9 +313,10 @@ def slow_decode_step(params, cfg: DualARConfig, token_cfg: TokenConfig,
 
 
 def fast_hist_init(cfg: DualARConfig, batch: int, dtype=torch.bfloat16,
-                   device=None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """Empty per-layer fast KV history: (k, v) pairs (B, KV, 0, hd)."""
-    shape = (batch, cfg.n_local_heads, 0, cfg.head_dim)
+                   device=None, tp=None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Empty per-layer fast KV history: (k, v) pairs (B, KV, 0, hd), of
+    this rank's KV heads under tp."""
+    shape = (batch, local_heads(cfg, tp)[1], 0, cfg.head_dim)
     return [
         (torch.zeros(shape, dtype=dtype, device=device),
          torch.zeros(shape, dtype=dtype, device=device))
@@ -290,14 +325,15 @@ def fast_hist_init(cfg: DualARConfig, batch: int, dtype=torch.bfloat16,
 
 
 def fast_step(params, cfg: DualARConfig, x: torch.Tensor, hist, codebook_idx: int,
-              rope, unrounded: bool = False):
+              rope, unrounded: bool = False, tp=None):
     """One fast-transformer step at codebook position `codebook_idx`.
 
     x: (B, 1, D); hist: per-layer (k, v) histories (B, KV, codebook_idx,
     hd). The single query attends to the whole history, so no mask.
     unrounded: the w1 product before silu (of a dense stack) and the
     head product stay in float32, as in the fused TPU kernel
-    (ops/fast_frame.py).
+    (ops/fast_frame.py). tp: this rank's shard; the head's logits are
+    gathered.
     Returns (logits (B, codebook_size) float32, grown hist)."""
     cos_t, sin_t = rope
     cos = cos_t[codebook_idx:codebook_idx + 1]
@@ -308,16 +344,20 @@ def fast_step(params, cfg: DualARConfig, x: torch.Tensor, hist, codebook_idx: in
         lp = _layer(params["fast"], l)
         kh, vh = hist[l]
         h = rms_norm(x, lp["attention_norm"], cfg.norm_eps)
-        q, k, v = _project_qkv(h, lp, cfg)
+        q, k, v = _project_qkv(h, lp, cfg, tp)
         q = apply_rope_interleaved(q, cos, sin)
         k = apply_rope_interleaved(k, cos, sin)
         ks = torch.cat([kh, k.to(kh.dtype)], dim=2)
         vs = torch.cat([vh, v.to(vh.dtype)], dim=2)
         attn = gqa_attention(q, ks, vs, None, scale)
-        x = _attn_out_ffn(x, attn, lp, cfg, unrounded)
+        x = _attn_out_ffn(x, attn, lp, cfg, unrounded, tp)
         new_hist.append((ks, vs))
     fast_out = rms_norm(x[:, 0, :], params["fast_norm"], cfg.norm_eps)
     w = params["fast_output"]
+    if tp is not None:
+        lo = codebook_idx * cfg.codebook_size if cfg.depthwise_output else 0
+        hi = lo + cfg.codebook_size if cfg.depthwise_output else cfg.fast_output_size
+        return tp.columns(fast_out, w, lo, hi), new_hist
     if cfg.depthwise_output:
         w = w[:, codebook_idx * cfg.codebook_size:(codebook_idx + 1) * cfg.codebook_size]
     if unrounded:
@@ -325,10 +365,12 @@ def fast_step(params, cfg: DualARConfig, x: torch.Tensor, hist, codebook_idx: in
     return (fast_out @ w).float(), new_hist
 
 
-def fast_embed(params, cfg: DualARConfig, token: torch.Tensor, codebook_idx: int):
+def fast_embed(params, cfg: DualARConfig, token: torch.Tensor, codebook_idx: int, tp=None):
     """Embed a sampled codebook token for the next fast step:
     (B,) int -> (B, 1, D)."""
     token = token.long()
     if cfg.depthwise_wte:
         token = token + codebook_idx * cfg.codebook_size
+    if tp is not None:
+        return tp.lookup(params["fast_embeddings"], token)[:, None, :]
     return params["fast_embeddings"][token][:, None, :]

@@ -111,6 +111,25 @@ def decode_attention(q, k_new, v_new, pos, ck, cv, layer: int):
     return out
 
 
+def decode_attention_sharded(q, k_new, v_new, pos, ck, cv, layer: int, *, heads, tp: int):
+    """Decode attention on one rank's rows and heads: the counterpart of
+    `fused_decode_attention_sharded` (attention_pallas.py:148), which
+    shard_maps the TPU kernel over a (dp, tp) mesh. Here each rank's
+    process holds only its shard, so the arguments are local: q (B_local,
+    H / tp, hd), caches (L, B_local, KV / tp, S, hd). heads: the model's
+    (H, KV). Raises, as JAX asserts, where tp does not divide them; the
+    kernel itself needs no communication."""
+    h, kv = heads
+    if h % tp or kv % tp:
+        raise ValueError(f"decode_attention_sharded: heads ({h} q, {kv} kv) not divisible "
+                         f"by tp={tp}")
+    if q.shape[1] != h // tp or ck.shape[2] != kv // tp:
+        raise ValueError(f"decode_attention_sharded: q {tuple(q.shape)} and cache "
+                         f"{tuple(ck.shape)} are not one rank's {h // tp} q and {kv // tp} "
+                         "KV heads")
+    return decode_attention(q, k_new, v_new, pos, ck, cv, layer)
+
+
 def _check(q, k_new, v_new, pos, ck, cv, layer):
     tensors = {"q": q, "k_new": k_new, "v_new": v_new, "ck": ck, "cv": cv}
     for name, t in tensors.items():

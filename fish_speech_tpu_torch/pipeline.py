@@ -26,10 +26,15 @@ dropped (`BatchedRequest.cancel`, in a `finally`), which frees its row;
 `on_submit` hands the request to a caller on another thread, which can
 cancel it while this generator waits for the batcher.
 
+Under a (dp, tp) mesh (`load(mesh=)`, `parallel/`) every rank loads its
+shard of the LM; rank 0's pipeline drives every rank's engine through
+`parallel.driver` and holds the codec whole, as JAX keeps it replicated
+(pipeline.py:104-107); `close` ends the other ranks' loops.
+
 Departures from JAX: `load` takes the version's own config where
 config.json is missing (as the port's CLI does, `cli/llama_generate.py`;
-1.4 and dual_ar need the file) and takes no mesh; there are no compile
-buckets, so `warmup_codec` runs each shape a request reaches once.
+1.4 and dual_ar need the file); there are no compile buckets, so
+`warmup_codec` runs each shape a request reaches once.
 """
 
 from __future__ import annotations
@@ -51,6 +56,8 @@ from fish_speech_tpu_torch.generate.continuous import (
 from fish_speech_tpu_torch.generate.engine import GenerationResult, LMEngine
 from fish_speech_tpu_torch.generate.overlap import generate_vocode_overlapped, output_shift
 from fish_speech_tpu_torch.ops.sampling import BATCHED_REP_PEN_WINDOW, SamplingArgs
+from fish_speech_tpu_torch.parallel.distributed import coords
+from fish_speech_tpu_torch.parallel.mesh import shard_lm_params
 from fish_speech_tpu_torch.text.clean import preprocess_text
 from fish_speech_tpu_torch.text.prompt import FISH_1_5_SYSPROMPT, PromptEncoder
 
@@ -93,6 +100,13 @@ class TTSPipeline:
         self.prompt_encoder = PromptEncoder(tokenizer, engine.cfg.num_codebooks, lm)
         self._shift = output_shift(lm)
         self._batch_engines = {}
+        self.driver = None  # parallel.driver.Driver, on rank 0 of a mesh (load(mesh=))
+
+    def close(self) -> None:
+        """On rank 0 of a mesh: end the other ranks' loops. Elsewhere a
+        no-op."""
+        if self.driver is not None:
+            self.driver.close()
 
     # -- loading -----------------------------------------------------------
 
@@ -100,14 +114,21 @@ class TTSPipeline:
     def load(checkpoint_dir: str | Path, model: WhichModel, *, lm_dtype=torch.bfloat16,
              codec_dtype=torch.float32, codec_file: Optional[str | Path] = None,
              max_new_tokens: int = DEFAULT_MAX_NEW_TOKENS, cache_len: Optional[int] = None,
-             quantize_int8: bool = False, device="cuda") -> "TTSPipeline":
+             quantize_int8: bool = False, device="cuda",
+             mesh=None) -> Optional["TTSPipeline"]:
         """config.json (or the version's own config), tokenizer.json and the
         LM and codec weights of a local checkpoint directory, on `device`
         (CUDA unless asked otherwise; on CUDA the LM is bfloat16). The
         codec: Firefly of the version, in codec_dtype; for dual_ar, Mimi
         (kyutai/mimi's config, float32, as JAX loads it) from
         mimi.safetensors in the directory, encoding the LM's codebook
-        count. codec_file: the codec's weights elsewhere."""
+        count. codec_file: the codec's weights elsewhere.
+
+        mesh: a (dp, tp) mesh (`parallel.distributed.make_mesh`); every
+        rank calls `load`, and each takes its shard of the LM. On a mesh
+        of more than one rank, rank 0 gets the pipeline, whose engine
+        drives every rank's; the other ranks follow its engine calls here
+        until it is closed, and then get None."""
         from fish_speech_tpu_torch.cli.llama_generate import load_config, load_tokenizer
         from fish_speech_tpu_torch.io.checkpoint import load_firefly_params, load_lm_params
         from fish_speech_tpu_torch.io.hub import MIMI_CHECKPOINT_FILE, resolve_checkpoint
@@ -122,10 +143,23 @@ class TTSPipeline:
         tokenizer = load_tokenizer(ckpt / "tokenizer.json")
         token_cfg = TokenConfig.from_tokenizer(lm, tokenizer, cfg)
         t0 = time.perf_counter()
-        params = load_lm_params(ckpt, cfg, dtype=lm_dtype, device=device)
+        params = shard_lm_params(load_lm_params(ckpt, cfg, dtype=lm_dtype, device=device), mesh,
+                                 cfg)
         engine = LMEngine(params, cfg, token_cfg, lm, cache_len=cache_len, dtype=lm_dtype,
-                          quantize_int8=quantize_int8, device=device)
+                          quantize_int8=quantize_int8, device=device, mesh=mesh)
+        del params
         logger.info("LM loaded in %.1fs", time.perf_counter() - t0)
+        driver = None
+        if coords(mesh).size > 1:
+            from fish_speech_tpu_torch.parallel.driver import Driver
+
+            driver = Driver(mesh)
+            if torch.distributed.get_rank() != 0:
+                calls = driver.follow(engine)
+                logger.info("rank %d: rank 0 closed the driver after %d calls",
+                            torch.distributed.get_rank(), calls)
+                return None
+            engine = driver.lead(engine)
         if model.fish_version is None:
             mimi_cfg = MimiConfig.kyutai()
             mimi = load_mimi_params(codec_file if codec_file is not None
@@ -136,7 +170,9 @@ class TTSPipeline:
             codec_params = load_firefly_params(codec_file if codec_file is not None else ckpt,
                                                codec_cfg, dtype=codec_dtype, device=device)
             codec = FireflyCodec(codec_params, codec_cfg, device=device)
-        return TTSPipeline(engine, codec, tokenizer, lm, max_new_tokens=max_new_tokens)
+        pipeline = TTSPipeline(engine, codec, tokenizer, lm, max_new_tokens=max_new_tokens)
+        pipeline.driver = driver
+        return pipeline
 
     # -- warmup ------------------------------------------------------------
 
@@ -338,12 +374,8 @@ class TTSPipeline:
         shares this pipeline's weights, with dynamic sampling (each
         request's sampling and seed installed in its row at admission)
         and, where the codec streams, the central vocoder."""
-        e = self.engine
-        engine = LMEngine(e.params, e.cfg, e.token_cfg, e.lm, batch_size=rows,
-                          cache_len=e.cache_len, max_frames=e.max_frames,
-                          rep_pen_window=BATCHED_REP_PEN_WINDOW, prompt_buckets=e.prompt_buckets,
-                          dtype=e.dtype, device=e.device, quantize_int8=e.quantize_int8,
-                          dynamic_sampling=True, _params_preprocessed=True)
+        engine = self.engine.sibling(batch_size=rows, rep_pen_window=BATCHED_REP_PEN_WINDOW,
+                                     dynamic_sampling=True)
         central = getattr(self.codec, "can_stream", False) and hasattr(self.codec,
                                                                         "decode_step_async")
         return ContinuousBatcher(engine, self.default_sampling, horizon=horizon,
@@ -446,13 +478,8 @@ class TTSPipeline:
         """One engine a batch size, made at first use, sharing the weights,
         with the batched rep-pen window."""
         if batch_size not in self._batch_engines:
-            e = self.engine
-            self._batch_engines[batch_size] = LMEngine(
-                e.params, e.cfg, e.token_cfg, e.lm, batch_size=batch_size,
-                cache_len=e.cache_len, max_frames=e.max_frames,
-                rep_pen_window=BATCHED_REP_PEN_WINDOW, prompt_buckets=e.prompt_buckets,
-                dtype=e.dtype, device=e.device, quantize_int8=e.quantize_int8,
-                _params_preprocessed=True)
+            self._batch_engines[batch_size] = self.engine.sibling(
+                batch_size=batch_size, rep_pen_window=BATCHED_REP_PEN_WINDOW)
         return self._batch_engines[batch_size]
 
     def synthesize_batched(self, text: str, batch_size: int, *,

@@ -22,7 +22,8 @@ update. The arithmetic is optax's, written out on the parameter trees:
 The step updates the parameters and the optimizer state in place and
 returns them (the JAX step donates its inputs); its metrics stay tensors
 on the device, for the caller to read when it logs. Sharding the batch
-and the parameters over several devices waits for the parallelism port.
+and the parameters over a mesh (`shard_batch`, `init_train_state`'s mesh)
+is the training slice still to come; `parallel/` shards serving only.
 """
 
 from __future__ import annotations

@@ -202,6 +202,15 @@ assert (d / "out" / "train_state.npz").exists() and trace.path.exists()
 assert memory_stats()["cpu"] is None and timer.total("finetune") > 0
 setup_compilation_cache()
 tmp.cleanup()
+import fish_speech_tpu_torch.parallel
+from fish_speech_tpu_torch.parallel import dryrun
+world = dryrun.serving_dryrun(1, 2, dict(
+    cfg=dataclasses.replace(cfg, n_head=4, n_local_heads=2, head_dim=8), token_cfg=tok,
+    lm=c.WhichLM.FISH_1_5, dtype=torch.float32, seed=0,
+    engine=dict(prompt_buckets=(8,), cache_len=16),
+    parts={"frames": dict(prompts=np.zeros((1, 3, 4), np.int32), n=1, sampling=SamplingArgs())}),
+    timeout_s=120)
+assert [r["foreign_modules"] for r in world["ranks"]] == [[], []], world["ranks"]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0].startswith("jax") or m.split(".")[0] == "fish_speech_tpu"
              or m.split(".")[0] in ("optax", "safetensors", "ml_dtypes", "tokenizers"))
@@ -227,7 +236,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     the central vocoder on Mimi), finetuning (two steps of the finetune
     CLI's function on a checkpoint directory, a train-state snapshot) under
     the utilities (a Timer span, a device_trace with an annotate region,
-    memory_stats, setup_compilation_cache), and holds no
+    memory_stats, setup_compilation_cache), a tp = 2 world of two spawned
+    ranks (`parallel.dryrun`) whose ranks hold none either, and holds no
     jax*, no optax, no fish_speech_tpu, no
     safetensors, no ml_dtypes and no tokenizers module: llama_generate
     reads its tokenizer through a stand-in with the methods PromptEncoder
