@@ -4580,10 +4580,11 @@ def write_checkpoint(torch, cfg, d, seed: int) -> None:
 
 def adam_close(np, got, ref, lr: float):
     """(largest difference, share beyond TRAIN_PARAM_TIGHT x lr) over
-    every value of two lists of parameter tensors."""
+    every value of two lists of parameter tensors, in float64 on got's
+    device."""
     worst, beyond, total = 0.0, 0, 0
     for a, b in zip(got, ref):
-        diff = (a.double().cpu() - b.double().cpu()).abs()
+        diff = (a.double() - b.to(a.device).double()).abs()
         worst = max(worst, float(diff.max()))
         beyond += int((diff > TRAIN_PARAM_TIGHT * lr).sum())
         total += diff.numel()
@@ -4765,6 +4766,170 @@ def train_serve_back(torch, np, cfg, tok, d) -> None:
         f"range, launches {json.dumps(launches)}")
 
 
+MESH_B, MESH_S, MESH_STEPS = 4, 256, 2  # (a)-(c): full depth
+MESH_RESUME = (2, 128, 4)  # (d): B, S and steps at 2 slow layers, a snapshot after half
+# a meshed run against the unsharded one: loss and grad norm within
+# 1e-5 relative at each step, the parameters as `adam_close` holds them
+MESH_LOSS_RTOL = 1e-5
+MESH_TIMEOUT_S = 600.0
+
+
+def mesh_batches(np, cfg, tok, seed: int, n: int, b: int, s: int) -> list:
+    """n seeded global b x s batches (`train_batch`) whose first dp half
+    is cut to s / 2 positions: the two dp ranks' rows hold unequal
+    counts, so the loss's global count is exercised."""
+    out = []
+    for i in range(n):
+        batch = train_batch(np, cfg, tok, seed=seed + i, b=b, s=s)
+        batch["seq_lens"][:b // 2] = s // 2
+        batch["tokens"][:b // 2, :, s // 2:] = 0
+        batch["tokens"][:b // 2, 0, s // 2:] = tok.pad_id
+        out.append(batch)
+    return out
+
+
+def world_line(world: dict, run: int = 0) -> str:
+    """A world's seconds a step, collectives a step and their bytes, and
+    each rank's peak allocation, from its ranks' results."""
+    ranks = [r["runs"][run] for r in world["ranks"]]
+    steps = ranks[0]["steps"]
+    peaks = [r["peak_bytes"] for r in ranks]
+    phases = ", ".join(f"{k} {v:.1f}" for k, v in ranks[0]["seconds"].items())
+    return (f"{' '.join('%.3f' % st['seconds'] for st in steps)} s/step, "
+            f"{steps[-1]['calls']} collectives {steps[-1]['bytes'] / 1e6:.1f} MB a step on rank "
+            f"0, peak allocated a rank "
+            f"{' '.join('n/a' if p is None else '%.2f' % (p / 1e9) for p in peaks)} GB; rank "
+            f"0's seconds: {phases}")
+
+
+def check_mesh_run(label: str, world: dict, run: int = 0, bitwise: bool = False) -> str:
+    """A meshed run against the unsharded run of the same batches (a
+    resumed run: against the last steps of the whole run) on every rank
+    that compared: bit for bit (bitwise), or loss and grad norm within
+    MESH_LOSS_RTOL and the parameters within `adam_close`'s
+    tolerances."""
+    for i, r in enumerate(world["ranks"]):
+        check(r["foreign_modules"] == [], f"train {label}: rank {i} holds {r['foreign_modules']}")
+    got = world["runs"][run]
+    ref = got["reference"]
+    n = len(got["steps"])
+    check(0 < n <= len(ref["steps"]), f"train {label}: {n} steps, {len(ref['steps'])} unsharded")
+    pairs = list(zip(got["steps"], ref["steps"][-n:]))
+    rel = max(max(abs(g[k] - r[k]) / abs(r[k]) for k in ("loss", "grad_norm")) for g, r in pairs)
+    if bitwise:
+        check(all(g[k] == r[k] for g, r in pairs for k in r) and ref["bit_equal"],
+              f"train {label}: not bit-equal to the unsharded step (largest parameter "
+              f"difference {ref['max_abs_diff']:.3e}, metrics {pairs})")
+        return "loss, grad norm and every parameter bit-equal to the unsharded step"
+    share = ref["beyond"] / ref["total"]
+    check(rel <= MESH_LOSS_RTOL, f"train {label}: loss or grad norm {rel:.2e} from the "
+          f"unsharded step's (tol {MESH_LOSS_RTOL})")
+    check(ref["max_abs_diff"] <= TRAIN_LR and share <= TRAIN_OUTLIERS,
+          f"train {label}: parameters {ref['max_abs_diff']:.2e} from the unsharded step's, "
+          f"{share:.2e} of them beyond {TRAIN_PARAM_TIGHT} x lr")
+    return (f"loss and grad norm within {rel:.2e} relative of the unsharded step's (tol "
+            f"{MESH_LOSS_RTOL}); parameters within {ref['max_abs_diff']:.2e} (tol lr "
+            f"{TRAIN_LR}), {share:.2e} of them beyond {TRAIN_PARAM_TIGHT} x lr (tol "
+            f"{TRAIN_OUTLIERS})")
+
+
+def train_mesh(torch, np, cfg, tok, d, smi, device: str = "cuda") -> dict:
+    """Finetuning under a mesh through `parallel.dryrun.train_dryrun`, each
+    world against the unsharded step on the same global batches (float32,
+    TF32 off), run by the compared ranks: (a) a world of one rank on nccl
+    at full depth, bit for bit; (b) tp = 2 and (c) dp = 2 over gloo, two
+    ranks sharing this card, at full depth; (d) at 2 slow layers, in the
+    (b) world a straight run with a snapshot after half its steps and a
+    resume from it on that world (bit for bit), in the (c) world a resume
+    from that snapshot, and one on one device here, each continuation
+    against the straight unsharded run. Returns each world's figures."""
+    from fish_speech_tpu_torch.models.dual_ar import init_dual_ar_params
+    from fish_speech_tpu_torch.parallel import dryrun
+    from fish_speech_tpu_torch.train import TrainConfig, init_train_state, make_train_step
+    from fish_speech_tpu_torch.train.checkpoint import load_train_state
+    from fish_speech_tpu_torch.train.step import tree_leaves
+
+    b2, s2, n2 = MESH_RESUME
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1, total_steps=n2)
+    tight = {"tight": TRAIN_PARAM_TIGHT * TRAIN_LR}
+    batches = mesh_batches(np, cfg, tok, seed=70, n=MESH_STEPS, b=MESH_B, s=MESH_S)
+    cfg2 = dataclasses.replace(cfg, n_layer=2)
+    batches2 = mesh_batches(np, cfg2, tok, seed=80, n=n2, b=b2, s=s2)
+    snap = str(d / "mesh_1x2.npz")
+    full = {"batches": batches, "reference": tight}
+    runs = {
+        "(a)": ((1, 1), "nccl" if device == "cuda" else "gloo", [full]),
+        "(b)": ((1, 2), "gloo", [full, {"cfg": cfg2, "batches": batches2, "resume_check": True,
+                                        "save": {"path": snap, "after": n2 // 2},
+                                        "reference": tight}]),
+        "(c)": ((2, 1), "gloo", [full, {"cfg": cfg2, "batches": batches2[n2 // 2:],
+                                        "resume": snap,
+                                        "reference": dict(tight, batches=batches2)}]),
+    }
+    out, held = {}, {}
+    t_all = time.perf_counter()
+    for label, ((dp, tp), backend, world_runs) in runs.items():
+        t0 = time.perf_counter()
+        world = dryrun.train_dryrun(dp, tp, dict(cfg=cfg, token_cfg=tok, tcfg=tc,
+                                                 dtype=torch.float32, seed=6, runs=world_runs),
+                                    device=device, backend=backend, timeout_s=MESH_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        run = world["runs"][0]
+        line = check_mesh_run(label, world, bitwise=(dp, tp) == (1, 1))
+        out[label] = {"world": (dp, tp), "backend": backend, "wall_s": wall,
+                      "steps": [r["runs"][0]["steps"] for r in world["ranks"]],
+                      "peak_bytes": [r["runs"][0]["peak_bytes"] for r in world["ranks"]],
+                      "reference": {k: v for k, v in run["reference"].items() if k != "steps"}}
+        log("train", f"mesh {label} dp={dp} tp={tp} on {backend}, full depth ({cfg.n_layer} + "
+            f"{cfg.n_fast_layer} layers), B={MESH_B} S={MESH_S} (rows 0-{MESH_B // 2 - 1} cut to "
+            f"{MESH_S // 2}), {MESH_STEPS} steps warmup 1 lr {TRAIN_LR}: loss "
+            f"{' '.join('%.6f' % st['loss'] for st in run['steps'])} grad norm "
+            f"{' '.join('%.6f' % st['grad_norm'] for st in run['steps'])}; {line}; "
+            f"{world_line(world)}; the world in {wall:.1f}s"
+            + ("" if label == "(a)" else " with its part of (d)")
+            + ("" if dp * tp == 1 else " (two ranks sharing one card over gloo: not a speed "
+               "of tensor or data parallelism)") + f"; {smi}")
+        if label == "(b)":
+            differs = [r["runs"][1]["resume_differs"] for r in world["ranks"]]
+            check(differs == [[], []], f"train (d): the resume at (1, 2) differs from its "
+                  f"straight run in {differs}")
+        if label != "(a)":
+            held[label] = (check_mesh_run(f"(d) at {(dp, tp)}", world, run=1),
+                           world_line(world, run=1))
+
+    # (d) on one device: the straight run here, and the resume from the snapshot
+    t0 = time.perf_counter()
+    step = make_train_step(cfg2, tok, tc)
+    res = {}
+    for name, resume in (("straight", None), ("resumed", snap)):
+        params, state = init_train_state(init_dual_ar_params(cfg2, seed=6, dtype=torch.float32,
+                                                             device=device), tc)
+        first = 0
+        if resume:
+            first, params, state, _, _ = load_train_state(resume, params, state)
+        for b in batches2[first:]:
+            params, state, m = step(params, state, {k: torch.from_numpy(v).to(device)
+                                                    for k, v in b.items()})
+        res[name] = ([t for _, t in tree_leaves(params)], float(m["loss"]))
+    worst, share = adam_close(np, res["resumed"][0], res["straight"][0], TRAIN_LR)
+    rel = abs(res["resumed"][1] - res["straight"][1]) / abs(res["straight"][1])
+    check(worst <= TRAIN_LR and share <= TRAIN_OUTLIERS and rel <= MESH_LOSS_RTOL,
+          f"train (d): the one-device resume is {worst:.2e} from the straight run ({share:.2e} "
+          f"beyond {TRAIN_PARAM_TIGHT} x lr; last loss {rel:.2e} relative)")
+    del res
+    out["(d)"] = {"one_device_s": time.perf_counter() - t0,
+                  "all_s": time.perf_counter() - t_all}
+    log("train", f"mesh (d) at 2 slow layers, B={b2} S={s2}, {n2} steps: at (1, 2) with a "
+        f"snapshot after {n2 // 2}, the resume on (1, 2) bit for bit its straight run on each "
+        f"rank (parameters, moments, count); the straight (1, 2) run: {held['(b)'][0]} "
+        f"({held['(b)'][1]}); resumed at (2, 1), against the straight unsharded run: "
+        f"{held['(c)'][0]} ({held['(c)'][1]}); resumed on one device: parameters within "
+        f"{worst:.2e}, {share:.2e} beyond {TRAIN_PARAM_TIGHT} x lr, last loss {rel:.2e} "
+        f"relative ({out['(d)']['one_device_s']:.1f}s); the mesh lines in "
+        f"{out['(d)']['all_s']:.1f}s")
+    return out
+
+
 def run_train(torch, np, tok) -> None:
     import tempfile
     from pathlib import Path
@@ -4780,6 +4945,7 @@ def run_train(torch, np, tok) -> None:
         train_full_depth(torch, np, cfg, d, smi)
         train_resume(torch, np, cfg, d)
         train_serve_back(torch, np, cfg, tok, d)
+        train_mesh(torch, np, cfg, tok, d, smi)
     torch.cuda.empty_cache()
 
 

@@ -26,7 +26,11 @@ weights may be int8-quantized (`ops/quant.py`: {"q": (L, in, out) int8,
   layers then run on the rank's own heads and FFN columns, with an
   all-reduce after wo and after w2, vocab-split lookups (a masked local
   gather, then an all-reduce) and column-split heads whose logits are
-  gathered. Attention needs no communication. None: unsharded.
+  gathered. Attention needs no communication. The collectives are
+  autograd functions (`parallel/mesh.py`): the replicated input of every
+  column-split product goes through `tp.copy`, whose backward sums the
+  gradient over the ranks, so training differentiates the sharded layers.
+  None: unsharded.
 """
 
 from __future__ import annotations
@@ -178,12 +182,17 @@ def _sum(x, tp):
     return x if tp is None else tp.all_reduce(x)
 
 
+def _copy(x, tp):
+    """The replicated input of a column-split product (`tp.copy`)."""
+    return x if tp is None else tp.copy(x)
+
+
 def _project_qkv(x, lp, cfg: DualARConfig, tp=None):
     """x (B, S, D) -> q (B, H, S, hd), k, v (B, KV, S, hd), of this rank's
     heads under tp (its wqkv columns are its q, k and v heads)."""
     b, s, _ = x.shape
     h, kv = local_heads(cfg, tp)
-    qkv = _mm(x, lp["wqkv"])
+    qkv = _mm(_copy(x, tp), lp["wqkv"])
     q_sz = h * cfg.head_dim
     kv_sz = kv * cfg.head_dim
     q = qkv[..., :q_sz].reshape(b, s, h, cfg.head_dim)
@@ -200,7 +209,7 @@ def _attn_out_ffn(x, attn, lp, cfg: DualARConfig, unrounded: bool = False, tp=No
     in the fused TPU kernels too (slow_step_pallas.py:313-323)."""
     b, s, _ = x.shape
     x = x + _sum(_mm(attn.transpose(1, 2).reshape(b, s, -1), lp["wo"]), tp)
-    h2 = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+    h2 = _copy(rms_norm(x, lp["ffn_norm"], cfg.norm_eps), tp)
     if unrounded and not is_quantized(lp["w1"]):
         up = h2.float() @ lp["w1"].float()
     else:

@@ -1,11 +1,14 @@
-"""Parallel serving: the LM sharded over a (dp, tp) mesh of ranks.
+"""Parallel serving and training: the LM sharded over a (dp, tp) mesh of
+ranks.
 
 Counterpart of `fish_speech_tpu/parallel/`. JAX annotates shardings on a
 `jax.sharding.Mesh` and XLA inserts the collectives; here each rank is a
 process holding its shard, the collectives are explicit
 (`torch.distributed` over a (dp, tp) `DeviceMesh`), and rank 0 drives
 the other ranks' engines (`parallel/driver.py`): tensor-parallel heads
-and FFN, data-parallel decode rows. `distributed.py` sets up the world,
+and FFN, data-parallel decode rows. Training runs the same shards under
+autograd (`train/`): the collectives are autograd functions, and the
+step sums the gradients over dp. `distributed.py` sets up the world,
 `mesh.py` holds the shard specs and the model's collectives, and
 `dryrun.py` runs worlds of ranks on one host.
 """

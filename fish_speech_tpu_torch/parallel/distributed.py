@@ -27,7 +27,9 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import NamedTuple, Optional, Tuple
+import subprocess
+import sys
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -39,6 +41,18 @@ DEFAULT_TIMEOUT_S = 600.0  # a collective's longest wait (a first kernel build i
 
 
 _state = {"timeout_s": DEFAULT_TIMEOUT_S}  # the world's, set by initialize_distributed
+
+# What this process's model and training collectives sent (`all_reduce`):
+# calls and bytes of the tensors reduced. Callers reset it to 0 and read it.
+traffic = {"calls": 0, "bytes": 0}
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum x over `group` in place, counted in `traffic`; returns x."""
+    traffic["calls"] += 1
+    traffic["bytes"] += x.numel() * x.element_size()
+    dist.all_reduce(x, group=group)
+    return x
 
 
 def _timeout() -> datetime.timedelta:
@@ -169,5 +183,37 @@ def fetch_replicated(x: torch.Tensor, mesh, offset: int, total: int) -> torch.Te
     acc = torch.float32 if x.is_floating_point() else torch.int64
     out = torch.zeros((total, *x.shape[1:]), dtype=acc, device=x.device)
     out[offset:offset + x.shape[0]] = x.to(acc)
-    dist.all_reduce(out, group=mesh.get_group("dp"))
+    all_reduce(out, mesh.get_group("dp"))
     return out.to(x.dtype)
+
+
+def rank0() -> bool:
+    """Whether this process is global rank 0 (or runs without a world)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def launch_ranks(n: int, module: str, argv: List[str]) -> Tuple[str, List[subprocess.Popen]]:
+    """Start ranks 1..n-1 of a world on this host, each `python -m module
+    argv` with the FISH_TPU_* variables of its rank; returns the
+    coordinator's address (this process joins it as rank 0) and the
+    processes."""
+    from fish_speech_tpu_torch.parallel.dryrun import free_port
+
+    address = f"127.0.0.1:{free_port()}"
+    procs = []
+    for rank in range(1, n):
+        env = dict(os.environ, **{COORDINATOR_ENV: address, NUM_PROCESSES_ENV: str(n),
+                                  PROCESS_ID_ENV: str(rank)})
+        procs.append(subprocess.Popen([sys.executable, "-m", module, *argv], env=env))
+    return address, procs
+
+
+def wait_ranks(procs: List[subprocess.Popen], timeout_s: float = 60.0) -> None:
+    """Wait for the ranks `launch_ranks` started; kill those still running
+    after timeout_s."""
+    for p in procs:
+        try:
+            p.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()

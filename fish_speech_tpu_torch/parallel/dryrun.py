@@ -1,6 +1,9 @@
-"""Worlds of ranks on one host, and the serving dry run over them.
+"""Worlds of ranks on one host, and the serving and train dry runs over
+them.
 
-The counterpart of the serving half of `__graft_entry__.dryrun_multichip`:
+The counterpart of `__graft_entry__.dryrun_multichip`. Every entry point
+runs on the card unless the caller passes device="cpu" (then over
+gloo). The serving half:
 `serving_dryrun(dp, tp, spec)` starts a world of dp * tp ranks (spawned
 processes, which import nothing of JAX or of `fish_speech_tpu`) on one
 device type and backend, builds the DualAR LM on every rank from one
@@ -18,8 +21,17 @@ parameter tree (each rank takes its shard), and runs on rank 0, through
 It returns what rank 0 saw, and every rank's launch counts of the two
 attention kernels and the JAX modules it holds (none). `server_dryrun` does the same for the server: every
 rank builds the server's state (`server.main.build_state`) on a mesh,
-and rank 0 serves requests through `server/core.py`. The tests and
-`chip_smoke.py` both use them.
+and rank 0 serves requests through `server/core.py`.
+
+The train half: `train_dryrun(dp, tp, spec)` builds the parameters on
+every rank from one tree (each rank keeps its shard,
+`train.init_train_state(mesh=)`), runs meshed steps on rank-local rows
+(`train.shard_batch`), optionally snapshots and resumes (at another
+world, or at the same one, bit for bit), and returns rank 0's metrics,
+the gathered parameters and every rank's step times, collective traffic,
+peak memory and foreign modules (none). `collectives_job` holds the tp
+autograd functions on one rank's slices. The tests and `chip_smoke.py`
+use them.
 """
 
 from __future__ import annotations
@@ -68,16 +80,22 @@ def _rank_main(rank: int, world: int, address: str, tp: int, device: str,
             dist.destroy_process_group()
 
 
-def run_world(dp: int, tp: int, job: Callable, *, device: str = "cpu",
+def run_world(dp: int, tp: int, job: Callable, *, device: str = "cuda",
               backend: Optional[str] = None, timeout_s: float = WORLD_TIMEOUT_S,
               **kwargs) -> List:
     """Run `job(mesh, **kwargs)` on every rank of a new (dp, tp) world of
     spawned processes on this host, and return each rank's result. Raises
     with a rank's traceback where one fails, and after `timeout_s` where
     the world has not ended; every process is stopped before it returns.
-    `job` is a module-level function; kwargs are pickled."""
+    `job` is a module-level function; kwargs are pickled. device: "cuda"
+    (raises without a card) or "cpu"; backend: None takes nccl on the
+    card and gloo on the CPU."""
+    from fish_speech_tpu_torch.device import resolve_device
     from fish_speech_tpu_torch.ops import _cuda_build
 
+    device = resolve_device(device).type
+    if device == "cpu":
+        backend = backend or "gloo"
     world = dp * tp
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
@@ -334,7 +352,7 @@ def serving_job(mesh, spec: dict) -> dict:
     return out
 
 
-def serving_dryrun(dp: int, tp: int, spec: dict, *, device: str = "cpu",
+def serving_dryrun(dp: int, tp: int, spec: dict, *, device: str = "cuda",
                    backend: Optional[str] = None,
                    timeout_s: float = WORLD_TIMEOUT_S) -> dict:
     """Rank 0's results of the serving dry run on a (dp, tp) world, with
@@ -343,7 +361,9 @@ def serving_dryrun(dp: int, tp: int, spec: dict, *, device: str = "cpu",
     weights, with zero_head_columns zeroed), engine (the base engine's
     keyword arguments: batch_size 1 by default), parts ({name: part}, a
     part of `PARTS[part.get("kind", name)]`), timeout_s (the driver's)."""
-    spec = dict(spec, device=device if device == "cpu" else "cuda")
+    from fish_speech_tpu_torch.device import resolve_device
+
+    spec = dict(spec, device=resolve_device(device).type)
     ranks = run_world(dp, tp, serving_job, device=device, backend=backend,
                       timeout_s=timeout_s, spec=spec)
     return dict(ranks[0], ranks=ranks)
@@ -401,10 +421,275 @@ def server_job(mesh, argv: List[str], requests: List[dict], cancel: Optional[dic
 
 
 def server_dryrun(n: int, tp: int, argv: List[str], requests: List[dict],
-                  cancel: Optional[dict] = None, codec_config=None, *,
+                  cancel: Optional[dict] = None, codec_config=None, *, device: str = "cuda",
+                  backend: Optional[str] = None,
                   timeout_s: float = WORLD_TIMEOUT_S) -> List[dict]:
     """Every rank's result of `server_job` on a world of n ranks at tp
-    (`server.main`'s --shard n --tp tp), on the CPU over gloo."""
-    return run_world(n // tp, tp, server_job, device="cpu", backend="gloo",
+    (`server.main`'s --shard n --tp tp) on `device` (argv's --device is
+    the server's own)."""
+    return run_world(n // tp, tp, server_job, device=device, backend=backend,
                      timeout_s=timeout_s, argv=argv, requests=requests, cancel=cancel,
                      codec_config=codec_config)
+
+
+# --------------------------------------------------------------------------
+# The train dry run
+# --------------------------------------------------------------------------
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _train_params(spec: dict, cfg, device: torch.device):
+    from fish_speech_tpu_torch.io.convert import dual_ar_params_from_numpy
+    from fish_speech_tpu_torch.models.dual_ar import init_dual_ar_params
+
+    if spec.get("params") is not None:
+        return dual_ar_params_from_numpy(spec["params"], device=device, dtype=spec["dtype"])
+    return init_dual_ar_params(cfg, seed=spec["seed"], dtype=spec["dtype"], device=device)
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def _local_state(params, opt_state) -> Dict[str, torch.Tensor]:
+    """{path: tensor} of a rank's own train state."""
+    from fish_speech_tpu_torch.train.step import tree_leaves
+
+    return {"/".join(path): t for path, t in tree_leaves({"p": params, "o": opt_state})}
+
+
+def _compare(params, ref, mesh, cfg, tight: float) -> dict:
+    """This rank's parameter shards against its shards of the unsharded
+    run's parameters `ref` ((metrics, {name: tensor})), summed over the tp
+    group (a replicated leaf counted once): the reference's metrics, the
+    largest difference, how many values differ by more than `tight` out
+    of how many, and whether every value is bit-equal."""
+    import torch.distributed as dist
+
+    from fish_speech_tpu_torch.parallel.distributed import coords
+    from fish_speech_tpu_torch.parallel.mesh import is_split, lm_param_specs, shard_leaf
+    from fish_speech_tpu_torch.train.step import tree_leaves
+
+    metrics, whole = ref
+    c = coords(mesh)
+    specs = dict(tree_leaves(lm_param_specs(cfg)))
+    device = tree_leaves(params)[0][1].device
+    worst = torch.zeros((), dtype=torch.float32, device=device)
+    counts = torch.zeros(3, dtype=torch.int64, device=device)  # beyond, total, not bit-equal
+    for path, g in tree_leaves(params):
+        if c.tp_rank and not is_split(specs[path]):
+            continue  # replicated: tp rank 0 counts it
+        g = g.detach()
+        r = shard_leaf(whole["/".join(path)], specs[path], cfg, c.tp_rank, c.tp).to(g.device)
+        diff = (g - r).abs()
+        worst = torch.maximum(worst, diff.max())
+        counts += torch.stack([(diff > tight).sum(), torch.tensor(diff.numel(), device=device),
+                               torch.tensor(int(not _bits_equal(g, r)), device=device)])
+        del diff, r
+    if c.tp > 1:
+        group = mesh.get_group("tp")
+        dist.all_reduce(worst, op=dist.ReduceOp.MAX, group=group)
+        dist.all_reduce(counts, group=group)
+    beyond, total, differ = counts.tolist()
+    return {"steps": metrics, "max_abs_diff": float(worst), "beyond": beyond, "total": total,
+            "bit_equal": differ == 0}
+
+
+def train_job(mesh, spec: dict) -> dict:
+    """One rank of the train dry run (see `train_dryrun`)."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from fish_speech_tpu_torch.parallel import distributed as pdist
+    from fish_speech_tpu_torch.train import init_train_state, make_train_step
+    from fish_speech_tpu_torch.train.checkpoint import (
+        gather_params, load_train_state, save_train_state)
+    from fish_speech_tpu_torch.train.step import shard_batch, tree_leaves
+
+    device = torch.device(spec["device"])
+    tcfg = spec["tcfg"]
+    tp = pdist.coords(mesh).tp
+
+    def on_device(b):
+        return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+    def start(cfg, resume, mesh=mesh):
+        params, opt_state = init_train_state(_train_params(spec, cfg, device), tcfg, mesh=mesh,
+                                             cfg=cfg, device=device)
+        if not resume:
+            return 0, params, opt_state
+        return load_train_state(resume, params, opt_state, mesh=mesh, cfg=cfg)[:3]
+
+    def train(cfg, params, opt_state, batches, first, save=None):
+        step = make_train_step(cfg, spec["token_cfg"], tcfg, mesh=mesh)
+        out = []
+        for i, b in enumerate(batches, start=first):
+            local = shard_batch(on_device(b), mesh)
+            _sync(device)
+            pdist.traffic.update(calls=0, bytes=0)
+            t0 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, local)
+            _sync(device)
+            out.append(dict({k: float(v) for k, v in m.items()},
+                            seconds=time.perf_counter() - t0, **pdist.traffic))
+            if save is not None and i + 1 == save["after"]:
+                save_train_state(save["path"], step=i + 1, params=params, opt_state=opt_state,
+                                 mesh=mesh, cfg=cfg)
+        return params, opt_state, out
+
+    def reference(cfg, run):
+        # the unsharded step on the same global batches, from the start;
+        # its parameters stay on the device, its moments go
+        _, params, opt_state = start(cfg, None, mesh=None)
+        step = make_train_step(cfg, spec["token_cfg"], tcfg)
+        metrics = []
+        for b in run["reference"].get("batches") or run["batches"]:
+            params, opt_state, m = step(params, opt_state, on_device(b))
+            metrics.append({k: float(v) for k, v in m.items()})
+        return metrics, {"/".join(p): t for p, t in tree_leaves(params)}
+
+    result = {"runs": []}
+    for run in spec["runs"]:
+        cfg = run.get("cfg") or spec["cfg"]
+        clock = [time.perf_counter()]
+
+        def lap():
+            _sync(device)
+            clock.append(time.perf_counter())
+            return clock[-1] - clock[-2]
+
+        seconds = {}
+        # every tp rank compares its own shards; without tp, rank 0 alone
+        ref = (reference(cfg, run) if run.get("reference") and (tp > 1 or dist.get_rank() == 0)
+               else None)
+        seconds["reference"] = lap()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+            held = torch.cuda.memory_allocated(device)  # the reference's parameters
+        first, params, opt_state = start(cfg, run.get("resume"))
+        seconds["start"] = lap()
+        params, opt_state, steps = train(cfg, params, opt_state, run["batches"], first,
+                                         run.get("save"))
+        seconds["steps"] = lap()
+        out = {"steps": steps, "seconds": seconds,
+               "peak_bytes": (torch.cuda.max_memory_allocated(device) - held
+                              if device.type == "cuda" else None)}
+        if ref is not None:
+            out["reference"] = _compare(params, ref, mesh, cfg, run["reference"]["tight"])
+        del ref
+        seconds["compare"] = lap()
+        if not run.get("reference"):
+            whole = gather_params(params, mesh, cfg)
+            if dist.get_rank() == 0:
+                out["params"] = {"/".join(p): t.detach().cpu().numpy()
+                                 for p, t in tree_leaves(whole)}
+            del whole
+        if run.get("resume_check"):
+            # the same mesh again from the run's snapshot: bit for bit the
+            # run, compared shard by shard on each rank
+            straight = {k: v.clone() for k, v in _local_state(params, opt_state).items()}
+            del params, opt_state
+            first, params, opt_state = start(cfg, run["save"]["path"])
+            params, opt_state, _ = train(cfg, params, opt_state, run["batches"][first:], first)
+            again = _local_state(params, opt_state)
+            out["resume_differs"] = [n for n in straight if not _bits_equal(straight[n],
+                                                                            again[n])]
+            del straight, again
+            seconds["resume_check"] = lap()
+        del params, opt_state
+        result["runs"].append(out)
+    if spec.get("collectives") is not None:
+        result["collectives"] = collectives_job(mesh, spec["collectives"])
+    if spec.get("finetune"):
+        from fish_speech_tpu_torch.cli import finetune
+
+        printed = []
+        for argv in spec["finetune"]:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                finetune.main(list(argv))
+            printed.append(buf.getvalue())
+        result["finetune_stdout"] = printed
+    result["foreign_modules"] = foreign_modules()
+    return result
+
+
+def train_dryrun(dp: int, tp: int, spec: dict, *, device: str = "cuda",
+                 backend: Optional[str] = None,
+                 timeout_s: float = WORLD_TIMEOUT_S) -> dict:
+    """The train dry run on a (dp, tp) world: rank 0's result of
+    `train_job`, with "ranks" every rank's (less the parameters).
+
+    spec: cfg, token_cfg, tcfg (`train.TrainConfig`), dtype, params (a
+    numpy tree in the JAX layout) or seed (`init_dual_ar_params`), and
+    runs, each from fresh parameters: {"batches": global {"tokens",
+    "seq_lens"} numpy batches, one a step; optionally "cfg" (the run's
+    own config, with seeded parameters), "resume" (a snapshot to start
+    from), "save" ({"path", "after": steps}: a snapshot after that many
+    steps), "resume_check" (reload that snapshot on this world and run
+    the rest again: "resume_differs" lists the names of the rank's train
+    state that are not bit-equal to the run's), "reference" ({"tight":
+    x, "batches": optional}: the ranks first run the unsharded step on
+    "batches" (default: the run's) from fresh parameters, and the run's
+    "reference" holds that run's metrics and, over the ranks' shards, the
+    largest difference from it, the count of values beyond x out of how
+    many, and whether all are bit-equal)}; a run without a reference
+    returns its gathered parameters under "params", {path: array}.
+    Optionally collectives (`collectives_job`'s inputs) and
+    finetune (argv lists, each run through `cli.finetune.main` on every
+    rank; the printed text under "finetune_stdout").
+
+    Returns "runs" (each with "steps": a step's metrics, its seconds and
+    the collectives the rank sent (calls, bytes); "peak_bytes": the
+    card's peak allocation during the run's steps above what the rank
+    held before them (the reference's parameters); "seconds": the rank's
+    time in the run's phases, the reference, the start (parameters,
+    shards, a resume's load), the steps (a save included), the compare,
+    the resume check) and "foreign_modules"."""
+    from fish_speech_tpu_torch.device import resolve_device
+
+    spec = dict(spec, device=resolve_device(device).type)
+    ranks = run_world(dp, tp, train_job, device=device, backend=backend, timeout_s=timeout_s,
+                      spec=spec)
+    slim = [dict(r, runs=[{k: v for k, v in run.items() if k != "params"} for run in r["runs"]])
+            for r in ranks]
+    return dict(ranks[0], ranks=slim)
+
+
+def collectives_job(mesh, inputs: dict) -> dict:
+    """The tp autograd functions on this rank's slices of `inputs` (numpy
+    float32: x (N, D), w (D, K), an upstream gradient gy (N, K), and a
+    head's real width `width` <= K): for each of `Copy` (this rank's
+    column block of x @ W, its input through tp.copy), `Reduce` (x @ W
+    summed from this rank's block of D) and `GatherColumns` (tp.columns
+    over [0, width)), its output and the gradients of sum(out * gy) as
+    numpy, on the CPU."""
+    from fish_speech_tpu_torch.parallel.mesh import TensorParallel, split_block
+
+    tp = TensorParallel.of(mesh)
+    x, w, gy = (torch.from_numpy(inputs[k]) for k in ("x", "w", "gy"))
+    width = inputs["width"]
+
+    def leaf(t):
+        return t.clone().requires_grad_(True)
+
+    def grads(out, g, *ins):
+        (out * g).sum().backward()
+        return {"out": out.detach().numpy(), "grads": [t.grad.numpy() for t in ins]}
+
+    xc, wc = leaf(x), leaf(split_block(w, 1, tp.rank, tp.size))
+    xr, wr = leaf(split_block(x, 1, tp.rank, tp.size)), leaf(split_block(w, 0, tp.rank, tp.size))
+    xg, wg = leaf(x), leaf(split_block(w, 1, tp.rank, tp.size))
+    return {
+        "copy": grads(tp.copy(xc) @ wc, split_block(gy, 1, tp.rank, tp.size), xc, wc),
+        "reduce": grads(tp.all_reduce(xr @ wr), gy, xr, wr),
+        "columns": grads(tp.columns(xg, wg, 0, width), gy[:, :width], xg, wg),
+        "foreign_modules": foreign_modules(),
+    }

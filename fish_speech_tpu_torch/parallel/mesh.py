@@ -18,6 +18,17 @@ reshards; explicit collectives cannot, so wqkv is split by head
 ("tp_heads"): rank r takes its own q heads, k heads and v heads, in that
 order.
 
+The collectives are autograd functions, Megatron's conjugate pairs
+(GSPMD derives them in JAX): `Reduce` (the all-reduce after a row-split
+product or a vocab-split lookup; its backward passes the gradient on),
+`Copy` (on the replicated input of a column-split product; the identity,
+whose backward all-reduces the gradient, so the residual stream, the
+norm scales and the embeddings get the whole gradient and not one
+rank's part) and `GatherColumns` (a column-split head's logits gathered
+by an all-reduce into zeros; its backward keeps this rank's columns).
+Each returns a new tensor, so a training step differentiates the
+sharded model; under inference mode they are the plain collectives.
+
 Pipeline, sequence and expert parallelism are absent, as in JAX.
 """
 
@@ -31,7 +42,7 @@ import torch.nn.functional as F
 
 from fish_speech_tpu_torch.config import DualARConfig
 from fish_speech_tpu_torch.ops.quant import is_quantized
-from fish_speech_tpu_torch.parallel.distributed import coords, local_rows
+from fish_speech_tpu_torch.parallel.distributed import all_reduce, coords, local_rows
 
 Spec = Tuple[Optional[str], ...]  # per axis: None (whole), "tp" or "tp_heads"
 
@@ -60,6 +71,33 @@ def lm_param_specs(cfg: DualARConfig) -> Dict:
     }
 
 
+def lm_param_shapes(cfg: DualARConfig) -> Dict:
+    """The whole shape of every leaf of the DualAR parameter tree."""
+    d, f, hd = cfg.dim, cfg.ffn_dim, cfg.head_dim
+
+    def stack(n):
+        return {"wqkv": (n, d, (cfg.n_head + 2 * cfg.n_local_heads) * hd),
+                "wo": (n, cfg.n_head * hd, d), "w1": (n, d, f), "w3": (n, d, f),
+                "w2": (n, f, d), "attention_norm": (n, d), "ffn_norm": (n, d)}
+
+    return {
+        "embeddings": (cfg.vocab_size, d),
+        "codebook_embeddings": (cfg.codebook_size * cfg.num_codebooks, d),
+        "fast_embeddings": (cfg.fast_vocab_size, d),
+        "norm": (d,),
+        "fast_norm": (d,),
+        "output": (d, cfg.vocab_size),
+        "fast_output": (d, cfg.fast_output_size),
+        "slow": stack(cfg.n_layer),
+        "fast": stack(cfg.n_fast_layer),
+    }
+
+
+def is_split(spec: Spec) -> bool:
+    """Whether a leaf of this spec is divided over tp (else replicated)."""
+    return any(name is not None for name in spec)
+
+
 def check_divisible(cfg: DualARConfig, tp: int) -> None:
     """What the JAX kernel's shard_map asserts (attention_pallas.py:172-181):
     tp divides the q and KV head counts."""
@@ -82,14 +120,21 @@ def split_block(x: torch.Tensor, axis: int, rank: int, size: int) -> torch.Tenso
     return part
 
 
+def _head_blocks(cfg: DualARConfig, rank: int, size: int) -> Tuple[Tuple[int, int], ...]:
+    """(first head, heads) of this rank's q, k and v blocks in a fused
+    wqkv's (H + 2 KV) heads."""
+    check_divisible(cfg, size)
+    h, kv = cfg.n_head, cfg.n_local_heads
+    hl, kvl = h // size, kv // size
+    return (rank * hl, hl), (h + rank * kvl, kvl), (h + kv + rank * kvl, kvl)
+
+
 def split_heads(x: torch.Tensor, cfg: DualARConfig, rank: int, size: int) -> torch.Tensor:
     """This rank's columns of a fused (..., (H + 2 KV) * hd) wqkv: its q
     heads, then its k heads, then its v heads."""
-    check_divisible(cfg, size)
-    hd, h, kv = cfg.head_dim, cfg.n_head, cfg.n_local_heads
-    hl, kvl = h // size, kv // size
-    starts = ((rank * hl, hl), (h + rank * kvl, kvl), (h + kv + rank * kvl, kvl))
-    return torch.cat([x[..., s * hd:(s + n) * hd] for s, n in starts], dim=-1)
+    hd = cfg.head_dim
+    return torch.cat([x[..., s * hd:(s + n) * hd] for s, n in _head_blocks(cfg, rank, size)],
+                     dim=-1)
 
 
 def shard_leaf(x: torch.Tensor, spec: Spec, cfg: DualARConfig, rank: int,
@@ -101,6 +146,54 @@ def shard_leaf(x: torch.Tensor, spec: Spec, cfg: DualARConfig, rank: int,
         elif name == "tp_heads":
             x = split_heads(x, cfg, rank, size)
     return x.contiguous()
+
+
+def unshard_leaf(x: torch.Tensor, spec: Spec, cfg: DualARConfig, rank: int, size: int,
+                 shape: Tuple[int, ...]) -> torch.Tensor:
+    """The inverse of `shard_leaf` on one rank: a zero tensor of the
+    leaf's whole `shape` holding this rank's slice `x` where it came from
+    (its padding left out, split_heads undone). Its sum over the ranks is
+    the whole leaf."""
+    out = x.new_zeros(shape)
+    for axis, name in enumerate(spec):
+        if name == "tp":
+            n = x.shape[axis]
+            lo = min(rank * n, shape[axis])
+            k = min(n, shape[axis] - lo)
+            out.narrow(axis, lo, k).copy_(x.narrow(axis, 0, k))
+            return out
+        if name == "tp_heads":
+            hd, at = cfg.head_dim, 0
+            for s0, n in _head_blocks(cfg, rank, size):
+                out[..., s0 * hd:(s0 + n) * hd] = x[..., at:at + n * hd]
+                at += n * hd
+            return out
+    return x.clone()
+
+
+def gather_leaf(x: torch.Tensor, spec: Spec, cfg: DualARConfig, mesh,
+                shape: Tuple[int, ...]) -> torch.Tensor:
+    """The whole leaf of shape `shape` from every tp rank's slice, on each
+    of them: `unshard_leaf`, then an all-reduce over tp of its bits as
+    integers, which is exact (every element is one rank's bits plus
+    zeros; a negative zero and a NaN keep theirs). A replicated leaf is
+    returned as it is."""
+    c = coords(mesh)
+    if c.tp == 1 or not is_split(spec):
+        return x
+    full = unshard_leaf(x, spec, cfg, c.tp_rank, c.tp, shape)
+    if full.dtype == torch.float32:
+        bits = full.view(torch.int32)
+    elif full.element_size() == 2 and full.is_floating_point():
+        bits = full.view(torch.int16).to(torch.int32)
+    else:
+        bits = full.to(torch.int64)
+    all_reduce(bits, mesh.get_group("tp"))
+    if full.dtype == torch.float32:
+        return bits.view(torch.float32)
+    if full.element_size() == 2 and full.is_floating_point():
+        return bits.to(torch.int16).view(full.dtype)
+    return bits.to(full.dtype)
 
 
 def _shard_tree(tree, specs, cfg, rank, size):
@@ -178,10 +271,63 @@ def shard_gen_state(state, mesh, cfg: DualARConfig):
     )
 
 
+class Reduce(torch.autograd.Function):
+    """The sum over a tp group (in float32 for floating tensors, returned
+    in x's dtype), as a new tensor; the backward passes the gradient on:
+    each rank's loss depends on the sum alone."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.to(torch.float32, copy=True) if x.is_floating_point() else x.clone()
+        all_reduce(y, group)
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class Copy(torch.autograd.Function):
+    """The identity on a replicated activation that feeds a column-split
+    product; the backward sums the gradient's partials over the tp group
+    (each rank's product saw only its own columns)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        y = g.to(torch.float32, copy=True)
+        all_reduce(y, ctx.group)
+        return y.to(g.dtype), None
+
+
+class GatherColumns(torch.autograd.Function):
+    """A (..., k) float32 block of columns placed at `offset` in a (...,
+    width) zero tensor, summed over the tp group: every rank's columns,
+    exact (one rank's value plus zeros). The backward keeps this rank's
+    block of the gradient, with no collective."""
+
+    @staticmethod
+    def forward(ctx, local, offset, width, group):
+        ctx.offset, ctx.k = offset, local.shape[-1]
+        out = local.new_zeros((*local.shape[:-1], width))
+        out[..., offset:offset + ctx.k] = local
+        all_reduce(out, group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., ctx.offset:ctx.offset + ctx.k], None, None, None
+
+
 class TensorParallel:
     """The collectives of the model's tensor-parallel layers on one rank
     of a tp group of `size` ranks (`models/dual_ar.py` takes one as `tp`;
-    None runs unsharded). Sums run in float32 for floating tensors."""
+    None runs unsharded). Sums run in float32 for floating tensors; each
+    is an autograd function (see the module docstring)."""
 
     def __init__(self, group, size: int, rank: int) -> None:
         self.group, self.size, self.rank = group, size, rank
@@ -194,10 +340,13 @@ class TensorParallel:
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of x over the group (the partial products of a row-split
-        weight), in x's dtype."""
-        y = x.float() if x.is_floating_point() else x.clone()
-        dist.all_reduce(y, group=self.group)
-        return y.to(x.dtype)
+        weight), in x's dtype (`Reduce`)."""
+        return Reduce.apply(x, self.group)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """x, whose gradient is summed over the group (`Copy`): the input
+        of a column-split product."""
+        return Copy.apply(x, self.group)
 
     def local_lookup(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         """Rows `ids` of a vocab-split table of which this rank holds rows
@@ -216,14 +365,13 @@ class TensorParallel:
     def columns(self, x: torch.Tensor, w: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
         """(x @ W)[..., lo:hi] in float32 for a column-split W of which this
         rank holds columns [rank * n, (rank + 1) * n) as w: its own
-        columns, gathered by an all-reduce into zeros (exact)."""
+        columns, gathered by an all-reduce into zeros (exact;
+        `GatherColumns`). x is replicated (`Copy`)."""
         n = w.shape[1]
         a, b = max(lo, self.rank * n), min(hi, (self.rank + 1) * n)
-        out = torch.zeros((*x.shape[:-1], hi - lo), dtype=torch.float32, device=x.device)
-        if a < b:
-            out[..., a - lo:b - lo] = (x @ w[:, a - self.rank * n:b - self.rank * n]).float()
-        dist.all_reduce(out, group=self.group)
-        return out
+        b = max(a, b)
+        local = (self.copy(x) @ w[:, a - self.rank * n:b - self.rank * n]).float()
+        return GatherColumns.apply(local, a - lo, hi - lo, self.group)
 
     def gather_columns(self, w: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
         """Columns `cols` (global indices) of a column-split (D, V) weight,

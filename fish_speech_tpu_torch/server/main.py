@@ -154,17 +154,8 @@ def launch_ranks(n: int, argv: List[str]) -> Tuple[str, List[subprocess.Popen]]:
     `argv` and the FISH_TPU_* variables of its rank; returns the
     coordinator's address and the processes."""
     from fish_speech_tpu_torch.parallel import distributed as dist
-    from fish_speech_tpu_torch.parallel.dryrun import free_port
 
-    address = f"127.0.0.1:{free_port()}"
-    procs = []
-    for rank in range(1, n):
-        env = dict(os.environ, **{dist.COORDINATOR_ENV: address,
-                                  dist.NUM_PROCESSES_ENV: str(n),
-                                  dist.PROCESS_ID_ENV: str(rank)})
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", "fish_speech_tpu_torch.server.main", *argv], env=env))
-    return address, procs
+    return dist.launch_ranks(n, "fish_speech_tpu_torch.server.main", argv)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -198,12 +189,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         finally:
             state.pipeline.close()
     finally:
-        for p in procs:
-            try:
-                p.wait(timeout=60)
-            except subprocess.TimeoutExpired:
-                p.kill()
-                p.wait()
+        dist.wait_ranks(procs)
 
 
 if __name__ == "__main__":

@@ -14,6 +14,14 @@ them and checked at load against templates made by the caller
 (`init_train_state`), so a snapshot of another model or optimizer is
 refused with ValueError instead of loaded into the wrong leaves. Each
 tensor is loaded onto its template's device.
+
+Under a (dp, tp) mesh (`mesh=`, `cfg=`), the snapshot holds the whole
+tensors all the same: the save gathers each tp-split leaf of the
+parameters and moments to its full shape (`parallel.mesh.gather_leaf`,
+exact), global rank 0 writes, and the other ranks wait at a barrier; the
+load reads the whole tensors and gives each rank its shard by the
+specs. So a snapshot written at one mesh resumes at another or on one
+device, and the other way round, as in JAX.
 """
 
 from __future__ import annotations
@@ -26,6 +34,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from fish_speech_tpu_torch.parallel.distributed import coords, rank0
+from fish_speech_tpu_torch.parallel.mesh import (
+    gather_leaf, lm_param_shapes, lm_param_specs, shard_leaf)
 from fish_speech_tpu_torch.train.step import tree_like, tree_leaves
 
 MAGIC = "fish_tpu_torch_train_state_v1"
@@ -35,8 +46,39 @@ def _named(prefix: str, tree) -> List[Tuple[str, torch.Tensor]]:
     return [("/".join((prefix,) + path), t) for path, t in tree_leaves(tree)]
 
 
-def _spec(named) -> List[list]:
-    return [[name, list(t.shape), str(t.dtype).removeprefix("torch.")] for name, t in named]
+def _layouts(cfg, named) -> Dict[str, Tuple[tuple, tuple]]:
+    """(tp split spec, whole shape) of every snapshot name of a DualAR
+    train state: a moment's leaf splits as its parameter, the count is
+    whole."""
+    specs = dict(tree_leaves(lm_param_specs(cfg)))
+    shapes = dict(tree_leaves(lm_param_shapes(cfg)))
+    out = {}
+    for name, t in named:
+        path = tuple(name.split("/")[1:])
+        if path[0] in ("mu", "nu"):
+            path = path[1:]
+        out[name] = (specs[path], shapes[path]) if path in specs else ((), tuple(t.shape))
+    return out
+
+
+def _sharded(mesh) -> bool:
+    return mesh is not None and coords(mesh).tp > 1
+
+
+def _spec(named, layouts=None) -> List[list]:
+    return [[name, list(t.shape if layouts is None else layouts[name][1]),
+             str(t.dtype).removeprefix("torch.")] for name, t in named]
+
+
+def gather_params(params, mesh, cfg) -> Dict:
+    """The whole DualAR parameter tree from a rank's tp shard, on every
+    rank of its tp group (each of them calls this); the tree itself
+    without tp."""
+    if not _sharded(mesh):
+        return params
+    layouts = _layouts(cfg, _named("p", params))
+    return tree_like(params, [gather_leaf(t, layouts[n][0], cfg, mesh, layouts[n][1])
+                              for n, t in _named("p", params)])
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -50,7 +92,7 @@ def _from_numpy(a: np.ndarray, template: torch.Tensor) -> torch.Tensor:
     t = torch.from_numpy(np.array(a))
     if template.dtype == torch.bfloat16:
         t = t.view(torch.bfloat16)
-    return t.to(template.device)
+    return t
 
 
 def _rng_state(rng: Optional[np.random.Generator]) -> Optional[dict]:
@@ -68,50 +110,73 @@ def _restore_rng(state: Optional[dict]) -> Optional[np.random.Generator]:
 
 def save_train_state(path: str | Path, *, step: int, params, opt_state,
                      rng: Optional[np.random.Generator] = None,
-                     extra: Optional[Dict[str, Any]] = None) -> None:
+                     extra: Optional[Dict[str, Any]] = None, mesh=None, cfg=None) -> None:
     """Atomically write {params, opt_state, step, rng, extra} to `path`.
     `extra` must be JSON-serialisable. Call it between steps: the
-    tensors are copied to the host as they are written."""
+    tensors are copied to the host as they are written. mesh / cfg: the
+    trees are a rank's shard of a DualAR train state on that mesh; every
+    rank calls this, the tp-split leaves are gathered whole, global rank
+    0 writes and every rank returns once the file is in place."""
     path = Path(path)
-    p_named = _named("p", params)
-    o_named = _named("o", opt_state)
-    meta = {
-        "magic": MAGIC,
-        "step": int(step),
-        "params": _spec(p_named),
-        "opt_state": _spec(o_named),
-        "rng_state": _rng_state(rng),
-        "extra": extra or {},
-    }
-    tmp = path.with_name(path.name + ".tmp")
-    with open(tmp, "wb") as f:
-        np.savez(f, __meta__=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
-                 **{name: _to_numpy(t) for name, t in p_named + o_named})
-    os.replace(tmp, path)
+    named = _named("p", params) + _named("o", opt_state)
+    layouts = _layouts(cfg, named) if _sharded(mesh) else None
+    arrays = {}
+    for name, t in named:
+        if layouts is not None:
+            t = gather_leaf(t, layouts[name][0], cfg, mesh, layouts[name][1])
+        if rank0():
+            arrays[name] = _to_numpy(t)
+    if rank0():
+        meta = {
+            "magic": MAGIC,
+            "step": int(step),
+            "params": _spec(_named("p", params), layouts),
+            "opt_state": _spec(_named("o", opt_state), layouts),
+            "rng_state": _rng_state(rng),
+            "extra": extra or {},
+        }
+        tmp = path.with_name(path.name + ".tmp")
+        with open(tmp, "wb") as f:
+            np.savez(f, __meta__=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
+                     **arrays)
+        os.replace(tmp, path)
+    if mesh is not None:
+        torch.distributed.barrier()
 
 
-def load_train_state(path: str | Path, params_template, opt_state_template
+def load_train_state(path: str | Path, params_template, opt_state_template, mesh=None, cfg=None
                      ) -> Tuple[int, Any, Any, Optional[np.random.Generator], Dict[str, Any]]:
     """Load a snapshot written by save_train_state into trees shaped as
     the templates, each tensor on its template's device. Raises
     ValueError when the snapshot's names, shapes or dtypes differ from the
-    templates'. Returns (step, params, opt_state, rng or None, extra)."""
+    templates'. mesh / cfg: the templates are a rank's shard
+    (`init_train_state(mesh=)`); the snapshot holds the whole tensors, of
+    whatever mesh wrote it, and each rank takes its shard. Returns (step,
+    params, opt_state, rng or None, extra)."""
     p_named = _named("p", params_template)
     o_named = _named("o", opt_state_template)
+    layouts = _layouts(cfg, p_named + o_named) if _sharded(mesh) else None
+    c = coords(mesh)
+
+    def load(z, name, template):
+        t = _from_numpy(z[name], template)
+        if layouts is not None:
+            t = shard_leaf(t, layouts[name][0], cfg, c.tp_rank, c.tp)
+        return t.to(template.device)
+
     with np.load(path) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
         if meta.get("magic") != MAGIC:
             raise ValueError(f"{path}: not a train state of the port")
         for what, named in (("params", p_named), ("opt_state", o_named)):
-            want = _spec(named)
+            want = _spec(named, layouts)
             if meta[what] != want:
                 diff = next(((a, b) for a, b in zip(meta[what], want) if a != b),
                             (len(meta[what]), len(want)))
                 raise ValueError(
                     f"{path}: the {what} tree differs from the template (a checkpoint of "
                     f"another model or optimizer?): saved {diff[0]}, template {diff[1]}")
-        params = tree_like(params_template, [_from_numpy(z[name], t) for name, t in p_named])
-        opt_state = tree_like(opt_state_template,
-                              [_from_numpy(z[name], t) for name, t in o_named])
+        params = tree_like(params_template, [load(z, name, t) for name, t in p_named])
+        opt_state = tree_like(opt_state_template, [load(z, name, t) for name, t in o_named])
     return (meta["step"], params, opt_state, _restore_rng(meta.get("rng_state")),
             meta.get("extra", {}))

@@ -1,5 +1,6 @@
 """DualAR training step (finetuning): the port of
-`fish_speech_tpu/train/step.py` on one device.
+`fish_speech_tpu/train/step.py`, on one device or a (dp, tp) mesh of
+ranks.
 
 One step: loss -> gradients (autograd) -> clip to the global norm ->
 AdamW with a linear-warmup cosine-decay learning rate -> parameter
@@ -21,20 +22,30 @@ update. The arithmetic is optax's, written out on the parameter trees:
 
 The step updates the parameters and the optimizer state in place and
 returns them (the JAX step donates its inputs); its metrics stay tensors
-on the device, for the caller to read when it logs. Sharding the batch
-and the parameters over a mesh (`shard_batch`, `init_train_state`'s mesh)
-is the training slice still to come; `parallel/` shards serving only.
+on the device, for the caller to read when it logs.
+
+Under a mesh (one process a rank, `parallel/`), `init_train_state`
+shards the parameters by `parallel.mesh.lm_param_specs` and makes the
+moments on the shards, `shard_batch` gives each rank its dp rows, and the
+step sums every gradient over dp after the backward (the psum XLA
+inserts in JAX); the tp collectives are the model's own
+(`parallel/mesh.py`). The clip's global norm is the norm of the whole
+gradient: the squares of the tp-split leaves summed over tp, the
+replicated leaves counted once, the zero padding adding nothing. AdamW
+stays elementwise on the shards.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from fish_speech_tpu_torch.config import DualARConfig, TokenConfig
+from fish_speech_tpu_torch.parallel.distributed import all_reduce, coords, local_rows
+from fish_speech_tpu_torch.parallel.mesh import is_split, lm_param_specs, shard_lm_params
 from fish_speech_tpu_torch.train.loss import dual_ar_loss
 
 # Leaves under any of these keys are not weight-decayed (the JAX mask).
@@ -123,13 +134,16 @@ class AdamW:
         }
 
     @torch.no_grad()
-    def update(self, grads: List[torch.Tensor], state: Dict, params) -> torch.Tensor:
+    def update(self, grads: List[torch.Tensor], state: Dict, params,
+               norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Apply one step in place to `params` and `state`, given the
-        gradients of tree_leaves(params) in that order. Returns the global
-        norm of the gradients before clipping."""
+        gradients of tree_leaves(params) in that order. norm: their global
+        norm (`global_norm`; by default that of `grads` alone). Returns the
+        global norm of the gradients before clipping."""
         t = self.tcfg
         leaves = tree_leaves(params)
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        if norm is None:
+            norm = global_norm(grads)
         keep = norm < t.grad_clip
         count = state["count"]
         count_inc = count + 1
@@ -155,30 +169,87 @@ def make_optimizer(tcfg: TrainConfig) -> AdamW:
     return AdamW(tcfg)
 
 
-def init_train_state(params: Dict, tcfg: TrainConfig, device=None):
+def global_norm(grads: List[torch.Tensor], split: Optional[List[bool]] = None,
+                tp_group=None) -> torch.Tensor:
+    """optax.global_norm of the whole gradient. split / tp_group: under tp,
+    which leaves are this rank's slices of a tp-split leaf; their squares
+    are summed over the group, the replicated leaves' counted once."""
+    if tp_group is None:
+        return torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    sq = [torch.sum(g.float() * g.float()) for g in grads]
+    parts = all_reduce(torch.stack([q for q, s in zip(sq, split) if s]).sum(), tp_group)
+    return torch.sqrt(parts + sum(q for q, s in zip(sq, split) if not s))
+
+
+def _mesh_groups(mesh) -> Tuple[Optional[object], Optional[object]]:
+    """(dp group, tp group) of a mesh, each None where its axis has one rank."""
+    c = coords(mesh)
+    return (mesh.get_group("dp") if c.dp > 1 else None,
+            mesh.get_group("tp") if c.tp > 1 else None)
+
+
+def split_leaves(cfg: DualARConfig) -> List[bool]:
+    """For the tree_leaves of a DualAR tree: whether each leaf is tp-split
+    (`parallel.mesh.lm_param_specs`)."""
+    return [is_split(s) for _, s in tree_leaves(lm_param_specs(cfg))]
+
+
+def init_train_state(params: Dict, tcfg: TrainConfig, mesh=None,
+                     cfg: Optional[DualARConfig] = None, device=None):
     """(params, opt_state) on `device` (default: where the parameters
-    lie); the moments start at zero and the count at 0."""
+    lie); the moments start at zero and the count at 0. mesh: the (dp,
+    tp) mesh this rank belongs to; `params` is the whole tree, and this
+    rank keeps its tp shard (by `lm_param_specs`, which needs `cfg`), on
+    which the moments are made."""
     if device is not None:
         params = tree_like(params, [t.to(device) for _, t in tree_leaves(params)])
+    if mesh is not None:
+        if cfg is None:
+            raise ValueError("init_train_state: sharding over a mesh needs the model config")
+        params = shard_lm_params(params, mesh, cfg)
     return params, make_optimizer(tcfg).init(params)
 
 
+def shard_batch(batch: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """This rank's dp rows of a global {"tokens": (B, C+1, S), "seq_lens":
+    (B,)} batch: block dp_rank of dp. B must be a multiple of dp (JAX's
+    assertion). Every rank of a world builds the same global batch."""
+    b = batch["tokens"].shape[0]
+    dp = coords(mesh).dp
+    if b % dp:
+        raise ValueError(f"shard_batch: batch {b} is not a multiple of dp={dp}")
+    lo, hi = local_rows(b, mesh)
+    return {k: v[lo:hi].contiguous() for k, v in batch.items()}
+
+
 def make_train_step(cfg: DualARConfig, token_cfg: TokenConfig,
-                    tcfg: TrainConfig) -> Callable:
+                    tcfg: TrainConfig, mesh=None) -> Callable:
     """step(params, opt_state, batch) -> (params, opt_state, metrics):
     one optimizer step, in place. batch: {"tokens": (B, C+1, S),
-    "seq_lens": (B,)} on the parameters' device."""
+    "seq_lens": (B,)} on the parameters' device. mesh: the parameters
+    and state are this rank's (`init_train_state(mesh=)`) and the batch
+    its rows (`shard_batch`); the metrics are the global batch's and
+    grad_norm the whole gradient's norm, the same on every rank."""
     opt = make_optimizer(tcfg)
+    dp_group, tp_group = _mesh_groups(mesh) if mesh is not None else (None, None)
+    split = split_leaves(cfg) if tp_group is not None else None
 
     def step(params, opt_state, batch):
         leaves = tree_leaves(params)
         live = [t.detach().requires_grad_(True) for _, t in leaves]
         loss, metrics = dual_ar_loss(tree_like(params, live), cfg, token_cfg, batch,
-                                     fast_weight=tcfg.fast_weight, remat=tcfg.remat)
-        grads = torch.autograd.grad(loss, live)
+                                     fast_weight=tcfg.fast_weight, remat=tcfg.remat,
+                                     mesh=mesh)
+        grads = list(torch.autograd.grad(loss, live))
         del live, loss
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = opt.update(list(grads), opt_state, params)
+        if dp_group is not None:
+            # the psum over dp: each rank's loss is its part of the global mean
+            for i, g in enumerate(grads):
+                y = all_reduce(g.to(torch.float32), dp_group)
+                grads[i] = y.to(g.dtype)
+        norm = None if tp_group is None else global_norm(grads, split, tp_group)
+        metrics["grad_norm"] = opt.update(grads, opt_state, params, norm)
         return params, opt_state, metrics
 
     return step

@@ -8,7 +8,8 @@ After 4 steps at lr 1e-3 (warmup 1) both CLIs' model.safetensors hold
 every value within one step's learning rate and all but 0.1% of them
 within 1e-5 (tests/test_torch_train.py::assert_adam_close says why).
 The port's `--resume` run equals its straight run bit for bit, and
-`--tp 2` raises."""
+a `--tp` that does not divide the head counts raises (training under a
+mesh: tests/test_torch_train_parallel.py)."""
 
 import pytest
 
@@ -115,9 +116,9 @@ def test_finetune_returns_its_logged_steps(checkpoint_dir, dataset, tmp_path):
 
 
 def test_finetune_tp_raises(checkpoint_dir, dataset, tmp_path):
-    """Tensor parallelism is not ported: --tp 2 raises, naming it, instead
-    of training on one device."""
-    with pytest.raises(ValueError, match="module 10"):
-        tft.main(_argv(checkpoint_dir, dataset, tmp_path / "out", "--steps", "1", "--tp", "2",
+    """--tp 3 does not divide the 4 q and 2 KV heads: it raises before
+    training, as JAX's sharding does, instead of training on one device."""
+    with pytest.raises(ValueError, match="not divisible by tp=3"):
+        tft.main(_argv(checkpoint_dir, dataset, tmp_path / "out", "--steps", "1", "--tp", "3",
                        "--device", "cpu"))
     assert not (tmp_path / "out").exists()

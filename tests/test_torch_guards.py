@@ -209,8 +209,16 @@ world = dryrun.serving_dryrun(1, 2, dict(
     lm=c.WhichLM.FISH_1_5, dtype=torch.float32, seed=0,
     engine=dict(prompt_buckets=(8,), cache_len=16),
     parts={"frames": dict(prompts=np.zeros((1, 3, 4), np.int32), n=1, sampling=SamplingArgs())}),
-    timeout_s=120)
+    device="cpu", timeout_s=120)
 assert [r["foreign_modules"] for r in world["ranks"]] == [[], []], world["ranks"]
+from fish_speech_tpu_torch.train import TrainConfig
+tcfg2 = dataclasses.replace(cfg, n_head=4, n_local_heads=2, head_dim=8)
+batch = {"tokens": np.zeros((2, 3, 6), np.int32), "seq_lens": np.array([6, 4], np.int32)}
+batch["tokens"][:, 0] = 12
+trained = dryrun.train_dryrun(2, 2, dict(
+    cfg=tcfg2, token_cfg=tok, tcfg=TrainConfig(warmup_steps=1), dtype=torch.float32, seed=0,
+    runs=[{"batches": [batch]}]), device="cpu", timeout_s=120)
+assert [r["foreign_modules"] for r in trained["ranks"]] == [[], [], [], []], trained["ranks"]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0].startswith("jax") or m.split(".")[0] == "fish_speech_tpu"
              or m.split(".")[0] in ("optax", "safetensors", "ml_dtypes", "tokenizers"))
@@ -236,8 +244,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     the central vocoder on Mimi), finetuning (two steps of the finetune
     CLI's function on a checkpoint directory, a train-state snapshot) under
     the utilities (a Timer span, a device_trace with an annotate region,
-    memory_stats, setup_compilation_cache), a tp = 2 world of two spawned
-    ranks (`parallel.dryrun`) whose ranks hold none either, and holds no
+    memory_stats, setup_compilation_cache), a tp = 2 serving world of two
+    spawned ranks and a dp = tp = 2 train world of four (`parallel.dryrun`)
+    whose ranks hold none either, and holds no
     jax*, no optax, no fish_speech_tpu, no
     safetensors, no ml_dtypes and no tokenizers module: llama_generate
     reads its tokenizer through a stand-in with the methods PromptEncoder
@@ -281,19 +290,22 @@ def _tiny():
                                    "llama_generate", "vocoder", "encoder", "pipeline_load",
                                    "api_lm", "api_codec", "server_main", "benchmark",
                                    "mimi_codec", "load_mimi_params", "random_mimi",
-                                   "pipeline_load_dual_ar", "finetune"])
+                                   "pipeline_load_dual_ar", "finetune", "serving_dryrun",
+                                   "server_dryrun", "train_dryrun"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """With no device argument the entry points ask for CUDA, and raise
     where it is missing instead of falling back to the CPU: the engine,
     the codecs, the checkpoint loaders, each CLI's main (finetune's too)
     without --device, TTSPipeline.load (Fish and dual_ar), the API's LM
-    and FireflyCodec, and the server's main without --device."""
+    and FireflyCodec, the server's main without --device, and the dry
+    runs of parallel/ (serving, server, train) before they start a rank."""
     if torch.cuda.is_available():
         pytest.skip("CUDA is present")
     from fish_speech_tpu_torch import api
     from fish_speech_tpu_torch.cli import benchmark, encoder, finetune, llama_generate, vocoder
     from fish_speech_tpu_torch.io.checkpoint import load_firefly_params, load_lm_params
     from fish_speech_tpu_torch.models.codec import mimi
+    from fish_speech_tpu_torch.parallel import dryrun
     from fish_speech_tpu_torch.pipeline import TTSPipeline
     from fish_speech_tpu_torch.server import main as server_main
 
@@ -320,6 +332,9 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
         "pipeline_load_dual_ar": lambda: TTSPipeline.load(tmp_path, tcfg.WhichModel.DUAL_AR),
         "finetune": lambda: finetune.main(ckpt + ["--data", str(tmp_path), "--out",
                                                   str(tmp_path / "out")]),
+        "serving_dryrun": lambda: dryrun.serving_dryrun(1, 2, {}),
+        "server_dryrun": lambda: dryrun.server_dryrun(2, 2, [], []),
+        "train_dryrun": lambda: dryrun.train_dryrun(1, 2, {}),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

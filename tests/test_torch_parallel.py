@@ -155,9 +155,10 @@ def worlds(setup):
     the int8 tree ("int8")."""
     _, tc, _, tree, inputs = setup
     spec = _spec(tc, tree, inputs)
-    out = {w: dryrun.serving_dryrun(*w, spec, timeout_s=WORLD_TIMEOUT_S) for w in WORLDS}
+    out = {w: dryrun.serving_dryrun(*w, spec, device="cpu", timeout_s=WORLD_TIMEOUT_S)
+           for w in WORLDS}
     int8 = dict(spec, params=_int8_tree(tree), parts={"frames": spec["parts"]["frames"]})
-    out["int8"] = dryrun.serving_dryrun(1, 2, int8, timeout_s=WORLD_TIMEOUT_S)
+    out["int8"] = dryrun.serving_dryrun(1, 2, int8, device="cpu", timeout_s=WORLD_TIMEOUT_S)
     return out
 
 
@@ -457,7 +458,7 @@ def test_server_shard2_tp2_serves_cancels_and_stops(ckpt, pipes, tmp_path):  # n
     cancel = dict(body, input="speak the text hello world . " * 4, max_new_tokens=40,
                   stream_chunk_frames=16)
     ranks = dryrun.server_dryrun(2, 2, argv, [body], cancel, codec_config=codec_cfgs("1.5")[1],
-                                 timeout_s=WORLD_TIMEOUT_S)
+                                 device="cpu", timeout_s=WORLD_TIMEOUT_S)
     assert ranks[1]["follower_left"]
     got = ranks[0]
     assert got["cancel"]["cancelled"] and got["cancel"]["freed"]
