@@ -248,11 +248,11 @@ per phase, each with the seconds since start:
               104 and 4095 at cache 4096, 16 rows at cache 512 with
               ragged pos) against its plain version with the kernels
               phase's tolerance and timed beside SDPA and its byte
-              bound; 64 sampled frames of the sharded batch-1 engine,
+              bound; 32 sampled frames of the sharded batch-1 engine,
               whose logits must be as close to a float32 evaluation on
               their own context as the unsharded engine's are on theirs
               (ACCURACY_FACTOR), with the token agreement of the two;
-              8 requests through the sharded pipeline's
+              4 requests through the sharded pipeline's
               create_batcher(16, 16) and its central vocoder, PCM for
               every one, frames/s (two ranks sharing one card over gloo:
               not a speed of tensor parallelism); (c) two ranks at dp =
@@ -275,6 +275,20 @@ per phase, each with the seconds since start:
               --resume to 4, bitwise equal; the trained checkpoint in
               bf16 through load_lm_params into the `auto` engine, 16
               frames through the fused kernels, with their launches.
+  graph (after cli) the decode loop as CUDA graphs
+              (generate/graph.py), each path against an eager twin of
+              its engine (`sibling(decode_impl="eager")`): batch-1
+              `auto` bf16 and int8 at 128 frames and `xla` at 32, codes
+              identical on one seed and after a rewind to the prompt;
+              16 seeded requests through a bf16 and an int8
+              TTSPipeline(...).create_batcher(16, 16) and their eager
+              twins, each request's codes identical; the overlapped
+              driver replaying the same loops; one capture per key over
+              more requests; the replays' frames against the persistent
+              kernels' own device counters (rows 3-5a) and decode
+              attention's launches under torch.profiler (row 1);
+              frames/s and a frame's wall against device ms in each
+              mode, capture seconds and a generate call's host reads.
 
 The kernel launch counts are read around the run of the path that
 launches the kernel: the bf16 kernels in the bf16 runs, the int8 bodies
@@ -285,6 +299,10 @@ each version's shapes where that version runs it (`versions`); decode
 and prefill attention also carry each rank's launches in each world of
 the parallel phase (`parallel_launches`), and decode attention its
 checks and times at a tp = 2 rank's shape (`tp2_rank_shape`, row 1p).
+Those bulkier extras (`versions`, `gemms`, `timings`, `rel_vs_float32`,
+`tp2_rank_shape`, `long_prefill`) are printed on a `{"kernel_details":
+...}` line of their own, then one `phase <name>: <s>s, held` line a
+phase, so that the last 24,000 bytes keep the summary.
 
 The line before the last is the card's nvidia-smi name and power
 limit, the one before it a JSON object with one entry per kernel; the
@@ -295,8 +313,10 @@ the package beside the script, it prints no result and exits 2.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import re
 import shutil
@@ -366,6 +386,20 @@ WAIT_S = 300.0  # longest wait for one batcher event
 
 def log(phase: str, msg: str) -> None:
     print(f"[{time.perf_counter() - T0:7.1f}s] {phase}: {msg}", flush=True)
+
+
+PHASES = []  # (name, seconds) of each phase that ran to its end, every check held
+# per-kernel extras printed apart from the kernels line (`main`)
+DETAIL_KEYS = ("versions", "gemms", "timings", "rel_vs_float32", "tp2_rank_shape",
+               "long_prefill")
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Time a phase for the summary printed before the kernels line."""
+    t0 = time.perf_counter()
+    yield
+    PHASES.append((name, time.perf_counter() - t0))
 
 
 class CheckFailed(AssertionError):
@@ -1971,6 +2005,17 @@ def main_prompt(np, cfg):
     ]).astype(np.int32)
 
 
+def decode_frames(engine, budget: int) -> int:
+    """The frames the card runs for a `generate` of `budget` decode frames
+    that does not end early: its chunks' whole horizons under the captured
+    loop (a budget-cut chunk's masked frames run too), the frames that
+    count rounded up to the unroll eagerly (`LMEngine._decode`)."""
+    plan, u = engine.chunk_plan(budget), engine.decode_unroll
+    if engine.graphs is not None:
+        return sum(h for h, _ in plan)
+    return sum(-(-n // u) * u for _, n in plan)
+
+
 def run_path(torch, np, engine, codec, tok, codec_cfg, n_frames: int, label: str):
     """Generate n_frames from the 40-token prompt, vocode, check codes,
     PCM and WAV; returns the launch counts of the run (all, and those of
@@ -1989,11 +2034,13 @@ def run_path(torch, np, engine, codec, tok, codec_cfg, n_frames: int, label: str
     sampling = SamplingArgs(**SAMPLING)
 
     t0 = time.perf_counter()
-    engine.generate(prompt, max_new_tokens=8, sampling=sampling, seed=0)  # warm-up
+    # the warm-up's frames are the counted run's: its decode loops are
+    # captured here, outside the count
+    engine.generate(prompt, max_new_tokens=n_frames, sampling=sampling, seed=0)
     codec.decode(np.zeros((cfg.num_codebooks, n_frames), np.int32))  # the same shape
     torch.cuda.synchronize()
-    log("main", f"{label}: warm-up generation (8 frames) and vocode ({n_frames} frames) "
-        f"{time.perf_counter() - t0:.2f}s")
+    log("main", f"{label}: warm-up generation ({n_frames} frames) and vocode ({n_frames} "
+        f"frames) {time.perf_counter() - t0:.2f}s")
 
     mods = {"decode_attention": da, "prefill_attention": pa, "fused_slow_step": ss,
             "fused_fast_frame": ff}
@@ -2043,7 +2090,7 @@ def run_main_path(torch, np, fused, unfused, codec, tok, codec_cfg):
     run; returns {kernel: launches on the path that runs it} and the
     `auto` run's (frames/s, RTF)."""
     n_layer = fused.cfg.n_layer
-    steps = N_FRAMES - 1
+    steps = decode_frames(fused, N_FRAMES - 1)
     lf, l8, state, sampling, stats = run_path(torch, np, fused, codec, tok, codec_cfg,
                                               N_FRAMES, "auto (fused)")
     want = {"fused_slow_step": steps, "fused_fast_frame": steps,
@@ -2053,7 +2100,7 @@ def run_main_path(torch, np, fused, unfused, codec, tok, codec_cfg):
     profile_decode(torch, fused, state, sampling, "auto (fused)",
                    kernel_names=FUSED_DECODE_KERNELS)
 
-    steps_u = N_FRAMES_UNFUSED - 1
+    steps_u = decode_frames(unfused, N_FRAMES_UNFUSED - 1)
     lu, _, state_u, _, _ = run_path(torch, np, unfused, codec, tok, codec_cfg,
                                     N_FRAMES_UNFUSED, "xla (unfused)")
     want = {"fused_slow_step": 0, "fused_fast_frame": 0,
@@ -2074,7 +2121,7 @@ def run_int8_main_path(torch, np, engine, fused, bf16_first, codec, tok, codec_c
     `auto` engine is in turns: bf16 (bf16_first, the main path's run),
     int8, int8, bf16."""
     n_layer = engine.cfg.n_layer
-    steps = N_FRAMES - 1
+    steps = decode_frames(engine, N_FRAMES - 1)
     lf, l8, state, sampling, first = run_path(torch, np, engine, codec, tok, codec_cfg,
                                               N_FRAMES, "int8 auto (fused)")
     want = {"fused_slow_step": steps, "fused_fast_frame": steps,
@@ -2551,6 +2598,333 @@ def run_overlap(torch, np, engine, codec, codec32, codec_cfg, bound16, smi) -> N
         f"{-(-N_FRAMES // OVERLAP_CHUNK)} inside its LM s; on {smi}")
 
 
+# --------------------------------------------------------------------------
+# Phase: graph (the decode loop as CUDA graphs)
+# --------------------------------------------------------------------------
+
+GRAPH_SERVE_REQUESTS = 16  # seeded requests through each 16-row batcher
+GRAPH_SERVE_FRAMES = 64
+GRAPH_TURNS = ("graph", "eager", "eager", "graph")  # timed generate calls, in turns
+
+
+def counted_generate(torch, engine, prompt, sampling, n_frames: int, **kw):
+    """engine.generate, timed to its return (which waits for its last
+    read), with the host reads it made (`device.Fetch.get` calls)."""
+    from fish_speech_tpu_torch.device import Fetch
+
+    reads, get = [0], Fetch.get
+
+    def counted(fetch):
+        reads[0] += 1
+        return get(fetch)
+
+    Fetch.get = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, state = engine.generate(prompt, max_new_tokens=n_frames, sampling=sampling, **kw)
+        seconds = time.perf_counter() - t0
+    finally:
+        Fetch.get = get
+    return res, state, seconds, reads[0]
+
+
+def chunk_profile(torch, engine, state, sampling, horizon: int, chunks: int) -> dict:
+    """A frame's wall ms (decode_chunk calls back to back, to a sync, no
+    profiler) against its device ms and kernel launches (the same calls
+    under torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(state):
+        for _ in range(chunks):
+            state = engine.decode_chunk(state, sampling, horizon)[0]
+        torch.cuda.synchronize()
+        return state
+
+    state = run(state)  # warm
+    t0 = time.perf_counter()
+    state = run(state)
+    wall = (time.perf_counter() - t0) * 1e3 / (chunks * horizon)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state = run(state)
+    kernels = device_kernels(prof)
+    n = chunks * horizon
+    return {"wall_ms": wall, "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3 / n,
+            "launches": sum(e.count for e in kernels) / n, "kernels": kernels, "frames": n}
+
+
+def graph_batch1(torch, np, label: str, graph, eager, n_frames: int, smi: str,
+                 profile_horizon: int, cont_frames: int, turns=GRAPH_TURNS) -> dict:
+    """Batch-1 generate under the captured loop and eagerly on one seed:
+    codes identical, and those of a cont_frames continuation after a
+    rewind to the prompt (the same stream); captures one per key over
+    more requests; the kernels' device counters against the replays'
+    frames; frames/s in `turns` and a frame's wall against device ms of
+    one decode_chunk(profile_horizon) under each."""
+    from fish_speech_tpu_torch.ops import decode_attention as da
+    from fish_speech_tpu_torch.ops import decode_stack as ds
+    from fish_speech_tpu_torch.ops import fast_frame as ff
+    from fish_speech_tpu_torch.ops import slow_step as ss
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs
+
+    check(graph.graphs is not None and eager.graphs is None,
+          f"graph {label}: decode_impl auto on CUDA has no graphs, or eager has")
+    cfg = graph.cfg
+    prompt = main_prompt(np, cfg)
+    sampling = SamplingArgs(**SAMPLING)
+    t0 = time.perf_counter()
+    for eng in (graph, eager):  # warm: the graph's keys captured
+        eng.generate(prompt, max_new_tokens=n_frames, sampling=sampling, seed=0)
+        cont = eng.rewind(eng.init_state(0), 0)
+        eng.generate(prompt[:, :16], max_new_tokens=cont_frames, sampling=sampling,
+                     state=cont, conditioning_offset=PROMPT_LEN)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    captures = graph.graphs.captures
+    got = {}
+    for mode, eng in (("graph", graph), ("eager", eager)):
+        res, state, _, _ = counted_generate(torch, eng, prompt, sampling, n_frames, seed=11)
+        state = eng.rewind(state, PROMPT_LEN)
+        cont, _ = eng.generate(prompt[:, :16], max_new_tokens=cont_frames, sampling=sampling,
+                               state=state, conditioning_offset=PROMPT_LEN)
+        got[mode] = [res.semantic, res.tokens, cont.semantic, cont.tokens]
+    same = all(np.array_equal(a, b) for a, b in zip(got["graph"], got["eager"]))
+    check(same, f"graph {label}: the codes under the graph differ from eager's on seed 11 "
+          f"(first {got['graph'][0][:8]} vs {got['eager'][0][:8]})")
+    check(got["graph"][1].shape[1] == n_frames, f"graph {label}: {got['graph'][1].shape[1]} "
+          f"frames, expected {n_frames}")
+
+    # more requests, each from a new state: no capture
+    budget = n_frames - 1
+    frames_run = sum(h for h, _ in graph.chunk_plan(budget))
+    sync = graph.sync_state
+    before = (ds.launch_counts("cuda", sync), graph.graphs.frames, graph.graphs.replays,
+              ss.launches, ff.launches, ss.int8_launches, ff.int8_launches, da.launches)
+    times, reads = {"graph": [], "eager": []}, []
+    for mode in turns:
+        eng = graph if mode == "graph" else eager
+        res, _, s, r = counted_generate(torch, eng, prompt, sampling, n_frames,
+                                        seed=20 + len(reads))
+        times[mode].append(s)
+        reads.append(r)
+    check(graph.graphs.captures == captures, f"graph {label}: {graph.graphs.captures - captures} "
+          "captures for requests of keys captured already")
+    (p0, s0), f0, r0, ss0, ff0, ss8, ff8, da0 = before
+    p1, s1 = ds.launch_counts("cuda", sync)
+    replayed = graph.graphs.frames - f0
+    c = cfg.num_codebooks
+    int8 = graph.quantize_int8
+    slow, fast = int(graph.use_fused_slow), int(graph.use_fused_fast)
+    n_graph = turns.count("graph")
+    check(replayed == n_graph * frames_run and graph.graphs.replays - r0 == n_graph * len(
+        graph.chunk_plan(budget)), f"graph {label}: {replayed} frames replayed, expected "
+          f"{n_graph * frames_run}")
+    # per frame: the slow step's persistent launch, then a persistent and a
+    # sampler launch a codebook step (the kernels count them themselves, on
+    # the graph engine's own sync state; the eager engine has its own)
+    check(p1 - p0 == replayed * (slow + fast * c) and s1 - s0 == replayed * fast * c,
+          f"graph {label}: the persistent kernels counted {p1 - p0} persistent and {s1 - s0} "
+          f"sampler launches on the graph engine, expected {replayed * (slow + fast * c)} and "
+          f"{replayed * fast * c} for {replayed} replayed frames")
+    frames_both = n_graph * frames_run + turns.count("eager") * decode_frames(eager, budget)
+    got_py = (ss.launches - ss0, ff.launches - ff0, ss.int8_launches - ss8,
+              ff.int8_launches - ff8, da.launches - da0)
+    want_py = (frames_both * slow, frames_both * fast, frames_both * slow * int8,
+               frames_both * fast * int8, frames_both * (1 - slow) * cfg.n_layer)
+    check(got_py == want_py, f"graph {label}: the wrappers counted (slow step, fast frame, "
+          f"their int8 bodies, decode attention) {got_py}, expected {want_py}")
+    fps = {m: n_frames / np.mean(v) for m, v in times.items()}
+    prof = {m: chunk_profile(torch, e, e.prefill(e.init_state(3), prompt, sampling)[0],
+                             sampling, profile_horizon, 1)
+            for m, e in (("graph", graph), ("eager", eager))}
+    for mode in ("graph", "eager"):
+        p = prof[mode]
+        log("graph", f"{label} {mode}: generate {n_frames} frames {fps[mode]:.1f} frames/s "
+            f"(mean of {turns.count(mode)}, in turns {'/'.join(turns)}); a frame {p['wall_ms']:.3f} ms wall against "
+            f"{p['device_ms']:.3f} ms of device kernels ({p['launches']:.1f} launches a frame "
+            f"under torch.profiler, {p['frames']} frames of decode_chunk({profile_horizon})), "
+            f"device busy {100 * p['device_ms'] / p['wall_ms']:.1f}% [{smi}]")
+    log("graph", f"{label}: codes identical under the graph and eager on seed 11 "
+        f"({n_frames} frames, and {cont_frames} after a rewind to the {PROMPT_LEN}-token "
+        f"prefix); {graph.graphs.captures} captures for keys "
+        f"{sorted(k[1:] for k in graph.graphs.graphs)} in {graph.graphs.capture_s:.2f}s "
+        f"(warm-up runs included; both engines' warm-up {warm_s:.2f}s), none for "
+        f"{len(turns)} more requests; host reads a generate call: {reads} ({len(graph.chunk_plan(budget))} "
+        f"chunks + the first frame); device counters: {p1 - p0} persistent + {s1 - s0} sampler "
+        f"launches for {replayed} replayed frames")
+    return {"fps": fps, "profile": prof, "captures": graph.graphs.captures,
+            "capture_s": graph.graphs.capture_s, "reads": reads}
+
+
+def graph_decode_attention(torch, np, graph, eager, n_frames: int, smi: str) -> dict:
+    """The unfused batch-1 path (decode attention) under the graph: codes
+    as eager's (graph_batch1), and decode attention's launches from the
+    replays as torch.profiler sees them on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs
+
+    # a frame of this path is ~3900 launches: 8 frames profiled, the
+    # continuation's 8 the same loop; one timed call a mode (eager ~9 fps)
+    out = graph_batch1(torch, np, "batch-1 xla", graph, eager, n_frames, smi, 8, 9,
+                       turns=("graph", "eager"))
+    sampling = SamplingArgs(**SAMPLING)
+    state, _, _ = graph.prefill(graph.init_state(5), main_prompt(np, graph.cfg), sampling)
+    f0, r0 = graph.graphs.frames, graph.graphs.replays
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph.decode_chunk(state, sampling, 8)
+        torch.cuda.synchronize()
+    frames = graph.graphs.frames - f0
+    n = sum(e.count for e in device_kernels(prof) if "decode_attention_kernel" in e.key)
+    check(graph.graphs.replays - r0 == 1 and n == frames * graph.cfg.n_layer,
+          f"graph batch-1 xla: torch.profiler saw {n} decode_attention_kernel launches in one "
+          f"replay of {frames} frames, expected {frames * graph.cfg.n_layer}")
+    log("graph", f"batch-1 xla: one replay of {frames} frames launched decode_attention_kernel "
+        f"{n} times on the card (torch.profiler), {graph.cfg.n_layer} a frame")
+    out["decode_attention_replayed"] = n
+    return out
+
+
+def graph_serving(torch, np, label: str, engine, eager, codec, smi: str) -> dict:
+    """16-row serving through TTSPipeline(...).create_batcher(16, 16), as
+    the server phase builds it, on the engine (graphs) and its eager
+    twin: GRAPH_SERVE_REQUESTS seeded requests at once, each one's codes
+    identical under both; the row kernel's and the batched frame's
+    launches counted by the kernels against the replays' frames;
+    aggregate frames/s and a frame's wall against device ms."""
+    from fish_speech_tpu_torch.config import WhichLM
+    from fish_speech_tpu_torch.ops import decode_stack as ds
+    from fish_speech_tpu_torch.ops import slow_step as ss
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs
+    from fish_speech_tpu_torch.pipeline import TTSPipeline
+
+    cfg = engine.cfg
+    sampling = SamplingArgs(**SAMPLING)
+    rng = np.random.default_rng(11)
+    prompts = [np.concatenate([rng.integers(1000, 90000, size=(1, PROMPT_LEN)),
+                               rng.integers(0, cfg.codebook_size,
+                                            size=(cfg.num_codebooks, PROMPT_LEN))]).astype(np.int32)
+               for _ in range(GRAPH_SERVE_REQUESTS)]
+    codes, out = {}, {}
+    for mode, base in (("graph", engine), ("eager", eager)):
+        pipeline = TTSPipeline(base, codec, StandInTokenizer(cfg.codebook_size), WhichLM.FISH_1_5)
+        pipeline.default_sampling = sampling
+        batcher = pipeline.create_batcher(SERVE_ROWS, SERVE_HORIZON)
+        eng = batcher.engine
+        check((eng.graphs is not None) == (mode == "graph"), f"graph {label}: the {mode} "
+              "batcher's engine has the wrong decode loop")
+        try:
+            t0 = time.perf_counter()
+            batcher.warmup()
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            counts = (ds.rows_launch_count("cuda", eng.sync_state),
+                      ds.frame_launch_count("cuda", eng.sync_state),
+                      eng.graphs.frames if eng.graphs else 0)
+            t0 = time.perf_counter()
+            reqs = [batcher.submit([p], 0, GRAPH_SERVE_FRAMES, sampling=sampling, seed=3000 + i)
+                    for i, p in enumerate(prompts)]
+            got = []
+            for req in reqs:
+                chunks = list(req.iter_chunks(timeout=WAIT_S))
+                got.append(np.concatenate([chunks[0].semantic[None], chunks[0].tokens]))
+            seconds = time.perf_counter() - t0
+            rows = ds.rows_launch_count("cuda", eng.sync_state) - counts[0]
+            frames = ds.frame_launch_count("cuda", eng.sync_state) - counts[1]
+            replayed = (eng.graphs.frames - counts[2]) if eng.graphs else None
+            state = eng.init_state(0)
+            state, _, _ = eng.prefill_rows(state, prompts, sampling, 0,
+                                           per_row=[(sampling, 4000 + i) for i in
+                                                    range(SERVE_ROWS)])
+            prof = chunk_profile(torch, eng, state, sampling, SERVE_HORIZON, 2)
+        finally:
+            batcher.shutdown()
+        codes[mode] = got
+        n = sum(c.shape[1] for c in got)
+        out[mode] = dict(fps=n / seconds, profile=prof, frames=n, ticks=batcher.ticks,
+                         warm_s=warm_s, captures=eng.graphs.captures if eng.graphs else 0,
+                         capture_s=eng.graphs.capture_s if eng.graphs else 0.0)
+        if mode == "graph":
+            per_step = ss.rows_launches_per_step(cfg.n_layer, SERVE_ROWS)
+            check(replayed > 0 and frames == replayed and rows == per_step * replayed,
+                  f"graph {label}: the kernels counted {rows} row-kernel and {frames} batched "
+                  f"frame launches over {replayed} replayed frames ({per_step} row launches a "
+                  "step)")
+            out[mode].update(replayed=replayed, rows_launches=rows, frame_launches=frames)
+    same = all(np.array_equal(a, b) for a, b in zip(codes["graph"], codes["eager"]))
+    check(same, f"graph {label}: a seeded request's codes differ under the graph and eager")
+    for mode in ("graph", "eager"):
+        o, p = out[mode], out[mode]["profile"]
+        log("graph", f"{label} {mode}: {GRAPH_SERVE_REQUESTS} seeded requests of "
+            f"{GRAPH_SERVE_FRAMES} frames at once, {o['frames']} frames in {o['ticks']} ticks, "
+            f"{o['fps']:.1f} frames/s aggregate; a {SERVE_ROWS}-row frame {p['wall_ms']:.3f} ms "
+            f"wall against {p['device_ms']:.3f} ms of device kernels ({p['launches']:.1f} "
+            f"launches a frame under torch.profiler), device busy "
+            f"{100 * p['device_ms'] / p['wall_ms']:.1f}% [{smi}]")
+    g = out["graph"]
+    log("graph", f"{label}: every seeded request's codes identical under the graph and eager; "
+        f"{g['captures']} captures in {g['capture_s']:.2f}s (batcher warm-up {g['warm_s']:.2f}s); "
+        f"the kernels counted {g['rows_launches']} row-kernel and {g['frame_launches']} batched "
+        f"frame launches for {g['replayed']} replayed frames")
+    return out
+
+
+def run_graph(torch, np, fused, unfused, int8, loud, smi) -> dict:
+    """The decode loop as CUDA graphs (generate/graph.py), each path
+    against its eager twin (`sibling(decode_impl="eager")`): batch-1
+    `auto` bf16 and int8 (128 frames), batch-1 `xla` (32 frames, decode
+    attention), 16-row serving bf16 and int8 through create_batcher(16,
+    16), and the overlapped driver at chunk 64 on the graph."""
+    from fish_speech_tpu_torch.generate.overlap import generate_vocode_overlapped, output_shift
+    from fish_speech_tpu_torch.ops.sampling import SamplingArgs
+
+    t0 = time.perf_counter()
+    out = {}
+    for label, eng in (("batch-1 auto", fused), ("batch-1 auto int8", int8["batch1"])):
+        out[label] = graph_batch1(torch, np, label, eng, eng.sibling(decode_impl="eager"),
+                                  N_FRAMES, smi, OVERLAP_CHUNK, N_FRAMES // 2)
+    out["batch-1 xla"] = graph_decode_attention(
+        torch, np, unfused, unfused.sibling(decode_impl="eager", slow_impl="xla",
+                                            fast_frame_impl="xla"), N_FRAMES_UNFUSED, smi)
+    for label, eng in (("serving", fused), ("serving int8", int8["batch1"])):
+        # the server phase's pipeline engine: cache 512, bucket 64
+        kw = dict(cache_len=SERVE_CACHE, prompt_buckets=(64,))
+        out[label] = graph_serving(torch, np, label, eng.sibling(**kw),
+                                   eng.sibling(decode_impl="eager", **kw), loud, smi)
+    # the overlapped driver on the batch-1 engine's graphs: a first call
+    # captures its horizon's (its last chunk is budget-cut: the masked one)
+    sampling = SamplingArgs(**SAMPLING)
+    prompt = main_prompt(np, fused.cfg)
+
+    def overlapped(seed):
+        return generate_vocode_overlapped(fused, loud, prompt, sampling=sampling,
+                                          max_new_tokens=N_FRAMES, seed=seed,
+                                          chunk=OVERLAP_CHUNK, shift_fn=output_shift(fused.lm))
+
+    overlapped(13)
+    r0, c0 = fused.graphs.replays, fused.graphs.captures
+    _, res, _ = overlapped(12)
+    ref, _ = fused.sibling(decode_impl="eager").generate(prompt, max_new_tokens=N_FRAMES,
+                                                         sampling=sampling, seed=12)
+    replays = fused.graphs.replays - r0
+    check(replays == -(-(N_FRAMES - 1) // OVERLAP_CHUNK) and fused.graphs.captures == c0
+          and np.array_equal(res.tokens, ref.tokens) and np.array_equal(res.semantic,
+                                                                        ref.semantic),
+          f"graph overlap: {replays} replays, {fused.graphs.captures - c0} captures; tokens "
+          "equal to the eager generate's: "
+          f"{np.array_equal(res.tokens, ref.tokens)}")
+    log("graph", f"overlap: generate_vocode_overlapped at chunk {OVERLAP_CHUNK} ran {replays} "
+        f"replays of the batch-1 engine's horizon-{OVERLAP_CHUNK} loops (no capture after its "
+        f"first call), tokens equal to the eager generate's on seed 12")
+    b1, sv = out["batch-1 auto"], out["serving"]
+    log("graph", f"summary [{smi}]: batch-1 auto bf16 {b1['fps']['graph']:.1f} frames/s under "
+        f"the graph against {b1['fps']['eager']:.1f} eager; a 16-row serving frame "
+        f"{sv['graph']['profile']['wall_ms']:.3f} ms wall under the graph against "
+        f"{sv['eager']['profile']['wall_ms']:.3f} ms eager; phase "
+        f"{time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def run_ttfa(torch, np, params, cfg, tok, codec, smi) -> None:
     """bench.py::bench_ttfa's path on the port: cache 512, max_frames 16,
     bucket 64; prefill, one 16-frame decode_chunk, one streaming feed,
@@ -2904,12 +3278,16 @@ def run_cli(torch, np, params, cfg, tok, codec_cfg, smi) -> None:
             return out
 
         engine.generate = recorded
+        # the CLI's decode loops captured outside the count
+        generate(prompts[0], max_new_tokens=args.max_new_tokens, seed=0, sampling=SamplingArgs(
+            temp=args.temp, top_p=args.top_p, top_k=args.top_k,
+            repetition_penalty=args.repetition_penalty))
         for m in (pa, ss, ff):
             m.launches = 0
         cli_codes, gen_s = logged(torch, llama_generate.generate_codes, stand_in, engine, args)
         launches = {"prefill_attention": pa.launches, "fused_slow_step": ss.launches,
                     "fused_fast_frame": ff.launches}
-        steps = 2 * (CLI_FRAMES - 1)
+        steps = 2 * decode_frames(engine, CLI_FRAMES - 1)
         want = {"prefill_attention": 2 * cfg.n_layer, "fused_slow_step": steps,
                 "fused_fast_frame": steps}
         check(launches == want, f"cli: launches {launches}, expected {want}")
@@ -3093,7 +3471,7 @@ def central_run(torch, np, engine, codec, codec32, tok, codec_cfg, reqs, bound16
     float32 decode as codec.decode is, within ACCURACY_FACTOR (+
     PCM_I16_ATOL), its reference peaking at PCM_MIN_STEPS int16 steps or
     more; logs frames/s, RTF p50/p95 (submit to the last PCM) and TTFA
-    p50/p95 (to the first PCM event). Returns (frames/s, RTF p50)."""
+    p50/p95 (to the first PCM event). Returns (frames/s, RTF p50, TTFA p50)."""
     from fish_speech_tpu_torch.generate.continuous import ContinuousBatcher
     from fish_speech_tpu_torch.generate.overlap import output_shift
     from fish_speech_tpu_torch.ops.sampling import SamplingArgs
@@ -3140,7 +3518,7 @@ def central_run(torch, np, engine, codec, codec32, tok, codec_cfg, reqs, bound16
         f"PCM) p50 {p50:.4f} p95 {float(np.percentile(rtf, 95)):.4f}; TTFA (submit to first "
         f"PCM) p50 {float(np.percentile(ttfa, 50)):.4f}s p95 "
         f"{float(np.percentile(ttfa, 95)):.4f}s")
-    return frames / span, p50
+    return frames / span, p50, float(np.percentile(ttfa, 50))
 
 
 def profile_central(torch, np, engine, codec, ticks: int = 4) -> None:
@@ -3262,7 +3640,7 @@ def run_serving(torch, np, serving, codec, codec32, tok, codec_cfg, bound16):
         if impl == "central":
             runs[impl].append(central_run(torch, np, serving["auto"], codec, codec32, tok,
                                           codec_cfg, reqs, bound16,
-                                          f"central run {len(runs[impl]) + 1}"))
+                                          f"central run {len(runs[impl]) + 1}")[:2])
             continue
         counting = impl != "xla" and impl not in counted
         if counting:
@@ -3506,7 +3884,8 @@ def sniff_batcher(np, batcher, key_of):
     return seen
 
 
-def run_server(torch, np, params, cfg, tok, codec, codec_cfg, bound16, smi) -> dict:
+def run_server(torch, np, params, cfg, tok, codec, codec_cfg, bound16, smi,
+               decode_impl: str = "auto"):
     """The serving surface on the card: a TTSPipeline (constructor, the
     full-width Fish-1.5 weights, the loud bf16 codec, the stand-in
     tokenizer, reroll off) with `create_batcher(16, 16)`, behind the
@@ -3518,8 +3897,9 @@ def run_server(torch, np, params, cfg, tok, codec, codec_cfg, bound16, smi) -> d
     serial request and a hidden-states request on a second app without a
     batcher. Checks the responses, the seeded and temp-0 requests against
     synthesize_streaming_continuous called directly, the cancelled row's
-    release, and each route's kernels; returns {kernel: launches in this
-    phase}."""
+    release, and each route's kernels. decode_impl: the pipeline engine's
+    (and so its batcher's). Returns ({kernel: launches in this phase},
+    the burst's {"requests_per_s", "frames_per_s", "rtf_p50", "ttfa_p50"})."""
     import importlib.util
     import threading
 
@@ -3540,7 +3920,8 @@ def run_server(torch, np, params, cfg, tok, codec, codec_cfg, bound16, smi) -> d
 
     t_phase = time.perf_counter()
     engine = LMEngine(params, cfg, tok, WhichLM.FISH_1_5, cache_len=SERVE_CACHE,
-                      max_frames=N_FRAMES, prompt_buckets=SERVER_BUCKETS)
+                      max_frames=N_FRAMES, prompt_buckets=SERVER_BUCKETS,
+                      decode_impl=decode_impl)
     pipeline = TTSPipeline(engine, codec, StandInTokenizer(cfg.codebook_size), WhichLM.FISH_1_5,
                            max_new_tokens=N_FRAMES, default_sampling=SamplingArgs(**SAMPLING))
     pipeline.reroll_on_runaway = False
@@ -3824,8 +4205,11 @@ def run_server(torch, np, params, cfg, tok, codec, codec_cfg, bound16, smi) -> d
         f"phase {time.perf_counter() - t_phase:.1f}s")
     log("server", f"launches: batcher routes {json.dumps(burst_launches)}; static batch "
         f"{json.dumps(static_launches)}; serial + hidden states {json.dumps(serial_launches)}")
+    metrics = {"requests_per_s": n_ok / span, "frames_per_s": sum(frames) / span,
+               "rtf_p50": float(np.percentile(rtf, 50)),
+               "ttfa_p50": float(np.percentile(ttfa, 50))}
     return {k: burst_launches[k] + static_launches[k] + serial_launches[k]
-            for k in burst_launches}
+            for k in burst_launches}, metrics
 
 
 # --------------------------------------------------------------------------
@@ -4143,7 +4527,8 @@ def run_version(torch, np, version: str, smi) -> dict:
     # batch 1 on `auto`: launches, frames/s, a WAV
     launches, _, _, _, stats = run_path(torch, np, engine, codec, tok, codec32.cfg,
                                         VERSION_FRAMES, f"versions {label} auto")
-    want = {"fused_slow_step": VERSION_FRAMES - 1, "fused_fast_frame": VERSION_FRAMES - 1,
+    steps = decode_frames(engine, VERSION_FRAMES - 1)
+    want = {"fused_slow_step": steps, "fused_fast_frame": steps,
             "prefill_attention": cfg.n_layer, "decode_attention": 0}
     check(launches == want, f"versions {label}: batch-1 launches {launches}, expected {want}")
     prompt = main_prompt(np, cfg)
@@ -4156,11 +4541,14 @@ def run_version(torch, np, version: str, smi) -> dict:
     unfused = LMEngine(params, cfg, tok, lm, cache_len=SERVE_CACHE,
                        max_frames=VERSION_XLA_FRAMES, prompt_buckets=(64,), slow_impl="xla",
                        fast_frame_impl="xla", device="cuda")
+    # its decode loops captured outside the count
+    unfused.generate(prompt, max_new_tokens=VERSION_XLA_FRAMES, sampling=sampling, seed=0)
     da.launches = 0
     res, _ = unfused.generate(prompt, max_new_tokens=VERSION_XLA_FRAMES, sampling=sampling,
                               seed=1)
     launches["decode_attention"] = da.launches
-    check(da.launches == cfg.n_layer * (res.frames - 1) and res.frames == VERSION_XLA_FRAMES,
+    check(da.launches == cfg.n_layer * decode_frames(unfused, res.frames - 1)
+          and res.frames == VERSION_XLA_FRAMES,
           f"versions {label}: the unfused path launched decode attention {da.launches} times "
           f"over {res.frames} frames")
     del unfused
@@ -4288,8 +4676,8 @@ def run_int8_proxy(torch, np, engine, engine8, params, codec, codec_cfg) -> None
 # --------------------------------------------------------------------------
 
 PAR_FRAMES_A = 32  # (a): nccl world of one against the unsharded engine
-PAR_FRAMES_B = 64  # (b): tp = 2 against the unsharded engine, by accuracy
-PAR_REQUESTS = 8
+PAR_FRAMES_B = 32  # (b): tp = 2 against the unsharded engine, by accuracy
+PAR_REQUESTS = 4
 PAR_NEW = 24  # frames a batcher request
 PAR_TIMEOUT_S = 600.0
 
@@ -4742,6 +5130,9 @@ def train_serve_back(torch, np, cfg, tok, d) -> None:
           "train: the trained checkpoint's engine is not on the fused path")
     mods = {"prefill_attention": pa, "fused_slow_step": ss, "fused_fast_frame": ff,
             "decode_attention": da}
+    # the decode loop captured outside the count
+    engine.generate(main_prompt(np, cfg), max_new_tokens=16, sampling=SamplingArgs(**SAMPLING),
+                    seed=1)
     for m in mods.values():
         m.launches = 0
     res, _ = engine.generate(main_prompt(np, cfg), max_new_tokens=16,
@@ -4754,13 +5145,14 @@ def train_serve_back(torch, np, cfg, tok, d) -> None:
           f"train: served semantic ids outside the range: {sem}")
     check(bool(((res.tokens >= 0) & (res.tokens < cfg.codebook_size)).all()),
           "train: served codebook ids outside [0, codebook_size)")
-    # one slow step and one fast frame a decode step: frames - 1 of them,
-    # or frames when the last step drew <|im_end|> (a frame not kept)
+    # one slow step and one fast frame a decode step: generate decodes
+    # whole chunks (the captured loops), a chunk past the one that ends
     steps = launches["fused_slow_step"]
+    issued = list(itertools.accumulate(h for h, _ in engine.chunk_plan(15)))
     check(launches["prefill_attention"] == cfg.n_layer and launches["decode_attention"] == 0
-          and launches["fused_fast_frame"] == steps and steps in (frames - 1, frames)
-          and steps > 0, f"train: serving the trained checkpoint's {frames} frames launched "
-          f"{launches}")
+          and launches["fused_fast_frame"] == steps and steps in issued
+          and steps >= frames - 1, f"train: serving the trained checkpoint's {frames} frames "
+          f"launched {launches} (chunks end at {issued})")
     log("train", f"the trained model.safetensors in bf16 through load_lm_params into the "
         f"batch-1 auto engine: {frames} frames from the {PROMPT_LEN}-token prompt, ids in "
         f"range, launches {json.dumps(launches)}")
@@ -5106,65 +5498,85 @@ def main() -> int:
     # directory, which this process then loads: one build a run
     from fish_speech_tpu_torch.utils.cache import setup_compilation_cache
 
-    cache, built, nvcc_log = run_cold(smi)
+    with phase("cold"):
+        cache, built, nvcc_log = run_cold(smi)
     atexit.register(shutil.rmtree, cache, ignore_errors=True)
     setup_compilation_cache(cache)
-    t0 = time.perf_counter()
-    _cuda_build.load_library()
-    n_src = len(list(_cuda_build.CSRC.glob("*.cu")))
-    log("build", f"{n_src} x nvcc {' '.join(_cuda_build.NVCC_FLAGS[:2])} -c, in parallel, "
-        f"+ link -> libfstorch.so: built in {built:.1f}s by the cold start's first process "
-        f"(load here {time.perf_counter() - t0:.2f}s)")
-    log_ptxas(nvcc_log)
-    n_tensor = sass_tensor_ops(_cuda_build.find_nvcc(), _cuda_build.build())
-    log("build", f"cuobjdump -sass: {n_tensor} HGMMA/HMMA instructions in prefill_attention_kernel")
-    check(n_tensor > 0, "prefill_attention_kernel has no tensor-core instruction")
+    with phase("build"):
+        t0 = time.perf_counter()
+        _cuda_build.load_library()
+        n_src = len(list(_cuda_build.CSRC.glob("*.cu")))
+        log("build", f"{n_src} x nvcc {' '.join(_cuda_build.NVCC_FLAGS[:2])} -c, in parallel, "
+            f"+ link -> libfstorch.so: built in {built:.1f}s by the cold start's first process "
+            f"(load here {time.perf_counter() - t0:.2f}s)")
+        log_ptxas(nvcc_log)
+        n_tensor = sass_tensor_ops(_cuda_build.find_nvcc(), _cuda_build.build())
+        log("build", f"cuobjdump -sass: {n_tensor} HGMMA/HMMA instructions in "
+            "prefill_attention_kernel")
+        check(n_tensor > 0, "prefill_attention_kernel has no tensor-core instruction")
 
     cfg = DualARConfig.fish_speech_1_5()
     cache_len = cfg.max_seq_len
     main_pos = PROMPT_LEN + N_FRAMES // 2
-    kernels = [
-        check_decode_kernel(torch, cfg, cache_len, main_pos=main_pos),
-        check_prefill_kernel(torch, cfg, cache_len, n_tensor),
-    ]
-    fused, unfused, serving, int8, codec, tok, codec_cfg, params = build_models(torch)
-    with torch.inference_mode():
-        for batch1, rows in ((fused, serving["auto"]), (int8["batch1"], int8["serving"])):
-            params32 = float32_copy(batch1.params)
-            kernels += [check_slow_step(torch, batch1, params32, main_pos),
-                        check_fast_frame(torch, batch1, params32),
-                        check_fast_frame_batched(torch, rows, params32),
-                        check_slow_step_rows(torch, rows, params32)]
-            kernels[-2]["gemms"] = check_rows_gemms(torch, rows)
-            del params32
-    launches, bf16_stats = run_main_path(torch, np, fused, unfused, codec, tok, codec_cfg)
-    with torch.inference_mode():
+    with phase("kernels"):
+        kernels = [
+            check_decode_kernel(torch, cfg, cache_len, main_pos=main_pos),
+            check_prefill_kernel(torch, cfg, cache_len, n_tensor),
+        ]
+        fused, unfused, serving, int8, codec, tok, codec_cfg, params = build_models(torch)
+        with torch.inference_mode():
+            for batch1, rows in ((fused, serving["auto"]), (int8["batch1"], int8["serving"])):
+                params32 = float32_copy(batch1.params)
+                kernels += [check_slow_step(torch, batch1, params32, main_pos),
+                            check_fast_frame(torch, batch1, params32),
+                            check_fast_frame_batched(torch, rows, params32),
+                            check_slow_step_rows(torch, rows, params32)]
+                kernels[-2]["gemms"] = check_rows_gemms(torch, rows)
+                del params32
+    with phase("main"):
+        launches, bf16_stats = run_main_path(torch, np, fused, unfused, codec, tok, codec_cfg)
+    with phase("prefill"), torch.inference_mode():
         long_prefill = run_long_prefill(torch, np, params, fused.cfg, tok)
     next(k for k in kernels if k["name"] == "prefill_attention")["long_prefill"] = long_prefill
-    launches.update(run_int8_main_path(torch, np, int8["batch1"], fused, bf16_stats, codec, tok,
-                                       codec_cfg))
+    with phase("main int8"):
+        launches.update(run_int8_main_path(torch, np, int8["batch1"], fused, bf16_stats, codec,
+                                           tok, codec_cfg))
     # from here on the codec is loud enough for int16 (`loud_codec`)
-    loud, loud32, bound16 = run_stream(torch, np, codec, codec_cfg, smi)
-    run_overlap(torch, np, fused, loud, loud32, codec_cfg, bound16, smi)
-    run_ttfa(torch, np, params, fused.cfg, tok, loud, smi)
-    run_cli(torch, np, params, fused.cfg, tok, codec_cfg, smi)
-    served = run_serving(torch, np, dict(serving, int8=int8["serving"]), loud, loud32, tok,
-                         codec_cfg, bound16)
-    server = run_server(torch, np, params, fused.cfg, tok, loud, codec_cfg, bound16, smi)
+    with phase("stream"):
+        loud, loud32, bound16 = run_stream(torch, np, codec, codec_cfg, smi)
+    with phase("overlap"):
+        run_overlap(torch, np, fused, loud, loud32, codec_cfg, bound16, smi)
+    with phase("ttfa"):
+        run_ttfa(torch, np, params, fused.cfg, tok, loud, smi)
+    with phase("cli"):
+        run_cli(torch, np, params, fused.cfg, tok, codec_cfg, smi)
+    # after ttfa: its torch.profiler sessions leave host-bound work slower
+    with phase("graph"):
+        run_graph(torch, np, fused, unfused, int8, loud, smi)
+    with phase("serving"):
+        served = run_serving(torch, np, dict(serving, int8=int8["serving"]), loud, loud32, tok,
+                             codec_cfg, bound16)
+    with phase("server"):
+        server, _ = run_server(torch, np, params, fused.cfg, tok, loud, codec_cfg, bound16,
+                               smi)
     del loud, loud32
-    versions = run_versions(torch, np, smi)
+    with phase("versions"):
+        versions = run_versions(torch, np, smi)
     for name in ("fused_fast_frame_batched", "fused_fast_frame_batched_int8", "slow_step_rows",
                  "slow_step_rows_int8"):
         launches[name] = served[name]
-    run_int8_proxy(torch, np, fused, int8["batch1"], params, codec, codec_cfg)
-    parallel = run_parallel(torch, np, params, tok, smi)
+    with phase("int8 proxy"):
+        run_int8_proxy(torch, np, fused, int8["batch1"], params, codec, codec_cfg)
+    with phase("parallel"):
+        parallel = run_parallel(torch, np, params, tok, smi)
     for name in ("decode_attention", "prefill_attention"):
         k = next(k for k in kernels if k["name"] == name)
         k["parallel_launches"] = {w: [r[name] for r in v["launches"]]
                                   for w, v in parallel.items() if w != "rank_shape"}
     next(k for k in kernels if k["name"] == "decode_attention")["tp2_rank_shape"] = \
         parallel["rank_shape"]
-    run_train(torch, np, tok)
+    with phase("train"):
+        run_train(torch, np, tok)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
@@ -5179,6 +5591,13 @@ def main() -> int:
                          if k["name"] in r["kernels"]}
 
     log("done", f"every phase held, in {time.perf_counter() - T0:.1f}s")
+    # the bulky per-kernel extras on a line of their own, so that the
+    # phase summary and the kernels line fit the output's 24,000-byte tail
+    details = {k["name"]: {key: k.pop(key) for key in DETAIL_KEYS if key in k}
+               for k in kernels}
+    print(json.dumps({"kernel_details": details}), flush=True)
+    for name, seconds in PHASES:
+        print(f"phase {name}: {seconds:.1f}s, held", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

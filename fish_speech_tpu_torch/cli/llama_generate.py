@@ -121,9 +121,11 @@ def generate_codes(tokenizer, engine: LMEngine, args: argparse.Namespace) -> np.
     cond_len = 0
     for i, chunk_tokens in enumerate(encoded):
         offset = cond_len if i > 0 else 0
+        # profile: a sync after the prefill, so the printed split is the
+        # phases' own time (the JAX CLI's flag); serving paths skip it
         result, state = engine.generate(chunk_tokens, max_new_tokens=args.max_new_tokens,
                                         sampling=sampling, state=state,
-                                        conditioning_offset=offset)
+                                        conditioning_offset=offset, profile=True)
         if i == 0:
             cond_len = n_cond
         state = engine.rewind(state, cond_len)

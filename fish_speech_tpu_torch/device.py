@@ -3,7 +3,9 @@
 from __future__ import annotations
 
 import functools
+from typing import List, Sequence
 
+import numpy as np
 import torch
 
 
@@ -48,3 +50,22 @@ def device_constant(values: tuple, dtype: torch.dtype, device: torch.device) -> 
     it would be a copy that waits for the work queued on the card."""
     with torch.inference_mode(False):
         return torch.tensor(values, dtype=dtype, device=device)
+
+
+class Fetch:
+    """Device tensors copied to the host behind the work that makes them,
+    on the current stream; `get` waits for those copies only, not for
+    work launched after them."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor]):
+        cuda = tensors[0].device.type == "cuda"
+        self.host = [t.to("cpu", non_blocking=cuda) if cuda else t.clone() for t in tensors]
+        self.event = None
+        if cuda:
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def get(self) -> List[np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+        return [t.numpy() for t in self.host]

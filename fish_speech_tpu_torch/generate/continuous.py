@@ -44,11 +44,12 @@ import logging
 import queue
 import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from fish_speech_tpu_torch.device import Fetch as _Fetch
 from fish_speech_tpu_torch.device import host_to_device
 from fish_speech_tpu_torch.generate.engine import GenState, LMEngine
 from fish_speech_tpu_torch.models.codec.stream_conv import tree_where
@@ -215,25 +216,6 @@ class _AdmitGroup:
     epochs: List[int]
     frames: torch.Tensor  # (k, C+1)
     eoses: torch.Tensor  # (k,) bool
-
-
-class _Fetch:
-    """Device tensors copied to the host behind the work that makes them,
-    on the current stream; `get` waits for those copies only, not for
-    work launched after them."""
-
-    def __init__(self, tensors: Sequence[torch.Tensor]):
-        cuda = tensors[0].device.type == "cuda"
-        self.host = [t.to("cpu", non_blocking=cuda) if cuda else t.clone() for t in tensors]
-        self.event = None
-        if cuda:
-            self.event = torch.cuda.Event()
-            self.event.record()
-
-    def get(self) -> List[np.ndarray]:
-        if self.event is not None:
-            self.event.synchronize()
-        return [t.numpy() for t in self.host]
 
 
 @dataclasses.dataclass
@@ -549,11 +531,13 @@ class ContinuousBatcher:
             self.queue.get_nowait().results.put(None)
 
     def warmup(self) -> None:
-        """Build the kernels and run the engine's paths once, the central
-        vocoder's feed on a scratch state, then one small request through
-        the scheduler (through the central vocoder where there is one)."""
+        """Build the kernels and run the engine's paths once (a decode
+        chunk of each of the two horizons, which captures their loops on
+        an engine with CUDA graphs), the central vocoder's feed on a
+        scratch state, then one small request through the scheduler
+        (through the central vocoder where there is one)."""
         eng = self.engine
-        eng.warmup(self.sampling)
+        eng.warmup(self.sampling, chunk_horizons=sorted({self.admit_horizon, self.horizon}))
         if self._central is not None:
             self._central.warmup()
         n = min(eng.prompt_buckets[0], eng.cache_len - self.horizon - 2)

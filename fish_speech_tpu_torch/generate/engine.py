@@ -36,21 +36,62 @@ On CUDA tensors every fused step and attention call launches the port's
 kernels, which take bfloat16 only, apart from int8-quantized matmul
 stacks with bfloat16 scales: a CUDA engine refuses other weights or a
 cache of another dtype at construction. On CPU tensors they run their
-plain versions. The engine runs eagerly; there is no CUDA graph.
+plain versions.
+
+The decode loop, the counterpart of the JAX engine's compiled while loop
+(`_get_decode_loop`, engine.py:585-711), is one function of static shapes,
+`_decode_body`: `horizon` frames in iterations of `decode_unroll` frames
+("auto" = 1, as in JAX), with JAX's tail masking (a frame at or past
+max_steps writes nothing and changes no state the caller reads), and
+`steps` where the JAX loop stops. `decode_impl` says how it runs:
+
+* "graph": `generate/graph.py` captures it into a CUDA graph per
+  (sampling key, horizon, collect_hidden, masked) and replays it, max_steps
+  an operand of the replay (so a budget-cut chunk captures nothing new),
+  copying the
+  state in and out, the noise streams handed over through PyTorch's
+  graph-safe generator state, so a seeded request's codes are the eager
+  loop's; a failed capture or replay raises;
+* "eager": the same function frame by frame from Python (the CPU, a
+  sharded engine, the card's A/B);
+* "auto" (default): "graph" on CUDA for an unsharded engine, "eager"
+  otherwise (gloo's collectives under a mesh are not captured).
+
+A call runs the frames of the JAX loop's iterations up to max_steps,
+min(max_steps, horizon) rounded up to the unroll, with no early exit: the
+eager loop runs them, a graph replays its whole horizon with the frames
+at or past max_steps masked and then sets the noise streams where those
+frames leave them, so both modes advance the streams alike (by JAX's
+frame count for a budget-cut chunk). Where JAX's loop stops at the first
+all-done iteration, the frames past it run here too, all invalid: they
+cost card time and advance the noise streams beyond where JAX's would
+be for a `rewind` continuation.
 
 `quantize_int8=True` quantizes the slow and fast matmul stacks after the
 head gather (`ops/quant.py`, as the JAX engine does at engine.py:154-167)
 and keeps no bf16 copy of them; a tree that is quantized already (a JAX
-tree through `io.convert`) runs the same way without the flag. The fused
+tree through `io.convert`) runs the same way without the flag. Under tp
+the engine takes a shard of a tree quantized whole
+(`TTSPipeline.load(..., quantize_int8=True, mesh=)` makes it) and refuses
+a bf16 shard: a row-split weight's scales need its whole column. The fused
 kernels take the int8 stacks as they are; the unfused paths convert each
 int8 weight to the activation dtype at every product.
 
 * Prompts are right-padded to a bucket, and each row is prefilled by a
   call of its own (see `_prefill_rows_raw`); the attention read extent is
   the smallest bucket covering offset + bucket.
-* `generate` reads the device once a frame (its stop test);
-  `decode_chunk` never reads it: outputs, valid flags and an "all rows
-  done" marker stay on the card until the caller fetches them.
+* `generate` decodes in chunks of 16 frames (`chunk_plan`; the last one
+  budget-cut), each issued before the previous one is read, and reads the
+  device once a chunk through copies queued behind it (`device.Fetch`),
+  plus once for the first frame; it stops issuing once a read shows the
+  row done, so an utterance that ends at EOS runs at most 31 frames past
+  it (the rest of its chunk and the one issued behind it).
+  `generate_batch` issues the same chunks back to back and reads once.
+  With profile=False (default) nothing waits between the prefill and
+  the first chunk; profile=True syncs after the prefill for the true
+  phase split (the JAX flag; the CLI passes it). `decode_chunk` never
+  reads the device: outputs, valid flags and `steps` stay on the card
+  until the caller fetches them.
 * `_prefill_raw` and `generate(collect_hidden=True)` also give the slow
   hidden state each frame was drawn from; `warmup` runs the smallest
   prompt bucket (or the buckets, conditioning offsets and decode-chunk
@@ -84,7 +125,7 @@ import numpy as np
 import torch
 
 from fish_speech_tpu_torch.config import DualARConfig, TokenConfig, WhichLM
-from fish_speech_tpu_torch.device import resolve_device, tree_to
+from fish_speech_tpu_torch.device import Fetch, resolve_device, tree_to
 from fish_speech_tpu_torch.generate.frame import (
     FrameNoise,
     FrameResult,
@@ -92,8 +133,10 @@ from fish_speech_tpu_torch.generate.frame import (
     RowNoise,
     draw_frame_noise,
     generate_frame,
+    pushes_rep_pen,
     semantic_head_columns,
 )
+from fish_speech_tpu_torch.generate.graph import DecodeGraphs
 from fish_speech_tpu_torch.models.dual_ar import (
     KVCache,
     embed_tokens,
@@ -119,6 +162,9 @@ from fish_speech_tpu_torch.parallel.distributed import coords, local_rows
 from fish_speech_tpu_torch.parallel.mesh import TensorParallel, split_block
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
+# frames of a generate() chunk: a run that ends at EOS runs up to twice this
+# less one frame past it (the rest of its chunk and the one issued behind it)
+GENERATE_CHUNK = 16
 
 logger = logging.getLogger(__name__)
 
@@ -221,6 +267,8 @@ class LMEngine:
         dynamic_sampling: bool = False,
         dyn_top_k_cap: int = 256,
         quantize_int8: bool = False,
+        decode_unroll: Union[str, int] = "auto",
+        decode_impl: str = "auto",
         mesh=None,
         _params_preprocessed: bool = False,
     ) -> None:
@@ -230,22 +278,31 @@ class LMEngine:
         collective). _params_preprocessed: `params` is another engine's
         `params` (head gathered, quantized if quantize_int8), shared as
         it is, as the JAX engine's flag of that name does for the
-        pipeline's batched engines."""
+        pipeline's batched engines.
+
+        decode_unroll: frames a decode-loop iteration runs, "auto" (1,
+        as the JAX engine's auto) or an int >= 1; decode_chunk horizons
+        are multiples of it. decode_impl: "graph" (the decode loop as
+        CUDA graphs, `generate/graph.py`), "eager" (frame by frame from
+        Python) or "auto" (graphs on CUDA for an unsharded engine, eager
+        otherwise); "graph" on the CPU or under a mesh of more than one
+        rank raises."""
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             _check_cuda_dtypes(params, dtype)
         self.mesh = mesh
         self.tp = TensorParallel.of(mesh)
         sharded = coords(mesh).size > 1
-        if quantize_int8 and self.tp is not None and not _params_preprocessed:
-            raise ValueError("LMEngine(quantize_int8=True) under tp: a row-split weight's "
-                             "scales need its whole column; quantize the whole tree before "
-                             "sharding it")
+        quantized = any(is_quantized(v) for st in ("slow", "fast") for v in params[st].values())
+        if quantize_int8 and self.tp is not None and not _params_preprocessed and not quantized:
+            raise ValueError("LMEngine(quantize_int8=True) on a bf16 tp shard: a row-split "
+                             "weight's scales need its whole column, so the whole tree is "
+                             "quantized before it is sharded, as TTSPipeline.load(..., "
+                             "quantize_int8=True, mesh=) does; pass that quantized shard")
         cols = semantic_head_columns(lm, token_cfg, cfg)
         self.head_width = len(cols)  # the gathered head's columns (split under tp)
         if not _params_preprocessed:
-            if quantize_int8 and any(is_quantized(v) for st in ("slow", "fast")
-                                     for v in params[st].values()):
+            if quantize_int8 and quantized and self.tp is None:
                 raise ValueError("LMEngine(quantize_int8=True): the stacks are quantized already")
             # Gather the LM head down to the audio-legal columns once; the
             # full head is not kept, nor, under int8, the bf16 stacks.
@@ -260,7 +317,9 @@ class LMEngine:
                 params["output"] = split_block(head, 1, self.tp.rank, self.tp.size).contiguous()
         params = tree_to(params, self.device)
         self.quantize_int8 = quantize_int8
-        self.params = (quantize_lm_params(params) if quantize_int8 and not _params_preprocessed
+        # a tp shard comes quantized (TTSPipeline.load quantizes the whole tree)
+        self.params = (quantize_lm_params(params)
+                       if quantize_int8 and not _params_preprocessed and not quantized
                        else params)
         self.cfg = cfg
         self.token_cfg = token_cfg
@@ -277,7 +336,13 @@ class LMEngine:
         self.dtype = dtype
         self.dynamic_sampling = dynamic_sampling
         self.dyn_top_k_cap = int(dyn_top_k_cap)
-        self.decode_unroll = 1  # frames per loop step, for the batcher's horizons
+        if decode_unroll == "auto":
+            decode_unroll = 1  # the JAX engine's auto: measured neutral there
+        if isinstance(decode_unroll, str) or int(decode_unroll) < 1:
+            raise ValueError(f"decode_unroll must be 'auto' or an int >= 1, got {decode_unroll!r}")
+        self.decode_unroll = int(decode_unroll)  # frames a loop iteration runs
+        # a generate() chunk's horizon, a multiple of the unroll
+        self.generate_chunk = -(-GENERATE_CHUNK // self.decode_unroll) * self.decode_unroll
         self.rope = rope_tables(cfg, self.device)
         self.noise_layout = NoiseLayout.of(lm, cfg, self.head_width, self.dyn_top_k_cap)
         on_cuda = self.device.type == "cuda"
@@ -302,15 +367,26 @@ class LMEngine:
             fast_ok = fused_fast_frame_supported(cfg, self.params, batch_size)
         self.use_fused_fast = not sharded and self._pick("fast_frame_impl", fast_frame_impl,
                                                           fast_ok, on_cuda)
+        if decode_impl not in ("auto", "graph", "eager"):
+            raise ValueError(f"decode_impl must be 'auto', 'graph' or 'eager', got {decode_impl!r}")
+        if decode_impl == "graph" and (not on_cuda or sharded):
+            raise ValueError("decode_impl='graph' captures CUDA graphs of an unsharded engine on "
+                             "CUDA: the CPU has none, and gloo's collectives under a mesh are "
+                             "not captured; use 'eager' or 'auto'")
+        self.decode_impl = decode_impl
+        # the captured decode loop, or None where the loop runs eagerly
+        self.graphs = (DecodeGraphs(self) if decode_impl == "graph"
+                       or (decode_impl == "auto" and on_cuda and not sharded) else None)
 
     def sibling(self, **kwargs) -> "LMEngine":
         """A new engine sharing these weights as they are (head gathered,
         quantized), with this one's cache length, frame budget, prompt
-        buckets, dtype, device, quantization and mesh, and `kwargs` for
-        the rest (batch_size, rep_pen_window, dynamic_sampling, ...)."""
+        buckets, dtype, device, quantization, decode loop and mesh, and
+        `kwargs` for the rest (batch_size, rep_pen_window, dynamic_sampling, ...)."""
         base = dict(cache_len=self.cache_len, max_frames=self.max_frames,
                     prompt_buckets=self.prompt_buckets, dtype=self.dtype, device=self.device,
-                    quantize_int8=self.quantize_int8, mesh=self.mesh)
+                    quantize_int8=self.quantize_int8, decode_unroll=self.decode_unroll,
+                    decode_impl=self.decode_impl, mesh=self.mesh)
         return LMEngine(self.params, self.cfg, self.token_cfg, self.lm, **{**base, **kwargs},
                         _params_preprocessed=True)
 
@@ -596,53 +672,160 @@ class LMEngine:
             prev=frame, rep_pen=res.rep_pen, done=state.done | res.is_eos)
         return state, frame, hidden
 
-    @torch.inference_mode()
-    def decode_chunk(self, state: GenState, sampling: SamplingArgs, horizon: int,
-                     max_steps: Optional[int] = None):
-        """Decode up to `horizon` frames (at most max_steps) for the whole
-        batch without reading the device. Returns (state, out (horizon,
-        B, C+1), valid (horizon, B), steps), all on the device.
+    def _skey(self, sampling: SamplingArgs):
+        """The sampling's part of a captured loop's key: dynamic engines
+        read every knob from GenState.samp, so one loop serves them all
+        (the JAX engine's `_skey`)."""
+        return None if self.dynamic_sampling else sampling
 
-        valid[i, b] is false where row b was done before frame i or emits
-        <|im_end|> there. steps is where the JAX decode loop stops: at
-        max_steps, or after the frame in which every row of the whole
-        batch is done (0 when all are done already). The frames past
-        `steps` still run, and are invalid EOS frames; the carried state
-        is the JAX loop's up to those dead frames' positions, which do not
-        move. out and valid are this rank's rows."""
-        n = horizon if max_steps is None else max(min(max_steps, horizon), 0)
-        b, c = self.local_batch, self.cfg.num_codebooks
+    def _decode_body(self, state: GenState, sampling: SamplingArgs, horizon: int,
+                     limit: torch.Tensor, collect_hidden: bool, masked: bool):
+        """The decode loop's work, the same for the eager loop and the CUDA
+        graph that captures it (`generate/graph.py`): `horizon` frames, in
+        iterations of decode_unroll, of which the first `limit` (a () int64
+        tensor on the device, the JAX loop's max_steps) count. masked:
+        whether a frame can lie at or past the limit (a tail sub-step of
+        the last iteration); such a frame writes no out/valid/hidden, and
+        pos, prev, the rep-pen tokens and done keep their values (only the
+        noise streams advance; a static rep-pen window's ptr is set by
+        `_decode`). Returns (state, out (horizon, B, C+1), valid (horizon,
+        B), steps, hidden (horizon, B, D) float32 or None).
+
+        steps is where the JAX loop stops (engine.py:585-711): at the
+        first multiple of the unroll at which every row of the whole batch
+        is done or the limit is reached, clamped to the limit. The frames'
+        outputs are stacked once a chunk, not written frame by frame."""
         dev = self.device
-        out = torch.zeros((horizon, b, c + 1), dtype=torch.int32, device=dev)
-        valid = torch.zeros((horizon, b), dtype=torch.bool, device=dev)
-        all_done = torch.zeros((n + 1,), dtype=torch.bool, device=dev)
-        all_done[0] = state.done.all()
-        for i in range(n):
-            was_done = state.done
-            state, frame = self.decode_step(state, sampling)
-            out[i] = frame
-            valid[i] = ~was_done & (frame[:, 0] != self.token_cfg.im_end_id)
-            all_done[i + 1] = state.done.all()
+        frames, dones, hiddens = [], [state.done], []
+        for i in range(horizon):
+            was = state
+            state, frame, hidden = self._step(state, sampling)
+            if masked:
+                keep = limit > i
+                state = state._replace(
+                    pos=torch.where(keep, state.pos, was.pos),
+                    prev=torch.where(keep, state.prev, was.prev),
+                    rep_pen=state.rep_pen._replace(
+                        tokens=torch.where(keep, state.rep_pen.tokens, was.rep_pen.tokens)),
+                    done=torch.where(keep, state.done, was.done))
+            frames.append(frame)
+            dones.append(state.done)
+            hiddens.append(hidden)
+        out = torch.stack(frames)
+        done = torch.stack(dones)  # (horizon + 1, B): before each frame, then after the last
+        valid = ~done[:-1] & (out[:, :, 0] != self.token_cfg.im_end_id)
+        hid = torch.stack(hiddens).float() if collect_hidden else None
+        if masked:
+            live = torch.arange(horizon, device=dev)[:, None] < limit
+            valid &= live
+            out = torch.where(live[..., None], out, 0)
+            hid = None if hid is None else torch.where(live[..., None], hid, 0.0)
+        all_done = done.all(dim=1)
         if self.rows_split:  # every dp rank's rows done: no rank has one left
             left = (~all_done).to(torch.int64)
             torch.distributed.all_reduce(left, group=self.mesh.get_group("dp"))
             all_done = left == 0
-        steps = torch.where(all_done.any(), torch.argmax(all_done.to(torch.uint8)),
-                            torch.full((), n, dtype=torch.int64, device=dev))
-        return state, out, valid, steps
+        u = self.decode_unroll
+        stops = all_done[::u] | (torch.arange(0, horizon + 1, u, device=dev) >= limit)
+        steps = torch.minimum(torch.argmax(stops.to(torch.uint8)) * u, limit)
+        return state, out, valid, steps, hid
+
+    @torch.inference_mode()
+    def _decode(self, state: GenState, sampling: SamplingArgs, horizon: int,
+                max_steps: Optional[int] = None, collect_hidden: bool = False):
+        """decode_chunk, also returning the hidden trace (horizon, B, D)
+        float32 where collect_hidden (else None). The noise streams advance
+        by the frames of the JAX loop's iterations up to max_steps, run =
+        min(max_steps, horizon) rounded up to the unroll: the eager loop
+        runs those frames; where the engine has graphs (`self.graphs`), a
+        replay of the captured loop of the whole horizon (max_steps its
+        operand, the frames past it masked) stands for them. The outputs
+        past `run` are zeros."""
+        u = self.decode_unroll
+        if horizon % u:
+            raise ValueError(f"decode_chunk horizon {horizon} must be a multiple of "
+                             f"decode_unroll={u}: the carried state would run ahead of the "
+                             "reported frames")
+        n = horizon if max_steps is None else max(min(max_steps, horizon), 0)
+        run = -(-n // u) * u
+        ptr = state.rep_pen.ptr
+        b, c, dev = self.local_batch, self.cfg.num_codebooks, self.device
+        if run == 0:  # no frame: nothing to run or capture
+            out = torch.zeros((0, b, c + 1), dtype=torch.int32, device=dev)
+            valid = torch.zeros((0, b), dtype=torch.bool, device=dev)
+            steps = torch.zeros((), dtype=torch.int64, device=dev)
+            hid = (torch.zeros((0, b, self.cfg.dim), dtype=torch.float32, device=dev)
+                   if collect_hidden else None)
+        elif self.graphs is not None:
+            state, out, valid, steps, hid = self.graphs.run(state, sampling, horizon, n, run,
+                                                            collect_hidden)
+        else:
+            limit = torch.full((), n, dtype=torch.int64, device=dev)
+            state, out, valid, steps, hid = self._decode_body(state, sampling, run, limit,
+                                                              collect_hidden, n < run)
+        if out.shape[0] < horizon:
+            pad = horizon - out.shape[0]
+            out = torch.cat([out, out.new_zeros((pad, b, c + 1))])
+            valid = torch.cat([valid, valid.new_zeros((pad, b))])
+            hid = None if hid is None else torch.cat([hid, hid.new_zeros((pad, b, hid.shape[2]))])
+        # the window took the pushes of the frames that count
+        if pushes_rep_pen(self.cfg, sampling, self.dynamic_sampling):
+            ptr = (ptr + n) % state.rep_pen.tokens.shape[-1]
+        return state._replace(rep_pen=state.rep_pen._replace(ptr=ptr)), out, valid, steps, hid
+
+    def decode_chunk(self, state: GenState, sampling: SamplingArgs, horizon: int,
+                     max_steps: Optional[int] = None):
+        """Decode up to `horizon` frames (a multiple of decode_unroll), at
+        most max_steps (default all), for the whole batch without reading
+        the device. Returns (state, out (horizon, B, C+1),
+        valid (horizon, B), steps), all on the device. The state given is
+        consumed: its cache and noise streams are updated in place.
+
+        valid[i, b] is false where row b was done before frame i, emits
+        <|im_end|> there, or i >= max_steps. steps is where the JAX decode
+        loop stops: at max_steps, or at the first multiple of the unroll
+        at which every row of the whole batch is done (0 when all are done
+        already). The frames of the JAX loop's iterations up to
+        max_steps run, min(max_steps, horizon) rounded up to the unroll,
+        also past `steps` (a CUDA graph runs a fixed number of frames):
+        those are invalid, and a tail sub-step past max_steps leaves the
+        state as it was but for the noise streams, which advance alike
+        under the graph and eagerly. max_steps < horizon serves a
+        budget-cut chunk with the horizon's own graph. out and valid are
+        this rank's rows."""
+        return self._decode(state, sampling, horizon, max_steps)[:4]
+
+    def chunk_plan(self, budget: int) -> List[Tuple[int, int]]:
+        """generate()'s chunks for `budget` frames: (horizon, frames that
+        count) each, all of horizon generate_chunk, the last one cut to what
+        is left (so every budget replays the same two graphs). A run that
+        finishes stops issuing one chunk after the chunk that shows it
+        done."""
+        g = self.generate_chunk
+        return [(g, min(g, budget - k)) for k in range(0, budget, g)]
 
     # -- generation -------------------------------------------------------
 
     def generate(self, prompt: np.ndarray, *, max_new_tokens: int = 1024,
                  sampling: Optional[SamplingArgs] = None,
                  state: Optional[GenState] = None, conditioning_offset: int = 0,
-                 seed: Optional[int] = None,
-                 collect_hidden: bool = False) -> Tuple[GenerationResult, GenState]:
+                 seed: Optional[int] = None, collect_hidden: bool = False,
+                 profile: bool = False) -> Tuple[GenerationResult, GenState]:
         """Blocking generation for one (C+1, S) prompt on a batch-1 engine.
         Returns codebook rows (C, T) and the semantic row; the first frame
         is always kept, even if it is EOS. collect_hidden: also return
         the slow hidden state each kept frame was drawn from, (T, D)
-        float32."""
+        float32.
+
+        The decode runs in chunks (`chunk_plan`), each issued before the
+        previous one's outputs are read: they are copied to the host behind
+        it (`device.Fetch`), so the host reads the device once a chunk and
+        once for the first frame, and stops issuing once a read shows the
+        row done. profile=False (default): the first chunk is issued right
+        behind the prefill with no sync between them, and prefill_s times
+        the prefill's dispatch only; profile=True syncs after the prefill
+        for the true phase split (the JAX engine's flag, l.1111-1146; the
+        CLI passes it)."""
         if self.batch_size != 1:
             raise ValueError("generate() drives batch-1 engines; use generate_batch")
         sampling = sampling or SamplingArgs()
@@ -653,11 +836,11 @@ class LMEngine:
         prompt = np.asarray(prompt)
         prompt_len = prompt.shape[-1]
         t0 = time.perf_counter()
-        state, first, _, first_hidden = self._prefill_raw(state, prompt, sampling,
-                                                          offset=conditioning_offset)
-        frames: List[torch.Tensor] = [first[0]]
-        hiddens: List[torch.Tensor] = [first_hidden[0]]
-        self._sync()
+        state, first, first_eos, first_hidden = self._prefill_raw(state, prompt, sampling,
+                                                                  offset=conditioning_offset)
+        head = Fetch([first, first_eos] + ([first_hidden.float()] if collect_hidden else []))
+        if profile:
+            head = head.get()
         prefill_s = time.perf_counter() - t0
 
         budget = max(min(
@@ -666,17 +849,40 @@ class LMEngine:
             self.cache_len - (conditioning_offset + prompt_len) - 1,
         ), 0)
         t1 = time.perf_counter()
+        plan = self.chunk_plan(budget)
+        pending: List[Fetch] = []
+
+        def issue(state):
+            horizon, n = plan[len(pending)]
+            state, out, valid, steps, hid = self._decode(state, sampling, horizon, n,
+                                                         collect_hidden)
+            pending.append(Fetch([out, valid, steps, state.done]
+                                 + ([hid] if hid is not None else [])))
+            return state
+
+        if plan:
+            state = issue(state)
+        if not profile:
+            head = head.get()
+        frames: List[np.ndarray] = [head[0][0]]
+        hiddens: List[np.ndarray] = [head[2][0]] if collect_hidden else []
+        done = bool(head[1][0])
         steps = 0
-        done = bool(state.done[0])
-        while steps < budget and not done:
-            state, frame, hidden = self._step(state, sampling)
-            steps += 1
-            done = bool(state.done[0])  # one host sync per frame
-            if int(frame[0, 0]) != self.token_cfg.im_end_id:
-                frames.append(frame[0])
-                hiddens.append(hidden[0])
-        stacked = torch.stack(frames, dim=1).cpu().numpy()  # (C+1, T)
-        hidden = torch.stack(hiddens).float().cpu().numpy() if collect_hidden else None
+        for k in range(len(plan)):
+            if k + 1 < len(plan) and not done:
+                state = issue(state)  # the next chunk, before this one is read
+            out, valid, n, done_k, *hid = pending[k].get()
+            n = int(n)
+            for i in range(n):
+                if valid[i, 0]:
+                    frames.append(out[i, 0])
+                    if collect_hidden:
+                        hiddens.append(hid[0][i, 0])
+            steps += n
+            done = bool(done_k[0])
+            if done:
+                break
+        stacked = np.stack(frames, axis=1)  # (C+1, T)
         decode_s = time.perf_counter() - t1
         result = GenerationResult(
             tokens=stacked[1:],
@@ -686,7 +892,7 @@ class LMEngine:
             prefill_s=prefill_s,
             decode_s=decode_s,
             prompt_tokens=prompt_len,
-            hidden=hidden,
+            hidden=np.stack(hiddens) if collect_hidden else None,
         )
         return result, state
 
@@ -696,8 +902,9 @@ class LMEngine:
         """Blocking generation for a fixed batch of ragged (C+1, S_i)
         prompts, len(prompts) == batch_size: rows are right-padded and
         keep their own positions; a row that ends keeps emitting EOS
-        frames without advancing. One prefill, one decode chunk of the
-        whole budget, one fetch. Returns one GenerationResult per row."""
+        frames without advancing. One prefill, the budget's chunks
+        (`chunk_plan`) issued back to back, one fetch. Returns one
+        GenerationResult per row."""
         b = self.batch_size
         if len(prompts) != b:
             raise ValueError(f"generate_batch: {len(prompts)} prompts, engine batch {b}")
@@ -718,14 +925,25 @@ class LMEngine:
         prefill_s = time.perf_counter() - t0
         budget = max(min(max_new_tokens - 1, self.max_frames, self.cache_len - max(lens) - 1), 0)
         t1 = time.perf_counter()
-        state, out, valid, steps = self.decode_chunk(state, sampling, budget)
-        out, valid, steps, done, first = (t.cpu().numpy() for t in (
-            out, valid, steps, state.done, first))
+        outs, valids, steps = [], [], torch.zeros((), dtype=torch.int64, device=self.device)
+        for horizon, n in self.chunk_plan(budget):
+            # a chunk that starts with every row done stops at 0 steps
+            state, out, valid, chunk_steps = self.decode_chunk(state, sampling, horizon, n)
+            outs.append(out)
+            valids.append(valid)
+            steps = steps + chunk_steps
+        if not outs:  # no budget
+            outs.append(torch.zeros((0, b, self.cfg.num_codebooks + 1), dtype=torch.int32,
+                                    device=self.device))
+            valids.append(torch.zeros((0, b), dtype=torch.bool, device=self.device))
+        out, valid = torch.cat(outs), torch.cat(valids)
+        out, valid, steps, done, first = Fetch([out, valid, steps, state.done, first]).get()
         steps = int(steps)
         decode_s = time.perf_counter() - t1
         results = []
         for r in range(b):
-            kept = [out[i, r] for i in range(steps) if valid[i, r]]
+            # valid is false past max_steps and for rows done
+            kept = [out[i, r] for i in range(out.shape[0]) if valid[i, r]]
             row = np.stack([first[r]] + kept, axis=1)  # (C+1, T_r)
             results.append(GenerationResult(
                 tokens=row[1:], semantic=row[0], frames=row.shape[1],
@@ -741,7 +959,9 @@ class LMEngine:
         program per shape, so one prefill builds the path) at each
         conditioning offset (each distinct (bucket, attention extent)
         once; offsets whose bucket does not fit the cache are skipped),
-        one decode frame, and one decode chunk of each of chunk_horizons."""
+        one decode frame (decode_unroll frames), and one decode chunk of
+        each of chunk_horizons; on an engine with CUDA graphs each chunk
+        captures its loop, so no request pays for a capture."""
         sampling = sampling or SamplingArgs()
         prompt_rows = self.cfg.num_codebooks + 1
         seen = set()
@@ -757,7 +977,7 @@ class LMEngine:
                 self._sync()
                 logger.info("warmup prefill bucket %d (offset %d): %.2fs", bucket, cond,
                             time.perf_counter() - t0)
-        for horizon in (1, *chunk_horizons):
+        for horizon in (self.decode_unroll, *chunk_horizons):
             t0 = time.perf_counter()
             self.decode_chunk(self.init_state(seed=0), sampling, horizon)
             self._sync()

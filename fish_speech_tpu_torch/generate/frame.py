@@ -210,6 +210,14 @@ def sample_semantic(logits: torch.Tensor, lm: WhichLM, token_cfg: TokenConfig,
     ).to(torch.int32)
 
 
+def pushes_rep_pen(cfg: DualARConfig, sampling: SamplingArgs, dynamic: bool) -> bool:
+    """Whether a decode frame pushes the previous frame into the rep-pen
+    window (and penalises): dynamic engines every frame (rows at penalty
+    1.0 divide by 1.0), static ones at a penalty other than 1.0; never
+    with depthwise_wte."""
+    return not cfg.depthwise_wte and (dynamic or sampling.repetition_penalty != 1.0)
+
+
 class FrameResult(NamedTuple):
     tokens: torch.Tensor  # (B, C+1) int32: semantic + codebook rows
     is_eos: torch.Tensor  # (B,) bool
@@ -245,8 +253,7 @@ def generate_frame(params, cfg: DualARConfig, token_cfg: TokenConfig, lm: WhichL
     is_eos = semantic == token_cfg.im_end_id
 
     # push the previous frame's codebook tokens, then penalise
-    rep_pen_enabled = not cfg.depthwise_wte and (
-        dynamic or sampling.repetition_penalty != 1.0)
+    rep_pen_enabled = pushes_rep_pen(cfg, sampling, dynamic)
     if prev_tokens is not None and rep_pen_enabled:
         rep_pen = rep_pen.push(prev_tokens[:, 1:])
 

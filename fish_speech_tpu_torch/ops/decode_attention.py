@@ -12,7 +12,7 @@ import dataclasses
 
 import torch
 
-from fish_speech_tpu_torch.ops import _cuda_build
+from fish_speech_tpu_torch.ops import _cuda_build, launch_count
 from fish_speech_tpu_torch.ops.attention import decode_mask, gqa_attention
 
 launches = 0  # kernel launches since the last reset (set to 0 to reset)
@@ -106,8 +106,7 @@ def decode_attention(q, k_new, v_new, pos, ck, cv, layer: int):
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _cuda_build.check(rc, "fs_decode_attention")
-    global launches
-    launches += 1
+    launch_count.add(__name__, launches=1)
     return out
 
 

@@ -21,7 +21,7 @@ import torch
 
 from fish_speech_tpu_torch.config import DualARConfig
 from fish_speech_tpu_torch.models.dual_ar import fast_embed, fast_hist_init, fast_step
-from fish_speech_tpu_torch.ops import _cuda_build, decode_stack
+from fish_speech_tpu_torch.ops import _cuda_build, decode_stack, launch_count
 from fish_speech_tpu_torch.ops.quant import is_quantized
 from fish_speech_tpu_torch.ops.sampling import (
     RepPenWindow, SamplingArgs, sample_top_k_top_p, top_k_width)
@@ -113,9 +113,7 @@ def fused_fast_frame(params, cfg: DualARConfig, sampling: SamplingArgs, hidden,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda_build.check(rc, "fs_fast_frame")
-    global launches, int8_launches
-    launches += 1
-    int8_launches += int(scales[0] is not None)
+    launch_count.add(__name__, launches=1, int8_launches=int(scales[0] is not None))
     return (tokens, logits_buf) if return_logits else tokens
 
 

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from fish_speech_tpu_torch.config import DualARConfig
 from fish_speech_tpu_torch.models.dual_ar import fast_embed, fast_hist_init, fast_step
-from fish_speech_tpu_torch.ops import _cuda_build, decode_stack
+from fish_speech_tpu_torch.ops import _cuda_build, decode_stack, launch_count
 from fish_speech_tpu_torch.ops.fast_frame import MAX_WINDOW
 from fish_speech_tpu_torch.ops.norms import rms_norm
 from fish_speech_tpu_torch.ops.quant import is_quantized
@@ -174,8 +174,7 @@ def rows_gemm(mode: str, x, w, norm_w=None, w_b=None, eps: float = 1e-6, out=Non
         None if mode == "head" else out.data_ptr(), out.data_ptr() if mode == "head" else None,
         torch.cuda.current_stream(x.device).cuda_stream)
     _cuda_build.check(rc, "fs_rows_gemm")
-    global rows_gemm_launches
-    rows_gemm_launches += 1
+    launch_count.add(__name__, rows_gemm_launches=1)
     return out
 
 
@@ -264,9 +263,7 @@ def fused_fast_frame_batched(params, cfg: DualARConfig, samp: RowSampling, hidde
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda_build.check(rc, "fs_fast_frame_batched")
-    global launches, int8_launches
-    launches += 1
-    int8_launches += int(scales[0] is not None)
+    launch_count.add(__name__, launches=1, int8_launches=int(scales[0] is not None))
     return (tokens, logits_buf) if return_logits else tokens
 
 

@@ -25,7 +25,7 @@ import functools
 
 import torch
 
-from fish_speech_tpu_torch.ops import _cuda_build
+from fish_speech_tpu_torch.ops import _cuda_build, launch_count
 from fish_speech_tpu_torch.ops.attention import NEG_INF, causal_mask, gqa_attention
 
 launches = 0  # kernels launched since the last reset (set to 0 to reset): two a call
@@ -191,8 +191,7 @@ def prefill_attention(q, k, v, offset: int, seq_lens, window: int):
         k.stride(1), int(offset), int(window), 1.0 / hd**0.5, sms,
         torch.cuda.current_stream(q.device).cuda_stream, ctypes.byref(launched),
     )
-    global launches
-    launches += launched.value
+    launch_count.add(__name__, launches=launched.value)
     _cuda_build.check(rc, "fs_prefill_attention")
     return out
 

@@ -36,7 +36,7 @@ import torch
 
 from fish_speech_tpu_torch.config import DualARConfig
 from fish_speech_tpu_torch.models.dual_ar import _attn_out_ffn, _layer, _project_qkv
-from fish_speech_tpu_torch.ops import _cuda_build, decode_stack
+from fish_speech_tpu_torch.ops import _cuda_build, decode_stack, launch_count
 from fish_speech_tpu_torch.ops.decode_attention import decode_attention_plain
 from fish_speech_tpu_torch.ops.norms import rms_norm
 from fish_speech_tpu_torch.ops.quant import is_quantized
@@ -228,9 +228,7 @@ def fused_slow_step(params, cfg: DualARConfig, x0, pos, ck, cv, rope, *, head_ro
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _cuda_build.check(rc, "fs_slow_step")
-    global launches, int8_launches
-    launches += 1
-    int8_launches += int(scales[0] is not None)
+    launch_count.add(__name__, launches=1, int8_launches=int(scales[0] is not None))
     return logits, hidden
 
 
@@ -279,9 +277,8 @@ def _rows_step(params, cfg, x0, pos, ck, cv, cos_t, sin_t, weights, scales, head
         bsz, n_layer, d, cfg.n_head, kv, f, w, head_rows.shape[1], s, plan.scratch_bytes,
         float(cfg.norm_eps), torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched),
     )
-    global rows_launches, rows_int8_launches
-    rows_launches += launched.value
-    rows_int8_launches += launched.value if scales[0] is not None else 0
+    launch_count.add(__name__, rows_launches=launched.value,
+                     rows_int8_launches=launched.value if scales[0] is not None else 0)
     _cuda_build.check(rc, "fs_slow_step_rows")
     return logits, hidden
 

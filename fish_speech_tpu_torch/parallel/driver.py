@@ -14,7 +14,7 @@ holding its shard, so rank 0 (which serves) drives the others:
 
 Each call that touches the decode state (`init_state`, `rewind`,
 `with_sampling`, `with_rng`, `prefill_rows`, `_prefill_raw`, `_step`,
-`decode_chunk`, and `logits`) goes from rank 0 to every rank by one
+`decode_chunk`, `_decode` and `logits`) goes from rank 0 to every rank by one
 broadcast on the control group (gloo, on the CPU: its name and its small
 arguments, with fresh seeds already drawn), before rank 0 runs it. Every
 rank then runs it on its engine and its state, and the rows that dp
@@ -57,7 +57,7 @@ logger = logging.getLogger(__name__)
 
 _STOP, _NOOP = "stop", "noop"
 _RETURNS_STATE = {"init_state", "rewind", "with_sampling", "with_rng", "prefill_rows",
-                  "_prefill_raw", "_step", "decode_chunk"}
+                  "_prefill_raw", "_step", "decode_chunk", "_decode"}
 
 
 class _Ref:
@@ -173,6 +173,13 @@ class _Executor:
         lo, b = eng.rows[0], eng.batch_size
         return (state, self._rows(eng, out, lo, b, axis=1), self._rows(eng, valid, lo, b, axis=1),
                 steps)
+
+    def _decode(self, eng, state, sampling, horizon, max_steps=None, collect_hidden=False):
+        state, out, valid, steps, hid = eng._decode(state, sampling, horizon, max_steps,
+                                                    collect_hidden)
+        lo, b = eng.rows[0], eng.batch_size
+        return (state, self._rows(eng, out, lo, b, axis=1), self._rows(eng, valid, lo, b, axis=1),
+                steps, None if hid is None else self._rows(eng, hid, lo, b, axis=1))
 
     def logits(self, eng, _, hidden):
         return eng.logits(hidden.to(eng.device))
@@ -345,6 +352,11 @@ class ShardedEngine:
 
     def decode_chunk(self, state, sampling, horizon: int, max_steps: Optional[int] = None):
         return self._call("decode_chunk", state, sampling, horizon, max_steps=max_steps)
+
+    def _decode(self, state, sampling, horizon: int, max_steps: Optional[int] = None,
+                collect_hidden: bool = False):
+        return self._call("_decode", state, sampling, horizon, max_steps=max_steps,
+                          collect_hidden=collect_hidden)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return self._call("logits", None, hidden)

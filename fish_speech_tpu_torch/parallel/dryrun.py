@@ -328,6 +328,8 @@ def serving_job(mesh, spec: dict) -> dict:
 
     device = torch.device(spec["device"])
     cfg = spec["cfg"]
+    if spec.get("load") is not None:
+        return _loaded_serving_job(mesh, spec, device)
     params = shard_lm_params(_params(spec, device), mesh, cfg)
     engine = LMEngine(params, cfg, spec["token_cfg"], spec["lm"], dtype=spec["dtype"],
                       device=device, mesh=mesh, **spec.get("engine", {}))
@@ -352,6 +354,42 @@ def serving_job(mesh, spec: dict) -> dict:
     return out
 
 
+def _loaded_serving_job(mesh, spec: dict, device: torch.device) -> dict:
+    """serving_job on the pipeline every rank loads from a checkpoint
+    directory, `TTSPipeline.load(spec["load"]["checkpoint"], mesh=)`:
+    spec["load"] holds quantize_int8, cache_len and codec_config (the
+    Firefly config of the directory's codec, in place of the version's)."""
+    from fish_speech_tpu_torch.config import FireflyConfig, WhichModel
+    from fish_speech_tpu_torch.ops.quant import QUANT_KEYS, is_quantized
+    from fish_speech_tpu_torch.pipeline import TTSPipeline
+
+    load = spec["load"]
+    if load.get("codec_config") is not None:  # this job's own process
+        FireflyConfig.for_version = staticmethod(lambda version: load["codec_config"])
+    _reset_counts()
+    pipeline = TTSPipeline.load(load["checkpoint"], WhichModel(load["model"]),
+                                lm_dtype=spec["dtype"], cache_len=load.get("cache_len"),
+                                quantize_int8=load.get("quantize_int8", False), device=device,
+                                mesh=mesh)
+    if pipeline is None:  # a follower: rank 0 closed the driver
+        return {"calls": None, "launches": _launch_counts(), "foreign_modules": foreign_modules()}
+    lead = pipeline.engine
+    try:
+        out = {name: PARTS[part.get("kind", name)](lead, part)
+               for name, part in spec["parts"].items()}
+    finally:
+        pipeline.close()
+    engine = lead._local
+    wqkv = engine.params["slow"]["wqkv"]
+    out.update(launches=_launch_counts(), foreign_modules=foreign_modules(),
+               quantize_int8=engine.quantize_int8,
+               quantized_stacks=all(is_quantized(engine.params[st][k])
+                                    for st in ("slow", "fast") for k in QUANT_KEYS),
+               local_heads=(wqkv["q"] if is_quantized(wqkv) else wqkv).shape[-1]
+               // spec["cfg"].head_dim)
+    return out
+
+
 def serving_dryrun(dp: int, tp: int, spec: dict, *, device: str = "cuda",
                    backend: Optional[str] = None,
                    timeout_s: float = WORLD_TIMEOUT_S) -> dict:
@@ -360,7 +398,9 @@ def serving_dryrun(dp: int, tp: int, spec: dict, *, device: str = "cuda",
     spec: cfg, token_cfg, lm, dtype, params (a numpy tree) or seed (random
     weights, with zero_head_columns zeroed), engine (the base engine's
     keyword arguments: batch_size 1 by default), parts ({name: part}, a
-    part of `PARTS[part.get("kind", name)]`), timeout_s (the driver's)."""
+    part of `PARTS[part.get("kind", name)]`), timeout_s (the driver's);
+    or, in place of params, seed and engine, load: the base engine is the
+    pipeline's that every rank loads (`_loaded_serving_job`)."""
     from fish_speech_tpu_torch.device import resolve_device
 
     spec = dict(spec, device=resolve_device(device).type)

@@ -55,6 +55,7 @@ from fish_speech_tpu_torch.generate.continuous import (
     ContinuousBatcher, _Fetch, _PartialFrames, _PartialPCM)
 from fish_speech_tpu_torch.generate.engine import GenerationResult, LMEngine
 from fish_speech_tpu_torch.generate.overlap import generate_vocode_overlapped, output_shift
+from fish_speech_tpu_torch.ops.quant import quantize_lm_params
 from fish_speech_tpu_torch.ops.sampling import BATCHED_REP_PEN_WINDOW, SamplingArgs
 from fish_speech_tpu_torch.parallel.distributed import coords
 from fish_speech_tpu_torch.parallel.mesh import shard_lm_params
@@ -125,7 +126,9 @@ class TTSPipeline:
         count. codec_file: the codec's weights elsewhere.
 
         mesh: a (dp, tp) mesh (`parallel.distributed.make_mesh`); every
-        rank calls `load`, and each takes its shard of the LM. On a mesh
+        rank calls `load`, and each takes its shard of the LM (under tp
+        with quantize_int8, the shard of the tree quantized whole, as the
+        JAX pipeline runs it, pipeline.py:132-140). On a mesh
         of more than one rank, rank 0 gets the pipeline, whose engine
         drives every rank's; the other ranks follow its engine calls here
         until it is closed, and then get None."""
@@ -143,8 +146,13 @@ class TTSPipeline:
         tokenizer = load_tokenizer(ckpt / "tokenizer.json")
         token_cfg = TokenConfig.from_tokenizer(lm, tokenizer, cfg)
         t0 = time.perf_counter()
-        params = shard_lm_params(load_lm_params(ckpt, cfg, dtype=lm_dtype, device=device), mesh,
-                                 cfg)
+        params = load_lm_params(ckpt, cfg, dtype=lm_dtype, device=device)
+        if quantize_int8 and coords(mesh).tp > 1:
+            # a row-split weight's scales need its whole column: quantize the
+            # whole tree, then shard it (the quantization leaves the head,
+            # which the engine gathers, as it is)
+            params = quantize_lm_params(params)
+        params = shard_lm_params(params, mesh, cfg)
         engine = LMEngine(params, cfg, token_cfg, lm, cache_len=cache_len, dtype=lm_dtype,
                           quantize_int8=quantize_int8, device=device, mesh=mesh)
         del params

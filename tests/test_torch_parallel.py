@@ -16,6 +16,11 @@ float32 weights from `init_dual_ar_params` converted through numpy:
   recorded and replayed in the ranks): codes exact across dp;
 * the sharded continuous batcher against the serial JAX engine
   (test_sharded_continuous_batcher_matches_serial);
+* a tp = 2 world whose ranks load one checkpoint directory through
+  `TTSPipeline.load(mesh=, quantize_int8=True)`: the unsharded int8
+  engine's tokens (the JAX pipeline runs int8 under tp, pipeline.py:
+  132-140; the port's engine raised there), and a bf16 tp shard with
+  quantize_int8=True still refused;
 * the shard specs, leaf by leaf against the JAX specs, with wqkv split by
   head; `initialize_distributed`'s no-op cases and the nccl error;
 * the server built with --shard 2 --tp 2 (`server_dryrun`): a request
@@ -136,6 +141,33 @@ def _seeded_batcher(inputs):
                                seed=40 + i) for i, p in enumerate(inputs["serial"])])
 
 
+def _write_checkpoint(d, tc, tree):
+    """A checkpoint directory of `tree` for TTSPipeline.load: the LM in the
+    upstream names, config.json, a word-level tokenizer.json with TOK's
+    ids, and the tiny Firefly codec of tests/test_torch_checkpoint.py
+    (seed 1); returns that codec's config, for the ranks to load it by."""
+    import dataclasses
+    import json
+
+    from tokenizers import Tokenizer, models
+
+    from fish_speech_tpu_torch.io.checkpoint import save_firefly_params, save_lm_params
+    from fish_speech_tpu_torch.models.codec.firefly import init_firefly_params
+    from test_torch_checkpoint import codec_cfgs
+
+    save_lm_params(d / "model.safetensors", dual_ar_params_from_numpy(tree), tc)
+    (d / "config.json").write_text(json.dumps(dataclasses.asdict(tc)))
+    vocab = {"<unk>": 0, "<|semantic|>": TOK["pad_id"], "<|im_end|>": TOK["im_end_id"]}
+    vocab.update({f"<|semantic:{i}|>": TOK["semantic_start_id"] + i
+                  for i in range(tc.codebook_size)})
+    Tokenizer(models.WordLevel(vocab, unk_token="<unk>")).save(str(d / "tokenizer.json"))
+    codec_cfg = codec_cfgs("1.5")[1]
+    save_firefly_params(d / "firefly-gan-vq-fsq-8x1024-21hz-generator.safetensors",
+                        init_firefly_params(codec_cfg, seed=1, dtype=torch.float32,
+                                            device="cpu"), codec_cfg)
+    return codec_cfg
+
+
 def _int8_tree(tree):
     """The tree with its stacks quantized whole (the port's quantizer), as
     numpy: what a quantized checkpoint gives every rank to shard."""
@@ -150,15 +182,26 @@ def _int8_tree(tree):
 
 
 @pytest.fixture(scope="module")
-def worlds(setup):
-    """Rank 0's results of one world a (dp, tp), and of a tp = 2 world on
-    the int8 tree ("int8")."""
+def worlds(setup, tmp_path_factory):
+    """Rank 0's results of one world a (dp, tp), of a tp = 2 world on the
+    int8 tree ("int8"), and of a tp = 2 world whose ranks load the tree
+    from a checkpoint directory through TTSPipeline.load(quantize_int8=
+    True) ("int8_load"), which quantizes it whole and takes each rank's
+    shard."""
     _, tc, _, tree, inputs = setup
     spec = _spec(tc, tree, inputs)
     out = {w: dryrun.serving_dryrun(*w, spec, device="cpu", timeout_s=WORLD_TIMEOUT_S)
            for w in WORLDS}
     int8 = dict(spec, params=_int8_tree(tree), parts={"frames": spec["parts"]["frames"]})
     out["int8"] = dryrun.serving_dryrun(1, 2, int8, device="cpu", timeout_s=WORLD_TIMEOUT_S)
+    d = tmp_path_factory.mktemp("int8_ckpt")
+    codec_cfg = _write_checkpoint(d, tc, tree)
+    frames = dict(spec["parts"]["frames"], engine=dict(BASE, batch_size=B))
+    loaded = dict(spec, params=None, parts={"frames": frames},
+                  load=dict(checkpoint=str(d), model="1.5", quantize_int8=True,
+                            cache_len=BASE["cache_len"], codec_config=codec_cfg))
+    out["int8_load"] = dryrun.serving_dryrun(1, 2, loaded, device="cpu",
+                                             timeout_s=WORLD_TIMEOUT_S)
     return out
 
 
@@ -226,6 +269,35 @@ def test_tp_on_an_int8_tree_matches_unsharded(worlds, references):
     np.testing.assert_array_equal(got["frames"], ref["frames"])
     np.testing.assert_allclose(got["logits"], ref["logits"], rtol=1e-5,
                                atol=1e-5 * np.abs(ref["logits"]).max())
+
+
+def test_pipeline_load_int8_under_tp(worlds, references):
+    """TTSPipeline.load(mesh=<tp = 2>, quantize_int8=True) loads (the
+    port's engine raised for int8 under tp, where the JAX pipeline runs
+    it, pipeline.py:132-140 and engine.py:161-167): each rank holds int8
+    stacks with its half of the q, k and v heads, its engine says
+    quantize_int8 for its siblings, and the tokens on the same seed are the
+    unsharded int8 engine's, logits within 1e-5 relative."""
+    got = worlds["int8_load"]
+    assert got["quantize_int8"] and got["quantized_stacks"]
+    assert got["local_heads"] == (KW["n_head"] + 2 * KW["n_local_heads"]) // 2
+    ref = references["int8"]
+    np.testing.assert_array_equal(got["frames"]["frames"], ref["frames"])
+    np.testing.assert_allclose(got["frames"]["logits"], ref["logits"], rtol=1e-5,
+                               atol=1e-5 * np.abs(ref["logits"]).max())
+    assert got["foreign_modules"] == []
+
+
+def test_engine_refuses_a_bf16_shard_with_quantize_int8(setup):
+    """A rank cannot quantize a row-split weight alone: the engine still
+    refuses a bf16 tp shard with quantize_int8=True, and says how the
+    pipeline loads one."""
+    _, tc, _, tree, _ = setup
+    mesh = _Coords(1, 2, 0, 0)
+    shard = tmesh.shard_lm_params(dual_ar_params_from_numpy(tree), mesh, tc)
+    with pytest.raises(ValueError, match="TTSPipeline.load"):
+        LMEngine(shard, tc, tcfg.TokenConfig(**TOK), tcfg.WhichLM.FISH_1_5,
+                 dtype=torch.float32, device="cpu", quantize_int8=True, mesh=mesh, **BASE)
 
 
 @pytest.mark.parametrize("world", WORLDS, ids=lambda w: f"dp{w[0]}tp{w[1]}")
@@ -347,6 +419,9 @@ class _Coords:
 
     def get_local_rank(self, name):
         return self.ranks[name]
+
+    def get_group(self, name):  # no process group: nothing here communicates
+        return None
 
 
 @pytest.mark.parametrize("name", ["wqkv", "wo", "w1", "w3", "w2"])
