@@ -256,11 +256,14 @@ per phase, each with the seconds since start:
               create_batcher(16, 16) and its central vocoder, PCM for
               every one, frames/s (two ranks sharing one card over gloo:
               not a speed of tensor parallelism); (c) two ranks at dp =
-              2 through the batcher, 16 requests on the unfused path:
-              each request's codes against the unsharded batcher's (the
-              first frame's semantic token equal, the agreement
-              printed). Every rank launched both
-              attention kernels; no rank holds a JAX module;
+              2 through the batcher, laid out as two hosts of one rank
+              each (dp across the hosts, each rank local id 0 of its
+              host and on cuda:0; (b) stays one host of two ranks), 16
+              requests on the unfused path: each request's codes
+              against the unsharded batcher's (the first frame's
+              semantic token equal, the agreement printed). Every rank
+              launched both attention kernels; no rank holds a JAX
+              module; (c) logs every rank's host, local id and card;
   9. train    finetuning at Fish 1.5's published widths in float32 with
               TF32 off: 3 steps at 2 slow layers (the fast stack whole,
               B = 2, S = 128) on the card and on this machine's CPU from
@@ -4750,6 +4753,20 @@ def par_requests(np, cfg, n: int):
             for i, r in enumerate(serving_requests(np, cfg)[:n])]
 
 
+def check_placement(world: dict, label: str) -> str:
+    """Every rank of a world took the card of its local id on its host (the
+    one card here, cuda:0, for a rank that is local id 0 of its host);
+    returns each rank's (host, local id, card)."""
+    places = []
+    for i, r in enumerate(world["ranks"]):
+        p = r["placement"]
+        check(p["card"] == f"cuda:{p['local_id']}",
+              f"{label}: rank {i} (host {p['host']}, local id {p['local_id']}) took {p['card']}")
+        places.append(f"rank {i}: host {p['host']} of {p['hosts']}, local id {p['local_id']} of "
+                      f"{p['local_count']}, {p['card']}")
+    return "; ".join(places)
+
+
 def check_world(world: dict, label: str) -> list:
     """Every rank launched both attention kernels and holds no JAX module;
     returns each rank's launch counts."""
@@ -4871,14 +4888,15 @@ def run_parallel(torch, np, params, tok, smi) -> dict:
 
     # (c) two ranks at dp = 2 through the batcher, against the unsharded
     # one on the same (unfused) path; SERVE_ROWS requests fill both ranks'
-    # rows
+    # rows. The world is laid out as two hosts of one rank each, dp across
+    # the hosts (JAX's pod layout): each rank is local id 0 of its host
     batch_c = dict(rows=SERVE_ROWS, horizon=SERVE_HORIZON, sampling=sampling,
                    requests=par_requests(np, cfg, SERVE_ROWS),
                    engine=dict(dynamic_sampling=True, rep_pen_window=BATCHED_REP_PEN_WINDOW,
                                slow_impl="xla", fast_frame_impl="xla"))
     t0 = time.perf_counter()
     world = dryrun.serving_dryrun(2, 1, par_spec(cfg, tok, dtype, {"batcher": batch_c}),
-                                  **on, timeout_s=PAR_TIMEOUT_S)
+                                  **on, timeout_s=PAR_TIMEOUT_S, hosts=2)
     wall = time.perf_counter() - t0
     ref = dryrun.run_batcher(base, batch_c)
     agree, total = 0, 0
@@ -4890,10 +4908,14 @@ def run_parallel(torch, np, params, tok, smi) -> dict:
         n = min(a.shape[1], b.shape[1])
         agree += int((a[:, :n] == b[:, :n]).sum())
         total += max(a.shape[1], b.shape[1]) * a.shape[0]
+    places = (check_placement(world, "parallel (c)") if dev.type == "cuda"
+              else "the CPU")
     out["dp2_gloo"] = {"launches": check_world(world, "(c)"), "wall_s": wall,
                        "collective_ms": world["collective_ms"],
                        "token_agreement": agree / total,
-                       "frames_per_s": world["batcher"]["frames_per_s"]}
+                       "frames_per_s": world["batcher"]["frames_per_s"],
+                       "placement": [r["placement"] for r in world["ranks"]]}
+    log("parallel", f"(c) as two hosts of one rank each ({places})")
     log("parallel", f"(c) two ranks on one card over gloo at dp = 2 (8 of the 16 rows a rank): "
         f"{SERVE_ROWS} requests, each one's first semantic token equal to the unsharded "
         f"batcher's, codes agreeing on {agree / total:.4f} of their entries; "
@@ -5230,7 +5252,9 @@ def train_mesh(torch, np, cfg, tok, d, smi, device: str = "cuda") -> dict:
     world against the unsharded step on the same global batches (float32,
     TF32 off), run by the compared ranks: (a) a world of one rank on nccl
     at full depth, bit for bit; (b) tp = 2 and (c) dp = 2 over gloo, two
-    ranks sharing this card, at full depth; (d) at 2 slow layers, in the
+    ranks sharing this card, at full depth, (c) as two hosts of one rank
+    each, every host fed its block of each global batch (its line shows
+    every rank's host, local id and card); (d) at 2 slow layers, in the
     (b) world a straight run with a snapshot after half its steps and a
     resume from it on that world (bit for bit), in the (c) world a resume
     from that snapshot, and one on one device here, each continuation
@@ -5249,26 +5273,36 @@ def train_mesh(torch, np, cfg, tok, d, smi, device: str = "cuda") -> dict:
     batches2 = mesh_batches(np, cfg2, tok, seed=80, n=n2, b=b2, s=s2)
     snap = str(d / "mesh_1x2.npz")
     full = {"batches": batches, "reference": tight}
+    # (c) runs as two hosts of one rank each (dp across the hosts), each
+    # host fed its block of every global batch
     runs = {
-        "(a)": ((1, 1), "nccl" if device == "cuda" else "gloo", [full]),
-        "(b)": ((1, 2), "gloo", [full, {"cfg": cfg2, "batches": batches2, "resume_check": True,
-                                        "save": {"path": snap, "after": n2 // 2},
-                                        "reference": tight}]),
-        "(c)": ((2, 1), "gloo", [full, {"cfg": cfg2, "batches": batches2[n2 // 2:],
-                                        "resume": snap,
-                                        "reference": dict(tight, batches=batches2)}]),
+        "(a)": ((1, 1), "nccl" if device == "cuda" else "gloo", 1, [full]),
+        "(b)": ((1, 2), "gloo", 1, [full, {"cfg": cfg2, "batches": batches2,
+                                           "resume_check": True,
+                                           "save": {"path": snap, "after": n2 // 2},
+                                           "reference": tight}]),
+        "(c)": ((2, 1), "gloo", 2, [full, {"cfg": cfg2, "batches": batches2[n2 // 2:],
+                                           "resume": snap,
+                                           "reference": dict(tight, batches=batches2)}]),
     }
     out, held = {}, {}
     t_all = time.perf_counter()
-    for label, ((dp, tp), backend, world_runs) in runs.items():
+    for label, ((dp, tp), backend, hosts, world_runs) in runs.items():
         t0 = time.perf_counter()
         world = dryrun.train_dryrun(dp, tp, dict(cfg=cfg, token_cfg=tok, tcfg=tc,
                                                  dtype=torch.float32, seed=6, runs=world_runs),
-                                    device=device, backend=backend, timeout_s=MESH_TIMEOUT_S)
+                                    device=device, backend=backend, timeout_s=MESH_TIMEOUT_S,
+                                    hosts=hosts)
         wall = time.perf_counter() - t0
         run = world["runs"][0]
         line = check_mesh_run(label, world, bitwise=(dp, tp) == (1, 1))
-        out[label] = {"world": (dp, tp), "backend": backend, "wall_s": wall,
+        if hosts > 1:
+            places = (check_placement(world, f"train {label}") if device == "cuda"
+                      else "the CPU")
+            log("train", f"mesh {label} as {hosts} hosts of {dp * tp // hosts} rank(s), each "
+                f"host fed its {MESH_B // hosts} of the {MESH_B} rows of every global batch "
+                f"({places}); training launches no kernel of the table")
+        out[label] = {"world": (dp, tp), "hosts": hosts, "backend": backend, "wall_s": wall,
                       "steps": [r["runs"][0]["steps"] for r in world["ranks"]],
                       "peak_bytes": [r["runs"][0]["peak_bytes"] for r in world["ranks"]],
                       "reference": {k: v for k, v in run["reference"].items() if k != "steps"}}

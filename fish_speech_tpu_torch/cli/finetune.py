@@ -29,15 +29,22 @@ Fish 1.2's for every version.
 With more than one rank, training runs under a (dp, tp) mesh, as the JAX
 CLI does with more than one device: `--tp` sets the tp width, dp is the
 ranks over tp. The ranks are the world FISH_TPU_COORDINATOR /
-FISH_TPU_NUM_PROCESSES / FISH_TPU_PROCESS_ID describe (each rank runs
-this command), or, with no coordinator and more than one card visible,
-one rank a card, which this command starts. `--backend gloo` lets
-ranks share a card (NCCL refuses that). Every rank draws the same data
-order from `--seed`, builds the global batch and keeps its dp rows, so a
-mesh sees the batches one device would. Where dp does not divide
+FISH_TPU_NUM_PROCESSES / FISH_TPU_PROCESS_ID describe, with
+FISH_TPU_LOCAL_NUM_PROCESSES / FISH_TPU_LOCAL_PROCESS_ID where it spans
+hosts (each rank runs this command, started by a cluster's launcher), or,
+with no coordinator and more than one card visible, one rank a card of
+this host, which this command starts. `--backend gloo` lets ranks share
+a card (NCCL refuses that). Every rank draws the same data order from
+`--seed`; each host builds its block of the global batch
+(`--batch-size` / hosts rows) and each rank keeps its dp rows of the
+global batch (`shard_batch`), so a mesh, on one host or across hosts,
+sees the batches one device would. (The JAX CLI hands each process the
+whole seeded batch as its host's rows, so on two processes its global
+batch holds every row twice.) Where dp, or the hosts, do not divide
 `--batch-size`, rank 0 says so and trains on one device, as the JAX CLI
 does. Only rank 0 prints, snapshots and writes the checkpoint (gathered
-from the shards); a snapshot of one mesh resumes at another.
+from the shards); a snapshot of one mesh resumes at another, and must
+lie on storage every host sees.
 
   FISH_TPU_COORDINATOR=127.0.0.1:29500 FISH_TPU_NUM_PROCESSES=2 \\
   FISH_TPU_PROCESS_ID=<rank> python -m fish_speech_tpu_torch.cli.finetune \\
@@ -68,7 +75,7 @@ from fish_speech_tpu_torch.parallel.mesh import check_divisible
 from fish_speech_tpu_torch.text.prompt import FISH_1_5_SYSPROMPT, PromptEncoder, load_prompt_tokens
 from fish_speech_tpu_torch.train import TrainConfig, init_train_state, make_train_step
 from fish_speech_tpu_torch.train.checkpoint import (
-    gather_params, load_train_state, save_train_state)
+    gather_params, load_train_state, save_train_state, visible)
 from fish_speech_tpu_torch.train.step import shard_batch
 
 
@@ -149,8 +156,9 @@ def make_batch(samples, idx, seq_len: int, pad_id: int, device="cpu") -> Dict[st
 
 def train_mesh(args: argparse.Namespace):
     """The (dp, tp) mesh over the world's ranks where it has more than
-    one, else None; None too where dp does not divide the batch (rank 0
-    prints JAX's message and trains on one device)."""
+    one, else None; None too where dp, or the world's hosts, do not
+    divide the batch (rank 0 prints JAX's message and trains on one
+    device)."""
     if not torch.distributed.is_initialized() or torch.distributed.get_world_size() == 1:
         if args.tp > 1:
             print(f"one rank: --tp {args.tp} has no ranks to split over; training on one device")
@@ -158,9 +166,12 @@ def train_mesh(args: argparse.Namespace):
     n = torch.distributed.get_world_size()
     if n % args.tp:
         raise ValueError(f"--tp {args.tp} does not divide the world's {n} ranks")
-    if args.batch_size % (n // args.tp):
+    dp, hosts = n // args.tp, pdist.host_layout().hosts
+    unsplit = (f"dp={dp}" if args.batch_size % dp
+               else f"the {hosts} hosts" if args.batch_size % hosts else None)
+    if unsplit is not None:
         if pdist.rank0():
-            print(f"batch size {args.batch_size} not divisible by dp={n // args.tp}; "
+            print(f"batch size {args.batch_size} not divisible by {unsplit}; "
                   "training on one device")
         return None
     mesh = pdist.global_mesh(args.tp, "cpu" if args.device == "cpu" else None)
@@ -213,7 +224,9 @@ def finetune(tokenizer, args: argparse.Namespace) -> List[Dict[str, float]]:
     rng = np.random.default_rng(args.seed)
     order: list = []
     start_step = 0
-    if args.resume and state_path.exists():
+    # this host's block of every global batch: all of it on one host
+    lo, hi = pdist.host_rows(args.batch_size) if mesh is not None else (0, args.batch_size)
+    if args.resume and any(visible(state_path, mesh)):
         start_step, params, opt_state, saved_rng, extra = load_train_state(
             state_path, params, opt_state, mesh=mesh, cfg=cfg)
         if saved_rng is not None:
@@ -230,7 +243,7 @@ def finetune(tokenizer, args: argparse.Namespace) -> List[Dict[str, float]]:
         idx = [order.pop() for _ in range(min(args.batch_size, len(order)))]
         while len(idx) < args.batch_size:
             idx.append(int(rng.integers(len(samples))))
-        batch = make_batch(samples, idx, seq_len, token_cfg.pad_id, device)
+        batch = make_batch(samples, idx[lo:hi], seq_len, token_cfg.pad_id, device)
         if mesh is not None:
             batch = shard_batch(batch, mesh)
         params, opt_state, metrics = step(params, opt_state, batch)

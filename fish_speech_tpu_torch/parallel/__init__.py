@@ -9,8 +9,11 @@ the other ranks' engines (`parallel/driver.py`): tensor-parallel heads
 and FFN, data-parallel decode rows. Training runs the same shards under
 autograd (`train/`): the collectives are autograd functions, and the
 step sums the gradients over dp. `distributed.py` sets up the world,
-`mesh.py` holds the shard specs and the model's collectives, and
-`dryrun.py` runs worlds of ranks on one host.
+whose ranks are numbered host by host (each rank's local id on its host
+picks its card, tp groups stay within a host and dp crosses hosts, each
+host feeds its own rows of a batch), `mesh.py` holds the shard specs and
+the model's collectives, and `dryrun.py` runs worlds of spawned ranks,
+laid out as one host or as several equal ones.
 """
 
 from fish_speech_tpu_torch.parallel.distributed import make_mesh  # noqa: F401

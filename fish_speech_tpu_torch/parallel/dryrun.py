@@ -1,9 +1,13 @@
-"""Worlds of ranks on one host, and the serving and train dry runs over
-them.
+"""Worlds of spawned ranks, laid out as one host or as several equal
+ones, and the serving and train dry runs over them.
 
-The counterpart of `__graft_entry__.dryrun_multichip`. Every entry point
+The counterpart of `__graft_entry__.dryrun_multichip` (whose
+processes=2 runs two processes of local devices). Every entry point
 runs on the card unless the caller passes device="cpu" (then over
-gloo). The serving half:
+gloo). `run_world(..., hosts=)` gives the ranks the host layout of
+`hosts` equal hosts (`parallel.distributed.initialize_distributed`'s
+local pair): each rank takes its card by its local id, and every rank
+reports its `placement`. The serving half:
 `serving_dryrun(dp, tp, spec)` starts a world of dp * tp ranks (spawned
 processes, which import nothing of JAX or of `fish_speech_tpu`) on one
 device type and backend, builds the DualAR LM on every rank from one
@@ -26,7 +30,8 @@ and rank 0 serves requests through `server/core.py`.
 The train half: `train_dryrun(dp, tp, spec)` builds the parameters on
 every rank from one tree (each rank keeps its shard,
 `train.init_train_state(mesh=)`), runs meshed steps on rank-local rows
-(`train.shard_batch`), optionally snapshots and resumes (at another
+(each host's block of every global batch through `train.shard_batch`),
+optionally snapshots and resumes (at another
 world, or at the same one, bit for bit), and returns rank 0's metrics,
 the gathered parameters and every rank's step times, collective traffic,
 peak memory and foreign modules (none). `collectives_job` holds the tp
@@ -57,7 +62,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank: int, world: int, address: str, tp: int, device: str,
+def _rank_main(rank: int, world: int, hosts: int, address: str, tp: int, device: str,
                backend: Optional[str], timeout_s: float, build_root: str, job: Callable,
                kwargs: dict, results) -> None:
     import torch.distributed as dist
@@ -69,7 +74,9 @@ def _rank_main(rank: int, world: int, address: str, tp: int, device: str,
         torch.set_num_threads(1)
     setup_compilation_cache(build_root)
     try:
-        initialize_distributed(address, world, rank, backend=backend, timeout_s=timeout_s)
+        local = world // hosts
+        initialize_distributed(address, world, rank, backend=backend, timeout_s=timeout_s,
+                               local_process_id=rank % local, local_num_processes=local)
         mesh = make_mesh(world, tp, device_type="cpu" if device == "cpu" else "cuda")
         results.put((rank, True, job(mesh, **kwargs)))
     except BaseException:  # noqa: BLE001 - reported to the parent, then re-raised
@@ -82,9 +89,11 @@ def _rank_main(rank: int, world: int, address: str, tp: int, device: str,
 
 def run_world(dp: int, tp: int, job: Callable, *, device: str = "cuda",
               backend: Optional[str] = None, timeout_s: float = WORLD_TIMEOUT_S,
-              **kwargs) -> List:
+              hosts: int = 1, **kwargs) -> List:
     """Run `job(mesh, **kwargs)` on every rank of a new (dp, tp) world of
-    spawned processes on this host, and return each rank's result. Raises
+    spawned processes on this host, laid out as `hosts` equal hosts (rank
+    r: host r // (dp * tp / hosts), local id the remainder), and return
+    each rank's result. Raises
     with a rank's traceback where one fails, and after `timeout_s` where
     the world has not ended; every process is stopped before it returns.
     `job` is a module-level function; kwargs are pickled. device: "cuda"
@@ -97,11 +106,13 @@ def run_world(dp: int, tp: int, job: Callable, *, device: str = "cuda",
     if device == "cpu":
         backend = backend or "gloo"
     world = dp * tp
+    if hosts < 1 or world % hosts:
+        raise ValueError(f"run_world: {world} ranks do not make {hosts} equal hosts")
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     address = f"tcp://127.0.0.1:{free_port()}"
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, world, address, tp, device, backend, timeout_s,
+                         args=(r, world, hosts, address, tp, device, backend, timeout_s,
                                str(_cuda_build.BUILD_ROOT), job, kwargs, results))
              for r in range(world)]
     for p in procs:
@@ -148,6 +159,16 @@ def foreign_modules() -> List[str]:
     none (the port imports neither)."""
     return sorted(m for m in sys.modules
                   if m.split(".")[0].startswith("jax") or m.split(".")[0] == "fish_speech_tpu")
+
+
+def placement(mesh) -> dict:
+    """This rank's host layout, its card ("cpu" without CUDA) and its
+    place in the mesh."""
+    from fish_speech_tpu_torch.parallel.distributed import coords, host_layout
+
+    c = coords(mesh)
+    card = f"cuda:{torch.cuda.current_device()}" if torch.cuda.is_available() else "cpu"
+    return dict(host_layout()._asdict(), card=card, dp_rank=c.dp_rank, tp_rank=c.tp_rank)
 
 
 def _launch_counts() -> dict:
@@ -339,7 +360,8 @@ def serving_job(mesh, spec: dict) -> dict:
     _reset_counts()
     if dist.get_rank() != 0:
         calls = driver.follow(engine)
-        return {"calls": calls, "launches": _launch_counts(), "foreign_modules": foreign_modules()}
+        return {"calls": calls, "launches": _launch_counts(), "foreign_modules": foreign_modules(),
+                "placement": placement(mesh)}
     lead = driver.lead(engine)
     try:
         out = {name: PARTS[part.get("kind", name)](lead, part)
@@ -348,6 +370,7 @@ def serving_job(mesh, spec: dict) -> dict:
         driver.close()
     out["launches"] = _launch_counts()
     out["foreign_modules"] = foreign_modules()
+    out["placement"] = placement(mesh)
     out["collective_ms"] = collective
     wqkv = engine.params["slow"]["wqkv"]
     out["local_heads"] = (wqkv["q"] if is_quantized(wqkv) else wqkv).shape[-1] // cfg.head_dim
@@ -372,7 +395,8 @@ def _loaded_serving_job(mesh, spec: dict, device: torch.device) -> dict:
                                 quantize_int8=load.get("quantize_int8", False), device=device,
                                 mesh=mesh)
     if pipeline is None:  # a follower: rank 0 closed the driver
-        return {"calls": None, "launches": _launch_counts(), "foreign_modules": foreign_modules()}
+        return {"calls": None, "launches": _launch_counts(), "foreign_modules": foreign_modules(),
+                "placement": placement(mesh)}
     lead = pipeline.engine
     try:
         out = {name: PARTS[part.get("kind", name)](lead, part)
@@ -382,7 +406,7 @@ def _loaded_serving_job(mesh, spec: dict, device: torch.device) -> dict:
     engine = lead._local
     wqkv = engine.params["slow"]["wqkv"]
     out.update(launches=_launch_counts(), foreign_modules=foreign_modules(),
-               quantize_int8=engine.quantize_int8,
+               placement=placement(mesh), quantize_int8=engine.quantize_int8,
                quantized_stacks=all(is_quantized(engine.params[st][k])
                                     for st in ("slow", "fast") for k in QUANT_KEYS),
                local_heads=(wqkv["q"] if is_quantized(wqkv) else wqkv).shape[-1]
@@ -392,9 +416,10 @@ def _loaded_serving_job(mesh, spec: dict, device: torch.device) -> dict:
 
 def serving_dryrun(dp: int, tp: int, spec: dict, *, device: str = "cuda",
                    backend: Optional[str] = None,
-                   timeout_s: float = WORLD_TIMEOUT_S) -> dict:
-    """Rank 0's results of the serving dry run on a (dp, tp) world, with
-    "ranks": every rank's launch counts (and the followers' call counts).
+                   timeout_s: float = WORLD_TIMEOUT_S, hosts: int = 1) -> dict:
+    """Rank 0's results of the serving dry run on a (dp, tp) world of
+    `hosts` equal hosts, with "ranks": every rank's launch counts and
+    placement (and the followers' call counts).
     spec: cfg, token_cfg, lm, dtype, params (a numpy tree) or seed (random
     weights, with zero_head_columns zeroed), engine (the base engine's
     keyword arguments: batch_size 1 by default), parts ({name: part}, a
@@ -405,7 +430,7 @@ def serving_dryrun(dp: int, tp: int, spec: dict, *, device: str = "cuda",
 
     spec = dict(spec, device=resolve_device(device).type)
     ranks = run_world(dp, tp, serving_job, device=device, backend=backend,
-                      timeout_s=timeout_s, spec=spec)
+                      timeout_s=timeout_s, hosts=hosts, spec=spec)
     return dict(ranks[0], ranks=ranks)
 
 
@@ -556,22 +581,29 @@ def train_job(mesh, spec: dict) -> dict:
     device = torch.device(spec["device"])
     tcfg = spec["tcfg"]
     tp = pdist.coords(mesh).tp
+    host = pdist.host_layout().host
 
     def on_device(b):
         return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+    def host_block(b):
+        lo, hi = pdist.host_rows(b["tokens"].shape[0])
+        return {k: v[lo:hi] for k, v in b.items()}
 
     def start(cfg, resume, mesh=mesh):
         params, opt_state = init_train_state(_train_params(spec, cfg, device), tcfg, mesh=mesh,
                                              cfg=cfg, device=device)
         if not resume:
             return 0, params, opt_state
+        if isinstance(resume, list):  # one path a host, each host's view of its storage
+            resume = resume[host]
         return load_train_state(resume, params, opt_state, mesh=mesh, cfg=cfg)[:3]
 
     def train(cfg, params, opt_state, batches, first, save=None):
         step = make_train_step(cfg, spec["token_cfg"], tcfg, mesh=mesh)
         out = []
         for i, b in enumerate(batches, start=first):
-            local = shard_batch(on_device(b), mesh)
+            local = shard_batch(on_device(host_block(b)), mesh)
             _sync(device)
             pdist.traffic.update(calls=0, bytes=0)
             t0 = time.perf_counter()
@@ -613,6 +645,13 @@ def train_job(mesh, spec: dict) -> dict:
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
             held = torch.cuda.memory_allocated(device)  # the reference's parameters
+        if run.get("expect_error"):
+            try:
+                start(cfg, run.get("resume"))
+            except FileNotFoundError as e:
+                result["runs"].append({"error": str(e), "seconds": lap()})
+                continue
+            raise RuntimeError("train_job: the run was to fail at its start, and did not")
         first, params, opt_state = start(cfg, run.get("resume"))
         seconds["start"] = lap()
         params, opt_state, steps = train(cfg, params, opt_state, run["batches"], first,
@@ -647,6 +686,9 @@ def train_job(mesh, spec: dict) -> dict:
         result["runs"].append(out)
     if spec.get("collectives") is not None:
         result["collectives"] = collectives_job(mesh, spec["collectives"])
+    if spec.get("mesh_probes"):
+        result["mesh_probes"] = [mesh_probe(tp, spec["runs"][0]["batches"][0], device)
+                                 for tp in spec["mesh_probes"]]
     if spec.get("finetune"):
         from fish_speech_tpu_torch.cli import finetune
 
@@ -658,21 +700,26 @@ def train_job(mesh, spec: dict) -> dict:
             printed.append(buf.getvalue())
         result["finetune_stdout"] = printed
     result["foreign_modules"] = foreign_modules()
+    result["placement"] = placement(mesh)
     return result
 
 
 def train_dryrun(dp: int, tp: int, spec: dict, *, device: str = "cuda",
                  backend: Optional[str] = None,
-                 timeout_s: float = WORLD_TIMEOUT_S) -> dict:
-    """The train dry run on a (dp, tp) world: rank 0's result of
-    `train_job`, with "ranks" every rank's (less the parameters).
+                 timeout_s: float = WORLD_TIMEOUT_S, hosts: int = 1) -> dict:
+    """The train dry run on a (dp, tp) world of `hosts` equal hosts: rank
+    0's result of `train_job`, with "ranks" every rank's (less the
+    parameters). Each host feeds its block of every global batch.
 
     spec: cfg, token_cfg, tcfg (`train.TrainConfig`), dtype, params (a
     numpy tree in the JAX layout) or seed (`init_dual_ar_params`), and
     runs, each from fresh parameters: {"batches": global {"tokens",
     "seq_lens"} numpy batches, one a step; optionally "cfg" (the run's
     own config, with seeded parameters), "resume" (a snapshot to start
-    from), "save" ({"path", "after": steps}: a snapshot after that many
+    from, or a list of one path a host: each host's view of its own
+    storage), "expect_error" (the start raises FileNotFoundError on every
+    rank, a rank cannot see the resume path: the run is {"error": the
+    message}), "save" ({"path", "after": steps}: a snapshot after that many
     steps), "resume_check" (reload that snapshot on this world and run
     the rest again: "resume_differs" lists the names of the rank's train
     state that are not bit-equal to the run's), "reference" ({"tight":
@@ -682,7 +729,8 @@ def train_dryrun(dp: int, tp: int, spec: dict, *, device: str = "cuda",
     largest difference from it, the count of values beyond x out of how
     many, and whether all are bit-equal)}; a run without a reference
     returns its gathered parameters under "params", {path: array}.
-    Optionally collectives (`collectives_job`'s inputs) and
+    Optionally collectives (`collectives_job`'s inputs), mesh_probes (tp
+    widths: `mesh_probe` of each on the first run's first batch) and
     finetune (argv lists, each run through `cli.finetune.main` on every
     rank; the printed text under "finetune_stdout").
 
@@ -692,15 +740,46 @@ def train_dryrun(dp: int, tp: int, spec: dict, *, device: str = "cuda",
     held before them (the reference's parameters); "seconds": the rank's
     time in the run's phases, the reference, the start (parameters,
     shards, a resume's load), the steps (a save included), the compare,
-    the resume check) and "foreign_modules"."""
+    the resume check), "foreign_modules" and "placement"."""
     from fish_speech_tpu_torch.device import resolve_device
 
     spec = dict(spec, device=resolve_device(device).type)
     ranks = run_world(dp, tp, train_job, device=device, backend=backend, timeout_s=timeout_s,
-                      spec=spec)
+                      hosts=hosts, spec=spec)
     slim = [dict(r, runs=[{k: v for k, v in run.items() if k != "params"} for run in r["runs"]])
             for r in ranks]
     return dict(ranks[0], ranks=slim)
+
+
+def mesh_probe(tp: int, batch: dict, device: torch.device) -> dict:
+    """Another mesh over the world at `tp` (every rank calls it): the
+    warnings `make_mesh` logged, this rank's place in it, and this rank's
+    rows of the global `batch` (numpy) through `shard_batch` fed this
+    host's block."""
+    import logging
+
+    from fish_speech_tpu_torch.parallel import distributed as pdist
+    from fish_speech_tpu_torch.train.step import shard_batch
+
+    class Record(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    handler = Record()
+    pdist.logger.addHandler(handler)
+    try:
+        mesh = pdist.make_mesh(None, tp, device.type)
+    finally:
+        pdist.logger.removeHandler(handler)
+    lo, hi = pdist.host_rows(batch["tokens"].shape[0])
+    rows = shard_batch({k: torch.from_numpy(v[lo:hi]).to(device) for k, v in batch.items()},
+                       mesh)
+    return {"tp": tp, "warnings": handler.messages, "placement": placement(mesh),
+            "rows": {k: v.cpu().numpy() for k, v in rows.items()}}
 
 
 def collectives_job(mesh, inputs: dict) -> dict:

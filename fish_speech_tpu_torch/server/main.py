@@ -9,13 +9,17 @@ cpu` is given) and `--backend`:
       --continuous-batch 16 --warmup
 
 `main` first joins the world that FISH_TPU_COORDINATOR /
-FISH_TPU_NUM_PROCESSES / FISH_TPU_PROCESS_ID describe (a no-op without
-them), as JAX's does. `--shard N` shards the LM over a (dp, tp) mesh of N
-ranks, `--tp` wide (`parallel/`): with no coordinator set, this process
-becomes rank 0 and starts ranks 1..N-1 on this host, the counterpart of
-JAX's one process over N local devices. Rank 0 serves HTTP; the other
-ranks follow its engine calls until it stops. NCCL takes a card a rank;
-ranks that share a card take `--backend gloo`.
+FISH_TPU_NUM_PROCESSES / FISH_TPU_PROCESS_ID describe, with
+FISH_TPU_LOCAL_NUM_PROCESSES / FISH_TPU_LOCAL_PROCESS_ID where it spans
+hosts (a no-op without them), as JAX's does. `--shard N` shards the LM
+over a (dp, tp) mesh of N ranks, `--tp` wide (`parallel/`): with no
+coordinator set, this process becomes rank 0 and starts ranks 1..N-1 on
+this host, the counterpart of JAX's one process over N local devices;
+with one set, a cluster's launcher started every rank with the
+variables, on one host or several, and `--shard` must equal the world's
+rank count. Global rank 0 serves HTTP; the other ranks follow its engine
+calls until it stops. NCCL takes a card a rank; ranks that share a card
+take `--backend gloo`.
 
 `--warmup` runs, before serving, what a first request would otherwise
 pay for (PyTorch builds no program per shape, so this is cuDNN's and
@@ -164,6 +168,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     logging.basicConfig(level=logging.INFO)
     from fish_speech_tpu_torch.parallel import distributed as dist
 
+    world = os.environ.get(dist.NUM_PROCESSES_ENV)
+    if dist.COORDINATOR_ENV in os.environ and world is not None and int(world) != max(
+            args.shard, 1):
+        raise ValueError(f"--shard {args.shard} differs from the world's {world} ranks "
+                         f"({dist.NUM_PROCESSES_ENV}): every rank a launcher starts serves a "
+                         "shard of one mesh over the whole world")
     address, procs = None, []
     if args.shard > 1 and dist.COORDINATOR_ENV not in os.environ:
         address, procs = launch_ranks(args.shard, argv)

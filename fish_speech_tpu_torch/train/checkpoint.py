@@ -22,6 +22,13 @@ exact), global rank 0 writes, and the other ranks wait at a barrier; the
 load reads the whole tensors and gives each rank its shard by the
 specs. So a snapshot written at one mesh resumes at another or on one
 device, and the other way round, as in JAX.
+
+In a world across hosts every rank loads from the same path, so the
+snapshot must lie on storage that every host sees, as the JAX loader
+needs too. `load_train_state` asks every rank first (`visible`): where
+one cannot see the file, every rank raises, naming the ranks, their
+hosts and the path, instead of one rank failing and the others waiting
+in a collective until the timeout.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from fish_speech_tpu_torch.parallel.distributed import coords, rank0
+from fish_speech_tpu_torch.parallel.distributed import coords, host_layout, rank0
 from fish_speech_tpu_torch.parallel.mesh import (
     gather_leaf, lm_param_shapes, lm_param_specs, shard_leaf)
 from fish_speech_tpu_torch.train.step import tree_like, tree_leaves
@@ -144,6 +151,20 @@ def save_train_state(path: str | Path, *, step: int, params, opt_state,
         torch.distributed.barrier()
 
 
+def visible(path: str | Path, mesh=None) -> List[bool]:
+    """Whether each rank of the world sees a file at `path`, by rank (one
+    all-reduce over the world, which every rank calls); without a mesh,
+    whether this process does."""
+    here = os.path.exists(path)
+    if mesh is None:
+        return [here]
+    seen = torch.zeros(torch.distributed.get_world_size(), dtype=torch.int64,
+                       device=mesh.device_type)
+    seen[torch.distributed.get_rank()] = int(here)
+    torch.distributed.all_reduce(seen)
+    return [bool(v) for v in seen.tolist()]
+
+
 def load_train_state(path: str | Path, params_template, opt_state_template, mesh=None, cfg=None
                      ) -> Tuple[int, Any, Any, Optional[np.random.Generator], Dict[str, Any]]:
     """Load a snapshot written by save_train_state into trees shaped as
@@ -151,8 +172,18 @@ def load_train_state(path: str | Path, params_template, opt_state_template, mesh
     ValueError when the snapshot's names, shapes or dtypes differ from the
     templates'. mesh / cfg: the templates are a rank's shard
     (`init_train_state(mesh=)`); the snapshot holds the whole tensors, of
-    whatever mesh wrote it, and each rank takes its shard. Returns (step,
-    params, opt_state, rng or None, extra)."""
+    whatever mesh wrote it, and each rank takes its shard; every rank of
+    the world calls it, and every one raises FileNotFoundError where some
+    rank cannot see `path`. Returns (step, params, opt_state, rng or
+    None, extra)."""
+    if mesh is not None:
+        blind = [r for r, v in enumerate(visible(path, mesh)) if not v]
+        if blind:
+            local = host_layout().local_count
+            raise FileNotFoundError(
+                f"load_train_state: rank(s) {blind} on host(s) "
+                f"{sorted({r // local for r in blind})} cannot see {path}; every rank loads the "
+                "snapshot, so it must lie on storage that every host sees")
     p_named = _named("p", params_template)
     o_named = _named("o", opt_state_template)
     layouts = _layouts(cfg, p_named + o_named) if _sharded(mesh) else None

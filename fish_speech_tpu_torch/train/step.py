@@ -26,7 +26,8 @@ on the device, for the caller to read when it logs.
 
 Under a mesh (one process a rank, `parallel/`), `init_train_state`
 shards the parameters by `parallel.mesh.lm_param_specs` and makes the
-moments on the shards, `shard_batch` gives each rank its dp rows, and the
+moments on the shards, `shard_batch` gives each rank its dp rows of the
+rows each host feeds, and the
 step sums every gradient over dp after the backward (the psum XLA
 inserts in JAX); the tp collectives are the model's own
 (`parallel/mesh.py`). The clip's global norm is the norm of the whole
@@ -44,7 +45,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from fish_speech_tpu_torch.config import DualARConfig, TokenConfig
-from fish_speech_tpu_torch.parallel.distributed import all_reduce, coords, local_rows
+from fish_speech_tpu_torch.parallel.distributed import all_reduce, coords, host_local_to_global
 from fish_speech_tpu_torch.parallel.mesh import is_split, lm_param_specs, shard_lm_params
 from fish_speech_tpu_torch.train.loss import dual_ar_loss
 
@@ -211,15 +212,14 @@ def init_train_state(params: Dict, tcfg: TrainConfig, mesh=None,
 
 
 def shard_batch(batch: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
-    """This rank's dp rows of a global {"tokens": (B, C+1, S), "seq_lens":
-    (B,)} batch: block dp_rank of dp. B must be a multiple of dp (JAX's
-    assertion). Every rank of a world builds the same global batch."""
-    b = batch["tokens"].shape[0]
-    dp = coords(mesh).dp
-    if b % dp:
-        raise ValueError(f"shard_batch: batch {b} is not a multiple of dp={dp}")
-    lo, hi = local_rows(b, mesh)
-    return {k: v[lo:hi].contiguous() for k, v in batch.items()}
+    """This rank's dp rows of a {"tokens": (B, C+1, S), "seq_lens": (B,)}
+    batch of this host's rows, as JAX's multi-process `shard_batch` takes
+    them: the global batch is B x hosts, every host's rows in host order,
+    and the rank keeps its dp block of it
+    (`parallel.distributed.host_local_to_global`). On one host the batch
+    is the global one and the rank keeps block dp_rank of dp. B must be a
+    multiple of the host's dp ranks (JAX's assertion)."""
+    return {k: host_local_to_global(v, mesh).contiguous() for k, v in batch.items()}
 
 
 def make_train_step(cfg: DualARConfig, token_cfg: TokenConfig,

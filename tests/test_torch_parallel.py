@@ -1,6 +1,8 @@
 """The port's parallel serving on the CPU over gloo (fish_speech_tpu_torch/
 parallel/): worlds of spawned ranks at (dp, tp) = (1, 2), (2, 1) and
-(2, 2), each running `parallel.dryrun.serving_dryrun` once (a module-
+(2, 2) on one host, and (2, 2) as two hosts of two ranks (dp across the
+hosts, tp within each, the layout of JAX's pod recipe), each running
+`parallel.dryrun.serving_dryrun` once (a module-
 scoped fixture), against the JAX package's unsharded engines at
 test_torch_engine.py's config (4 q heads over 2 KV heads, vocab 1010),
 float32 weights from `init_dual_ar_params` converted through numpy:
@@ -21,11 +23,17 @@ float32 weights from `init_dual_ar_params` converted through numpy:
   engine's tokens (the JAX pipeline runs int8 under tp, pipeline.py:
   132-140; the port's engine raised there), and a bf16 tp shard with
   quantize_int8=True still refused;
+* every rank's place: host, local id, its tp group on one host;
 * the shard specs, leaf by leaf against the JAX specs, with wqkv split by
-  head; `initialize_distributed`'s no-op cases and the nccl error;
+  head; `initialize_distributed`'s no-op cases, the nccl error, and
+  `place_rank` on worlds across hosts (16 ranks as 2 hosts of 8 on 8
+  cards, a host with more ranks than cards, malformed layouts), with a
+  patched card count and no process group;
 * the server built with --shard 2 --tp 2 (`server_dryrun`): a request
   through server/core.py gives the unsharded server's PCM, a second one
-  is cancelled mid-stream, and the follower leaves its loop at shutdown.
+  is cancelled mid-stream, and the follower leaves its loop at shutdown;
+  a rank a cluster's launcher started joins the world, and a --shard
+  other than the world's size raises before anything loads.
 
 Every world runs with a timeout of its own, on a free port."""
 
@@ -54,7 +62,8 @@ from test_torch_engine import KW, TOK, VOCAB
 
 torch.set_num_threads(1)
 
-WORLDS = [(1, 2), (2, 1), (2, 2)]
+# (dp, tp[, hosts]): the last world is two hosts of two ranks
+WORLDS = [(1, 2), (2, 1), (2, 2), (2, 2, 2)]
 WORLD_TIMEOUT_S = 120
 B = 4
 C = KW["num_codebooks"]
@@ -64,6 +73,14 @@ SAMPLED = dict(temp=0.8, top_p=0.9, top_k=32, repetition_penalty=1.3)
 DYN_LENS = (5, 7, 3, 8)
 DYN_NEW = 6
 N_STEPS = 3
+
+
+def _wid(w):
+    return f"dp{w[0]}tp{w[1]}" + (f"_hosts{w[2]}" if len(w) > 2 else "")
+
+
+def _hosts(w):
+    return w[2] if len(w) > 2 else 1
 
 
 def _prompt(rng, n):
@@ -190,7 +207,8 @@ def worlds(setup, tmp_path_factory):
     shard."""
     _, tc, _, tree, inputs = setup
     spec = _spec(tc, tree, inputs)
-    out = {w: dryrun.serving_dryrun(*w, spec, device="cpu", timeout_s=WORLD_TIMEOUT_S)
+    out = {w: dryrun.serving_dryrun(*w[:2], spec, device="cpu", timeout_s=WORLD_TIMEOUT_S,
+                                    hosts=_hosts(w))
            for w in WORLDS}
     int8 = dict(spec, params=_int8_tree(tree), parts={"frames": spec["parts"]["frames"]})
     out["int8"] = dryrun.serving_dryrun(1, 2, int8, device="cpu", timeout_s=WORLD_TIMEOUT_S)
@@ -252,7 +270,7 @@ def references(setup):
     return out
 
 
-@pytest.mark.parametrize("world", WORLDS, ids=lambda w: f"dp{w[0]}tp{w[1]}")
+@pytest.mark.parametrize("world", WORLDS, ids=_wid)
 def test_sharded_decode_matches_jax(worlds, references, world):
     got = worlds[world]["frames"]
     np.testing.assert_array_equal(got["frames"], references["frames_xla"])
@@ -300,7 +318,7 @@ def test_engine_refuses_a_bf16_shard_with_quantize_int8(setup):
                  dtype=torch.float32, device="cpu", quantize_int8=True, mesh=mesh, **BASE)
 
 
-@pytest.mark.parametrize("world", WORLDS, ids=lambda w: f"dp{w[0]}tp{w[1]}")
+@pytest.mark.parametrize("world", WORLDS, ids=_wid)
 def test_sharded_burst_prefill_matches_jax(worlds, references, world):
     got = worlds[world]["burst"]
     frames, pos, done = references["burst"]
@@ -309,7 +327,7 @@ def test_sharded_burst_prefill_matches_jax(worlds, references, world):
     np.testing.assert_array_equal(got["done"], done)
 
 
-@pytest.mark.parametrize("world", WORLDS, ids=lambda w: f"dp{w[0]}tp{w[1]}")
+@pytest.mark.parametrize("world", WORLDS, ids=_wid)
 def test_sharded_dynamic_sampling_matches_jax_draws(worlds, references, world):
     got = worlds[world]["dynamic"]["rows"]
     for g, r in zip(got, references["dynamic"]):
@@ -318,7 +336,7 @@ def test_sharded_dynamic_sampling_matches_jax_draws(worlds, references, world):
         assert (g["frames"], g["hit_max"]) == (r.frames, r.hit_max)
 
 
-@pytest.mark.parametrize("world", WORLDS, ids=lambda w: f"dp{w[0]}tp{w[1]}")
+@pytest.mark.parametrize("world", WORLDS, ids=_wid)
 def test_sharded_continuous_batcher_matches_serial(worlds, references, world):
     got = worlds[world]["batcher"]["requests"]
     assert len(got) == len(references["serial"])
@@ -328,7 +346,7 @@ def test_sharded_continuous_batcher_matches_serial(worlds, references, world):
         np.testing.assert_array_equal(g["chunks"][0]["tokens"], r.tokens)
 
 
-@pytest.mark.parametrize("world", WORLDS, ids=lambda w: f"dp{w[0]}tp{w[1]}")
+@pytest.mark.parametrize("world", WORLDS, ids=_wid)
 def test_sharded_seeded_batcher_matches_unsharded(worlds, references, world):
     """Seeded sampled requests through the dynamic batcher: each one's
     codes equal the unsharded port batcher's, whichever rank holds its
@@ -341,19 +359,41 @@ def test_sharded_seeded_batcher_matches_unsharded(worlds, references, world):
             np.testing.assert_array_equal(gc["tokens"], rc["tokens"])
 
 
-@pytest.mark.parametrize("world", WORLDS, ids=lambda w: f"dp{w[0]}tp{w[1]}")
+@pytest.mark.parametrize("world", WORLDS, ids=_wid)
 def test_world_shards_and_counts(worlds, world):
     """Each rank holds its own q and KV heads (2 and 1 at tp 2), every
     rank ran the attention functions, and the followers ran every call
     and left their loops."""
     r0 = worlds[world]
-    dp, tp = world
+    dp, tp = world[:2]
     assert r0["local_heads"] == (KW["n_head"] + 2 * KW["n_local_heads"]) // tp
     assert len(r0["ranks"]) == dp * tp
     calls = [r["calls"] for r in r0["ranks"][1:]]
     assert calls and len(set(calls)) == 1 and calls[0] > 0
     for r in r0["ranks"]:
         assert r["launches"] == {"decode_attention": 0, "prefill_attention": 0}  # CPU: plain
+
+
+@pytest.mark.parametrize("world", WORLDS, ids=_wid)
+def test_world_layout(worlds, world):
+    """Ranks numbered host by host: rank r is local id r % L of host
+    r // L (L = the ranks over the hosts); each tp group (the ranks of
+    one dp rank) lies on one host, so only dp crosses hosts; no rank holds
+    a JAX module."""
+    dp, tp = world[:2]
+    hosts = _hosts(world)
+    local = dp * tp // hosts
+    ranks = worlds[world]["ranks"]
+    for r, rank in enumerate(ranks):
+        place = rank["placement"]
+        assert (place["host"], place["hosts"], place["local_id"], place["local_count"]) == (
+            r // local, hosts, r % local, local)
+        assert (place["dp_rank"], place["tp_rank"]) == (r // tp, r % tp)
+        assert place["card"] == "cpu"
+        assert rank["foreign_modules"] == []
+    for d in range(dp):
+        assert len({p["host"] for p in (r["placement"] for r in ranks)
+                    if p["dp_rank"] == d}) == 1
 
 
 # -- specs ------------------------------------------------------------------
@@ -468,7 +508,8 @@ def test_shard_gen_state_takes_rows_and_kv_heads(setup):
 
 @pytest.fixture
 def no_world_env(monkeypatch):
-    for var in (tdist.COORDINATOR_ENV, tdist.NUM_PROCESSES_ENV, tdist.PROCESS_ID_ENV):
+    for var in (tdist.COORDINATOR_ENV, tdist.NUM_PROCESSES_ENV, tdist.PROCESS_ID_ENV,
+                tdist.LOCAL_NUM_PROCESSES_ENV, tdist.LOCAL_PROCESS_ID_ENV):
         monkeypatch.delenv(var, raising=False)
 
 
@@ -500,6 +541,95 @@ def test_nccl_refuses_ranks_sharing_a_card(no_world_env, monkeypatch, backend):
     with pytest.raises(ValueError, match="backend='gloo'"):
         tdist.initialize_distributed("127.0.0.1:1", 2, 1, backend=backend)
     assert not torch.distributed.is_initialized()
+
+
+def _patch_cards(monkeypatch, cards):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: cards > 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+
+
+@pytest.mark.parametrize("rank", [0, 7, 8, 15])
+def test_sixteen_ranks_on_two_hosts_of_eight_cards(no_world_env, monkeypatch, rank):
+    """16 ranks as 2 hosts x 8 on hosts of 8 cards: nccl, each rank on
+    card cuda:<local id> of its host (the one-host check refused this:
+    16 ranks, 8 cards). The process group's set-up is recorded here, not
+    made."""
+    _patch_cards(monkeypatch, 8)
+    place = tdist.place_rank(16, rank, rank % 8, 8, 8, None)
+    assert place == tdist.Placement("nccl", rank % 8, tdist.HostLayout(rank // 8, 2, rank % 8, 8))
+    made = []
+    monkeypatch.setattr(torch.cuda, "set_device", lambda card: made.append(("card", card)))
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda backend, **kw: made.append((backend, kw["world_size"], kw["rank"])))
+    monkeypatch.setitem(tdist._state, "layout", None)
+    monkeypatch.setenv(tdist.LOCAL_NUM_PROCESSES_ENV, "8")
+    monkeypatch.setenv(tdist.LOCAL_PROCESS_ID_ENV, str(rank % 8))
+    assert tdist.initialize_distributed("127.0.0.1:1", 16, rank) is True
+    assert made == [("card", rank % 8), ("nccl", 16, rank)]
+    assert tdist._state["layout"] == place.layout
+
+
+def test_a_host_with_more_ranks_than_cards_refuses_nccl(no_world_env, monkeypatch):
+    """The same world on hosts of 4 cards: nccl raises, naming the host's
+    ranks and cards; gloo takes it, two ranks a card."""
+    with pytest.raises(ValueError, match=r"this host runs 8 ranks on 4 card\(s\).*backend='gloo'"):
+        tdist.place_rank(16, 9, 1, 8, 4, None)
+    assert tdist.place_rank(16, 13, 5, 8, 4, "gloo") == tdist.Placement(
+        "gloo", 1, tdist.HostLayout(1, 2, 5, 8))
+    _patch_cards(monkeypatch, 4)
+    with pytest.raises(ValueError, match="8 ranks on 4 card"):
+        tdist.initialize_distributed("127.0.0.1:1", 16, 9, local_process_id=1,
+                                     local_num_processes=8)
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("world,rank,cards,want", [
+    (2, 1, 2, tdist.Placement("nccl", 1, tdist.HostLayout(0, 1, 1, 2))),
+    (2, 1, 0, tdist.Placement("gloo", None, tdist.HostLayout(0, 1, 1, 2))),
+    (3, 2, 2, None),  # nccl: 3 ranks on a host of 2 cards
+], ids=["two_cards", "no_card", "three_ranks_two_cards"])
+def test_unset_local_pair_is_one_host(world, rank, cards, want):
+    """Without the local pair the world is one host: today's decision (the
+    card is the rank modulo the cards; nccl wants a card a rank of the
+    world)."""
+    if want is None:
+        with pytest.raises(ValueError, match="backend='gloo'"):
+            tdist.place_rank(world, rank, None, None, cards, None)
+        return
+    assert tdist.place_rank(world, rank, None, None, cards, None) == want
+
+
+@pytest.mark.parametrize("world,rank,local_id,local_count,match", [
+    (4, 1, 2, 2, "local id 2 of a host of 2"),
+    (6, 1, 1, 4, "do not make equal hosts of 4"),
+    (4, 3, 0, 2, "rank 3 cannot be local id 0"),
+    (4, 4, 0, 2, "rank 4 of a world of 4"),
+    (4, 1, 1, None, "go together"),
+], ids=["id_past_count", "unequal_hosts", "not_host_by_host", "rank_past_world", "id_alone"])
+def test_malformed_host_layouts_raise(no_world_env, monkeypatch, world, rank, local_id,
+                                      local_count, match):
+    """Each malformed layout raises in place_rank and in
+    initialize_distributed, before anything is initialised."""
+    with pytest.raises(ValueError, match=match):
+        tdist.place_rank(world, rank, local_id, local_count, 0, None)
+    monkeypatch.setitem(tdist._state, "layout", None)
+    with pytest.raises(ValueError, match=match):
+        tdist.initialize_distributed("127.0.0.1:1", world, rank, local_process_id=local_id,
+                                     local_num_processes=local_count)
+    assert not torch.distributed.is_initialized()
+    assert tdist._state["layout"] is None
+
+
+@pytest.mark.parametrize("n,tp,local,crossing", [
+    (4, 2, 2, []),
+    (4, 4, 2, [[0, 1, 2, 3]]),
+    (6, 2, 3, [[2, 3]]),
+    (8, 2, 8, []),
+])
+def test_crossing_tp_groups(n, tp, local, crossing):
+    """make_mesh's tp groups that span hosts: none where tp divides a
+    host's ranks."""
+    assert tdist.crossing_tp_groups(n, tp, local) == crossing
 
 
 def test_local_rows():
@@ -573,3 +703,46 @@ def test_server_shard_flags_start_the_other_ranks(monkeypatch):
         assert cmd[-3:] == ["fish_speech_tpu_torch.server.main", "--shard", "3"]
         assert (env[tdist.COORDINATOR_ENV], env[tdist.NUM_PROCESSES_ENV],
                 env[tdist.PROCESS_ID_ENV]) == (address, "3", str(rank))
+        assert (env[tdist.LOCAL_NUM_PROCESSES_ENV], env[tdist.LOCAL_PROCESS_ID_ENV]) == (
+            "3", str(rank))
+
+
+def _launcher_env(monkeypatch, world, rank, local):
+    monkeypatch.setenv(tdist.COORDINATOR_ENV, "127.0.0.1:1")
+    monkeypatch.setenv(tdist.NUM_PROCESSES_ENV, str(world))
+    monkeypatch.setenv(tdist.PROCESS_ID_ENV, str(rank))
+    monkeypatch.setenv(tdist.LOCAL_NUM_PROCESSES_ENV, str(local))
+    monkeypatch.setenv(tdist.LOCAL_PROCESS_ID_ENV, str(rank % local))
+
+
+def test_server_rank_from_a_launcher_joins_the_world(monkeypatch):
+    """A rank that a cluster's launcher started (the five FISH_TPU_*
+    variables, --shard the world's size) starts no ranks and joins the
+    world through the variables (the join is recorded here, not made)."""
+    from fish_speech_tpu_torch.server import main as server_main
+
+    _launcher_env(monkeypatch, 16, 9, 8)
+    calls = []
+    monkeypatch.setattr(server_main, "launch_ranks", lambda *a: calls.append(("launch", a)))
+
+    def join(*args, **kwargs):
+        calls.append((args, kwargs))
+        raise RuntimeError("joined")
+
+    monkeypatch.setattr(tdist, "initialize_distributed", join)
+    with pytest.raises(RuntimeError, match="joined"):
+        server_main.main(["--shard", "16", "--tp", "2", "--device", "cpu"])
+    assert calls == [((), {"backend": None})]
+
+
+def test_server_shard_other_than_the_world_raises(monkeypatch):
+    """--shard different from FISH_TPU_NUM_PROCESSES raises before the
+    world is joined or anything loads."""
+    from fish_speech_tpu_torch.server import main as server_main
+
+    _launcher_env(monkeypatch, 16, 9, 8)
+    monkeypatch.setattr(server_main, "build_state", lambda *a: pytest.fail("loaded"))
+    for shard in ("8", "0"):
+        with pytest.raises(ValueError, match=f"--shard {shard} differs from the world's 16"):
+            server_main.main(["--shard", shard, "--device", "cpu"])
+    assert not torch.distributed.is_initialized()

@@ -5,13 +5,18 @@ against the JAX package's unsharded step and its step on
 tests/test_train.py.
 
 One module-scoped world a (dp, tp) in {(1, 1), (1, 2), (2, 1), (2, 2)}
-over gloo (`parallel.dryrun.train_dryrun`, spawned ranks that import
-nothing of JAX) runs two meshed steps from the JAX tree, carried across
-through io/convert.py; the (1, 2) and (2, 2) worlds snapshot after the
+on one host, and (2, 2) as two hosts of two ranks and (2, 1) as two
+hosts of one, over gloo (`parallel.dryrun.train_dryrun`, spawned ranks
+that import nothing of JAX), runs two meshed steps from the JAX tree,
+carried across through io/convert.py, each host fed its block of every
+global batch; the (1, 2) and (2, 2) worlds snapshot after the
 first step and resume from it on the same world, the (2, 1) world
 resumes from the (1, 2) snapshot and the (2, 2) world from a one-device
 one; the (1, 2) world also holds the tp autograd functions one by one,
-and the (1, 2) and (2, 1) worlds run the finetune CLI.
+and the (1, 2), (2, 1) and two-host (2, 1) worlds run the finetune CLI.
+The two-host (2, 2) world also builds meshes at tp = 4 (tp groups across
+the hosts: a warning, the batch gathered) and tp = 2; the two-host
+(2, 1) world resumes from a snapshot its second host cannot see.
 
 Tolerances: loss and grad norm within 1e-5 relative; parameters within
 atol 5e-5 / rtol 5e-4 (tests/test_train.py's own for its sharded step);
@@ -56,10 +61,15 @@ LOSS_RTOL = 1e-5
 P_ATOL, P_RTOL = 5e-5, 5e-4
 AUTOGRAD_TOL = 1e-6
 WORLD_TIMEOUT_S = 240.0
-MESHED = [(1, 2), (2, 1), (2, 2)]
+# (dp, tp[, hosts]): the last two worlds are two hosts of two ranks and of one
+MESHED = [(1, 2), (2, 1), (2, 2), (2, 2, 2), (2, 1, 2)]
 JC, JT, TC, TT = configs("fish_1_5")
 TCFG = TrainConfig(learning_rate=LR, warmup_steps=1, total_steps=10, remat=True)
 JTCFG = jstep.TrainConfig(learning_rate=LR, warmup_steps=1, total_steps=10, remat=False)
+
+
+def _wid(w):
+    return f"dp{w[0]}_tp{w[1]}" + (f"_hosts{w[2]}" if len(w) > 2 else "")
 
 
 def _names(tree) -> dict:
@@ -181,8 +191,14 @@ def worlds(setup, cli_setup):
         (2, 2): _spec(setup, [dict(straight, save={"path": str(d / "mesh_2x2.npz"), "after": 1},
                                    resume_check=True),
                               {"batches": batches[1:], "resume": str(d / "one_device.npz")}]),
+        (2, 2, 2): _spec(setup, [straight], mesh_probes=[4, 2]),
+        # host 1 sees no snapshot where host 0 has one
+        (2, 1, 2): _spec(setup, [straight, {"batches": [], "expect_error": True, "resume": [
+            str(d / "one_device.npz"), str(d / "host1" / "one_device.npz")]}],
+            finetune=[cli_setup["argv"]("dp2_hosts")]),
     }
-    return {w: dryrun.train_dryrun(*w, spec, device="cpu", timeout_s=WORLD_TIMEOUT_S)
+    return {w: dryrun.train_dryrun(*w[:2], spec, device="cpu", timeout_s=WORLD_TIMEOUT_S,
+                                   hosts=w[2] if len(w) > 2 else 1)
             for w, spec in specs.items()}
 
 
@@ -199,7 +215,7 @@ def _assert_metrics(got: list, ref: list) -> None:
             np.testing.assert_allclose(g[k], r[k], rtol=LOSS_RTOL, err_msg=k)
 
 
-@pytest.mark.parametrize("world", MESHED, ids=lambda w: f"dp{w[0]}_tp{w[1]}")
+@pytest.mark.parametrize("world", MESHED, ids=_wid)
 @pytest.mark.parametrize("ref", ["unsharded", "mesh"])
 def test_steps_match_jax(worlds, setup, world, ref):
     """Two meshed steps against JAX's unsharded step and its step on
@@ -211,7 +227,7 @@ def test_steps_match_jax(worlds, setup, world, ref):
     _assert_params(run["params"], params)
 
 
-@pytest.mark.parametrize("world", MESHED, ids=lambda w: f"dp{w[0]}_tp{w[1]}")
+@pytest.mark.parametrize("world", MESHED, ids=_wid)
 def test_metrics_are_global(worlds, setup, world):
     """The token counts are the whole batch's, exactly, and the
     accuracies the global ones, on every rank."""
@@ -235,7 +251,7 @@ def test_world_of_one_is_bit_equal(worlds, setup):
         np.testing.assert_array_equal(run["params"][k], params[k], err_msg=k)
 
 
-@pytest.mark.parametrize("world", [(1, 1)] + MESHED, ids=lambda w: f"dp{w[0]}_tp{w[1]}")
+@pytest.mark.parametrize("world", [(1, 1)] + MESHED, ids=_wid)
 def test_ranks_hold_no_jax(worlds, world):
     """No rank of a train world holds a module of JAX or of the JAX
     package, and each sent the collectives its mesh needs (none alone)."""
@@ -369,8 +385,9 @@ def test_mesh_snapshot_holds_whole_tensors(worlds, setup):
     assert metas[0] == metas[1]
 
 
-@pytest.mark.parametrize("world,out", [((1, 2), "tp2"), ((2, 1), "dp2")],
-                         ids=["dp1_tp2", "dp2_tp1"])
+@pytest.mark.parametrize("world,out", [((1, 2), "tp2"), ((2, 1), "dp2"),
+                                       ((2, 1, 2), "dp2_hosts")],
+                         ids=["dp1_tp2", "dp2_tp1", "dp2_tp1_hosts2"])
 def test_finetune_cli_in_a_world(worlds, cli_setup, world, out):
     """The finetune CLI on every rank of a world (--tp 2, or dp = 2):
     rank 0 prints the mesh and writes a model.safetensors matching the
@@ -383,6 +400,62 @@ def test_finetune_cli_in_a_world(worlds, cli_setup, world, out):
     _assert_params(got, ref)
     for name in ("config.json", "tokenizer.json"):
         assert (cli_setup["dir"] / out / name).exists()
+
+
+def _step_lines(printed: str) -> list:
+    """The CLI's step lines without their seconds."""
+    return [line.rsplit("  ", 1)[0] for line in printed.splitlines() if line.startswith("step")]
+
+
+def test_finetune_cli_across_hosts_gives_the_one_host_records(worlds, cli_setup):
+    """The finetune CLI on two hosts of one rank: its step lines (loss,
+    accuracies, grad norm) and its checkpoint, bit for bit, are those of
+    the one-host (2, 1) world. Each host feeds shard_batch its block of the
+    seeded batch (--batch-size / hosts rows), so the hosts' rows make the
+    seeded batch once. The JAX CLI hands shard_batch the whole seeded
+    batch as each process's rows (fish_speech_tpu/cli/finetune.py:
+    194-232 with train/step.py:97-124), so on two processes its global
+    batch is 2 x --batch-size with every row twice
+    (test_whole_batch_as_host_rows_repeats_rows)."""
+    one_host = _step_lines(worlds[(2, 1)]["finetune_stdout"][0])
+    hosts = _step_lines(worlds[(2, 1, 2)]["finetune_stdout"][0])
+    assert len(one_host) == 2 and hosts == one_host  # steps 0 and 2 (--log-every 10)
+    a = load_file(str(cli_setup["dir"] / "dp2" / "model.safetensors"))
+    b = load_file(str(cli_setup["dir"] / "dp2_hosts" / "model.safetensors"))
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_snapshot_a_host_cannot_see_raises_on_every_rank(worlds):
+    """A resume whose snapshot host 1 cannot see: every rank raises at
+    once, naming rank 1, its host and the path, instead of one rank
+    failing and the other waiting in a collective until the timeout."""
+    for rank in worlds[(2, 1, 2)]["ranks"]:
+        run = rank["runs"][1]
+        assert "rank(s) [1] on host(s) [1] cannot see" in run["error"]
+        assert "one_device.npz" in run["error"]
+        assert run["seconds"] < WORLD_TIMEOUT_S / 4
+
+
+def test_tp_across_hosts_warns_and_gathers_the_batch(worlds, setup):
+    """Two hosts of two ranks: a tp = 2 mesh keeps each tp group on one
+    host, silently; a tp = 4 mesh crosses the hosts, which make_mesh names
+    in a warning, and each rank's rows, fed its host's block, are still
+    its dp block of the global batch (here all of it, dp = 1)."""
+    batch = setup["batches"][0]
+    for rank in worlds[(2, 2, 2)]["ranks"]:
+        for probe in rank["mesh_probes"]:
+            tp, place = probe["tp"], probe["placement"]
+            if tp == 4:
+                assert len(probe["warnings"]) == 1
+                assert "tp groups [[0, 1, 2, 3]] cross hosts" in probe["warnings"][0]
+            else:
+                assert probe["warnings"] == []
+            n = tp  # rows a dp rank: 4 rows over dp = 4 / tp
+            lo = place["dp_rank"] * n
+            for k, v in batch.items():
+                np.testing.assert_array_equal(probe["rows"][k], v[lo:lo + n])
 
 
 def test_finetune_cli_dp_fallback(worlds, cli_setup):
@@ -434,6 +507,29 @@ def test_finetune_cli_starts_a_rank_a_card(cli_setup, monkeypatch):
                      (("a:1", 4, 0), {"backend": None})]
 
 
+@pytest.mark.parametrize("tp,batch,says", [(2, 3, "dp=2"), (4, 3, "the 2 hosts")],
+                         ids=["dp", "hosts"])
+def test_finetune_mesh_falls_back_where_the_batch_does_not_split(monkeypatch, capsys, tp,
+                                                                 batch, says):
+    """A world of two hosts of two ranks (recorded, not made): where dp,
+    or the hosts, do not divide --batch-size, rank 0 says which and the
+    CLI trains on one device (tp = 4 leaves dp = 1, but three rows do not
+    split into two hosts' blocks)."""
+    import argparse
+
+    from fish_speech_tpu_torch.parallel import distributed as pdist
+
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 4)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda: 0)
+    monkeypatch.setattr(pdist, "host_layout", lambda: pdist.HostLayout(0, 2, 0, 2))
+    monkeypatch.setattr(pdist, "global_mesh", lambda *a: pytest.fail("built a mesh"))
+    args = argparse.Namespace(tp=tp, batch_size=batch, device="cpu")
+    assert tft.train_mesh(args) is None
+    assert f"batch size {batch} not divisible by {says}; training on one device" in (
+        capsys.readouterr().out)
+
+
 class _Mesh:
     """The coords a (dp, tp) mesh gives a rank, without a world."""
 
@@ -460,6 +556,49 @@ def test_shard_batch_takes_this_ranks_rows(dp):
                 assert torch.equal(got[k], tb[k][r * n:(r + 1) * n])
     with pytest.raises(ValueError, match="not a multiple"):
         shard_batch({k: v[:3] for k, v in tb.items()}, _Mesh(2, 1, 0, 0))
+
+
+@pytest.mark.parametrize("hosts", [1, 2, 4])
+def test_shard_batch_takes_its_hosts_block(monkeypatch, hosts):
+    """A (dp 4, tp 2) mesh over `hosts` hosts: each rank, fed its host's
+    block of a global batch of 8 rows, keeps its dp block of the global
+    batch (2 rows); a host's rows that its dp ranks do not divide raise,
+    as JAX asserts."""
+    from fish_speech_tpu_torch.parallel import distributed as pdist
+
+    _, tb = batch_pair(JT, JC, seed=2, b=8, s=12)
+    local, per_host = 8 // hosts, 8 // hosts
+    for r in range(8):
+        host = r // local
+        monkeypatch.setattr(pdist, "host_layout",
+                            lambda h=host, i=r % local: pdist.HostLayout(h, hosts, i, local))
+        rows = {k: v[host * per_host:(host + 1) * per_host] for k, v in tb.items()}
+        got = shard_batch(rows, _Mesh(4, 2, r // 2, r % 2))
+        for k in tb:
+            assert torch.equal(got[k], tb[k][(r // 2) * 2:(r // 2 + 1) * 2])
+    if hosts < 4:
+        with pytest.raises(ValueError, match="not a multiple"):
+            shard_batch({k: v[:3] for k, v in tb.items()}, _Mesh(4, 2, 0, 0))
+
+
+def test_whole_batch_as_host_rows_repeats_rows(monkeypatch):
+    """The JAX finetune's fault, avoided in the port: handing shard_batch
+    the whole seeded batch as each host's rows (fish_speech_tpu/cli/
+    finetune.py:194-232) makes a global batch of B x hosts in which each
+    row stands twice on two hosts; each host's block (host_rows) makes
+    the seeded batch once."""
+    from fish_speech_tpu_torch.parallel import distributed as pdist
+
+    _, tb = batch_pair(JT, JC, seed=3, b=4, s=12)
+    whole, blocks = [], []
+    for host in range(2):
+        monkeypatch.setattr(pdist, "host_layout", lambda h=host: pdist.HostLayout(h, 2, 0, 1))
+        mesh = _Mesh(2, 1, host, 0)
+        whole.append(shard_batch(tb, mesh)["tokens"])
+        lo, hi = pdist.host_rows(4)
+        blocks.append(shard_batch({k: v[lo:hi] for k, v in tb.items()}, mesh)["tokens"])
+    assert torch.equal(torch.cat(whole), torch.cat([tb["tokens"], tb["tokens"]]))
+    assert torch.equal(torch.cat(blocks), tb["tokens"])
 
 
 @pytest.mark.parametrize("tp", [2, 4])
